@@ -1,0 +1,91 @@
+"""Carry state built by the JAX package into the port.
+
+Every function takes plain dicts of numpy arrays, keyed by the field names
+of the JAX package's dataclasses (for example
+``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``),
+never JAX objects, and returns the port's object on ``device``.  Both
+packages can then compute on the same scene, tree, tables and camera.
+Fields the port does not read (UVs, tangents, texture ids) are ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .camera import CameraParams
+from .ops.wide_bvh import WideBVH, max_stack_depth
+from .sampling.tables import SampleTables
+from .scene.geometry import Geometry
+from .scene.lights import LightBank
+from .scene.materials import MaterialTable
+from .scene.scene import Scene
+
+
+def _tensors(cls, arrays: dict, device, scalars=()):
+    """Build dataclass ``cls`` from the keys of ``arrays`` that it has:
+    tensors, except the host scalars named in ``scalars``."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in arrays:
+            continue
+        a = np.asarray(arrays[f.name])
+        if f.name in scalars:
+            out[f.name] = a.item()
+        else:
+            out[f.name] = torch.from_numpy(np.array(a)).to(device)
+    return cls(**out)
+
+
+def scene_from_arrays(
+    geometry: dict,
+    materials: dict,
+    lights: dict,
+    has_alpha_mask: bool = False,
+    has_textures: bool = False,
+    device="cpu",
+) -> Scene:
+    """A Scene from the arrays of ``Scene.geometry``, ``Scene.materials``
+    and ``Scene.lights``."""
+    return Scene(
+        geometry=_tensors(Geometry, geometry, device),
+        materials=_tensors(MaterialTable, materials, device),
+        lights=_tensors(
+            LightBank, lights, device,
+            scalars=("num_directional", "num_point", "num_spot", "env_enabled",
+                     "env_exposure_compensation", "env_rotation"),
+        ),
+        has_alpha_mask=bool(has_alpha_mask),
+        has_textures=bool(has_textures),
+    )
+
+
+def wide_bvh_from_arrays(
+    arrays: dict, leaf_size: int, num_triangles: int, device="cpu"
+) -> WideBVH:
+    """A WideBVH from the arrays of a ``schedule="f32"`` build."""
+    if np.asarray(arrays["w"]).dtype != np.float32:
+        raise ValueError("only the f32 leaf layout (schedule='f32') is supported")
+    t = {k: torch.from_numpy(np.array(np.asarray(arrays[k]))).to(device)
+         for k in ("wbox", "wchild", "waxis", "w", "slot_tri", "wanchor")}
+    return WideBVH(
+        **t,
+        leaf_size=int(leaf_size),
+        num_triangles=int(num_triangles),
+        max_stack=max_stack_depth(np.asarray(arrays["wchild"])),
+    )
+
+
+def tables_from_arrays(
+    arrays: dict, num_sequences: int, sequence_length: int, device="cpu"
+) -> SampleTables:
+    tables = _tensors(SampleTables, arrays, device)
+    return dataclasses.replace(
+        tables, num_sequences=int(num_sequences), sequence_length=int(sequence_length)
+    )
+
+
+def camera_from_arrays(arrays: dict, device="cpu") -> CameraParams:
+    return _tensors(CameraParams, arrays, device)

@@ -1,0 +1,353 @@
+"""Wide (arity-8) BVH: the host builder and the two traversal queries.
+
+Port of ``heatray_tpu.ops.wide_bvh`` (``collapse_topology``,
+``build_wide_bvh`` with the f32 leaf layout, ``intersect_closest_wide``,
+``intersect_any_wide``).  The queries keep the JAX package's contract:
+closest hit returns ``(t, slot, hit)`` with raw chunk-slot ids
+(``chunk * leaf_size + j``) and ``(MISS_T, -1)`` on a miss; any hit returns
+an (R,) blocked mask.
+
+Each query has two versions.  On a CUDA tensor the wrapper launches the
+hand-written kernel of ``csrc/wide_bvh.cu`` (built at first use) and counts
+the launch in its ``launches`` attribute; on a CPU tensor it runs the plain
+PyTorch version, a brute force over the same slot-ordered, anchor-centred
+leaf rows (``ops.intersect``).  The brute force has no tree, stack or visit
+order, so it checks the kernel's walk independently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..vec import Vec3
+from . import cuda_build
+from .bvh import BVHTopology, build_topology
+from .intersect import BARY_EPS, MISS_T, WoopAccel, any_rows, closest_rows
+
+ARITY = 8
+_BIG = np.float32(3.0e38)
+# The kernels' slab test grows each box by BOX_PAD times its extent on every
+# side: the pair test accepts points up to BARY_EPS outside a triangle, up to
+# 3 BARY_EPS times the extent outside its box, and one more BARY_EPS covers
+# the pair test's own rounding.  FAR_SCALE widens the far end of the slab
+# interval against the slab's rounding.  Without them the walk culls hits
+# the plain version finds.
+BOX_PAD = 4.0 * BARY_EPS
+FAR_SCALE = 1.0 + 2.0**-20
+
+
+@dataclasses.dataclass
+class WideBVH:
+    """Arity-8 BVH.
+
+    ``wbox`` (Nw, 8, 8) f32: per node, 8 child boxes [min xyz, max xyz, pad];
+    empty slots hold an inverted box.  ``wchild`` (Nw * 8,) i32 child codes:
+    ``>= 0`` wide node, ``-1`` empty, ``<= -2`` leaf chunk ``-2 - code``.
+    ``waxis`` (Nw,) i32: the axis children are sorted along.  ``w``
+    (C, 4, 3 Tc) f32: per chunk, feature rows x, y, z, 1 against columns
+    b1[Tc], b2[Tc], s[Tc] of the Woop rows, the translation re-centred on
+    ``wanchor`` (3, C) in float64 at build time.  ``slot_tri`` (C * Tc,) i32
+    maps slots to triangle ids (-1 padding).  ``max_stack`` is the deepest
+    traversal stack the tree can need (every child of every node live).
+    """
+
+    wbox: torch.Tensor
+    wchild: torch.Tensor
+    waxis: torch.Tensor
+    w: torch.Tensor
+    slot_tri: torch.Tensor
+    wanchor: torch.Tensor
+    leaf_size: int
+    num_triangles: int
+    max_stack: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.wbox.shape[0]
+
+    @property
+    def num_chunks(self) -> int:
+        return self.w.shape[0]
+
+    def to(self, device) -> "WideBVH":
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
+
+def collapse_topology(topo: BVHTopology, arity: int = ARITY):
+    """Collapse a binary topology into arity-N nodes (host, numpy).
+
+    Greedy: from a binary subtree root, repeatedly expand the internal slot
+    of largest surface area until ``arity`` slots (or only leaves) remain;
+    children are then sorted by centroid along the root box's widest axis.
+    Returns numpy (wbox (Nw, 8, 8), wchild (Nw * 8,), waxis (Nw,)).
+    """
+    nbox, lc, skip = topo.nbox, topo.leaf_chunk, topo.skip
+
+    def area(s: int) -> float:
+        b = nbox[s]
+        d = np.maximum(b[3:] - b[:3], 0.0)
+        return float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+    wbox: list = [None]
+    wchild: list = [None]
+    waxis: list = [0]
+    work = [(0, 0)]  # (binary root, wide node id to fill)
+    while work:
+        root, my = work.pop()
+        slots = [root]
+        while len(slots) < arity:
+            cand = [s for s in slots if lc[s] < 0]
+            if not cand:
+                break
+            s = max(cand, key=area)
+            left = s + 1
+            slots.remove(s)
+            slots += [int(left), int(skip[left])]
+
+        b = nbox[root]
+        axis = int(np.argmax(b[3:] - b[:3]))
+        cent = np.array([0.5 * (nbox[s][axis] + nbox[s][3 + axis]) for s in slots])
+        slots = [slots[o] for o in np.argsort(cent, kind="stable")]
+
+        boxes = np.empty((arity, 8), np.float32)
+        boxes[:, 0:3] = _BIG
+        boxes[:, 3:6] = -_BIG
+        boxes[:, 6:8] = 0.0
+        codes = np.full((arity,), -1, np.int32)
+        for k, s in enumerate(slots):
+            boxes[k, 0:6] = nbox[s]
+            if lc[s] >= 0:
+                codes[k] = -2 - lc[s]
+            else:
+                child_id = len(wbox)
+                wbox.append(None)
+                wchild.append(None)
+                waxis.append(0)
+                work.append((s, child_id))
+                codes[k] = child_id
+        wbox[my] = boxes
+        wchild[my] = codes
+        waxis[my] = axis
+
+    return (
+        np.stack(wbox, axis=0),
+        np.concatenate(wchild),
+        np.asarray(waxis, np.int32),
+    )
+
+
+def max_stack_depth(wchild: np.ndarray) -> int:
+    """Deepest LIFO stack a traversal of the tree can reach: when a node is
+    popped the stack holds at most its ancestors' other internal children,
+    and the node then pushes all of its own."""
+    codes = np.asarray(wchild).reshape(-1, ARITY)
+    deepest = 0
+    work = [(0, 0)]  # (node, entries below it when it is popped)
+    while work:
+        node, below = work.pop()
+        kids = codes[node][codes[node] >= 0]
+        peak = below + len(kids)
+        deepest = max(deepest, peak)
+        work.extend((int(k), peak - 1) for k in kids)
+    return deepest
+
+
+def build_wide_bvh(
+    accel: WoopAccel, leaf_size: int = 32, include: np.ndarray | None = None
+) -> WideBVH:
+    """Binned-SAH binary build, arity-8 collapse and f32 Woop chunk packing,
+    on the host.  ``include`` (T,) bool filters triangles (the occluder-only
+    tree).  The result lies on ``accel``'s device."""
+    tri_min = accel.tri_min.cpu().numpy()
+    tri_max = accel.tri_max.cpu().numpy()
+    topo = build_topology(tri_min, tri_max, leaf_size=leaf_size, include=include)
+    wbox, wchild, waxis = collapse_topology(topo)
+
+    tc = topo.leaf_size
+    c = topo.num_chunks
+    valid = (topo.slot_tri >= 0).astype(np.float32)
+    safe = np.maximum(topo.slot_tri, 0)
+    w = np.take(accel.w.cpu().numpy(), safe, axis=1).astype(np.float64) * valid[None, :]
+
+    # Per-chunk anchors (chunk AABB centres), folded into the translation
+    # column in float64: the fold is the cancellation-prone sum, so doing it
+    # in double leaves the re-centred column accurate to its own f32 ulp.
+    vmask = valid[None, :] > 0
+    tmn = np.where(vmask, np.take(tri_min, safe, axis=1), np.inf)
+    tmx = np.where(vmask, np.take(tri_max, safe, axis=1), -np.inf)
+    lo = tmn.reshape(3, c, tc).min(axis=2)
+    hi = tmx.reshape(3, c, tc).max(axis=2)
+    ok = np.isfinite(lo) & np.isfinite(hi)
+    anchors = np.where(ok, 0.5 * (lo + hi), 0.0).astype(np.float64)  # (3, C)
+    a_slot = np.repeat(anchors, tc, axis=1)
+    for g in range(3):
+        w[4 * g + 3] += (
+            a_slot[0] * w[4 * g + 0] + a_slot[1] * w[4 * g + 1] + a_slot[2] * w[4 * g + 2]
+        )
+    w = w.astype(np.float32)
+    w = w.reshape(12, c, tc).transpose(1, 0, 2)
+    w = w.reshape(c, 3, 4, tc).transpose(0, 2, 1, 3).reshape(c, 4, 3 * tc)
+
+    dev = accel.w.device
+    return WideBVH(
+        wbox=torch.from_numpy(np.ascontiguousarray(wbox)).to(dev),
+        wchild=torch.from_numpy(np.ascontiguousarray(wchild)).to(dev),
+        waxis=torch.from_numpy(waxis).to(dev),
+        w=torch.from_numpy(np.ascontiguousarray(w)).to(dev),
+        slot_tri=torch.from_numpy(topo.slot_tri).to(dev),
+        wanchor=torch.from_numpy(anchors.astype(np.float32)).to(dev),
+        leaf_size=tc,
+        num_triangles=accel.num_triangles,
+        max_stack=max_stack_depth(wchild),
+    )
+
+
+# --- plain versions ----------------------------------------------------------
+
+
+def slot_rows(bvh: WideBVH):
+    """The leaf data as slot-ordered Woop rows: (rows (12, S), anchor (3, S))
+    with ``rows[4 g + f, c Tc + j] = w[c, f, g Tc + j]``."""
+    c, tc = bvh.num_chunks, bvh.leaf_size
+    rows = bvh.w.view(c, 4, 3, tc).permute(2, 1, 0, 3).reshape(12, c * tc)
+    return rows, bvh.wanchor.repeat_interleave(tc, dim=1)
+
+
+def closest_wide_plain(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min=1e-4):
+    """Brute-force closest hit over the tree's slot rows: (t, slot, hit)."""
+    rows, anchor = slot_rows(bvh)
+    return closest_rows(origins, directions, rows, t_min, anchor)
+
+
+def any_wide_plain(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min=1e-4, t_max=3.0e37):
+    """Brute-force any hit in (t_min, t_max) over the tree's slot rows."""
+    rows, anchor = slot_rows(bvh)
+    return any_rows(origins, directions, rows, t_min, t_max, anchor)
+
+
+# --- kernel wrappers ---------------------------------------------------------
+
+_P = ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels() -> ctypes.CDLL:
+    lib = cuda_build.load("wide_bvh")
+    lib.wide_bvh_stack_depth.argtypes = []
+    lib.wide_bvh_stack_depth.restype = ctypes.c_int
+    lib.closest_wide.argtypes = (
+        [_P] * 6 + [ctypes.c_int] + [_P] * 5
+        + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P, _P]
+    )
+    lib.closest_wide.restype = ctypes.c_int
+    lib.any_wide.argtypes = (
+        [_P] * 7 + [ctypes.c_int] + [_P] * 5
+        + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
+    )
+    lib.any_wide.restype = ctypes.c_int
+    return lib
+
+
+def _ray_ptrs(origins: Vec3, directions: Vec3, device):
+    comps = [origins.x, origins.y, origins.z, directions.x, directions.y, directions.z]
+    for c in comps:
+        if (c.dtype != torch.float32 or c.device != device or c.dim() != 1
+                or c.shape != comps[0].shape):
+            raise ValueError("rays must be float32 (R,) tensors on the tree's device")
+    comps = [c.contiguous() for c in comps]
+    return comps, [c.data_ptr() for c in comps]
+
+
+def _tree_args(bvh: WideBVH, lib) -> list:
+    depth = lib.wide_bvh_stack_depth()
+    if bvh.max_stack > depth:
+        raise ValueError(
+            f"tree needs a traversal stack of {bvh.max_stack}, the kernel has {depth}"
+        )
+    for name, dtype in (("wbox", torch.float32), ("wchild", torch.int32),
+                        ("waxis", torch.int32), ("w", torch.float32),
+                        ("wanchor", torch.float32)):
+        a = getattr(bvh, name)
+        if a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"WideBVH.{name} must be a contiguous {dtype} tensor")
+    return [bvh.wbox.data_ptr(), bvh.wchild.data_ptr(), bvh.waxis.data_ptr(),
+            bvh.w.data_ptr(), bvh.wanchor.data_ptr(), bvh.num_chunks, bvh.leaf_size]
+
+
+def _check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+
+
+def intersect_closest_wide(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
+    """Closest hit of each ray (Vec3 of (R,)): ``(t, slot, hit)``.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``closest_wide_kernel`` on the tree's device and its current stream."""
+    device = bvh.w.device
+    if device.type == "cpu":
+        return closest_wide_plain(bvh, origins, directions, t_min)
+    if device.type != "cuda":
+        raise ValueError(f"no wide-BVH kernel for device {device}")
+    lib = _kernels()
+    tree = _tree_args(bvh, lib)
+    comps, ptrs = _ray_ptrs(origins, directions, device)
+    r = comps[0].shape[0]
+    t = torch.empty((r,), dtype=torch.float32, device=device)
+    slot = torch.empty((r,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check_launch(
+            lib.closest_wide(*ptrs, r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
+                             t.data_ptr(), slot.data_ptr(), stream),
+            "closest_wide",
+        )
+    intersect_closest_wide.launches += 1
+    return t, slot, slot >= 0
+
+
+def intersect_any_wide(
+    bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
+):
+    """Occlusion: is there any hit in (t_min, t_max) of each ray?  ``t_max``
+    is a float or an (R,) tensor.  Returns an (R,) bool mask.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``any_wide_kernel`` on the tree's device and its current stream."""
+    device = bvh.w.device
+    if device.type == "cpu":
+        return any_wide_plain(bvh, origins, directions, t_min, t_max)
+    if device.type != "cuda":
+        raise ValueError(f"no wide-BVH kernel for device {device}")
+    lib = _kernels()
+    tree = _tree_args(bvh, lib)
+    comps, ptrs = _ray_ptrs(origins, directions, device)
+    r = comps[0].shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
+    t_max = t_max.expand(r).contiguous()
+    blocked = torch.empty((r,), dtype=torch.bool, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check_launch(
+            lib.any_wide(*ptrs, t_max.data_ptr(), r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
+                         blocked.data_ptr(), stream),
+            "any_wide",
+        )
+    intersect_any_wide.launches += 1
+    return blocked
+
+
+intersect_closest_wide.launches = 0
+intersect_any_wide.launches = 0

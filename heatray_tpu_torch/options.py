@@ -1,0 +1,117 @@
+"""Render configuration (port of ``heatray_tpu.options``).
+
+``RenderOptions`` keeps the JAX package's field names and defaults.  Fields
+that choose a path the port does not have yet raise ``NotImplementedError``
+when set away from what it supports; they are never silently ignored.
+Fields that only tune the TPU kernels (tile sizes, MXU schedule, remat,
+unrolling) have no effect here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import torch
+
+
+class AOV(enum.Enum):
+    """Debug visualization modes (``PassGenerator.h:123-141``)."""
+
+    NONE = "none"
+    GEOMETRIC_NORMALS = "geometric_normals"
+    UVS = "uvs"
+    TANGENTS = "tangents"
+    BITANGENTS = "bitangents"
+    NORMALMAP = "normalmap"
+    FINAL_NORMALS = "final_normals"
+    BASE_COLOR = "base_color"
+    EMISSIVE = "emissive"
+    ROUGHNESS = "roughness"
+    METALLIC = "metallic"
+    CLEARCOAT = "clearcoat"
+    CLEARCOAT_ROUGHNESS = "clearcoat_roughness"
+    CLEARCOAT_NORMALMAP = "clearcoat_normalmap"
+    SHADER = "shader"
+    NANS = "nans"
+    INFS = "infs"
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOptions:
+    """Static render configuration; see ``heatray_tpu.options.RenderOptions``
+    for what each field means."""
+
+    width: int = 512
+    height: int = 512
+    image_height: int | None = None
+    max_render_passes: int = 32
+    max_ray_depth: int = 10
+    interactive_block: bool = False
+    sample_mode: str = "sobol"
+    bokeh_shape: str = "circular"
+    aov: AOV = AOV.NONE
+    rr_start_depth: int = 3
+    ray_epsilon: float = 1e-4
+    tri_chunk: int = 512
+    ray_block: int = 16384
+    intersect_backend: str = "auto"
+    pallas_ray_tile: int = 1024
+    pallas_tri_chunk: int = 512
+    bvh_leaf_size: int = 64
+    wide_leaf_math: str = "mxu"
+    wide_precision: str = "bf16x3"
+    wide_leaf_size: int = 32
+    wide_ray_tile: int = 512
+    stream_leaf_size: int = 128
+    stream_ray_tile: int = 256
+    stream_leaf_math: str = "mxu"
+    # The bounce sort and segment gating are an exact permutation of the
+    # wavefront; the port runs unsorted and ungated until they are ported.
+    sort_bounces: bool | str = "auto"
+    sort_impl: str = "auto"
+    gate_bounces: bool | str = "auto"
+    gate_segments: int = 8
+    ms_impl: str = "fit"
+    remat_bounces: bool = True
+    unroll_bounces: bool = False
+    use_mipmaps: bool = True
+    debug_pass_rendering: bool = False
+    debug_pass_index: int = 0
+
+    def __post_init__(self):
+        if self.max_ray_depth < 1 or self.max_render_passes < 1:
+            raise ValueError("max_ray_depth and max_render_passes must be >= 1")
+        unported = {
+            "intersect_backend": self.intersect_backend not in ("auto", "wide"),
+            "aov": self.aov != AOV.NONE,
+            "sort_bounces": self.sort_bounces is True,
+            "gate_bounces": self.gate_bounces is True,
+            "interactive_block": self.interactive_block,
+            "ms_impl": self.ms_impl != "fit",
+            "image_height": self.image_height is not None,
+        }
+        for name, bad in unported.items():
+            if bad:
+                raise NotImplementedError(
+                    f"RenderOptions.{name}={getattr(self, name)!r} is not ported yet"
+                )
+
+
+@dataclasses.dataclass
+class FrameGlobals:
+    """Per-pass values: the sample index and the firefly clamp."""
+
+    sample_index: int
+    max_channel_value: torch.Tensor
+
+    @classmethod
+    def create(cls, sample_index: int = 0, max_channel_value: float = 3.14159265,
+               device=None):
+        # Default clamp is pi (``PassGenerator.h:64``).
+        return cls(
+            sample_index=int(sample_index),
+            max_channel_value=torch.tensor(
+                max_channel_value, dtype=torch.float32, device=device
+            ),
+        )

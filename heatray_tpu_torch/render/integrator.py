@@ -1,0 +1,345 @@
+"""The wavefront path-tracing integrator (port of
+``heatray_tpu.render.integrator`` for the wide-BVH backend).
+
+Per pass every pixel traces one camera ray; a Python loop over bounce depth
+intersects (closest-hit kernel), gathers one shading row per hit, shades
+(NEE shadow ray plus extension ray), tests occlusion (any-hit kernel) and
+accumulates into a planar ``(4, H, W)`` buffer whose channel 3 counts
+passes.  The wavefront is a flat ``(R,)`` set of tensors; dead lanes are
+parked outside every box rather than compacted.  The JAX package's bounce
+sort and segment gating are an exact permutation of this wavefront and are
+not ported yet: the port runs unsorted and ungated.
+
+Image convention: row 0 is the BOTTOM of the image.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..camera import CameraParams
+from ..ops.intersect import WoopAccel, build_woop
+from ..ops.wide_bvh import WideBVH, build_wide_bvh, intersect_any_wide, intersect_closest_wide
+from ..options import FrameGlobals, RenderOptions
+from ..sampling.tables import SampleTables, build_tables, get_aperture_sample
+from ..scene.scene import Scene
+from ..vec import Vec3
+from .envmap import env_radiance
+from .shade import make_sequence_lookup, shade_hits
+from .shade_table import (
+    GEO_N,
+    build_shade_table,
+    gather_rows,
+    hit_attributes_rows,
+    slot_order_table,
+)
+
+_PARK_ORG = 3.0e37
+
+
+@dataclasses.dataclass
+class AccelPack:
+    """Per-scene acceleration state: the Woop rows, the wide BVH of all
+    triangles, the occluder tree (the same tree unless some material is
+    alpha-masked), and the shading table in the tree's slot order."""
+
+    accel: WoopAccel
+    wide: WideBVH
+    wide_occl: WideBVH
+    shade_table: torch.Tensor
+
+
+@dataclasses.dataclass
+class RenderContext:
+    """Per-configuration constant data on one device."""
+
+    tables: SampleTables
+    accel_pack: AccelPack | None
+    device: torch.device
+
+
+def build_accel(scene: Scene, options: RenderOptions) -> AccelPack:
+    """Build the acceleration state on the scene's device (the BVH itself
+    is built on the host)."""
+    accel = build_woop(scene.geometry.positions, scene.geometry.indices)
+    wide = build_wide_bvh(accel, leaf_size=options.wide_leaf_size)
+    if scene.has_alpha_mask:
+        mats = scene.materials.alpha_mask[scene.geometry.material_ids.long()]
+        wide_occl = build_wide_bvh(
+            accel, leaf_size=options.wide_leaf_size, include=(mats == 0).cpu().numpy()
+        )
+    else:
+        wide_occl = wide
+    table = slot_order_table(build_shade_table(scene, accel), wide.slot_tri)
+    return AccelPack(accel=accel, wide=wide, wide_occl=wide_occl, shade_table=table)
+
+
+def make_context(options: RenderOptions, scene: Scene | None = None, device="cpu") -> RenderContext:
+    """Sample tables and, given a scene (already on ``device``), its
+    acceleration state."""
+    device = torch.device(device)
+    return RenderContext(
+        tables=build_tables(
+            options.width,
+            options.height,
+            options.max_render_passes,
+            sample_mode=options.sample_mode,
+            bokeh_shape=options.bokeh_shape,
+            device=device,
+        ),
+        accel_pack=build_accel(scene, options) if scene is not None else None,
+        device=device,
+    )
+
+
+def _mat3_apply(m, v: Vec3) -> Vec3:
+    """Apply the upper-left 3x3 of a (4, 4) matrix to a Vec3."""
+    return Vec3(
+        m[0, 0] * v.x + m[0, 1] * v.y + m[0, 2] * v.z,
+        m[1, 0] * v.x + m[1, 1] * v.y + m[1, 2] * v.z,
+        m[2, 0] * v.x + m[2, 1] * v.y + m[2, 2] * v.z,
+    )
+
+
+def generate_primary_rays(
+    camera: CameraParams, tables: SampleTables, options: RenderOptions, sample_index: int
+):
+    """Camera rays (``perspective.rlsl:59-93``): pixel jitter from the
+    pixel's QMC stream and the thin-lens aperture offset.  Returns
+    (origin, direction, seq_id, seq_off) as flat (H * W,) tensors."""
+    h, w = options.height, options.width
+    dev = tables.pixel_sequence_id.device
+    seq_id = tables.pixel_sequence_id.reshape(-1)
+    seq_off = tables.pixel_sequence_offset.reshape(-1)
+    px = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
+    py = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
+
+    ju, jv = make_sequence_lookup(tables, options.sample_mode)(seq_id, sample_index + seq_off)
+    u = (px + ju) / w
+    v = (py + jv) / h
+
+    # Image-plane direction, 1 unit in front of the camera; row 0 is the
+    # image bottom (``perspective.rlsl:72-74``).
+    x = (2.0 * u - 1.0) * camera.aspect * camera.fov_tan
+    y = (1.0 - 2.0 * v) * camera.fov_tan * -1.0
+    dir_cam = Vec3(x, y, -torch.ones_like(x)).normalized()
+
+    focal_point = dir_cam * camera.focus_distance
+    au, av = get_aperture_sample(tables, seq_id, sample_index)
+    origin_cam = Vec3(
+        (au * 2.0 - 1.0) * camera.aperture_radius,
+        (av * 2.0 - 1.0) * camera.aperture_radius,
+        torch.zeros_like(au),
+    )
+    d_cam = focal_point - origin_cam
+
+    m = camera.view_matrix
+    org = _mat3_apply(m, origin_cam) + Vec3(m[0, 3], m[1, 3], m[2, 3])
+    direction = _mat3_apply(m, d_cam).normalized()
+    return org, direction, seq_id, seq_off
+
+
+def _offset_origin(p: Vec3, geo_n: Vec3, direction: Vec3, eps) -> Vec3:
+    """Offset a secondary-ray origin off the surface along the geometric
+    normal, toward the ray direction's side."""
+    sign = torch.where(geo_n.dot(direction) >= 0.0, 1.0, -1.0)
+    return p + geo_n * (sign * eps)
+
+
+def _park_dead(org: Vec3, direction: Vec3, active):
+    """Park inactive rays far outside every box with a +X direction, so
+    their walk ends at the root."""
+    return (
+        Vec3.where(active, org, _PARK_ORG),
+        Vec3.where(active, direction, Vec3(1.0, 0.0, 0.0)),
+    )
+
+
+def _accum_update(contrib: Vec3, h: int, w: int) -> torch.Tensor:
+    """Flat contribution -> planar (4, H, W) update (channel 3 = 1 pass)."""
+    return torch.stack(
+        [contrib.x.reshape(h, w), contrib.y.reshape(h, w), contrib.z.reshape(h, w),
+         torch.ones((h, w), dtype=torch.float32, device=contrib.x.device)]
+    )
+
+
+@dataclasses.dataclass
+class Paths:
+    """The wavefront between bounces: flat (R,) per-path state."""
+
+    org: Vec3
+    direction: Vec3
+    weight: Vec3
+    env_on_miss: torch.Tensor
+    active: torch.Tensor
+    contrib: Vec3
+    seq_id: torch.Tensor
+    seq_off: torch.Tensor
+
+
+@dataclasses.dataclass
+class ShadowRays:
+    """The NEE shadow rays one bounce traced (dead lanes parked)."""
+
+    org: Vec3
+    direction: Vec3
+    t_max: torch.Tensor
+    active: torch.Tensor
+
+
+def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions,
+                sample_index: int) -> Paths:
+    """Camera rays with unit weight, all live, seeing the environment."""
+    org, direction, seq_id, seq_off = generate_primary_rays(
+        camera, ctx.tables, options, sample_index
+    )
+    r = options.height * options.width
+    return Paths(
+        org=org,
+        direction=direction,
+        weight=Vec3.ones((r,), device=ctx.device),
+        env_on_miss=torch.ones((r,), dtype=torch.bool, device=ctx.device),
+        active=torch.ones((r,), dtype=torch.bool, device=ctx.device),
+        contrib=Vec3.zeros((r,), device=ctx.device),
+        seq_id=seq_id,
+        seq_off=seq_off,
+    )
+
+
+def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
+           frame: FrameGlobals, depth: int, paths: Paths):
+    """One bounce of the wavefront: closest hit, one row gather, shading,
+    NEE occlusion, and the extension rays.  Returns the next
+    ``Paths`` and the ``ShadowRays`` traced."""
+    pack = ctx.accel_pack
+    eps = options.ray_epsilon
+    lights = scene.lights
+    org, direction, weight = paths.org, paths.direction, paths.weight
+    active, env_on_miss, contrib = paths.active, paths.env_on_miss, paths.contrib
+
+    def clamp(c: Vec3) -> Vec3:
+        return c.minimum(frame.max_channel_value)
+
+    _, slot, hit = intersect_closest_wide(pack.wide, org, direction, eps)
+    hit = hit & active
+
+    # Miss: the environment, for camera and glass-refraction rays.
+    if lights.env_enabled:
+        miss_env = active & ~hit & env_on_miss
+        env_c = env_radiance(lights, direction) * weight
+        contrib = contrib + Vec3.where(miss_env, clamp(env_c), 0.0)
+
+    # One row gather; t and barycentrics re-evaluated from the gathered
+    # Woop rows; facing from the geometric normal.
+    rows = gather_rows(pack.shade_table, slot.clamp(min=0))
+    geo_n = rows.vec(GEO_N)
+    front = direction.dot(geo_n) < 0.0
+    t_d, b1, b2 = hit_attributes_rows(rows, org, direction, hit)
+    t_sane = torch.where(hit, t_d, 1.0)
+
+    res = shade_hits(
+        scene, ctx.tables, frame.sample_index, depth, org, direction, weight,
+        env_on_miss, paths.seq_id, paths.seq_off, rows, t_sane, b1, b2, front, hit,
+        max_ray_depth=options.max_ray_depth,
+        rr_start_depth=options.rr_start_depth,
+        sample_mode=options.sample_mode,
+    )
+    contrib = contrib + clamp(res.emission)
+    p = org + direction * t_sane
+
+    # NEE shadow rays: an occlusion query with per-ray maxT.
+    s_org, s_dir = _park_dead(
+        _offset_origin(p, geo_n, res.shadow_dir, eps), res.shadow_dir, res.shadow_active
+    )
+    shadow = ShadowRays(s_org, s_dir, res.shadow_max_t - 2.0 * eps, res.shadow_active)
+    blocked = intersect_any_wide(pack.wide_occl, s_org, s_dir, eps, shadow.t_max)
+    lit = res.shadow_active & ~blocked
+    contrib = contrib + Vec3.where(lit, clamp(res.shadow_weight * res.shadow_radiance), 0.0)
+
+    # Extension rays, dead lanes parked.
+    e_org, e_dir = _park_dead(
+        _offset_origin(p, geo_n, res.ext_dir, eps), res.ext_dir, res.ext_active
+    )
+    nxt = Paths(
+        org=e_org, direction=e_dir, weight=res.ext_weight,
+        env_on_miss=res.ext_env_on_miss, active=res.ext_active, contrib=contrib,
+        seq_id=paths.seq_id, seq_off=paths.seq_off,
+    )
+    return nxt, shadow
+
+
+def render_pass(
+    scene: Scene,
+    camera: CameraParams,
+    ctx: RenderContext,
+    options: RenderOptions,
+    frame: FrameGlobals,
+    accum: torch.Tensor,
+    with_stats: bool = False,
+):
+    """Trace one progressive pass and return ``accum`` plus its update.
+
+    With ``with_stats=True`` returns ``(accum, {"rays": n})``, ``n`` the
+    traced rays: per bounce, the live closest-hit lanes plus the shadow
+    lanes (the rays/s benchmark count)."""
+    if ctx.accel_pack is None:
+        raise NotImplementedError("rendering without a prebuilt AccelPack is not ported yet")
+    paths = start_paths(camera, ctx, options, frame.sample_index)
+    ray_count = torch.zeros((), dtype=torch.int64, device=ctx.device)
+    for depth in range(1, options.max_ray_depth + 1):
+        nxt, shadow = bounce(scene, ctx, options, frame, depth, paths)
+        if with_stats:
+            ray_count += paths.active.sum() + shadow.active.sum()
+        paths = nxt
+
+    accum = accum + _accum_update(paths.contrib, options.height, options.width)
+    if with_stats:
+        return accum, {"rays": int(ray_count)}
+    return accum
+
+
+def render(
+    scene: Scene,
+    camera: CameraParams,
+    options: RenderOptions,
+    num_passes: int | None = None,
+    ctx: RenderContext | None = None,
+    max_channel_value: float = 3.14159265,
+    accum: torch.Tensor | None = None,
+    start_pass: int = 0,
+    pass_callback=None,
+    device="cpu",
+):
+    """Progressive render of ``num_passes`` passes on ``device``.
+
+    Returns (accum, ctx); ``accum`` is planar (4, H, W) and
+    ``resolve(accum)`` the linear (H, W, 3) image.  ``accum``/``start_pass``
+    resume a render; ``pass_callback(i, accum)`` fires after every pass."""
+    device = torch.device(device)
+    scene = scene.to(device)
+    camera = camera.to(device)
+    if ctx is None:
+        ctx = make_context(options, scene, device)
+    if num_passes is None:
+        num_passes = options.max_render_passes
+    if accum is None:
+        accum = torch.zeros((4, options.height, options.width), dtype=torch.float32, device=device)
+    if options.debug_pass_rendering:
+        # Render exactly the chosen pass, without accumulation.
+        frame = FrameGlobals.create(options.debug_pass_index, max_channel_value, device)
+        return render_pass(scene, camera, ctx, options, frame, accum), ctx
+    for i in range(start_pass, start_pass + num_passes):
+        frame = FrameGlobals.create(i, max_channel_value, device)
+        accum = render_pass(scene, camera, ctx, options, frame, accum)
+        if pass_callback is not None:
+            pass_callback(i, accum)
+    return accum, ctx
+
+
+def resolve(accum: torch.Tensor) -> torch.Tensor:
+    """Planar (4, H, W) accumulation -> (H, W, 3) linear image (divide by
+    the per-pixel pass count, ``displayGL.frag:76-78``)."""
+    img = accum[:3] / torch.clamp(accum[3:], min=1.0)
+    return img.permute(1, 2, 0)

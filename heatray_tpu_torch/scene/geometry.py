@@ -1,0 +1,155 @@
+"""Flat triangle geometry (port of ``heatray_tpu.scene.geometry``).
+
+Meshes are assembled on the host in numpy and merged into one
+structure-of-arrays soup, Morton-ordered so that contiguous triangles are
+spatially compact.  The port keeps the attributes its untextured shading
+reads; UVs, tangents and bitangents wait for the texture path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Geometry:
+    """Merged scene geometry, planar (component-major) tensors."""
+
+    positions: torch.Tensor  # (3, V) f32
+    normals: torch.Tensor  # (3, V) f32
+    colors: torch.Tensor  # (3, V) f32 vertex colors
+    indices: torch.Tensor  # (3, T) i32
+    material_ids: torch.Tensor  # (T,) i32
+
+    @property
+    def num_triangles(self) -> int:
+        return self.indices.shape[1]
+
+
+@dataclasses.dataclass
+class MeshData:
+    """Host-side mesh buffers (numpy), the analog of ``MeshProvider``."""
+
+    positions: np.ndarray  # (V, 3)
+    indices: np.ndarray  # (T, 3)
+    normals: Optional[np.ndarray] = None
+    uvs: Optional[np.ndarray] = None
+    colors: Optional[np.ndarray] = None
+    name: str = "mesh"
+
+    def __post_init__(self):
+        self.positions = np.asarray(self.positions, dtype=np.float32).reshape(-1, 3)
+        self.indices = np.asarray(self.indices, dtype=np.int32).reshape(-1, 3)
+        if self.normals is None:
+            self.normals = compute_vertex_normals(self.positions, self.indices)
+
+    def transformed(self, matrix: np.ndarray) -> "MeshData":
+        """Apply a 4x4 transform; a negative determinant flips the winding
+        so geometric normals stay outward."""
+        m = np.asarray(matrix, dtype=np.float32)
+        rot = m[:3, :3]
+        pos = self.positions @ rot.T + m[:3, 3]
+        nrm_mat = np.linalg.inv(rot).T  # inverse transpose
+        normals = self.normals @ nrm_mat.T
+        normals = normals / np.maximum(np.linalg.norm(normals, axis=-1, keepdims=True), 1e-20)
+        indices = self.indices[:, ::-1] if np.linalg.det(rot) < 0.0 else self.indices
+        return MeshData(
+            positions=pos.astype(np.float32),
+            indices=indices,
+            normals=normals.astype(np.float32),
+            uvs=self.uvs,
+            colors=self.colors,
+            name=self.name,
+        )
+
+
+def compute_vertex_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Area-weighted smooth vertex normals."""
+    v0 = positions[indices[:, 0]]
+    v1 = positions[indices[:, 1]]
+    v2 = positions[indices[:, 2]]
+    fn = np.cross(v1 - v0, v2 - v0)
+    normals = np.zeros_like(positions)
+    for k in range(3):
+        np.add.at(normals, indices[:, k], fn)
+    norm = np.linalg.norm(normals, axis=-1, keepdims=True)
+    return (normals / np.maximum(norm, 1e-20)).astype(np.float32)
+
+
+def _morton_order(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """Triangle permutation sorting centroids along a 30-bit Morton curve."""
+    c = positions[indices].mean(axis=1)
+    lo = c.min(axis=0)
+    extent = np.maximum(c.max(axis=0) - lo, 1e-12)
+    q = np.clip(((c - lo) / extent) * 1023.0, 0.0, 1023.0).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+    return np.argsort(code, kind="stable").astype(np.int64)
+
+
+def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
+    """Concatenate per-mesh buffers into one Morton-ordered ``Geometry``."""
+    if len(meshes) != len(material_ids):
+        raise ValueError("one material id per mesh")
+    pos, nrm, col, idx, mat = [], [], [], [], []
+    offset = 0
+    for mesh, mid in zip(meshes, material_ids):
+        v = mesh.positions.shape[0]
+        pos.append(mesh.positions)
+        nrm.append(mesh.normals)
+        col.append(
+            mesh.colors.astype(np.float32)
+            if mesh.colors is not None
+            else np.ones((v, 3), np.float32)
+        )
+        idx.append(mesh.indices + offset)
+        mat.append(np.full((mesh.indices.shape[0],), mid, dtype=np.int32))
+        offset += v
+    all_pos = np.concatenate(pos)
+    all_idx = np.concatenate(idx)
+    order = _morton_order(all_pos, all_idx)
+
+    def planar(a):
+        return torch.from_numpy(np.ascontiguousarray(a.T))
+
+    return Geometry(
+        positions=planar(all_pos),
+        normals=planar(np.concatenate(nrm)),
+        colors=planar(np.concatenate(col)),
+        indices=planar(all_idx[order]),
+        material_ids=torch.from_numpy(np.concatenate(mat)[order]),
+    )
+
+
+def translate(v) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = v
+    return m
+
+
+def rotate(angle: float, axis) -> np.ndarray:
+    """Rotation about an axis (radians), as a 4x4 matrix."""
+    axis = np.asarray(axis, dtype=np.float64)
+    x, y, z = axis / np.linalg.norm(axis)
+    c, s = np.cos(angle), np.sin(angle)
+    C = 1 - c
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.array(
+        [
+            [x * x * C + c, x * y * C - z * s, x * z * C + y * s],
+            [y * x * C + z * s, y * y * C + c, y * z * C - x * s],
+            [z * x * C - y * s, z * y * C + x * s, z * z * C + c],
+        ]
+    )
+    return m

@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Where one 1080p Cornell pass of the PyTorch/CUDA port (heatray_tpu_torch)
+spends its time on an NVIDIA card, and how the card's config2 render compares
+with the stored golden and with the CPU.
+
+Run from the root of a checkout, on a machine with one card:
+
+    python3 profile_torch_pass.py [--passes 5] [--root DIR] [--trace FILE]
+
+``--root`` imports the package from another tree (for example an unpacked
+parent commit), so two versions can be compared within one machine session.
+It prints, one reading per line:
+
+- the card's name and power limit, as ``nvidia-smi`` gives them;
+- ``[golden]``: config2 (48x48, 4 passes, depth 4) rendered on the card and on
+  the CPU, each against ``tests/goldens/config2_cornell.npy``: max |diff| and
+  the count of values outside rtol = atol = 5e-3; then card against CPU: max
+  |diff| and the count of values that differ at all and by more than 1e-3;
+- ``[pass]``: the Cornell box at 1920x1080, depth 4: the ms of each steady
+  pass after two warm-up passes (host clock around ``render_pass``, ended by
+  ``torch.cuda.synchronize()``) and their mean;
+- ``[prof]``: one more pass under ``torch.profiler``, its stages labelled from
+  outside the package with ``record_function``: the pass's wall ms, the sum
+  of its CUDA kernels' self time (the "kernel ms" every share below divides
+  by), their count, that sum over the wall, peak device memory, each label's
+  device ms, and the closest-hit and occlusion kernels' ms per launch.
+
+It imports no jax.  ``--trace`` also writes the profiler's Chrome trace.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+WIDTH, HEIGHT, DEPTH = 1920, 1080, 4
+GOLDEN_SIZE, GOLDEN_PASSES, GOLDEN_TOL = 48, 4, 5e-3
+
+# (module, function, label); a label is summed over every call of a pass.
+# The two traversal kernels are counted by name instead: they are launched
+# through ctypes, which the profiler does not tie to an enclosing label.
+KERNELS = {"closest_wide_kernel": "K1 closest hit", "any_wide_kernel": "K2 occlusion"}
+LABELS = [
+    ("integrator", "generate_primary_rays", "raygen"),
+    ("integrator", "gather_rows", "row gather"),
+    ("integrator", "hit_attributes_rows", "hit attributes"),
+    ("integrator", "shade_hits", "shading"),
+    ("integrator", "_accum_update", "accumulate"),
+    ("shade", "sobol_value", "shading: Sobol chain"),
+    ("shade", "compute_light_sample", "shading: light selection"),
+    ("shade", "compute_multiscattering_fit", "shading: multiscatter fit"),
+]
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def golden(np, device):
+    from heatray_tpu_torch import cornell_box, orbit_camera, render, resolve
+    from heatray_tpu_torch.options import RenderOptions
+
+    g = GOLDEN_SIZE
+    opts = RenderOptions(width=g, height=g, max_render_passes=GOLDEN_PASSES, max_ray_depth=DEPTH)
+    camera = orbit_camera(g, g, distance=6.2, focal_length_mm=35.0)
+    ref = np.load(REPO / "tests" / "goldens" / "config2_cornell.npy").astype(np.float32)
+    img = {}
+    for dev in (device, "cpu"):
+        accum, _ = render(cornell_box(light="both", with_spheres=True), camera, opts,
+                          num_passes=GOLDEN_PASSES, device=dev)
+        img[dev] = resolve(accum).cpu().numpy()
+        d = np.abs(img[dev] - ref)
+        bad = int((d > GOLDEN_TOL + GOLDEN_TOL * np.abs(ref)).sum())
+        log(f"[golden] {dev}: max |diff| {float(d.max())!r}, {bad} values outside 5e-3")
+    d = np.abs(img[device] - img["cpu"])
+    log(f"[golden] card - cpu: max |diff| {float(d.max())!r}, {int((d > 0).sum())} values "
+        f"differ, {int((d > 1e-3).sum())} by more than 1e-3")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--passes", type=int, default=5, help="steady passes to time")
+    ap.add_argument("--root", type=Path, default=REPO, help="tree to import the package from")
+    ap.add_argument("--trace", type=Path, help="write the profiled pass's Chrome trace here")
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_pass: needs an NVIDIA card")
+    sys.path.insert(0, str(args.root.resolve()))
+    from heatray_tpu_torch import cornell_box, orbit_camera
+    from heatray_tpu_torch.options import FrameGlobals, RenderOptions
+    from heatray_tpu_torch.render import integrator, shade
+
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    log(f"[root] {args.root.resolve()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda:0")
+    golden(np, device)
+
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0).to(device)
+    ctx = integrator.make_context(opts, scene, device)
+    accum = torch.zeros((4, HEIGHT, WIDTH), device=device)
+
+    def one_pass(i):
+        nonlocal accum
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accum = integrator.render_pass(scene, camera, ctx, opts,
+                                       FrameGlobals.create(i, device=device), accum)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    warm = [one_pass(i) for i in range(2)]
+    ms = [one_pass(2 + i) for i in range(args.passes)]
+    log(f"[pass] {WIDTH}x{HEIGHT} depth {DEPTH}: warm-up ms {warm!r}; steady ms {ms!r}, "
+        f"mean {sum(ms) / len(ms)!r}")
+
+    mods = {"integrator": integrator, "shade": shade}
+    for mod, name, label in LABELS:
+        fn = getattr(mods[mod], name)
+
+        @functools.wraps(fn)
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+
+        setattr(mods[mod], name, wrapped)
+
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = one_pass(2 + args.passes)
+    # Each label shows up twice: as the host range (device time = the kernels
+    # it launched) and as its copy on the device timeline, which is no kernel.
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    labels = {label for _, _, label in LABELS}
+    ka = prof.key_averages()
+    kernels = [e for e in ka if e.device_type == cuda and e.key not in labels]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[prof] wall {wall!r} ms; kernel ms {busy!r} in {sum(e.count for e in kernels)} "
+        f"kernels, {busy / wall!r} of the wall; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20!r} MiB")
+    rows = [(e.key, e.count, e.device_time_total / 1e3)
+            for e in ka if e.key in labels and e.device_type == cpu]
+    for name, label in KERNELS.items():
+        per = [ev.device_time / 1e3 for ev in prof.events()
+               if name in ev.name and ev.device_type == cuda]
+        rows.append((label, len(per), sum(per)))
+        log(f"[prof] {name} ms per launch {per!r}")
+    outside = busy - sum(ms for key, _, ms in rows if not key.startswith("shading:"))
+    rows.append(("outside the labels", 0, outside))
+    for key, count, dev_ms in sorted(rows, key=lambda r: -r[2]):
+        log(f"[prof] {key}: {count} calls, device {dev_ms!r} ms, {dev_ms / busy!r} of kernel ms")
+    if args.trace:
+        args.trace.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(args.trace))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

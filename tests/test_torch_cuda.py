@@ -1,0 +1,114 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs an NVIDIA card and skips without one.  This file
+imports no jax, so it also runs where jax is not installed; there, skip the
+JAX package's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from heatray_tpu_torch import cornell_box, orbit_camera, render
+from heatray_tpu_torch.options import RenderOptions
+from heatray_tpu_torch.ops import wide_bvh
+from heatray_tpu_torch.ops.intersect import build_woop
+from heatray_tpu_torch.vec import Vec3
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
+    return torch.device("cuda:0")
+
+
+def _soup(t, seed, device):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-4, 4, (t, 3)).astype(np.float32)
+    v1 = v0 + rng.uniform(-0.5, 0.5, (t, 3)).astype(np.float32)
+    v2 = v0 + rng.uniform(-0.5, 0.5, (t, 3)).astype(np.float32)
+    pos = torch.from_numpy(np.concatenate([v0, v1, v2]).T.copy()).to(device)
+    idx = torch.arange(3 * t, dtype=torch.int32, device=device).reshape(t, 3).T.contiguous()
+    return build_woop(pos, idx)
+
+
+def _rays(r, seed, device):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-8, 8, (r, 3)).astype(np.float32)
+    d = rng.uniform(-2, 2, (r, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def vec(a):
+        return Vec3(*(torch.from_numpy(np.ascontiguousarray(a[:, k])).to(device) for k in range(3)))
+
+    return vec(o), vec(d)
+
+
+@pytest.mark.parametrize("t, leaf_size", [(700, 16), (5000, 32)])
+def test_kernels_match_plain(cuda_device, t, leaf_size):
+    """Both sides do the same float32 arithmetic in the same order, so t
+    agrees to rounding (rtol = atol = 1e-5) and ties go to the lowest slot
+    on both."""
+    bvh = wide_bvh.build_wide_bvh(_soup(t, 11, cuda_device), leaf_size=leaf_size)
+    o, d = _rays(8192, 7, cuda_device)
+    launches = wide_bvh.intersect_closest_wide.launches
+    t_k, slot_k, hit_k = wide_bvh.intersect_closest_wide(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    torch.cuda.synchronize()
+    assert wide_bvh.intersect_closest_wide.launches == launches + 1
+    assert torch.equal(hit_k, hit_p)
+    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
+    assert (slot_k == slot_p).float().mean() > 0.999
+
+    t_max = torch.linspace(0.5, 12.0, 8192, device=cuda_device)
+    blocked = wide_bvh.intersect_any_wide(bvh, o, d, t_max=t_max)
+    assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
+    assert 0 < int(blocked.sum()) < 8192
+
+
+def test_kernel_finds_hits_just_past_an_edge(cuda_device):
+    """A ray that grazes the Cornell floor's open front edge: the pair test
+    accepts it 4e-7 outside the floor in barycentric terms, outside the
+    leaf's box, and the widened slab test must still reach that leaf."""
+    scene = cornell_box(light="both", with_spheres=True).to(cuda_device)
+    bvh = wide_bvh.build_wide_bvh(build_woop(scene.geometry.positions, scene.geometry.indices))
+    o = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (1.999899983406067, 0.021646535024046898, 0.026903629302978516)))
+    d = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (-0.643088698387146, -0.5480369329452515, 0.5348762273788452)))
+    t_k, slot_k, hit_k = wide_bvh.intersect_closest_wide(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert bool(hit_p[0]) and bool(hit_k[0])
+    assert torch.equal(t_k, t_p) and torch.equal(slot_k, slot_p)
+    assert bool(wide_bvh.intersect_any_wide(bvh, o, d, t_max=t_p + 1e-3)[0])
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    bvh = wide_bvh.build_wide_bvh(_soup(300, 5, cuda_device), leaf_size=32)
+    o, d = _rays(64, 3, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        wide_bvh.intersect_closest_wide(bvh, o.map(lambda c: c.double()), d)
+    with pytest.raises(ValueError, match="stack"):
+        wide_bvh.intersect_any_wide(dataclasses.replace(bvh, max_stack=1 << 20), o, d)
+
+
+def test_render_matches_cpu(cuda_device):
+    """The golden configuration config2 (48x48, 4 passes, depth 4) on the
+    card (kernels) and on the CPU (plain versions), at the golden's
+    tolerance.  PyTorch rounds sqrt, sin, cos, exp and sums differently on
+    the two devices, so the images agree to a few ulps of the radiance
+    unless one ulp flips a path's choice somewhere."""
+    size, passes = 48, 4
+    opts = RenderOptions(width=size, height=size, max_render_passes=passes, max_ray_depth=4)
+    scene = cornell_box(light="both", with_spheres=True)
+    camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
+    on_card, _ = render(scene, camera, opts, num_passes=passes, device=cuda_device)
+    on_cpu, _ = render(scene, camera, opts, num_passes=passes)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)

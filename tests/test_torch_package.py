@@ -1,0 +1,63 @@
+"""The port's package boundary: it imports without jax or flax, options
+that select a path it does not have yet raise instead of being ignored."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from heatray_tpu_torch.options import AOV, RenderOptions
+
+_REPO = Path(__file__).resolve().parents[1]
+
+_NO_JAX = """
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import heatray_tpu_torch
+for mod in pkgutil.walk_packages(heatray_tpu_torch.__path__, "heatray_tpu_torch."):
+    importlib.import_module(mod.name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "heatray_tpu"))
+assert not bad, bad
+print("imported", len([m for m in sys.modules if m.startswith("heatray_tpu_torch")]))
+"""
+
+
+def test_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(_REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX], cwd=_REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 20
+
+
+@pytest.mark.parametrize(
+    "field, value",
+    [
+        ("intersect_backend", "xla"),
+        ("intersect_backend", "stream"),
+        ("aov", AOV.BASE_COLOR),
+        ("sort_bounces", True),
+        ("gate_bounces", True),
+        ("interactive_block", True),
+        ("ms_impl", "lut"),
+    ],
+)
+def test_unported_options_raise(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        RenderOptions(**{field: value})
+
+
+def test_supported_options_accepted():
+    for kw in ({}, {"intersect_backend": "wide"}, {"sort_bounces": False},
+               {"gate_bounces": False}):
+        RenderOptions(width=8, height=8, **kw)
