@@ -5,29 +5,58 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the wide-BVH kernels from ``heatray_tpu_torch/csrc`` and then:
+It builds the wide-BVH kernels of ``heatray_tpu_torch/csrc`` (one ``nvcc``
+per source, started together) and then:
 
-1. checks each kernel against its plain PyTorch version on the card: the
-   Cornell box tree with 65,536 primary, first-bounce and NEE shadow rays of
-   a 1080p pass, and a 50,000-triangle random soup;
+1. checks K1 and K2 (``wide_bvh.cu``) against their plain PyTorch versions
+   on the card: on the Cornell box, each kernel launched at the shapes a
+   1080p pass gives it (see 5), and on a 50,000-triangle random soup;
 2. renders the golden configuration config2 (48x48, 4 passes, depth 4) and
    compares it with ``tests/goldens/config2_cornell.npy``;
-3. renders the main path, the Cornell box at 1920x1080, depth 4, 4 passes,
-   counting kernel launches, and reports ms per pass and Mrays/s;
-4. checks each kernel against its plain version again on all 2,073,600
-   rays of a 1080p bounce, and times both there.
+2b. renders one 1080p Cornell pass with the bounce sort and segment gating
+   on and one with both off, twice each, and requires equal accumulations;
+3. renders the Cornell path, 1920x1080, depth 4, 4 passes (sorted and
+   gated, as "auto" gives on the card), counting kernel launches, and
+   reports ms per pass and Mrays/s;
+4. checks K1 and K2 against their plain versions again on all 2,073,600
+   rays of a 1080p bounce, and times both there;
+5. builds the ~300k-triangle ``high_poly`` scene on the card (the context
+   picks the streaming backend on its own) and checks K3a and K3b
+   (``wide_bvh_stream.cu``) against their plain versions.  Each kernel is
+   launched at the shapes the path gives it: all 2,073,600 primary rays,
+   the first bounce's shadow lanes, and the second bounce's sorted, gated
+   head and its shadow lanes.  The plain version runs on 65,536 seeded live
+   lanes of each launch.  K3 walks the tree once per block of 256 rays, so
+   what a ray gets may depend on which rays share its block;
+6. renders the ``high_poly`` path, 1920x1080, depth 4, 4 passes, framed as
+   ``bench.py`` frames it, counting kernel launches: each kernel runs once
+   per bounce that has live lanes, and the script counts those bounces;
+7. times K3a and K3b on all 2,073,600 primary rays and first-bounce shadow
+   lanes (their plain versions on the 65,536-ray sample), and K1 and K2 on
+   the same rays over a 32-triangle-leaf tree of the same scene.
 
-Any failure raises and exits non-zero.  The last two lines of standard
-output are the per-kernel JSON record and the result JSON.  Without a CUDA
-device, or outside a checkout, it fails before printing a result.
+Each kernel's bound is the larger of the bytes it must move over the
+H100's 3.35 TB/s and the float32 operations its rays need over 67 TFLOP/s.
+A plain walk over all the timed rays, knowing each ray's hit distance,
+counts both: the bytes of the rays, of the outputs and of the nodes and
+leaf triangles the rays reach, each once; the per-ray arithmetic of the
+child-box slab tests, of every pair test's t, and of the barycentrics of
+the pairs whose t lies in range.
+
+Any failure raises and exits non-zero.  The last three lines of standard
+output are the card's name and power limit, the per-kernel JSON record and
+the result JSON.  Without a CUDA device, or outside a checkout, it fails
+before printing a result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -37,11 +66,27 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-KERNEL_SOURCE = "heatray_tpu_torch/csrc/wide_bvh.cu"
-REPLACES = {
-    "closest_wide": "heatray_tpu/ops/wide_bvh.py:297",
-    "any_wide": "heatray_tpu/ops/wide_bvh.py:421",
+SOURCES = ("wide_bvh", "wide_bvh_stream")
+# name -> (CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "closest_wide": ("heatray_tpu_torch/csrc/wide_bvh.cu", "heatray_tpu/ops/wide_bvh.py:297"),
+    "any_wide": ("heatray_tpu_torch/csrc/wide_bvh.cu", "heatray_tpu/ops/wide_bvh.py:421"),
+    "closest_stream": ("heatray_tpu_torch/csrc/wide_bvh_stream.cu",
+                       "heatray_tpu/ops/wide_bvh.py:788"),
+    "any_stream": ("heatray_tpu_torch/csrc/wide_bvh_stream.cu", "heatray_tpu/ops/wide_bvh.py:883"),
 }
+# NVIDIA's H100 SXM data sheet: HBM bytes/s and float32 FLOP/s outside the
+# tensor cores.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# float32 operations (wide_bvh_common.cuh) of one child-box slab test, per
+# ray: 6 subtracts and 6 multiplies, 12 min/max, the far-end scale and the
+# compare (the widening of the box itself depends on the box alone); of a
+# pair test's t (two dot products with their offset, the divide, the range
+# check); and of its barycentrics, where t lies in range.
+SLAB_FLOPS, PAIR_T_FLOPS, BARY_FLOPS = 26, 15, 30
+# Bytes of one node's record (wbox row, wchild row, waxis) and of one leaf
+# triangle's Woop columns (4 rows of b1, b2, s) and one leaf's anchor.
+NODE_BYTES, TRI_BYTES, ANCHOR_BYTES = 8 * 8 * 4 + 8 * 4 + 4, 4 * 3 * 4, 3 * 4
 
 
 def log(*args):
@@ -54,6 +99,27 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip()
+
+
+def queries():
+    """name -> (kernel wrapper, plain version)."""
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    return {
+        "closest_wide": (wb.intersect_closest_wide, wb.closest_wide_plain),
+        "any_wide": (wb.intersect_any_wide, wb.any_wide_plain),
+        "closest_stream": (wb.intersect_closest_stream, wb.closest_stream_plain),
+        "any_stream": (wb.intersect_any_stream, wb.any_stream_plain),
+    }
+
+
+def reset_launches():
+    for kernel, _ in queries().values():
+        kernel.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel.launches for name, (kernel, _) in queries().items()}
 
 
 def subset(v, idx):
@@ -82,45 +148,94 @@ def slot_t(bvh, org, d, slot):
     return torch.where(slot >= 0, t, MISS_T)
 
 
-def check_closest(bvh, org, d, label, err):
+def live_pick(active, gen):
+    """N_CHECK seeded lanes among the live ones."""
     import torch
 
-    from heatray_tpu_torch.ops import wide_bvh
+    live = active.nonzero()[:, 0]
+    return live[torch.randperm(live.numel(), generator=gen)[:N_CHECK].to(live.device)]
 
-    t_k, s_k, h_k = wide_bvh.intersect_closest_wide(bvh, org, d)
-    t_p, s_p, h_p = wide_bvh.closest_wide_plain(bvh, org, d)
+
+def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4):
+    """The kernel on all the rays against the plain version on the lanes
+    ``pick`` (all when None)."""
+    import torch
+
+    kernel, plain = queries()[name]
+    t_k, s_k, h_k = kernel(bvh, org, d, t_min)
+    n_all = h_k.numel()
+    if pick is not None:
+        org, d = subset(org, pick), subset(d, pick)
+        t_k, s_k, h_k = t_k[pick], s_k[pick], h_k[pick]
+    t_p, s_p, h_p = plain(bvh, org, d, t_min)
     torch.cuda.synchronize()
     if not torch.equal(h_k, h_p):
-        raise AssertionError(f"{label}: closest-hit masks differ on {int((h_k != h_p).sum())} rays")
+        raise AssertionError(f"{label}: {name} masks differ on {int((h_k != h_p).sum())} rays")
     diff = (t_k - t_p).abs()
     bad = diff > TOL + TOL * t_p.abs()
     if bad.any():
-        raise AssertionError(f"{label}: closest t differs, max {float(diff.max())}")
+        raise AssertionError(f"{label}: {name} t differs, max {float(diff.max())}")
     # A different slot is allowed only where it ties with the plain one.
     other = s_k != s_p
     tie = (slot_t(bvh, org, d, s_k) - t_p).abs() <= TOL + TOL * t_p.abs()
     if (other & ~tie).any():
         raise AssertionError(f"{label}: {int((other & ~tie).sum())} slots differ without a tie")
-    err["closest_wide"] = max(err["closest_wide"], float(diff[h_p].max()) if h_p.any() else 0.0)
-    log(f"[check] {label}: closest ok, {int(h_k.sum())}/{h_k.numel()} hit, "
-        f"max |dt| {float(diff[h_p].max()) if h_p.any() else 0.0:.3g}, "
-        f"{int(other.sum())} tied slots differ")
+    dt = float(diff[h_p].max()) if h_p.any() else 0.0
+    err[name] = max(err[name], dt)
+    log(f"[check] {label}: {name} ok on {h_k.numel()} of {n_all} rays launched, "
+        f"{int(h_k.sum())} hit, max |dt| {dt:.3g}, {int(other.sum())} tied slots differ")
 
 
-def check_any(bvh, org, d, t_max, label, err):
+def check_any(name, bvh, org, d, t_max, label, err, pick=None, t_min=1e-4):
+    """As ``check_closest``, for occlusion."""
     import torch
 
-    from heatray_tpu_torch.ops import wide_bvh
-
-    b_k = wide_bvh.intersect_any_wide(bvh, org, d, t_max=t_max)
-    b_p = wide_bvh.any_wide_plain(bvh, org, d, t_max=t_max)
+    kernel, plain = queries()[name]
+    b_k = kernel(bvh, org, d, t_min, t_max)
+    n_all = b_k.numel()
+    if pick is not None:
+        org, d, t_max, b_k = subset(org, pick), subset(d, pick), t_max[pick], b_k[pick]
+    b_p = plain(bvh, org, d, t_min, t_max)
     torch.cuda.synchronize()
     n_bad = int((b_k != b_p).sum())
     if n_bad:
-        raise AssertionError(f"{label}: occlusion masks differ on {n_bad} rays")
+        raise AssertionError(f"{label}: {name} masks differ on {n_bad} rays")
     # The masks as 0/1: the largest |kernel - plain| over the rays.
-    err["any_wide"] = max(err["any_wide"], float((b_k.float() - b_p.float()).abs().max()))
-    log(f"[check] {label}: any ok, {int(b_k.sum())}/{b_k.numel()} blocked")
+    err[name] = max(err[name], float((b_k.float() - b_p.float()).abs().max()))
+    log(f"[check] {label}: {name} ok on {b_k.numel()} of {n_all} rays launched, "
+        f"{int(b_k.sum())} blocked")
+
+
+def check_path_rays(names, scene, camera, ctx, opts, gen, label, err):
+    """Each kernel launched at the shapes a pass gives it, against its plain
+    version on N_CHECK seeded live lanes of each launch: all primary rays,
+    the first bounce's shadow lanes, and the second bounce's sorted, gated
+    head and its shadow lanes.  Returns the primary and first-bounce shadow
+    rays."""
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.render import integrator
+
+    closest, any_ = names
+    pack, eps = ctx.accel_pack, opts.ray_epsilon
+    frame = FrameGlobals.create(0, device=ctx.device)
+    primary = integrator.start_paths(camera, ctx, opts, 0)
+    check_closest(closest, pack.wide, primary.org, primary.direction, f"{label} primary", err,
+                  live_pick(primary.active, gen), eps)
+    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary)
+    check_any(any_, pack.wide_occl, shadow.org, shadow.direction, shadow.t_max,
+              f"{label} first-bounce shadow", err, live_pick(shadow.active, gen), eps)
+    paths = integrator._sort_paths(first, *integrator._sort_bounds(ctx))
+    n = integrator._gated_lanes(paths, opts.gate_segments)
+    if n == 0:
+        raise AssertionError(f"{label}: no live lane at depth 2")
+    head = paths.map(lambda p: p[:n])
+    tag = f"{label} depth-2 sorted head ({n} of {paths.active.numel()} lanes)"
+    check_closest(closest, pack.wide, head.org, head.direction, tag, err,
+                  live_pick(head.active, gen), eps)
+    _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head)
+    check_any(any_, pack.wide_occl, shadow2.org, shadow2.direction, shadow2.t_max,
+              f"{tag} shadow", err, live_pick(shadow2.active, gen), eps)
+    return primary, shadow
 
 
 def random_soup(n_tri, n_rays, device):
@@ -160,6 +275,183 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
+    """What these rays need of the tree: a dict of child-box tests, pair
+    tests, pairs whose t lies in (t_min, t_far], and the nodes, leaves and
+    leaf triangles reached.  Each ray tests the non-empty children of every
+    node whose widened box it enters before ``t_far`` (its hit distance),
+    and every triangle of each such leaf.  A plain level-by-level walk."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    device = bvh.w.device
+    codes = bvh.wchild.view(-1, wb.ARITY).long()
+    filled_slot = bvh.slot_tri.view(bvh.num_chunks, bvh.leaf_size) >= 0
+    tc = bvh.leaf_size
+    node_seen = torch.zeros(codes.shape[0], dtype=torch.bool, device=device)
+    leaf_seen = torch.zeros(bvh.num_chunks, dtype=torch.bool, device=device)
+    boxes = pairs = in_range = 0
+    for lo in range(0, org.x.numel(), chunk):
+        oc = [c[lo:lo + chunk] for c in (org.x, org.y, org.z)]
+        dc = [c[lo:lo + chunk] for c in (d.x, d.y, d.z)]
+        o = [c[:, None, None] for c in oc]
+        inv = [(torch.where(c < 0, -1.0, 1.0) / c.abs().clamp(min=1e-18))[:, None, None]
+               for c in dc]
+        tfc = t_far[lo:lo + chunk]
+        level = torch.zeros(1, dtype=torch.long, device=device)
+        reach = torch.ones((oc[0].shape[0], 1), dtype=torch.bool, device=device)
+        while level.numel():
+            node_seen[level] = True
+            c, b = codes[level], bvh.wbox[level]
+            filled = c != -1
+            boxes += int((reach.sum(0) * filled.sum(1)).sum())
+            near, far = torch.full_like(b[None, ..., 0], t_min), tfc[:, None, None]
+            for a in range(3):
+                p = (b[..., 3 + a] - b[..., a]) * wb.BOX_PAD
+                t0 = ((b[..., a] - p) - o[a]) * inv[a]
+                t1 = ((b[..., 3 + a] + p) - o[a]) * inv[a]
+                near = torch.maximum(near, torch.minimum(t0, t1))
+                far = torch.minimum(far, torch.maximum(t0, t1))
+            ok = (near <= far * wb.FAR_SCALE) & reach[:, :, None] & filled[None]
+            # Every (ray, leaf) pair reached: the t of each triangle.
+            ray, node, k = (ok & (c <= -2)[None]).nonzero(as_tuple=True)
+            chunk_id = -2 - c[node, k]
+            leaf_seen[chunk_id] = True
+            fill = filled_slot[chunk_id]
+            pairs += int(fill.sum())
+            s, anchor = bvh.w[:, :, 2 * tc:][chunk_id], bvh.wanchor[:, chunk_id]
+            ax, ay, az = ((oc[i][ray] - anchor[i])[:, None] for i in range(3))
+            dx, dy, dz = (dc[i][ray][:, None] for i in range(3))
+            t = -(ax * s[:, 0] + ay * s[:, 1] + az * s[:, 2] + s[:, 3]) / (
+                dx * s[:, 0] + dy * s[:, 1] + dz * s[:, 2])
+            in_range += int((fill & (t > t_min) & (t <= tfc[ray][:, None])).sum())
+            # Inner children some ray of the chunk enters.
+            inner = (c >= 0) & ok.any(0)
+            level, reach = c[inner], ok[:, inner]
+    return {"boxes": boxes, "pairs": pairs, "in_range": in_range,
+            "nodes": int(node_seen.sum()), "leaves": int(leaf_seen.sum()),
+            "tris": int(filled_slot[leaf_seen].sum())}
+
+
+def bound(r, work, occlusion):
+    """(bound ms, what bounds it) of one query over ``r`` rays that need
+    ``work`` (``walk_work``) of the tree."""
+    tree = (work["nodes"] * NODE_BYTES + work["leaves"] * ANCHOR_BYTES
+            + work["tris"] * TRI_BYTES)
+    ray_bytes = 24 + (4 + 1 if occlusion else 8)  # origin, direction, t_max, outputs
+    nbytes = tree + ray_bytes * r
+    flops = (work["boxes"] * SLAB_FLOPS + work["pairs"] * PAIR_T_FLOPS
+             + work["in_range"] * BARY_FLOPS)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    log(f"[bound] {r} rays: {work['nodes']} nodes, {work['leaves']} leaves "
+        f"({work['tris']} triangles) reached; {nbytes / 1e6:.3f} MB -> {t_bytes:.4f} ms; "
+        f"{work['boxes'] / r:.3f} box tests, {work['pairs'] / r:.3f} pair tests, "
+        f"{work['in_range'] / r:.3f} in range per ray, {flops / 1e9:.3f} GFLOP "
+        f"-> {t_ops:.4f} ms")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernels(spec, err, launches):
+    """One kernels-line entry per ``spec`` item (name, bvh, org, dir, t_max
+    or None, plain on all rays or on the sample).  Kernels are timed over
+    10 launches, plain versions once; the walk's work is counted on all the
+    rays."""
+    import torch
+
+    out = []
+    for name, bvh, org, d, t_max, plain_all in spec:
+        kernel, plain = queries()[name]
+        r = org.x.numel()
+        sample = torch.randperm(r, generator=torch.Generator().manual_seed(SEED))[:N_CHECK]
+        sample = sample.to(org.x.device)
+        s_org, s_dir = subset(org, sample), subset(d, sample)
+        args, s_args = (bvh, org, d), (bvh, s_org, s_dir)
+        if t_max is not None:
+            args, s_args = args + (1e-4, t_max), s_args + (1e-4, t_max[sample].contiguous())
+        ms = time_ms(lambda: kernel(*args), 10)
+        plain_ms = time_ms(lambda: plain(*(args if plain_all else s_args)), 1)
+        n_plain = r if plain_all else sample.numel()
+        # A walk that knows each ray's hit distance (and, for occlusion, its
+        # t_max) needs no more than this.
+        closest = queries()["closest_stream" if "stream" in name else "closest_wide"][0]
+        t_far = closest(bvh, org, d)[0]
+        if t_max is not None:
+            t_far = torch.minimum(t_far, t_max)
+        bound_ms, bound_by = bound(r, walk_work(bvh, org, d, t_far), t_max is not None)
+        log(f"[time] {name} on {r} rays: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on "
+            f"{n_plain} rays, bound {bound_ms:.4f} ms ({bound_by})")
+        out.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "rays": r, "plain_ms": plain_ms,
+            "plain_rays": n_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    return out
+
+
+def run_path(label, scene, camera, ctx, opts, expect, forbid):
+    """The render path of one scene: PASSES passes through ``render_pass``
+    with the launch counts set to 0 just before and read just after.  Each
+    kernel of ``expect`` must run once per bounce with live lanes: the
+    first bounce of every pass, and each later one whose gated lane count
+    (``_gated_lanes``, counted here) is above 0."""
+    import torch
+
+    from heatray_tpu_torch import resolve
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.render import integrator
+
+    if integrator._bounce_modes(ctx, opts, WIDTH * HEIGHT) != (True, True):
+        raise AssertionError(f"{label}: 'auto' does not sort and gate on the card")
+    device = ctx.device
+    accum = torch.zeros((4, HEIGHT, WIDTH), dtype=torch.float32, device=device)
+    rays, pass_ms, lanes = 0, [], []
+    gated = integrator._gated_lanes
+
+    def count_lanes(*args):
+        lanes.append(gated(*args))
+        return lanes[-1]
+
+    integrator._gated_lanes = count_lanes
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        for i in range(PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            accum, stats = integrator.render_pass(
+                scene, camera, ctx, opts, FrameGlobals.create(i, device=device), accum,
+                with_stats=True,
+            )
+            torch.cuda.synchronize()
+            pass_ms.append((time.perf_counter() - t0) * 1e3)
+            rays += stats["rays"]
+        launches = read_launches()
+    finally:
+        integrator._gated_lanes = gated
+    if len(lanes) != PASSES * (DEPTH - 1):
+        raise AssertionError(f"{label}: {len(lanes)} gated bounces, not {PASSES * (DEPTH - 1)}")
+    runs = PASSES + sum(n > 0 for n in lanes)
+    if any(launches[name] != runs for name in expect):
+        raise AssertionError(f"{label} path kernel launches {launches}, not {runs} each "
+                             f"(gated lanes {lanes})")
+    if any(launches[name] for name in forbid):
+        raise AssertionError(f"{label} path launched {forbid}: {launches}")
+    if not torch.equal(accum[3], torch.full_like(accum[3], float(PASSES))):
+        raise AssertionError(f"{label}: alpha is not the pass count everywhere")
+    img = resolve(accum)
+    if not bool(torch.isfinite(img).all()) or float(img.max()) <= 0.0:
+        raise AssertionError(f"{label} image is not finite, or black")
+    total_s = sum(pass_ms) / 1e3
+    log(f"[{label}] {WIDTH}x{HEIGHT} depth {DEPTH}, {PASSES} passes: ms/pass "
+        f"{[round(m, 3) for m in pass_ms]}, mean {sum(pass_ms) / PASSES:.3f}; "
+        f"{rays} rays, {rays / total_s / 1e6:.3f} Mrays/s; launches {launches}; "
+        f"gated lanes {lanes}; image mean {float(img.mean()):.4g}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -171,7 +463,9 @@ def main() -> int:
 
     import numpy as np
 
-    from heatray_tpu_torch import cornell_box, orbit_camera, render, resolve
+    from heatray_tpu_torch import (
+        cornell_box, frame_scene, high_poly, orbit_camera, render, resolve, scene_aabb,
+    )
     from heatray_tpu_torch.ops import cuda_build, wide_bvh
     from heatray_tpu_torch.ops.intersect import build_woop
     from heatray_tpu_torch.options import FrameGlobals, RenderOptions
@@ -184,14 +478,18 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    lib = cuda_build.build("wide_bvh")
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "stack frame" in line:
-            log("[build]", line.strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        libs = list(pool.map(cuda_build.build, SOURCES))
+    log(f"[build] {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "stack frame" in line:
+                log(f"[build] {lib.name}:", line.strip())
 
-    # --- 1. kernels against their plain versions --------------------------
-    err = {"closest_wide": 0.0, "any_wide": 0.0}
+    err = dict.fromkeys(KERNELS, 0.0)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+
+    # --- 1. K1/K2 against their plain versions -----------------------------
     opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
     scene = cornell_box(light="both", with_spheres=True).to(device)
     camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0).to(device)
@@ -199,36 +497,24 @@ def main() -> int:
     ctx = integrator.make_context(opts, scene, device)
     torch.cuda.synchronize()
     pack = ctx.accel_pack
-    log(f"[setup] 1080p context in {time.perf_counter() - t0:.1f} s: "
+    if pack.backend != "wide":
+        raise AssertionError(f"the Cornell box got the {pack.backend!r} backend")
+    log(f"[setup] Cornell 1080p context in {time.perf_counter() - t0:.1f} s: "
         f"{pack.wide.num_triangles} triangles, {pack.wide.num_nodes} nodes, "
         f"{pack.wide.num_chunks} leaves, stack {pack.wide.max_stack}")
 
-    frame = FrameGlobals.create(0, device=device)
-    primary = integrator.start_paths(camera, ctx, opts, 0)
-    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary)
-    gen = torch.Generator(device="cpu").manual_seed(SEED)
-    pick = torch.randperm(WIDTH * HEIGHT, generator=gen)[:N_CHECK].to(device)
-    check_closest(pack.wide, subset(primary.org, pick), subset(primary.direction, pick),
-                  "cornell primary", err)
-    live = first.active.nonzero()[:, 0]
-    sel = live[torch.randperm(live.numel(), generator=gen)[:N_CHECK].to(device)]
-    check_closest(pack.wide, subset(first.org, sel), subset(first.direction, sel),
-                  "cornell first bounce", err)
-    live = shadow.active.nonzero()[:, 0]
-    sel = live[torch.randperm(live.numel(), generator=gen)[:N_CHECK].to(device)]
-    check_any(pack.wide_occl, subset(shadow.org, sel), subset(shadow.direction, sel),
-              shadow.t_max[sel].contiguous(), "cornell NEE shadow", err)
+    check_path_rays(("closest_wide", "any_wide"), scene, camera, ctx, opts, gen, "cornell", err)
 
     pos, idx, s_org, s_dir = random_soup(SOUP_TRIANGLES, N_CHECK, device)
     t0 = time.perf_counter()
     soup = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=32)
     log(f"[setup] {SOUP_TRIANGLES}-triangle soup tree in {time.perf_counter() - t0:.1f} s: "
         f"{soup.num_nodes} nodes, stack {soup.max_stack}")
-    check_closest(soup, s_org, s_dir, "soup", err)
+    check_closest("closest_wide", soup, s_org, s_dir, "soup", err)
     t_max = torch.from_numpy(
         np.random.default_rng(SEED + 1).uniform(1.0, 12.0, N_CHECK).astype(np.float32)
     ).to(device)
-    check_any(soup, s_org, s_dir, t_max, "soup", err)
+    check_any("any_wide", soup, s_org, s_dir, t_max, "soup", err)
 
     # --- 2. the golden configuration ---------------------------------------
     g = 48
@@ -241,63 +527,93 @@ def main() -> int:
     np.testing.assert_allclose(img, golden, rtol=5e-3, atol=5e-3)
     log(f"[golden] config2 48x48x4 matches, max |diff| {float(np.abs(img - golden).max()):.3g}")
 
-    # --- 3. the main path ----------------------------------------------------
-    closest_fn, any_fn = wide_bvh.intersect_closest_wide, wide_bvh.intersect_any_wide
-    accum = torch.zeros((4, HEIGHT, WIDTH), dtype=torch.float32, device=device)
-    rays, pass_ms = 0, []
-    closest_fn.launches = any_fn.launches = 0
-    for i in range(PASSES):
+    # --- 2b. sorted and gated against unsorted, bit for bit -----------------
+    if integrator._bounce_modes(ctx, opts, WIDTH * HEIGHT) != (True, True):
+        raise AssertionError("'auto' does not sort and gate on the card")
+    plain_opts = dataclasses.replace(opts, sort_bounces=False, gate_bounces=False)
+    zero = torch.zeros((4, HEIGHT, WIDTH), dtype=torch.float32, device=device)
+    out, ms = {}, {True: [], False: []}
+    for on in (True, False, False, True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        accum, stats = integrator.render_pass(
-            scene, camera, ctx, opts, FrameGlobals.create(i, device=device), accum,
-            with_stats=True,
-        )
+        out[on] = integrator.render_pass(scene, camera, ctx, opts if on else plain_opts,
+                                         FrameGlobals.create(5, device=device), zero,
+                                         with_stats=True)
         torch.cuda.synchronize()
-        pass_ms.append((time.perf_counter() - t0) * 1e3)
-        rays += stats["rays"]
-    launches = {"closest_wide": closest_fn.launches, "any_wide": any_fn.launches}
-    if launches["closest_wide"] != PASSES * DEPTH or launches["any_wide"] < PASSES:
-        raise AssertionError(f"main path kernel launches {launches}")
-    if not torch.equal(accum[3], torch.full_like(accum[3], float(PASSES))):
-        raise AssertionError("alpha is not the pass count everywhere")
-    img = resolve(accum)
-    if not bool(torch.isfinite(img).all()) or float(img.max()) <= 0.0:
-        raise AssertionError("main path image is not finite, or black")
-    total_s = sum(pass_ms) / 1e3
-    log(f"[main] {WIDTH}x{HEIGHT} depth {DEPTH}, {PASSES} passes: ms/pass "
-        f"{[round(m, 3) for m in pass_ms]}, mean {sum(pass_ms) / PASSES:.3f}; "
-        f"{rays} rays, {rays / total_s / 1e6:.3f} Mrays/s; launches {launches}; card {card}")
+        ms[on].append((time.perf_counter() - t0) * 1e3)
+    (a_on, s_on), (a_off, s_off) = out[True], out[False]
+    if not torch.equal(a_on, a_off) or s_on != s_off:
+        d = (a_on - a_off).abs()
+        raise AssertionError(
+            f"sorted+gated pass differs from unsorted: {int((d > 0).sum())} values, "
+            f"max {float(d.max())}; rays {s_on} vs {s_off}"
+        )
+    log(f"[sort] Cornell 1080p pass sorted+gated ms {[round(m, 3) for m in ms[True]]}, "
+        f"unsorted ms {[round(m, 3) for m in ms[False]]}: accumulations equal, "
+        f"{s_on['rays']} rays each")
 
-    # --- 4. kernels against plain versions, and times, at the main path's shapes
+    # --- 3. the Cornell path -------------------------------------------------
+    cornell_launches = run_path("cornell", scene, camera, ctx, opts,
+                                ("closest_wide", "any_wide"), ("closest_stream", "any_stream"))
+
+    # --- 4. K1/K2 against plain versions at the path's shapes ----------------
     frame = FrameGlobals.create(1, device=device)
     prim = integrator.start_paths(camera, ctx, opts, 1)
     _, shadow = integrator.bounce(scene, ctx, opts, frame, 1, prim)
-    check_closest(pack.wide, prim.org, prim.direction, "cornell 1080p primary", err)
-    check_any(pack.wide_occl, shadow.org, shadow.direction, shadow.t_max,
+    check_closest("closest_wide", pack.wide, prim.org, prim.direction, "cornell 1080p primary", err)
+    check_any("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max,
               "cornell 1080p NEE shadow", err)
-    timing = {
-        "closest_wide": (
-            lambda: closest_fn(pack.wide, prim.org, prim.direction),
-            lambda: wide_bvh.closest_wide_plain(pack.wide, prim.org, prim.direction),
-        ),
-        "any_wide": (
-            lambda: any_fn(pack.wide_occl, shadow.org, shadow.direction, t_max=shadow.t_max),
-            lambda: wide_bvh.any_wide_plain(
-                pack.wide_occl, shadow.org, shadow.direction, t_max=shadow.t_max
-            ),
-        ),
-    }
-    kernels = []
-    for name, (kernel, plain) in timing.items():
-        ms, plain_ms = time_ms(kernel, 10), time_ms(plain, 1)
-        log(f"[time] {name} on {WIDTH * HEIGHT} rays: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-        })
+    kernels = time_kernels([
+        ("closest_wide", pack.wide, prim.org, prim.direction, None, True),
+        ("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
+    ], err, cornell_launches)
+    del ctx, pack, prim, shadow
 
+    # --- 5. high_poly on the card: streaming kernels against plain ------------
+    t0 = time.perf_counter()
+    hp_scene = high_poly().to(device)
+    t_scene = time.perf_counter() - t0
+    hp_camera = frame_scene(scene_aabb(hp_scene.geometry), WIDTH, HEIGHT, theta=0.35).to(device)
+    t0 = time.perf_counter()
+    hp_ctx = integrator.make_context(opts, hp_scene, device)
+    torch.cuda.synchronize()
+    hp = hp_ctx.accel_pack
+    log(f"[setup] high_poly: scene {t_scene:.2f} s, context {time.perf_counter() - t0:.2f} s "
+        f"(host build): {hp.wide.num_triangles} triangles, backend {hp.backend!r}, "
+        f"{hp.wide.num_nodes} nodes, {hp.wide.num_chunks} leaves of {hp.wide.leaf_size}, "
+        f"stack {hp.wide.max_stack}, w {hp.wide.w.numel() * 4 / 1e6:.1f} MB")
+    if hp.backend != "stream" or hp.wide.leaf_size != opts.stream_leaf_size:
+        raise AssertionError(f"high_poly got the {hp.backend!r} backend")
+    primary, shadow = check_path_rays(("closest_stream", "any_stream"), hp_scene, hp_camera,
+                                      hp_ctx, opts, gen, "high_poly", err)
+
+    # --- 6. the high_poly path -------------------------------------------------
+    hp_launches = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
+                           ("closest_stream", "any_stream"), ("closest_wide", "any_wide"))
+
+    # --- 7. K3 times, and K1/K2 on a 32-triangle-leaf tree of the same scene ---
+    kernels += time_kernels([
+        ("closest_stream", hp.wide, primary.org, primary.direction, None, False),
+        ("any_stream", hp.wide_occl, shadow.org, shadow.direction, shadow.t_max, False),
+    ], err, hp_launches)
+    t0 = time.perf_counter()
+    wide32 = wide_bvh.build_wide_bvh(hp.accel, leaf_size=32)
+    torch.cuda.synchronize()
+    log(f"[setup] high_poly at leaf 32 in {time.perf_counter() - t0:.2f} s: "
+        f"{wide32.num_nodes} nodes, {wide32.num_chunks} leaves, stack {wide32.max_stack}")
+    if wide32.max_stack > wide_bvh._kernels().wide_bvh_stack_depth():
+        log(f"[compare] K1 cannot walk the leaf-32 tree: stack {wide32.max_stack}")
+    else:
+        k1 = time_ms(lambda: wide_bvh.intersect_closest_wide(
+            wide32, primary.org, primary.direction), 10)
+        k2 = time_ms(lambda: wide_bvh.intersect_any_wide(
+            wide32, shadow.org, shadow.direction, t_max=shadow.t_max), 10)
+        k3 = {k["name"]: k["ms"] for k in kernels}
+        log(f"[compare] high_poly on {primary.org.x.numel()} rays: K1 on leaf 32 {k1:.4f} ms vs "
+            f"K3a on leaf 128 {k3['closest_stream']:.4f} ms; K2 on leaf 32 {k2:.4f} ms vs "
+            f"K3b {k3['any_stream']:.4f} ms; card {card}")
+
+    log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

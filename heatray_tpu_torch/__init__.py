@@ -2,22 +2,28 @@
 
 A differentiable wavefront path tracer's forward render, on PyTorch tensors,
 with the wide-BVH traversal kernels written in CUDA for Hopper
-(``csrc/wide_bvh.cu``).  It imports torch and numpy, never jax.
+(``csrc/wide_bvh.cu``, and ``csrc/wide_bvh_stream.cu`` for scenes past
+250,000 triangles).  It imports torch and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera
 from .options import FrameGlobals, RenderOptions
 from .render.integrator import make_context, render, render_pass, resolve
-from .scene.builtin import cornell_box
+from .scene.builtin import cornell_box, high_poly
+from .scene.geometry import scene_aabb
+from .utils.framing import frame_scene
 
 __all__ = [
     "CameraParams",
     "FrameGlobals",
     "RenderOptions",
     "cornell_box",
+    "frame_scene",
+    "high_poly",
     "make_context",
     "orbit_camera",
     "render",
     "render_pass",
     "resolve",
+    "scene_aabb",
 ]

@@ -3,7 +3,8 @@
 Every function takes plain dicts of numpy arrays, keyed by the field names
 of the JAX package's dataclasses (for example
 ``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``),
-never JAX objects, and returns the port's object on ``device``.  Both
+never JAX objects, and returns the port's object on ``device`` (the card
+unless the caller names another).  Both
 packages can then compute on the same scene, tree, tables and camera.
 Fields the port does not read (UVs, tangents, texture ids) are ignored.
 """
@@ -45,7 +46,7 @@ def scene_from_arrays(
     lights: dict,
     has_alpha_mask: bool = False,
     has_textures: bool = False,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """A Scene from the arrays of ``Scene.geometry``, ``Scene.materials``
     and ``Scene.lights``."""
@@ -63,7 +64,7 @@ def scene_from_arrays(
 
 
 def wide_bvh_from_arrays(
-    arrays: dict, leaf_size: int, num_triangles: int, device="cpu"
+    arrays: dict, leaf_size: int, num_triangles: int, device="cuda"
 ) -> WideBVH:
     """A WideBVH from the arrays of a ``schedule="f32"`` build."""
     if np.asarray(arrays["w"]).dtype != np.float32:
@@ -79,7 +80,7 @@ def wide_bvh_from_arrays(
 
 
 def tables_from_arrays(
-    arrays: dict, num_sequences: int, sequence_length: int, device="cpu"
+    arrays: dict, num_sequences: int, sequence_length: int, device="cuda"
 ) -> SampleTables:
     tables = _tensors(SampleTables, arrays, device)
     return dataclasses.replace(
@@ -87,5 +88,5 @@ def tables_from_arrays(
     )
 
 
-def camera_from_arrays(arrays: dict, device="cpu") -> CameraParams:
+def camera_from_arrays(arrays: dict, device="cuda") -> CameraParams:
     return _tensors(CameraParams, arrays, device)

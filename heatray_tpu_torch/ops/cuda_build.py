@@ -2,9 +2,9 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface under ``build/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused.  The library is loaded with ``ctypes``.  Nothing here runs
-when the module is imported.
+the source, the shared headers and the flags, so an edited source is
+rebuilt and an unchanged one is reused.  The library is loaded with
+``ctypes``.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -43,8 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where the library built from ``csrc/<name>.cu`` lives (named by the
+    source, the shared headers ``csrc/*.cuh`` and the flags)."""
+    files = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    src = b"".join(f.read_bytes() for f in files)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

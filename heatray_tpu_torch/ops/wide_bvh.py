@@ -2,14 +2,16 @@
 
 Port of ``heatray_tpu.ops.wide_bvh`` (``collapse_topology``,
 ``build_wide_bvh`` with the f32 leaf layout, ``intersect_closest_wide``,
-``intersect_any_wide``).  The queries keep the JAX package's contract:
+``intersect_any_wide`` and the large-leaf ``intersect_closest_stream``,
+``intersect_any_stream``).  The queries keep the JAX package's contract:
 closest hit returns ``(t, slot, hit)`` with raw chunk-slot ids
 (``chunk * leaf_size + j``) and ``(MISS_T, -1)`` on a miss; any hit returns
 an (R,) blocked mask.
 
 Each query has two versions.  On a CUDA tensor the wrapper launches the
-hand-written kernel of ``csrc/wide_bvh.cu`` (built at first use) and counts
-the launch in its ``launches`` attribute; on a CPU tensor it runs the plain
+hand-written kernel of ``csrc/wide_bvh.cu`` or ``csrc/wide_bvh_stream.cu``
+(built at first use) and counts the launch in its ``launches`` attribute;
+on a CPU tensor it runs the plain
 PyTorch version, a brute force over the same slot-ordered, anchor-centred
 leaf rows (``ops.intersect``).  The brute force has no tree, stack or visit
 order, so it checks the kernel's walk independently.
@@ -237,27 +239,62 @@ def any_wide_plain(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min=1e-4, t_
     return any_rows(origins, directions, rows, t_min, t_max, anchor)
 
 
+def closest_stream_plain(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min=1e-4):
+    """The streaming kernel's plain version: the same brute force, over a
+    tree with larger leaves."""
+    return closest_wide_plain(bvh, origins, directions, t_min)
+
+
+def any_stream_plain(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min=1e-4, t_max=3.0e37):
+    """The streaming occlusion kernel's plain version (see
+    ``closest_stream_plain``)."""
+    return any_wide_plain(bvh, origins, directions, t_min, t_max)
+
+
 # --- kernel wrappers ---------------------------------------------------------
 
 _P = ctypes.c_void_p
+_CLOSEST_ARGS = (
+    [_P] * 6 + [ctypes.c_int] + [_P] * 5
+    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P, _P]
+)
+_ANY_ARGS = (
+    [_P] * 7 + [ctypes.c_int] + [_P] * 5
+    + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
+)
+# Shared memory a block of the streaming kernels may take for its 8 leaf
+# slots (of the H100's 227 KB per block, less the walk's own state).
+_STREAM_SLOT_BYTES = 200 * 1024
+
+
+def _bind(name: str, depth_fn: str, closest: str, any_: str) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    getattr(lib, depth_fn).argtypes = []
+    getattr(lib, depth_fn).restype = ctypes.c_int
+    for fn, args in ((closest, _CLOSEST_ARGS), (any_, _ANY_ARGS)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
-    lib = cuda_build.load("wide_bvh")
-    lib.wide_bvh_stack_depth.argtypes = []
-    lib.wide_bvh_stack_depth.restype = ctypes.c_int
-    lib.closest_wide.argtypes = (
-        [_P] * 6 + [ctypes.c_int] + [_P] * 5
-        + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P, _P]
-    )
-    lib.closest_wide.restype = ctypes.c_int
-    lib.any_wide.argtypes = (
-        [_P] * 7 + [ctypes.c_int] + [_P] * 5
-        + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
-    )
-    lib.any_wide.restype = ctypes.c_int
-    return lib
+    return _bind("wide_bvh", "wide_bvh_stack_depth", "closest_wide", "any_wide")
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_kernels() -> ctypes.CDLL:
+    return _bind("wide_bvh_stream", "wide_bvh_stream_stack_depth",
+                 "closest_stream", "any_stream")
+
+
+def _on_cpu(bvh: WideBVH) -> bool:
+    """True for a tree on the CPU (plain version); raises unless it lies
+    on a CUDA device (kernel)."""
+    device = bvh.w.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no wide-BVH kernel for device {device}")
+    return device.type == "cpu"
 
 
 def _ray_ptrs(origins: Vec3, directions: Vec3, device):
@@ -270,8 +307,7 @@ def _ray_ptrs(origins: Vec3, directions: Vec3, device):
     return comps, [c.data_ptr() for c in comps]
 
 
-def _tree_args(bvh: WideBVH, lib) -> list:
-    depth = lib.wide_bvh_stack_depth()
+def _tree_args(bvh: WideBVH, depth: int) -> list:
     if bvh.max_stack > depth:
         raise ValueError(
             f"tree needs a traversal stack of {bvh.max_stack}, the kernel has {depth}"
@@ -286,23 +322,27 @@ def _tree_args(bvh: WideBVH, lib) -> list:
             bvh.w.data_ptr(), bvh.wanchor.data_ptr(), bvh.num_chunks, bvh.leaf_size]
 
 
+def _stream_tree_args(bvh: WideBVH, lib) -> list:
+    """``_tree_args`` plus what the leaf staging needs: 16-byte copies and
+    8 chunks in shared memory."""
+    tree = _tree_args(bvh, lib.wide_bvh_stream_stack_depth())
+    if bvh.w.data_ptr() % 16:
+        raise ValueError("WideBVH.w must be 16-byte aligned for the streaming kernels")
+    if ARITY * bvh.w[0].numel() * 4 > _STREAM_SLOT_BYTES:
+        raise ValueError(
+            f"leaf size {bvh.leaf_size} does not fit 8 chunks in shared memory"
+        )
+    return tree
+
+
 def _check_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
-def intersect_closest_wide(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
-    """Closest hit of each ray (Vec3 of (R,)): ``(t, slot, hit)``.
-
-    CPU tensors take the plain version; CUDA tensors launch
-    ``closest_wide_kernel`` on the tree's device and its current stream."""
+def _launch_closest(kernel, tree: list, bvh: WideBVH, origins: Vec3, directions: Vec3,
+                    t_min: float):
     device = bvh.w.device
-    if device.type == "cpu":
-        return closest_wide_plain(bvh, origins, directions, t_min)
-    if device.type != "cuda":
-        raise ValueError(f"no wide-BVH kernel for device {device}")
-    lib = _kernels()
-    tree = _tree_args(bvh, lib)
     comps, ptrs = _ray_ptrs(origins, directions, device)
     r = comps[0].shape[0]
     t = torch.empty((r,), dtype=torch.float32, device=device)
@@ -310,12 +350,44 @@ def intersect_closest_wide(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         _check_launch(
-            lib.closest_wide(*ptrs, r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
-                             t.data_ptr(), slot.data_ptr(), stream),
-            "closest_wide",
+            kernel(*ptrs, r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
+                   t.data_ptr(), slot.data_ptr(), stream),
+            kernel.__name__,
         )
-    intersect_closest_wide.launches += 1
     return t, slot, slot >= 0
+
+
+def _launch_any(kernel, tree: list, bvh: WideBVH, origins: Vec3, directions: Vec3,
+                t_min: float, t_max):
+    device = bvh.w.device
+    comps, ptrs = _ray_ptrs(origins, directions, device)
+    r = comps[0].shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
+    t_max = t_max.expand(r).contiguous()
+    blocked = torch.empty((r,), dtype=torch.bool, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _check_launch(
+            kernel(*ptrs, t_max.data_ptr(), r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
+                   blocked.data_ptr(), stream),
+            kernel.__name__,
+        )
+    return blocked
+
+
+def intersect_closest_wide(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
+    """Closest hit of each ray (Vec3 of (R,)): ``(t, slot, hit)``.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``closest_wide_kernel`` on the tree's device and its current stream."""
+    if _on_cpu(bvh):
+        return closest_wide_plain(bvh, origins, directions, t_min)
+    lib = _kernels()
+    out = _launch_closest(lib.closest_wide, _tree_args(bvh, lib.wide_bvh_stack_depth()),
+                          bvh, origins, directions, t_min)
+    if origins.x.numel():
+        intersect_closest_wide.launches += 1
+    return out
 
 
 def intersect_any_wide(
@@ -326,28 +398,53 @@ def intersect_any_wide(
 
     CPU tensors take the plain version; CUDA tensors launch
     ``any_wide_kernel`` on the tree's device and its current stream."""
-    device = bvh.w.device
-    if device.type == "cpu":
+    if _on_cpu(bvh):
         return any_wide_plain(bvh, origins, directions, t_min, t_max)
-    if device.type != "cuda":
-        raise ValueError(f"no wide-BVH kernel for device {device}")
     lib = _kernels()
-    tree = _tree_args(bvh, lib)
-    comps, ptrs = _ray_ptrs(origins, directions, device)
-    r = comps[0].shape[0]
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
-    t_max = t_max.expand(r).contiguous()
-    blocked = torch.empty((r,), dtype=torch.bool, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _check_launch(
-            lib.any_wide(*ptrs, t_max.data_ptr(), r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
-                         blocked.data_ptr(), stream),
-            "any_wide",
-        )
-    intersect_any_wide.launches += 1
-    return blocked
+    out = _launch_any(lib.any_wide, _tree_args(bvh, lib.wide_bvh_stack_depth()),
+                      bvh, origins, directions, t_min, t_max)
+    if origins.x.numel():
+        intersect_any_wide.launches += 1
+    return out
+
+
+def intersect_closest_stream(bvh: WideBVH, origins: Vec3, directions: Vec3,
+                             t_min: float = 1e-4):
+    """Closest hit over a tree with large leaves (``stream_leaf_size``), the
+    contract of ``intersect_closest_wide``.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``closest_stream_kernel`` (``csrc/wide_bvh_stream.cu``), which walks the
+    tree once per block of 256 rays and stages leaf chunks in shared memory."""
+    if _on_cpu(bvh):
+        return closest_stream_plain(bvh, origins, directions, t_min)
+    lib = _stream_kernels()
+    out = _launch_closest(lib.closest_stream, _stream_tree_args(bvh, lib),
+                          bvh, origins, directions, t_min)
+    if origins.x.numel():
+        intersect_closest_stream.launches += 1
+    return out
+
+
+def intersect_any_stream(
+    bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
+):
+    """Occlusion over a tree with large leaves, the contract of
+    ``intersect_any_wide``.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``any_stream_kernel`` (``csrc/wide_bvh_stream.cu``)."""
+    if _on_cpu(bvh):
+        return any_stream_plain(bvh, origins, directions, t_min, t_max)
+    lib = _stream_kernels()
+    out = _launch_any(lib.any_stream, _stream_tree_args(bvh, lib),
+                      bvh, origins, directions, t_min, t_max)
+    if origins.x.numel():
+        intersect_any_stream.launches += 1
+    return out
 
 
 intersect_closest_wide.launches = 0
 intersect_any_wide.launches = 0
+intersect_closest_stream.launches = 0
+intersect_any_stream.launches = 0

@@ -66,8 +66,9 @@ class RenderOptions:
     stream_leaf_size: int = 128
     stream_ray_tile: int = 256
     stream_leaf_math: str = "mxu"
-    # The bounce sort and segment gating are an exact permutation of the
-    # wavefront; the port runs unsorted and ungated until they are ported.
+    # The bounce sort and segment gating: True, False or "auto" (on where
+    # the tree lies on a CUDA device, off on the CPU).  Sorting is an exact
+    # permutation of the wavefront, so the image is the same either way.
     sort_bounces: bool | str = "auto"
     sort_impl: str = "auto"
     gate_bounces: bool | str = "auto"
@@ -82,11 +83,13 @@ class RenderOptions:
     def __post_init__(self):
         if self.max_ray_depth < 1 or self.max_render_passes < 1:
             raise ValueError("max_ray_depth and max_render_passes must be >= 1")
+        for name in ("sort_bounces", "gate_bounces"):
+            if getattr(self, name) not in (True, False, "auto"):
+                raise ValueError(f"RenderOptions.{name} must be True, False or 'auto'")
         unported = {
-            "intersect_backend": self.intersect_backend not in ("auto", "wide"),
+            "intersect_backend": self.intersect_backend not in ("auto", "wide", "stream"),
+            "stream_leaf_math": self.stream_leaf_math != "mxu",
             "aov": self.aov != AOV.NONE,
-            "sort_bounces": self.sort_bounces is True,
-            "gate_bounces": self.gate_bounces is True,
             "interactive_block": self.interactive_block,
             "ms_impl": self.ms_impl != "fit",
             "image_height": self.image_height is not None,

@@ -1,14 +1,22 @@
 """The wavefront path-tracing integrator (port of
-``heatray_tpu.render.integrator`` for the wide-BVH backend).
+``heatray_tpu.render.integrator`` for the wide-BVH backends).
 
 Per pass every pixel traces one camera ray; a Python loop over bounce depth
 intersects (closest-hit kernel), gathers one shading row per hit, shades
 (NEE shadow ray plus extension ray), tests occlusion (any-hit kernel) and
 accumulates into a planar ``(4, H, W)`` buffer whose channel 3 counts
 passes.  The wavefront is a flat ``(R,)`` set of tensors; dead lanes are
-parked outside every box rather than compacted.  The JAX package's bounce
-sort and segment gating are an exact permutation of this wavefront and are
-not ported yet: the port runs unsorted and ungated.
+parked outside every box rather than compacted.
+
+Backends: ``"wide"`` (32-triangle leaves, ``csrc/wide_bvh.cu``) up to
+250,000 triangles and ``"stream"`` (128-triangle leaves staged in shared
+memory, ``csrc/wide_bvh_stream.cu``) above, on the card and the CPU alike.
+
+From the second bounce on, the wavefront can be sorted by direction octant
+and origin Morton code (coherent kernel tiles, live lanes first) and the
+bounce then run only on the segments that hold live lanes.  Both are an
+exact permutation of per-lane work, undone at accumulation through each
+lane's pixel index, so the image does not change.
 
 Image convention: row 0 is the BOTTOM of the image.
 """
@@ -21,7 +29,14 @@ import torch
 
 from ..camera import CameraParams
 from ..ops.intersect import WoopAccel, build_woop
-from ..ops.wide_bvh import WideBVH, build_wide_bvh, intersect_any_wide, intersect_closest_wide
+from ..ops.wide_bvh import (
+    WideBVH,
+    build_wide_bvh,
+    intersect_any_stream,
+    intersect_any_wide,
+    intersect_closest_stream,
+    intersect_closest_wide,
+)
 from ..options import FrameGlobals, RenderOptions
 from ..sampling.tables import SampleTables, build_tables, get_aperture_sample
 from ..scene.scene import Scene
@@ -37,18 +52,37 @@ from .shade_table import (
 )
 
 _PARK_ORG = 3.0e37
+# Past this many triangles the "auto" backend is "stream" (the JAX package's
+# VMEM budget, ``integrator.py:124``; kept as the port's rule).
+STREAM_THRESHOLD = 250_000
+
+# (closest hit, occlusion) per backend.
+_INTERSECTORS = {
+    "wide": (intersect_closest_wide, intersect_any_wide),
+    "stream": (intersect_closest_stream, intersect_any_stream),
+}
 
 
 @dataclasses.dataclass
 class AccelPack:
     """Per-scene acceleration state: the Woop rows, the wide BVH of all
     triangles, the occluder tree (the same tree unless some material is
-    alpha-masked), and the shading table in the tree's slot order."""
+    alpha-masked), the shading table in the tree's slot order, and the
+    backend whose kernels walk the trees."""
 
     accel: WoopAccel
     wide: WideBVH
     wide_occl: WideBVH
     shade_table: torch.Tensor
+    backend: str
+
+
+def _select_backend(options: RenderOptions, num_triangles: int) -> str:
+    """``"auto"``: the 32-triangle-leaf kernels up to ``STREAM_THRESHOLD``
+    triangles, the streaming kernels above, on every device."""
+    if options.intersect_backend != "auto":
+        return options.intersect_backend
+    return "wide" if num_triangles <= STREAM_THRESHOLD else "stream"
 
 
 @dataclasses.dataclass
@@ -60,26 +94,35 @@ class RenderContext:
     device: torch.device
 
 
+def _device(device) -> torch.device:
+    """The device to render on; the card must be there if it is named."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to render with the plain versions")
+    return device
+
+
 def build_accel(scene: Scene, options: RenderOptions) -> AccelPack:
     """Build the acceleration state on the scene's device (the BVH itself
     is built on the host)."""
     accel = build_woop(scene.geometry.positions, scene.geometry.indices)
-    wide = build_wide_bvh(accel, leaf_size=options.wide_leaf_size)
+    backend = _select_backend(options, accel.num_triangles)
+    leaf = options.stream_leaf_size if backend == "stream" else options.wide_leaf_size
+    wide = build_wide_bvh(accel, leaf_size=leaf)
     if scene.has_alpha_mask:
         mats = scene.materials.alpha_mask[scene.geometry.material_ids.long()]
-        wide_occl = build_wide_bvh(
-            accel, leaf_size=options.wide_leaf_size, include=(mats == 0).cpu().numpy()
-        )
+        wide_occl = build_wide_bvh(accel, leaf_size=leaf, include=(mats == 0).cpu().numpy())
     else:
         wide_occl = wide
     table = slot_order_table(build_shade_table(scene, accel), wide.slot_tri)
-    return AccelPack(accel=accel, wide=wide, wide_occl=wide_occl, shade_table=table)
+    return AccelPack(accel=accel, wide=wide, wide_occl=wide_occl, shade_table=table,
+                     backend=backend)
 
 
-def make_context(options: RenderOptions, scene: Scene | None = None, device="cpu") -> RenderContext:
+def make_context(options: RenderOptions, scene: Scene | None = None, device="cuda") -> RenderContext:
     """Sample tables and, given a scene (already on ``device``), its
     acceleration state."""
-    device = torch.device(device)
+    device = _device(device)
     return RenderContext(
         tables=build_tables(
             options.width,
@@ -177,6 +220,25 @@ class Paths:
     contrib: Vec3
     seq_id: torch.Tensor
     seq_off: torch.Tensor
+    pix: torch.Tensor  # (R,) int64: the pixel each lane accumulates into
+
+    def map(self, fn) -> "Paths":
+        """Apply ``fn`` to every (R,) plane."""
+        def one(v):
+            return v.map(fn) if isinstance(v, Vec3) else fn(v)
+
+        return Paths(**{f.name: one(getattr(self, f.name)) for f in dataclasses.fields(self)})
+
+
+def _merge(head: Paths, tail: Paths) -> Paths:
+    """The lanes of ``head`` followed by those of ``tail``."""
+    def cat(a, b):
+        if isinstance(a, Vec3):
+            return Vec3(cat(a.x, b.x), cat(a.y, b.y), cat(a.z, b.z))
+        return torch.cat([a, b])
+
+    return Paths(**{f.name: cat(getattr(head, f.name), getattr(tail, f.name))
+                    for f in dataclasses.fields(Paths)})
 
 
 @dataclasses.dataclass
@@ -205,6 +267,7 @@ def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions
         contrib=Vec3.zeros((r,), device=ctx.device),
         seq_id=seq_id,
         seq_off=seq_off,
+        pix=torch.arange(r, device=ctx.device),
     )
 
 
@@ -214,6 +277,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     NEE occlusion, and the extension rays.  Returns the next
     ``Paths`` and the ``ShadowRays`` traced."""
     pack = ctx.accel_pack
+    closest_fn, any_fn = _INTERSECTORS[pack.backend]
     eps = options.ray_epsilon
     lights = scene.lights
     org, direction, weight = paths.org, paths.direction, paths.weight
@@ -222,7 +286,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     def clamp(c: Vec3) -> Vec3:
         return c.minimum(frame.max_channel_value)
 
-    _, slot, hit = intersect_closest_wide(pack.wide, org, direction, eps)
+    _, slot, hit = closest_fn(pack.wide, org, direction, eps)
     hit = hit & active
 
     # Miss: the environment, for camera and glass-refraction rays.
@@ -254,7 +318,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
         _offset_origin(p, geo_n, res.shadow_dir, eps), res.shadow_dir, res.shadow_active
     )
     shadow = ShadowRays(s_org, s_dir, res.shadow_max_t - 2.0 * eps, res.shadow_active)
-    blocked = intersect_any_wide(pack.wide_occl, s_org, s_dir, eps, shadow.t_max)
+    blocked = any_fn(pack.wide_occl, s_org, s_dir, eps, shadow.t_max)
     lit = res.shadow_active & ~blocked
     contrib = contrib + Vec3.where(lit, clamp(res.shadow_weight * res.shadow_radiance), 0.0)
 
@@ -265,9 +329,81 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     nxt = Paths(
         org=e_org, direction=e_dir, weight=res.ext_weight,
         env_on_miss=res.ext_env_on_miss, active=res.ext_active, contrib=contrib,
-        seq_id=paths.seq_id, seq_off=paths.seq_off,
+        seq_id=paths.seq_id, seq_off=paths.seq_off, pix=paths.pix,
     )
     return nxt, shadow
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 6 bits of ``x`` so they interleave 3 ways (Morton)."""
+    x = x & 0x3F
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _wavefront_sort_key(org: Vec3, direction: Vec3, active, lo, hi) -> torch.Tensor:
+    """int32 coherence key of each lane, bit-equal to the JAX package's:
+    3-bit direction octant (major) and a 6-bit-per-axis Morton code of the
+    origin within the scene box ``lo``..``hi`` (minor).  Inactive lanes sort
+    last, so live lanes form a prefix."""
+
+    def q(c, lo_a, hi_a):
+        s = (c - lo_a) / torch.clamp(hi_a - lo_a, min=1e-6) * 64.0
+        # XLA's float -> int32 saturates (NaN -> 0); clamp first so the
+        # truncating cast below sees only values it converts exactly.
+        s = torch.nan_to_num(s, nan=0.0).clamp(-1.0, 64.0)
+        return s.to(torch.int32).clamp(0, 63)
+
+    morton = (
+        _part1by2(q(org.x, lo[0], hi[0]))
+        | (_part1by2(q(org.y, lo[1], hi[1])) << 1)
+        | (_part1by2(q(org.z, lo[2], hi[2])) << 2)
+    )
+    octant = (
+        (direction.x >= 0).int()
+        | ((direction.y >= 0).int() << 1)
+        | ((direction.z >= 0).int() << 2)
+    )
+    key = (octant << 18) | morton
+    return torch.where(active, key, torch.tensor(1 << 28, dtype=torch.int32, device=key.device))
+
+
+def _sort_bounds(ctx: RenderContext):
+    """(lo, hi): the scene box the sort key quantises origins in."""
+    tri = ctx.accel_pack.accel
+    return tri.tri_min.min(dim=1).values, tri.tri_max.max(dim=1).values
+
+
+def _sort_paths(paths: Paths, lo, hi) -> Paths:
+    """Reorder the wavefront by ``_wavefront_sort_key`` (stable), every
+    plane with one gather."""
+    key = _wavefront_sort_key(paths.org, paths.direction, paths.active, lo, hi)
+    order = torch.sort(key, stable=True).indices
+    return paths.map(lambda p: p.index_select(0, order))
+
+
+def _bounce_modes(ctx: RenderContext, options: RenderOptions, r: int):
+    """(sort, gate) for this pass: "auto" sorts where the tree lies on a CUDA
+    device, and gates whenever it sorts (gating needs the sorted prefix)."""
+    if options.sort_bounces == "auto":
+        sort_on = ctx.accel_pack.wide.w.device.type == "cuda"
+    else:
+        sort_on = bool(options.sort_bounces)
+    sort_on = sort_on and options.max_ray_depth > 1
+    gate_on = sort_on if options.gate_bounces == "auto" else bool(options.gate_bounces) and sort_on
+    return sort_on, gate_on and options.gate_segments > 1 and r > 1
+
+
+def _gated_lanes(paths: Paths, segments: int) -> int:
+    """How many leading lanes of a sorted wavefront the bounce must run: the
+    live prefix rounded up to whole segments of ``ceil(R / segments)``
+    (one host sync)."""
+    r = paths.active.shape[0]
+    seg = -(-r // segments)
+    n_live = int(paths.active.sum())
+    return min(r, -(-n_live // seg) * seg)
 
 
 def render_pass(
@@ -287,14 +423,33 @@ def render_pass(
     if ctx.accel_pack is None:
         raise NotImplementedError("rendering without a prebuilt AccelPack is not ported yet")
     paths = start_paths(camera, ctx, options, frame.sample_index)
+    r = paths.active.shape[0]
+    sort_on, gate_on = _bounce_modes(ctx, options, r)
+    if sort_on:
+        lo, hi = _sort_bounds(ctx)
     ray_count = torch.zeros((), dtype=torch.int64, device=ctx.device)
     for depth in range(1, options.max_ray_depth + 1):
-        nxt, shadow = bounce(scene, ctx, options, frame, depth, paths)
+        # Camera rays arrive in pixel order, already coherent: the first
+        # bounce runs unsorted.
+        n = r
+        if sort_on and depth > 1:
+            paths = _sort_paths(paths, lo, hi)
+            if gate_on:
+                n = _gated_lanes(paths, options.gate_segments)
+        if n == 0:
+            continue  # no live lane: the carry passes through unchanged
+        head = paths if n == r else paths.map(lambda p: p[:n])
+        nxt, shadow = bounce(scene, ctx, options, frame, depth, head)
         if with_stats:
-            ray_count += paths.active.sum() + shadow.active.sum()
-        paths = nxt
+            ray_count += head.active.sum() + shadow.active.sum()
+        # Lanes past the live prefix keep their carry unchanged.
+        paths = nxt if n == r else _merge(nxt, paths.map(lambda p: p[n:]))
 
-    accum = accum + _accum_update(paths.contrib, options.height, options.width)
+    contrib = paths.contrib
+    if sort_on:
+        # Undo the permutations: lane i accumulates into pixel pix[i].
+        contrib = contrib.map(lambda c: torch.empty_like(c).index_copy_(0, paths.pix, c))
+    accum = accum + _accum_update(contrib, options.height, options.width)
     if with_stats:
         return accum, {"rays": int(ray_count)}
     return accum
@@ -310,14 +465,15 @@ def render(
     accum: torch.Tensor | None = None,
     start_pass: int = 0,
     pass_callback=None,
-    device="cpu",
+    device="cuda",
 ):
-    """Progressive render of ``num_passes`` passes on ``device``.
+    """Progressive render of ``num_passes`` passes on ``device`` (the card
+    unless the caller names another).
 
     Returns (accum, ctx); ``accum`` is planar (4, H, W) and
     ``resolve(accum)`` the linear (H, W, 3) image.  ``accum``/``start_pass``
     resume a render; ``pass_callback(i, accum)`` fires after every pass."""
-    device = torch.device(device)
+    device = _device(device)
     scene = scene.to(device)
     camera = camera.to(device)
     if ctx is None:

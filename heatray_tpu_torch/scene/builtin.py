@@ -1,12 +1,15 @@
-"""Built-in scenes (port of ``heatray_tpu.scene.builtin``): the Cornell box,
-the scene of ``bench.py`` and of the golden config2."""
+"""Built-in scenes (port of ``heatray_tpu.scene.builtin``): the Cornell box
+(the scene of ``bench.py``'s first row and of the golden config2) and
+``high_poly`` (its large-scene row)."""
 
 from __future__ import annotations
 
 import math
 
-from .geometry import rotate, translate
-from .lights import PointLight, SpotLight
+import numpy as np
+
+from .geometry import MeshData, rotate, translate
+from .lights import DirectionalLight, EnvironmentLightDesc, PointLight, SpotLight
 from .materials import GlassParams, PBRParams
 from .providers import plane_mesh, sphere_mesh
 from .scene import Scene, SceneBuilder
@@ -76,4 +79,56 @@ def cornell_box(light: str = "point", with_spheres: bool = True) -> Scene:
         )
     else:
         raise ValueError(f"unknown light setup {light!r}")
+    return b.build()
+
+
+def high_poly(env: EnvironmentLightDesc | None = None, triangles: int = 300_000) -> Scene:
+    """Large scene: an FBM-displaced sphere ("boulder") of about
+    ``triangles`` triangles over a ground plane, lit by a directional sun
+    and a solid-colour environment.  The displacement is the JAX package's
+    numpy float32 value noise with the same seed, so both packages build
+    the same arrays."""
+    # u x v lat/long grid -> 2 * u * (v + 1) triangles.
+    u = max(int(math.sqrt(triangles / 2.0)), 8)
+    v = max(triangles // (2 * u) - 1, 3)
+    base = sphere_mesh(u, v, radius=1.0, name="boulder")
+
+    # 3 octaves of trilinear-interpolated hash noise over the unit direction
+    # -> radial displacement.
+    rng = np.random.default_rng(1234)
+    grids = [rng.random((8 << o,) * 3).astype(np.float32) for o in range(3)]
+    p = base.positions / np.maximum(np.linalg.norm(base.positions, axis=1, keepdims=True), 1e-9)
+
+    def value_noise(g, q):
+        n = g.shape[0]
+        x = (q * 0.5 + 0.5) * (n - 1)
+        i = np.clip(x.astype(np.int64), 0, n - 2)
+        f = x - i
+        f = f * f * (3.0 - 2.0 * f)  # smoothstep
+        acc = np.zeros(len(q), np.float32)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    wgt = (
+                        (f[:, 0] if dx else 1 - f[:, 0])
+                        * (f[:, 1] if dy else 1 - f[:, 1])
+                        * (f[:, 2] if dz else 1 - f[:, 2])
+                    )
+                    acc += wgt * g[i[:, 0] + dx, i[:, 1] + dy, i[:, 2] + dz]
+        return acc
+
+    disp = sum(value_noise(g, p) * (0.5 ** (o + 1)) for o, g in enumerate(grids))
+    radius = 1.0 + 0.55 * (disp - 0.75)
+    boulder = MeshData(positions=p * radius[:, None], indices=base.indices, name="boulder")
+
+    b = SceneBuilder()
+    b.add_mesh(boulder, PBRParams(base_color=(0.55, 0.5, 0.45), roughness=0.7, name="rock"))
+    b.add_mesh(
+        plane_mesh(20.0, 20.0).transformed(translate((0.0, -1.05, 0.0))),
+        PBRParams(base_color=(0.35, 0.38, 0.35), roughness=0.9, name="ground"),
+    )
+    b.add_directional_light(
+        DirectionalLight(direction=(0.4, 1.0, 0.3), illuminance=683.0 * math.pi * 2.0)
+    )
+    b.set_environment(env or EnvironmentLightDesc(solid_color=(0.4, 0.45, 0.55)))
     return b.build()

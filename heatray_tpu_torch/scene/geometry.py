@@ -132,6 +132,12 @@ def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
     )
 
 
+def scene_aabb(geometry: Geometry) -> np.ndarray:
+    """(2, 3) min/max corners of the scene's vertices (host numpy)."""
+    p = geometry.positions.cpu().numpy()  # (3, V)
+    return np.stack([p.min(axis=1), p.max(axis=1)])
+
+
 def translate(v) -> np.ndarray:
     m = np.eye(4, dtype=np.float32)
     m[:3, 3] = v

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where one 1080p Cornell pass of the PyTorch/CUDA port (heatray_tpu_torch)
-spends its time on an NVIDIA card, and how the card's config2 render compares
-with the stored golden and with the CPU.
+"""Where one 1080p pass of the PyTorch/CUDA port (heatray_tpu_torch) spends
+its time on an NVIDIA card, how the card's config2 render compares with the
+stored golden and with the CPU, and what the bounce sort and segment gating
+cost or save on the Cornell box.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_pass.py [--passes 5] [--root DIR] [--trace FILE]
+    python3 profile_torch_pass.py [--scene cornell|high-poly] [--passes 5]
+                                  [--root DIR] [--trace FILE]
 
 ``--root`` imports the package from another tree (for example an unpacked
 parent commit), so two versions can be compared within one machine session.
@@ -16,14 +18,20 @@ It prints, one reading per line:
   the CPU, each against ``tests/goldens/config2_cornell.npy``: max |diff| and
   the count of values outside rtol = atol = 5e-3; then card against CPU: max
   |diff| and the count of values that differ at all and by more than 1e-3;
-- ``[pass]``: the Cornell box at 1920x1080, depth 4: the ms of each steady
-  pass after two warm-up passes (host clock around ``render_pass``, ended by
-  ``torch.cuda.synchronize()``) and their mean;
+- ``[sort]``: the Cornell box at 1920x1080, depth 4, steady passes with the
+  bounce sort and segment gating on and with both off, in turns, and their
+  means;
+- ``[pass]``: the chosen scene (``--scene``; ``high-poly`` is ``high_poly()``
+  framed as ``bench.py`` frames it) at 1920x1080, depth 4, with the options'
+  defaults: the ms of each steady pass after two warm-up passes (host clock
+  around ``render_pass``, ended by ``torch.cuda.synchronize()``) and their
+  mean;
 - ``[prof]``: one more pass under ``torch.profiler``, its stages labelled from
   outside the package with ``record_function``: the pass's wall ms, the sum
   of its CUDA kernels' self time (the "kernel ms" every share below divides
-  by), their count, that sum over the wall, peak device memory, each label's
-  device ms, and the closest-hit and occlusion kernels' ms per launch.
+  by), their count, that sum over the wall, peak device memory, the lanes
+  each gated bounce ran, each label's device ms, and the closest-hit and
+  occlusion kernels' ms per launch.
 
 It imports no jax.  ``--trace`` also writes the profiler's Chrome trace.
 """
@@ -31,6 +39,7 @@ It imports no jax.  ``--trace`` also writes the profiler's Chrome trace.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -42,11 +51,17 @@ WIDTH, HEIGHT, DEPTH = 1920, 1080, 4
 GOLDEN_SIZE, GOLDEN_PASSES, GOLDEN_TOL = 48, 4, 5e-3
 
 # (module, function, label); a label is summed over every call of a pass.
-# The two traversal kernels are counted by name instead: they are launched
+# The traversal kernels are counted by name instead: they are launched
 # through ctypes, which the profiler does not tie to an enclosing label.
-KERNELS = {"closest_wide_kernel": "K1 closest hit", "any_wide_kernel": "K2 occlusion"}
+KERNELS = {
+    "closest_wide_kernel": "K1 closest hit",
+    "any_wide_kernel": "K2 occlusion",
+    "closest_stream_kernel": "K3a closest hit (streaming)",
+    "any_stream_kernel": "K3b occlusion (streaming)",
+}
 LABELS = [
     ("integrator", "generate_primary_rays", "raygen"),
+    ("integrator", "_sort_paths", "bounce sort"),
     ("integrator", "gather_rows", "row gather"),
     ("integrator", "hit_attributes_rows", "hit attributes"),
     ("integrator", "shade_hits", "shading"),
@@ -82,8 +97,22 @@ def golden(np, device):
         f"differ, {int((d > 1e-3).sum())} by more than 1e-3")
 
 
+def scene_and_camera(name, device):
+    from heatray_tpu_torch import cornell_box, frame_scene, high_poly, orbit_camera, scene_aabb
+
+    if name == "cornell":
+        scene = cornell_box(light="both", with_spheres=True)
+        camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0)
+    else:
+        scene = high_poly()
+        camera = frame_scene(scene_aabb(scene.geometry), WIDTH, HEIGHT, theta=0.35)
+    return scene.to(device), camera.to(device)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scene", choices=("cornell", "high-poly"), default="cornell",
+                    help="scene of the [pass] and [prof] readings")
     ap.add_argument("--passes", type=int, default=5, help="steady passes to time")
     ap.add_argument("--root", type=Path, default=REPO, help="tree to import the package from")
     ap.add_argument("--trace", type=Path, help="write the profiled pass's Chrome trace here")
@@ -96,7 +125,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_pass: needs an NVIDIA card")
     sys.path.insert(0, str(args.root.resolve()))
-    from heatray_tpu_torch import cornell_box, orbit_camera
     from heatray_tpu_torch.options import FrameGlobals, RenderOptions
     from heatray_tpu_torch.render import integrator, shade
 
@@ -108,25 +136,54 @@ def main() -> int:
     golden(np, device)
 
     opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
-    scene = cornell_box(light="both", with_spheres=True).to(device)
-    camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0).to(device)
-    ctx = integrator.make_context(opts, scene, device)
     accum = torch.zeros((4, HEIGHT, WIDTH), device=device)
 
-    def one_pass(i):
+    def one_pass(scene, camera, ctx, options, i):
         nonlocal accum
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        accum = integrator.render_pass(scene, camera, ctx, opts,
+        accum = integrator.render_pass(scene, camera, ctx, options,
                                        FrameGlobals.create(i, device=device), accum)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    warm = [one_pass(i) for i in range(2)]
-    ms = [one_pass(2 + i) for i in range(args.passes)]
-    log(f"[pass] {WIDTH}x{HEIGHT} depth {DEPTH}: warm-up ms {warm!r}; steady ms {ms!r}, "
-        f"mean {sum(ms) / len(ms)!r}")
+    # Sorted and gated against unsorted, in turns, on the Cornell box.
+    scene, camera = scene_and_camera("cornell", device)
+    ctx = integrator.make_context(opts, scene, device)
+    modes = {True: opts, False: dataclasses.replace(opts, sort_bounces=False, gate_bounces=False)}
+    ms = {True: [], False: []}
+    for i in range(args.passes + 1):
+        for on in ((True, False) if i % 2 else (False, True)):
+            t = one_pass(scene, camera, ctx, modes[on], i)
+            if i:  # the first round warms both up
+                ms[on].append(t)
+    log(f"[sort] cornell {WIDTH}x{HEIGHT} depth {DEPTH}: sorted+gated ms {ms[True]!r}, mean "
+        f"{sum(ms[True]) / len(ms[True])!r}; unsorted ms {ms[False]!r}, mean "
+        f"{sum(ms[False]) / len(ms[False])!r}")
 
+    if args.scene != "cornell":
+        t0 = time.perf_counter()
+        scene, camera = scene_and_camera(args.scene, device)
+        ctx = integrator.make_context(opts, scene, device)
+        torch.cuda.synchronize()
+        wide = ctx.accel_pack.wide
+        log(f"[setup] {args.scene}: {wide.num_triangles} triangles, backend "
+            f"{ctx.accel_pack.backend!r}, {wide.num_chunks} leaves of {wide.leaf_size}, "
+            f"built in {time.perf_counter() - t0!r} s")
+    warm = [one_pass(scene, camera, ctx, opts, i) for i in range(2)]
+    ms = [one_pass(scene, camera, ctx, opts, 2 + i) for i in range(args.passes)]
+    log(f"[pass] {args.scene} {WIDTH}x{HEIGHT} depth {DEPTH}: warm-up ms {warm!r}; "
+        f"steady ms {ms!r}, mean {sum(ms) / len(ms)!r}")
+
+    lanes = []
+    gated = integrator._gated_lanes
+
+    def count_lanes(*a, **k):
+        n = gated(*a, **k)
+        lanes.append(n)
+        return n
+
+    integrator._gated_lanes = count_lanes
     mods = {"integrator": integrator, "shade": shade}
     for mod, name, label in LABELS:
         fn = getattr(mods[mod], name)
@@ -140,7 +197,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = one_pass(2 + args.passes)
+        wall = one_pass(scene, camera, ctx, opts, 2 + args.passes)
     # Each label shows up twice: as the host range (device time = the kernels
     # it launched) and as its copy on the device timeline, which is no kernel.
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -150,7 +207,8 @@ def main() -> int:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"[prof] wall {wall!r} ms; kernel ms {busy!r} in {sum(e.count for e in kernels)} "
         f"kernels, {busy / wall!r} of the wall; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20!r} MiB")
+        f"{torch.cuda.max_memory_allocated() / 2**20!r} MiB; lanes run at depths 2.. "
+        f"{lanes!r} of {WIDTH * HEIGHT}")
     rows = [(e.key, e.count, e.device_time_total / 1e3)
             for e in ka if e.key in labels and e.device_type == cpu]
     for name, label in KERNELS.items():

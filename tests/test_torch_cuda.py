@@ -99,6 +99,61 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         wide_bvh.intersect_any_wide(dataclasses.replace(bvh, max_stack=1 << 20), o, d)
 
 
+@pytest.mark.parametrize("n_rays", [8191, 0])
+def test_stream_kernels_match_plain(cuda_device, n_rays):
+    """K3a/K3b on a 50k-triangle soup at leaf 128: a ray count that leaves
+    the last block of 256 part-empty, and no rays at all."""
+    bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=128)
+    o, d = _rays(n_rays, 7, cuda_device)
+    launches = wide_bvh.intersect_closest_stream.launches
+    t_k, slot_k, hit_k = wide_bvh.intersect_closest_stream(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_stream_plain(bvh, o, d)
+    torch.cuda.synchronize()
+    assert wide_bvh.intersect_closest_stream.launches == launches + (n_rays > 0)
+    assert t_k.shape == slot_k.shape == (n_rays,)
+    assert torch.equal(hit_k, hit_p)
+    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
+    assert n_rays == 0 or (slot_k == slot_p).float().mean() > 0.999
+
+    t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
+    blocked = wide_bvh.intersect_any_stream(bvh, o, d, t_max=t_max)
+    assert torch.equal(blocked, wide_bvh.any_stream_plain(bvh, o, d, t_max=t_max))
+    assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
+
+
+def test_stream_kernel_finds_hits_just_past_an_edge(cuda_device):
+    """K3a on the ray of ``test_kernel_finds_hits_just_past_an_edge``, over
+    the Cornell box in 128-triangle leaves."""
+    scene = cornell_box(light="both", with_spheres=True).to(cuda_device)
+    bvh = wide_bvh.build_wide_bvh(
+        build_woop(scene.geometry.positions, scene.geometry.indices), leaf_size=128
+    )
+    o = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (1.999899983406067, 0.021646535024046898, 0.026903629302978516)))
+    d = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (-0.643088698387146, -0.5480369329452515, 0.5348762273788452)))
+    t_k, slot_k, hit_k = wide_bvh.intersect_closest_stream(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_stream_plain(bvh, o, d)
+    assert bool(hit_p[0]) and bool(hit_k[0])
+    assert torch.equal(t_k, t_p) and torch.equal(slot_k, slot_p)
+    assert bool(wide_bvh.intersect_any_stream(bvh, o, d, t_max=t_p + 1e-3)[0])
+
+
+def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    bvh = wide_bvh.build_wide_bvh(_soup(300, 5, cuda_device), leaf_size=128)
+    o, d = _rays(64, 3, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        wide_bvh.intersect_closest_stream(bvh, o.map(lambda c: c.double()), d)
+    with pytest.raises(ValueError, match="stack"):
+        wide_bvh.intersect_any_stream(dataclasses.replace(bvh, max_stack=257), o, d)
+    shifted = torch.empty(bvh.w.numel() + 1, device=cuda_device)[1:].view(bvh.w.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        wide_bvh.intersect_closest_stream(dataclasses.replace(bvh, w=shifted), o, d)
+    huge = torch.zeros((1, 4, 3 * 2048), device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide_bvh.intersect_any_stream(dataclasses.replace(bvh, w=huge, leaf_size=2048), o, d)
+
+
 def test_render_matches_cpu(cuda_device):
     """The golden configuration config2 (48x48, 4 passes, depth 4) on the
     card (kernels) and on the CPU (plain versions), at the golden's
@@ -110,5 +165,5 @@ def test_render_matches_cpu(cuda_device):
     scene = cornell_box(light="both", with_spheres=True)
     camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
     on_card, _ = render(scene, camera, opts, num_passes=passes, device=cuda_device)
-    on_cpu, _ = render(scene, camera, opts, num_passes=passes)
+    on_cpu, _ = render(scene, camera, opts, num_passes=passes, device="cpu")
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)

@@ -44,10 +44,10 @@ def test_imports_without_jax():
     "field, value",
     [
         ("intersect_backend", "xla"),
-        ("intersect_backend", "stream"),
+        ("intersect_backend", "bvh"),
+        ("intersect_backend", "pallas"),
+        ("stream_leaf_math", "vpu"),
         ("aov", AOV.BASE_COLOR),
-        ("sort_bounces", True),
-        ("gate_bounces", True),
         ("interactive_block", True),
         ("ms_impl", "lut"),
     ],
@@ -58,6 +58,13 @@ def test_unported_options_raise(field, value):
 
 
 def test_supported_options_accepted():
-    for kw in ({}, {"intersect_backend": "wide"}, {"sort_bounces": False},
-               {"gate_bounces": False}):
+    for kw in ({}, {"intersect_backend": "wide"}, {"intersect_backend": "stream"},
+               {"sort_bounces": False}, {"gate_bounces": False},
+               {"sort_bounces": True, "gate_bounces": True}, {"stream_ray_tile": 512}):
         RenderOptions(width=8, height=8, **kw)
+
+
+@pytest.mark.parametrize("field", ["sort_bounces", "gate_bounces"])
+def test_sort_and_gate_take_true_false_or_auto(field):
+    with pytest.raises(ValueError, match=field):
+        RenderOptions(**{field: "yes"})

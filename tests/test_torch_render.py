@@ -49,7 +49,7 @@ def jax_small():
 def port_small():
     scene = cornell_box(light="both", with_spheres=True)
     camera = orbit_camera(SMALL, SMALL, distance=6.2, focal_length_mm=35.0)
-    accum, _ = render(scene, camera, _options(SMALL), num_passes=1)
+    accum, _ = render(scene, camera, _options(SMALL), num_passes=1, device="cpu")
     return accum
 
 
@@ -69,12 +69,13 @@ def test_bridged_scene_renders_identically(jax_small, port_small):
     scene = scene_from_arrays(
         _arrays(jax_scene.geometry), _arrays(jax_scene.materials), _arrays(jax_scene.lights),
         has_alpha_mask=jax_scene.has_alpha_mask, has_textures=jax_scene.has_textures,
+        device="cpu",
     )
-    camera = camera_from_arrays(_arrays(jax_camera))
+    camera = camera_from_arrays(_arrays(jax_camera), device="cpu")
     own = orbit_camera(SMALL, SMALL, distance=6.2, focal_length_mm=35.0)
     for f in dataclasses.fields(own):
         assert torch.equal(getattr(own, f.name), getattr(camera, f.name)), f.name
-    accum, _ = render(scene, camera, _options(SMALL), num_passes=1)
+    accum, _ = render(scene, camera, _options(SMALL), num_passes=1, device="cpu")
     assert torch.equal(accum, port_small)
 
 
@@ -86,9 +87,9 @@ def test_config2_golden():
     scene = cornell_box(light="both", with_spheres=True)
     camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
     seen = []
-    accum, ctx = render(scene, camera, _options(size, passes), num_passes=passes - 1,
+    accum, ctx = render(scene, camera, _options(size, passes), num_passes=passes - 1, device="cpu",
                         pass_callback=lambda i, a: seen.append((i, float(a[3].max()))))
-    accum, _ = render(scene, camera, _options(size, passes), num_passes=1, ctx=ctx,
+    accum, _ = render(scene, camera, _options(size, passes), num_passes=1, ctx=ctx, device="cpu",
                       accum=accum, start_pass=passes - 1,
                       pass_callback=lambda i, a: seen.append((i, float(a[3].max()))))
     assert seen == [(i, float(i + 1)) for i in range(passes)]
@@ -106,7 +107,7 @@ def test_render_pass_stats():
     opts = _options(size)
     scene = cornell_box(light="both", with_spheres=True)
     camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
-    ctx = make_context(opts, scene)
+    ctx = make_context(opts, scene, device="cpu")
     zero = torch.zeros((4, size, size))
     frame = FrameGlobals.create(0)
     plain = render_pass(scene, camera, ctx, opts, frame, zero)
@@ -116,5 +117,5 @@ def test_render_pass_stats():
     assert size * size * 4 < stats["rays"] <= size * size * 2 * opts.max_ray_depth
     # Pass debugging renders exactly the chosen pass, whatever num_passes says.
     debug = dataclasses.replace(opts, debug_pass_rendering=True, debug_pass_index=0)
-    single, _ = render(scene, camera, debug, num_passes=3, ctx=ctx)
+    single, _ = render(scene, camera, debug, num_passes=3, ctx=ctx, device="cpu")
     assert torch.equal(single, plain)

@@ -65,7 +65,8 @@ def _build():
     numpy seed."""
     jax_scene = jax_cornell_box(light="both", with_spheres=True)
     scene = scene_from_arrays(
-        _arrays(jax_scene.geometry), _arrays(jax_scene.materials), _arrays(jax_scene.lights)
+        _arrays(jax_scene.geometry), _arrays(jax_scene.materials), _arrays(jax_scene.lights),
+        device="cpu",
     )
     jax_accel = jax_build_woop(jax_scene.geometry.positions, jax_scene.geometry.indices)
     accel = build_woop(scene.geometry.positions, scene.geometry.indices)

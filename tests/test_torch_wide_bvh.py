@@ -54,7 +54,9 @@ def test_build_woop_matches_jax():
     )
 
 
-@pytest.mark.parametrize("t, seed, leaf_size", [(500, 3, 16), (700, 11, 64), (300, 5, 32)])
+@pytest.mark.parametrize(
+    "t, seed, leaf_size", [(500, 3, 16), (700, 11, 64), (300, 5, 32), (1500, 13, 128)]
+)
 def test_build_matches_jax(t, seed, leaf_size):
     jax_accel, accel = _soup(t, seed)
     ref = jax_build_wide_bvh(jax_accel, leaf_size=leaf_size, schedule="f32")
@@ -66,7 +68,7 @@ def test_build_matches_jax(t, seed, leaf_size):
     assert (ours.leaf_size, ours.num_triangles) == (ref.leaf_size, ref.num_triangles)
 
     arrays = {f.name: np.asarray(getattr(ref, f.name)) for f in dataclasses.fields(ref)}
-    bridged = wide_bvh_from_arrays(arrays, ref.leaf_size, ref.num_triangles)
+    bridged = wide_bvh_from_arrays(arrays, ref.leaf_size, ref.num_triangles, device="cpu")
     for f in dataclasses.fields(ours):
         a, b = getattr(ours, f.name), getattr(bridged, f.name)
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
@@ -193,24 +195,23 @@ def _reachable_leaves(bvh, o, d, pad, far):
     return leaf_ok
 
 
-def test_widened_slab_reaches_every_plain_hit():
-    """The pair test accepts hits up to BARY_EPS outside a triangle, so
-    outside its box.  Rays aimed just past the Cornell box's triangle edges
-    (and one that grazes the floor's open front edge in the 48x48 config2
-    render) hit in the plain version; the kernels' widened slab test must
-    reach every such leaf, where an exact one culls some."""
+def cornell_edge_rays(n, leaf_size):
+    """The Cornell box's tree at ``leaf_size`` and ``n`` rays aimed just past
+    its triangles' edges (up to 1.5e-6 outside, in barycentric units), then
+    one that grazes the floor's open front edge in the 48x48 config2
+    render: (bvh, origins, directions)."""
     from heatray_tpu_torch import cornell_box
 
     scene = cornell_box(light="both", with_spheres=True)
     accel = intersect.build_woop(scene.geometry.positions, scene.geometry.indices)
-    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=32)
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=leaf_size)
 
     rng = np.random.default_rng(5)
     pos = scene.geometry.positions.double().numpy()
-    tri = scene.geometry.indices.long().numpy()[:, rng.integers(0, accel.num_triangles, 2047)]
+    tri = scene.geometry.indices.long().numpy()[:, rng.integers(0, accel.num_triangles, n)]
     v0, v1, v2 = (pos[:, tri[k]].T for k in range(3))
     s = rng.uniform(0.0, 1.0, (tri.shape[1], 1))
-    out = rng.uniform(0.0, 1.5e-6, (tri.shape[1], 1))  # past the edge, in barycentric units
+    out = rng.uniform(0.0, 1.5e-6, (tri.shape[1], 1))
     target = v0 + s * (v1 - v0) - out * (v2 - v0)
     origin = rng.uniform(-1.9, 1.9, target.shape)
     dirs = target - origin
@@ -221,7 +222,15 @@ def test_widened_slab_reaches_every_plain_hit():
     dirs = np.vstack([dirs, floor_edge[1]]).astype(np.float32)
     o = Vec3(*(torch.from_numpy(origin[:, k].copy()) for k in range(3)))
     d = Vec3(*(torch.from_numpy(dirs[:, k].copy()) for k in range(3)))
+    return bvh, o, d
 
+
+def test_widened_slab_reaches_every_plain_hit():
+    """The pair test accepts hits up to BARY_EPS outside a triangle, so
+    outside its box.  Rays aimed just past the Cornell box's triangle edges
+    hit in the plain version; the kernels' widened slab test must reach
+    every such leaf, where an exact one culls some."""
+    bvh, o, d = cornell_edge_rays(2047, leaf_size=32)
     _, slot, hit = wide_bvh.closest_wide_plain(bvh, o, d)
     rays = hit.nonzero()[:, 0]
     leaf = slot[rays].long() // bvh.leaf_size
