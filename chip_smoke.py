@@ -33,15 +33,30 @@ per source, started together) and then:
    per bounce that has live lanes, and the script counts those bounces;
 7. times K3a and K3b on all 2,073,600 primary rays and first-bounce shadow
    lanes (their plain versions on the 65,536-ray sample), and K1 and K2 on
-   the same rays over a 32-triangle-leaf tree of the same scene.
+   the same rays over a 32-triangle-leaf tree of the same scene;
+8. checks K7a and K7b (``chunks.cu``) in the rebuild mode (a context made
+   without a scene: every pass rebuilds the Woop rows, the 512-triangle
+   chunk packs and the shading table) and K6a and K6b (``bvh2.cu``) under
+   ``intersect_backend="bvh"`` against their plain versions, each launched
+   at the shapes the 1080p Cornell path gives it (as in 5), and on the
+   50,000-triangle soup;
+9. renders config2 through the rebuild mode, ``"pallas"`` and ``"bvh"`` and
+   compares each with the golden;
+10. renders the Cornell path (as in 3) in the rebuild mode and under
+   ``"bvh"``, counting launches (each new kernel once per bounce with live
+   lanes, no K1-K3) and timing the rebuild within each pass, and compares
+   each image with phase 3's ``"wide"`` image of the same passes;
+11. times K7a, K7b, K6a and K6b on phase 4's rays, and their plain
+   versions on all of them.
 
 Each kernel's bound is the larger of the bytes it must move over the
 H100's 3.35 TB/s and the float32 operations its rays need over 67 TFLOP/s.
 A plain walk over all the timed rays, knowing each ray's hit distance,
-counts both: the bytes of the rays, of the outputs and of the nodes and
-leaf triangles the rays reach, each once; the per-ray arithmetic of the
-child-box slab tests, of every pair test's t, and of the barycentrics of
-the pairs whose t lies in range.
+counts both: the bytes of the rays, of the outputs and of the nodes (or
+chunk boxes) and leaf triangles the rays reach, each once; the per-ray
+arithmetic of the box slab tests, of every pair test's t, and of the
+barycentrics of the pairs whose t lies in range.  The chunk kernels test
+every chunk's box per ray and every triangle of each chunk a ray enters.
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the card's name and power limit, the per-kernel JSON record and
@@ -66,7 +81,7 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-SOURCES = ("wide_bvh", "wide_bvh_stream")
+SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
     "closest_wide": ("heatray_tpu_torch/csrc/wide_bvh.cu", "heatray_tpu/ops/wide_bvh.py:297"),
@@ -74,6 +89,11 @@ KERNELS = {
     "closest_stream": ("heatray_tpu_torch/csrc/wide_bvh_stream.cu",
                        "heatray_tpu/ops/wide_bvh.py:788"),
     "any_stream": ("heatray_tpu_torch/csrc/wide_bvh_stream.cu", "heatray_tpu/ops/wide_bvh.py:883"),
+    "closest_chunks": ("heatray_tpu_torch/csrc/chunks.cu",
+                       "heatray_tpu/ops/intersect_pallas.py:282"),
+    "any_chunks": ("heatray_tpu_torch/csrc/chunks.cu", "heatray_tpu/ops/intersect_pallas.py:318"),
+    "closest_bvh": ("heatray_tpu_torch/csrc/bvh2.cu", "heatray_tpu/ops/traverse_pallas.py:113"),
+    "any_bvh": ("heatray_tpu_torch/csrc/bvh2.cu", "heatray_tpu/ops/traverse_pallas.py:164"),
 }
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and float32 FLOP/s outside the
 # tensor cores.
@@ -84,9 +104,15 @@ PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
 # pair test's t (two dot products with their offset, the divide, the range
 # check); and of its barycentrics, where t lies in range.
 SLAB_FLOPS, PAIR_T_FLOPS, BARY_FLOPS = 26, 15, 30
-# Bytes of one node's record (wbox row, wchild row, waxis) and of one leaf
-# triangle's Woop columns (4 rows of b1, b2, s) and one leaf's anchor.
-NODE_BYTES, TRI_BYTES, ANCHOR_BYTES = 8 * 8 * 4 + 8 * 4 + 4, 4 * 3 * 4, 3 * 4
+# Bytes of one wide node's record (wbox row, wchild row, waxis), of one
+# binary node's (box, meta), of one chunk's box, of one leaf triangle's Woop
+# columns (4 rows of b1, b2, s) and of one wide leaf's anchor.
+NODE_BYTES, NODE2_BYTES, BOX_BYTES = 8 * 8 * 4 + 8 * 4 + 4, 6 * 4 + 2 * 4, 6 * 4
+TRI_BYTES, ANCHOR_BYTES = 4 * 3 * 4, 3 * 4
+# Of the full-width images of two routes, at most this share of pixels may
+# differ by more than IMAGE_TOL (near-edge ties and the rounding of anchored
+# against raw Woop rows change a few paths).
+IMAGE_TOL, IMAGE_SHARE = 5e-3, 1e-3
 
 
 def log(*args):
@@ -103,6 +129,8 @@ def card_line() -> str:
 
 def queries():
     """name -> (kernel wrapper, plain version)."""
+    from heatray_tpu_torch.ops import intersect_pallas as ip
+    from heatray_tpu_torch.ops import traverse_pallas as tp
     from heatray_tpu_torch.ops import wide_bvh as wb
 
     return {
@@ -110,6 +138,10 @@ def queries():
         "any_wide": (wb.intersect_any_wide, wb.any_wide_plain),
         "closest_stream": (wb.intersect_closest_stream, wb.closest_stream_plain),
         "any_stream": (wb.intersect_any_stream, wb.any_stream_plain),
+        "closest_chunks": (ip.intersect_closest_pallas, ip.closest_chunks_plain),
+        "any_chunks": (ip.intersect_any_pallas, ip.any_chunks_plain),
+        "closest_bvh": (tp.intersect_closest_bvh, tp.closest_bvh_plain),
+        "any_bvh": (tp.intersect_any_bvh, tp.any_bvh_plain),
     }
 
 
@@ -128,15 +160,26 @@ def subset(v, idx):
     return Vec3(v.x[idx].contiguous(), v.y[idx].contiguous(), v.z[idx].contiguous())
 
 
-def slot_t(bvh, org, d, slot):
-    """t of each ray against one given slot each (plain arithmetic)."""
+def slot_t(tree, org, d, slot):
+    """t of each ray against one given id each (plain arithmetic): a slot of
+    a wide tree, or a triangle id of a chunk pack or a binary tree."""
     import torch
 
-    from heatray_tpu_torch.ops.intersect import MISS_T
-    from heatray_tpu_torch.ops.wide_bvh import slot_rows
+    from heatray_tpu_torch.ops.bvh import BVH
+    from heatray_tpu_torch.ops.intersect import MISS_T, chunk_rows
+    from heatray_tpu_torch.ops.wide_bvh import WideBVH, slot_rows
 
-    rows, anchor = slot_rows(bvh)
+    if isinstance(tree, WideBVH):
+        rows, anchor = slot_rows(tree)
+    else:
+        rows = chunk_rows(tree.w)
+        anchor = torch.zeros((3, rows.shape[1]), device=rows.device)
     s = slot.clamp(min=0).long()
+    if isinstance(tree, BVH):  # triangle id -> its slot
+        valid = (tree.slot_tri >= 0).nonzero()[:, 0]
+        slot_of = torch.zeros(tree.num_triangles, dtype=torch.long, device=s.device)
+        slot_of[tree.slot_tri[valid].long()] = valid
+        s = slot_of[s]
     r, a = rows[:, s], anchor[:, s]
     ox, oy, oz = org.x - a[0], org.y - a[1], org.z - a[2]
 
@@ -216,24 +259,27 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err):
     from heatray_tpu_torch.render import integrator
 
     closest, any_ = names
-    pack, eps = ctx.accel_pack, opts.ray_epsilon
+    eps = opts.ray_epsilon
+    # A context without a pack is the rebuild mode: the pass's own pack.
+    pack = ctx.accel_pack or integrator.rebuild_pack(scene, opts)
+    tree, tree_occl = pack.structures()
     frame = FrameGlobals.create(0, device=ctx.device)
     primary = integrator.start_paths(camera, ctx, opts, 0)
-    check_closest(closest, pack.wide, primary.org, primary.direction, f"{label} primary", err,
+    check_closest(closest, tree, primary.org, primary.direction, f"{label} primary", err,
                   live_pick(primary.active, gen), eps)
-    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary)
-    check_any(any_, pack.wide_occl, shadow.org, shadow.direction, shadow.t_max,
+    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary, pack)
+    check_any(any_, tree_occl, shadow.org, shadow.direction, shadow.t_max,
               f"{label} first-bounce shadow", err, live_pick(shadow.active, gen), eps)
-    paths = integrator._sort_paths(first, *integrator._sort_bounds(ctx))
+    paths = integrator._sort_paths(first, *integrator._sort_bounds(pack))
     n = integrator._gated_lanes(paths, opts.gate_segments)
     if n == 0:
         raise AssertionError(f"{label}: no live lane at depth 2")
     head = paths.map(lambda p: p[:n])
     tag = f"{label} depth-2 sorted head ({n} of {paths.active.numel()} lanes)"
-    check_closest(closest, pack.wide, head.org, head.direction, tag, err,
+    check_closest(closest, tree, head.org, head.direction, tag, err,
                   live_pick(head.active, gen), eps)
-    _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head)
-    check_any(any_, pack.wide_occl, shadow2.org, shadow2.direction, shadow2.t_max,
+    _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head, pack)
+    check_any(any_, tree_occl, shadow2.org, shadow2.direction, shadow2.t_max,
               f"{tag} shadow", err, live_pick(shadow2.active, gen), eps)
     return primary, shadow
 
@@ -329,23 +375,133 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
             # Inner children some ray of the chunk enters.
             inner = (c >= 0) & ok.any(0)
             level, reach = c[inner], ok[:, inner]
+    nodes, leaves, tris = (int(node_seen.sum()), int(leaf_seen.sum()),
+                           int(filled_slot[leaf_seen].sum()))
     return {"boxes": boxes, "pairs": pairs, "in_range": in_range,
-            "nodes": int(node_seen.sum()), "leaves": int(leaf_seen.sum()),
-            "tris": int(filled_slot[leaf_seen].sum())}
+            "tree_bytes": nodes * NODE_BYTES + leaves * ANCHOR_BYTES + tris * TRI_BYTES,
+            "reached": f"{nodes} nodes, {leaves} leaves ({tris} triangles)"}
+
+
+def _enters(lo, hi, o, inv, t_far, t_min):
+    """The kernels' widened slab test, broadcast: box corners ``lo``/``hi``,
+    ray origins and reciprocal directions, three tensors each."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    near = far = None
+    for a in range(3):
+        p = (hi[a] - lo[a]) * wb.BOX_PAD
+        t0 = ((lo[a] - p) - o[a]) * inv[a]
+        t1 = ((hi[a] + p) - o[a]) * inv[a]
+        n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = n if near is None else torch.maximum(near, n)
+        far = f if far is None else torch.minimum(far, f)
+    return near.clamp(min=t_min) <= torch.minimum(far, t_far) * wb.FAR_SCALE
+
+
+def _ray_chunks(org, d, t_far, chunk):
+    """Per slice of ``chunk`` rays: origins, reciprocal directions,
+    directions and far ends, each a list of three (or one) (r,) tensors."""
+    import torch
+
+    for lo in range(0, org.x.numel(), chunk):
+        oc = [c[lo:lo + chunk] for c in (org.x, org.y, org.z)]
+        dc = [c[lo:lo + chunk] for c in (d.x, d.y, d.z)]
+        inv = [torch.where(c < 0, -1.0, 1.0) / c.abs().clamp(min=1e-18) for c in dc]
+        yield oc, inv, dc, t_far[lo:lo + chunk]
+
+
+def _pair_t(rows, oc, dc, ray, cols):
+    """t of ray ``ray[k]`` against each row ``cols[k, :]`` of ``rows`` (12, S)."""
+    r = rows[:, cols]
+    ox, oy, oz = (oc[i][ray][:, None] for i in range(3))
+    dx, dy, dz = (dc[i][ray][:, None] for i in range(3))
+    return -(ox * r[8] + oy * r[9] + oz * r[10] + r[11]) / (dx * r[8] + dy * r[9] + dz * r[10])
+
+
+def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192):
+    """``walk_work`` for the chunk kernels: every ray tests every chunk's box,
+    and every triangle of each chunk whose widened box it enters before
+    ``t_far``."""
+    import torch
+
+    from heatray_tpu_torch.ops.intersect import chunk_rows
+
+    rows, tc = chunk_rows(packed.w), packed.tri_chunk
+    tri = torch.arange(packed.num_chunks * tc, device=rows.device).view(-1, tc)
+    filled = tri < packed.num_triangles
+    seen = torch.zeros(packed.num_chunks, dtype=torch.bool, device=rows.device)
+    b = packed.boxes.T[:, None, :]  # (6, 1, C)
+    pairs = in_range = 0
+    for oc, inv, dc, tf in _ray_chunks(org, d, t_far, chunk):
+        ok = _enters(b[:3], b[3:], [c[:, None] for c in oc], [c[:, None] for c in inv],
+                     tf[:, None], t_min) & (b[0] <= b[3])
+        seen |= ok.any(0)
+        ray, c = ok.nonzero(as_tuple=True)
+        fill = filled[c]
+        pairs += int(fill.sum())
+        t = _pair_t(rows, oc, dc, ray, tri[c])
+        in_range += int((fill & (t > t_min) & (t <= tf[ray][:, None])).sum())
+    n_tris = int(filled[seen].sum())
+    return {"boxes": org.x.numel() * packed.num_chunks, "pairs": pairs, "in_range": in_range,
+            "tree_bytes": packed.num_chunks * BOX_BYTES + n_tris * TRI_BYTES,
+            "reached": f"{packed.num_chunks} chunk boxes, {int(seen.sum())} chunks "
+                       f"({n_tris} triangles)"}
+
+
+def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
+    """``walk_work`` for the binary-BVH kernels: each ray tests the box of
+    the root and of both children of every internal node whose widened box
+    it enters before ``t_far``, and every triangle of each leaf it enters."""
+    import torch
+
+    from heatray_tpu_torch.ops.intersect import chunk_rows
+
+    rows, tc = chunk_rows(bvh.w), bvh.leaf_size
+    nbox, meta = bvh.nbox.view(-1, 6), bvh.meta.view(-1, 2).long()
+    right = meta[:, 1].roll(-1)  # right child of node i: skip of node i + 1
+    slots = torch.arange(bvh.num_chunks * tc, device=rows.device).view(-1, tc)
+    filled_slot = bvh.slot_tri.view(-1, tc) >= 0
+    node_seen = torch.zeros(nbox.shape[0], dtype=torch.bool, device=rows.device)
+    boxes = pairs = in_range = 0
+    for oc, inv, dc, tf in _ray_chunks(org, d, t_far, chunk):
+        level = torch.zeros(1, dtype=torch.long, device=rows.device)
+        reach = torch.ones((oc[0].shape[0], 1), dtype=torch.bool, device=rows.device)
+        while level.numel():
+            node_seen[level] = True
+            boxes += int(reach.sum())
+            b = nbox[level].T[:, None, :]
+            ok = reach & _enters(b[:3], b[3:], [c[:, None] for c in oc],
+                                 [c[:, None] for c in inv], tf[:, None], t_min)
+            code = meta[level, 0]
+            ray, k = (ok & (code >= 0)[None]).nonzero(as_tuple=True)
+            fill = filled_slot[code[k]]
+            pairs += int(fill.sum())
+            t = _pair_t(rows, oc, dc, ray, slots[code[k]])
+            in_range += int((fill & (t > t_min) & (t <= tf[ray][:, None])).sum())
+            inner = (code < 0) & ok.any(0)
+            parents = level[inner]
+            level = torch.cat([parents + 1, right[parents]])
+            reach = ok[:, inner].repeat(1, 2)
+    leaf = meta[:, 0] >= 0
+    leaves = meta[node_seen & leaf, 0]
+    nodes, tris = int(node_seen.sum()), int(filled_slot[leaves].sum())
+    return {"boxes": boxes, "pairs": pairs, "in_range": in_range,
+            "tree_bytes": nodes * NODE2_BYTES + tris * TRI_BYTES,
+            "reached": f"{nodes} nodes, {leaves.numel()} leaves ({tris} triangles)"}
 
 
 def bound(r, work, occlusion):
     """(bound ms, what bounds it) of one query over ``r`` rays that need
-    ``work`` (``walk_work``) of the tree."""
-    tree = (work["nodes"] * NODE_BYTES + work["leaves"] * ANCHOR_BYTES
-            + work["tris"] * TRI_BYTES)
+    ``work`` (``walk_work``, ``chunk_work``, ``bvh2_work``) of the tree."""
     ray_bytes = 24 + (4 + 1 if occlusion else 8)  # origin, direction, t_max, outputs
-    nbytes = tree + ray_bytes * r
+    nbytes = work["tree_bytes"] + ray_bytes * r
     flops = (work["boxes"] * SLAB_FLOPS + work["pairs"] * PAIR_T_FLOPS
              + work["in_range"] * BARY_FLOPS)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
-    log(f"[bound] {r} rays: {work['nodes']} nodes, {work['leaves']} leaves "
-        f"({work['tris']} triangles) reached; {nbytes / 1e6:.3f} MB -> {t_bytes:.4f} ms; "
+    log(f"[bound] {r} rays: {work['reached']} reached; "
+        f"{nbytes / 1e6:.3f} MB -> {t_bytes:.4f} ms; "
         f"{work['boxes'] / r:.3f} box tests, {work['pairs'] / r:.3f} pair tests, "
         f"{work['in_range'] / r:.3f} in range per ray, {flops / 1e9:.3f} GFLOP "
         f"-> {t_ops:.4f} ms")
@@ -353,8 +509,8 @@ def bound(r, work, occlusion):
 
 
 def time_kernels(spec, err, launches):
-    """One kernels-line entry per ``spec`` item (name, bvh, org, dir, t_max
-    or None, plain on all rays or on the sample).  Kernels are timed over
+    """One kernels-line entry per ``spec`` item (name, tree or chunk pack,
+    org, dir, t_max or None, plain on all rays or on the sample).  Kernels are timed over
     10 launches, plain versions once; the walk's work is counted on all the
     rays."""
     import torch
@@ -374,11 +530,12 @@ def time_kernels(spec, err, launches):
         n_plain = r if plain_all else sample.numel()
         # A walk that knows each ray's hit distance (and, for occlusion, its
         # t_max) needs no more than this.
-        closest = queries()["closest_stream" if "stream" in name else "closest_wide"][0]
-        t_far = closest(bvh, org, d)[0]
+        family = name.split("_")[1]
+        t_far = queries()["closest_" + family][0](bvh, org, d)[0]
         if t_max is not None:
             t_far = torch.minimum(t_far, t_max)
-        bound_ms, bound_by = bound(r, walk_work(bvh, org, d, t_far), t_max is not None)
+        work = {"chunks": chunk_work, "bvh": bvh2_work}.get(family, walk_work)
+        bound_ms, bound_by = bound(r, work(bvh, org, d, t_far), t_max is not None)
         log(f"[time] {name} on {r} rays: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on "
             f"{n_plain} rays, bound {bound_ms:.4f} ms ({bound_by})")
         out.append({
@@ -391,12 +548,14 @@ def time_kernels(spec, err, launches):
     return out
 
 
-def run_path(label, scene, camera, ctx, opts, expect, forbid):
+def run_path(label, scene, camera, ctx, opts, expect):
     """The render path of one scene: PASSES passes through ``render_pass``
     with the launch counts set to 0 just before and read just after.  Each
     kernel of ``expect`` must run once per bounce with live lanes: the
     first bounce of every pass, and each later one whose gated lane count
-    (``_gated_lanes``, counted here) is above 0."""
+    (``_gated_lanes``, counted here) is above 0; no other kernel may run.
+    In the rebuild mode the time of each pass's rebuild is taken apart.
+    Returns the launches and the resolved image."""
     import torch
 
     from heatray_tpu_torch import resolve
@@ -407,14 +566,22 @@ def run_path(label, scene, camera, ctx, opts, expect, forbid):
         raise AssertionError(f"{label}: 'auto' does not sort and gate on the card")
     device = ctx.device
     accum = torch.zeros((4, HEIGHT, WIDTH), dtype=torch.float32, device=device)
-    rays, pass_ms, lanes = 0, [], []
-    gated = integrator._gated_lanes
+    rays, pass_ms, lanes, rebuild_ms = 0, [], [], []
+    gated, rebuild = integrator._gated_lanes, integrator.rebuild_pack
 
     def count_lanes(*args):
         lanes.append(gated(*args))
         return lanes[-1]
 
-    integrator._gated_lanes = count_lanes
+    def timed_rebuild(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pack = rebuild(*args)
+        torch.cuda.synchronize()
+        rebuild_ms.append((time.perf_counter() - t0) * 1e3)
+        return pack
+
+    integrator._gated_lanes, integrator.rebuild_pack = count_lanes, timed_rebuild
     try:
         torch.cuda.synchronize()
         reset_launches()
@@ -430,15 +597,17 @@ def run_path(label, scene, camera, ctx, opts, expect, forbid):
             rays += stats["rays"]
         launches = read_launches()
     finally:
-        integrator._gated_lanes = gated
+        integrator._gated_lanes, integrator.rebuild_pack = gated, rebuild
     if len(lanes) != PASSES * (DEPTH - 1):
         raise AssertionError(f"{label}: {len(lanes)} gated bounces, not {PASSES * (DEPTH - 1)}")
     runs = PASSES + sum(n > 0 for n in lanes)
     if any(launches[name] != runs for name in expect):
         raise AssertionError(f"{label} path kernel launches {launches}, not {runs} each "
                              f"(gated lanes {lanes})")
-    if any(launches[name] for name in forbid):
-        raise AssertionError(f"{label} path launched {forbid}: {launches}")
+    if any(n for name, n in launches.items() if name not in expect):
+        raise AssertionError(f"{label} path launched kernels other than {expect}: {launches}")
+    if len(rebuild_ms) != (PASSES if ctx.accel_pack is None else 0):
+        raise AssertionError(f"{label}: {len(rebuild_ms)} rebuilds in {PASSES} passes")
     if not torch.equal(accum[3], torch.full_like(accum[3], float(PASSES))):
         raise AssertionError(f"{label}: alpha is not the pass count everywhere")
     img = resolve(accum)
@@ -449,7 +618,10 @@ def run_path(label, scene, camera, ctx, opts, expect, forbid):
         f"{[round(m, 3) for m in pass_ms]}, mean {sum(pass_ms) / PASSES:.3f}; "
         f"{rays} rays, {rays / total_s / 1e6:.3f} Mrays/s; launches {launches}; "
         f"gated lanes {lanes}; image mean {float(img.mean()):.4g}")
-    return launches
+    if rebuild_ms:
+        log(f"[{label}] rebuild ms per pass {[round(m, 3) for m in rebuild_ms]}, mean "
+            f"{sum(rebuild_ms) / PASSES:.3f}")
+    return launches, img
 
 
 def main() -> int:
@@ -467,7 +639,9 @@ def main() -> int:
         cornell_box, frame_scene, high_poly, orbit_camera, render, resolve, scene_aabb,
     )
     from heatray_tpu_torch.ops import cuda_build, wide_bvh
+    from heatray_tpu_torch.ops.bvh import build_bvh
     from heatray_tpu_torch.ops.intersect import build_woop
+    from heatray_tpu_torch.ops.intersect_pallas import pack_for_pallas
     from heatray_tpu_torch.options import FrameGlobals, RenderOptions
     from heatray_tpu_torch.render import integrator
 
@@ -553,13 +727,13 @@ def main() -> int:
         f"{s_on['rays']} rays each")
 
     # --- 3. the Cornell path -------------------------------------------------
-    cornell_launches = run_path("cornell", scene, camera, ctx, opts,
-                                ("closest_wide", "any_wide"), ("closest_stream", "any_stream"))
+    cornell_launches, wide_img = run_path("cornell", scene, camera, ctx, opts,
+                                          ("closest_wide", "any_wide"))
 
     # --- 4. K1/K2 against plain versions at the path's shapes ----------------
     frame = FrameGlobals.create(1, device=device)
     prim = integrator.start_paths(camera, ctx, opts, 1)
-    _, shadow = integrator.bounce(scene, ctx, opts, frame, 1, prim)
+    _, shadow = integrator.bounce(scene, ctx, opts, frame, 1, prim, pack)
     check_closest("closest_wide", pack.wide, prim.org, prim.direction, "cornell 1080p primary", err)
     check_any("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max,
               "cornell 1080p NEE shadow", err)
@@ -567,7 +741,8 @@ def main() -> int:
         ("closest_wide", pack.wide, prim.org, prim.direction, None, True),
         ("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, cornell_launches)
-    del ctx, pack, prim, shadow
+    cornell_rays = (prim, shadow)  # phase 11 times K6 and K7 on them
+    del ctx, pack
 
     # --- 5. high_poly on the card: streaming kernels against plain ------------
     t0 = time.perf_counter()
@@ -588,8 +763,8 @@ def main() -> int:
                                       hp_ctx, opts, gen, "high_poly", err)
 
     # --- 6. the high_poly path -------------------------------------------------
-    hp_launches = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
-                           ("closest_stream", "any_stream"), ("closest_wide", "any_wide"))
+    hp_launches, _ = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
+                              ("closest_stream", "any_stream"))
 
     # --- 7. K3 times, and K1/K2 on a 32-triangle-leaf tree of the same scene ---
     kernels += time_kernels([
@@ -612,6 +787,68 @@ def main() -> int:
         log(f"[compare] high_poly on {primary.org.x.numel()} rays: K1 on leaf 32 {k1:.4f} ms vs "
             f"K3a on leaf 128 {k3['closest_stream']:.4f} ms; K2 on leaf 32 {k2:.4f} ms vs "
             f"K3b {k3['any_stream']:.4f} ms; card {card}")
+    del hp_ctx, hp, wide32, primary, shadow
+
+    # --- 8. K7 in the rebuild mode and K6 under "bvh", against plain -----------
+    routes = {
+        "rebuild": (opts, ("closest_chunks", "any_chunks")),
+        "bvh": (dataclasses.replace(opts, intersect_backend="bvh"), ("closest_bvh", "any_bvh")),
+    }
+    ctxs = {}
+    for route, (r_opts, names) in routes.items():
+        t0 = time.perf_counter()
+        ctxs[route] = integrator.make_context(r_opts, None if route == "rebuild" else scene,
+                                              device)
+        torch.cuda.synchronize()
+        log(f"[setup] Cornell 1080p {route} context in {time.perf_counter() - t0:.2f} s")
+        check_path_rays(names, scene, camera, ctxs[route], r_opts, gen, f"cornell {route}", err)
+    soup_accel = build_woop(pos, idx)
+    t0 = time.perf_counter()
+    soup_trees = {"chunks": pack_for_pallas(soup_accel, opts.pallas_tri_chunk),
+                  "bvh": build_bvh(soup_accel, leaf_size=opts.bvh_leaf_size)}
+    log(f"[setup] {SOUP_TRIANGLES}-triangle soup: {soup_trees['chunks'].num_chunks} chunks, "
+        f"binary tree of {soup_trees['bvh'].num_nodes} nodes, stack "
+        f"{soup_trees['bvh'].max_stack}, in {time.perf_counter() - t0:.1f} s")
+    for family, tree in soup_trees.items():
+        check_closest(f"closest_{family}", tree, s_org, s_dir, "soup", err)
+        check_any(f"any_{family}", tree, s_org, s_dir, t_max, "soup", err)
+    del soup_trees, soup_accel
+
+    # --- 9. the golden through the three new routes ---------------------------
+    for route in ("rebuild", "pallas", "bvh"):
+        r_opts = dataclasses.replace(g_opts, intersect_backend="pallas" if route == "rebuild"
+                                     else route)
+        r_ctx = integrator.make_context(r_opts, device=device) if route == "rebuild" else None
+        accum, _ = render(cornell_box(light="both", with_spheres=True), g_cam, r_opts,
+                          num_passes=4, ctx=r_ctx, device=device)
+        img = resolve(accum).cpu().numpy()
+        np.testing.assert_allclose(img, golden, rtol=5e-3, atol=5e-3)
+        log(f"[golden] config2 48x48x4 through {route} matches, max |diff| "
+            f"{float(np.abs(img - golden).max()):.3g}")
+
+    # --- 10. the Cornell path in the rebuild mode and under "bvh" ---------------
+    kernels_launches = {}
+    for route, (r_opts, names) in routes.items():
+        launches, img = run_path(f"cornell {route}", scene, camera, ctxs[route], r_opts, names)
+        for name in names:
+            kernels_launches[name] = launches[name]
+        diff = (img - wide_img).abs().amax(dim=2)
+        n_bad = int((diff > IMAGE_TOL).sum())
+        log(f"[image] cornell {route} against wide: {n_bad} of {diff.numel()} pixels differ by "
+            f"more than {IMAGE_TOL}, max |diff| {float(diff.max()):.4g}")
+        if n_bad > IMAGE_SHARE * diff.numel():
+            raise AssertionError(f"cornell {route}: {n_bad} pixels differ from the wide path")
+
+    # --- 11. K7 and K6 times on phase 4's rays -----------------------------------
+    prim, shadow = cornell_rays
+    chunk_pack = integrator.rebuild_pack(scene, opts)
+    bvh_pack = ctxs["bvh"].accel_pack
+    kernels += time_kernels([
+        ("closest_chunks", chunk_pack.packed, prim.org, prim.direction, None, True),
+        ("any_chunks", chunk_pack.packed_occl, shadow.org, shadow.direction, shadow.t_max, True),
+        ("closest_bvh", bvh_pack.bvh, prim.org, prim.direction, None, True),
+        ("any_bvh", bvh_pack.bvh_occl, shadow.org, shadow.direction, shadow.t_max, True),
+    ], err, kernels_launches)
 
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

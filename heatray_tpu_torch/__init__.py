@@ -1,9 +1,11 @@
 """heatray_tpu_torch: the PyTorch and CUDA port of heatray_tpu.
 
 A differentiable wavefront path tracer's forward render, on PyTorch tensors,
-with the wide-BVH traversal kernels written in CUDA for Hopper
+with the traversal kernels written in CUDA for Hopper: the wide BVH
 (``csrc/wide_bvh.cu``, and ``csrc/wide_bvh_stream.cu`` for scenes past
-250,000 triangles).  It imports torch and numpy, never jax.
+250,000 triangles), the binary BVH (``csrc/bvh2.cu``) and the flat chunks
+of the rebuild mode (``csrc/chunks.cu``).  It imports torch and numpy,
+never jax.
 """
 
 from .camera import CameraParams, orbit_camera

@@ -1,9 +1,10 @@
-"""Binned-SAH binary BVH topology over triangle AABBs (host, numpy).
+"""Binned-SAH binary BVH over triangle AABBs (port of ``heatray_tpu.ops.bvh``).
 
-Port of the numpy path of ``heatray_tpu.ops.bvh.build_topology``: the tree
-is flattened in DFS preorder with skip pointers, and leaves are fixed-size
-triangle chunks (``leaf_size`` slots, padded with -1).  The wide builder
-(``wide_bvh.py``) collapses it into arity-8 nodes.
+``build_topology`` (host, numpy) flattens the tree in DFS preorder with skip
+pointers; leaves are fixed-size triangle chunks (``leaf_size`` slots, padded
+with -1).  ``wide_bvh.py`` collapses it into arity-8 nodes; ``pack_bvh``
+packs it as it is for the binary-BVH kernels (``traverse_pallas.py``), and
+``traverse_closest_numpy`` walks it one ray at a time as a test oracle.
 """
 
 from __future__ import annotations
@@ -12,6 +13,9 @@ import dataclasses
 import sys
 
 import numpy as np
+import torch
+
+from .intersect import WoopAccel
 
 # Past this depth the builder forces median splits, which bounds the tree
 # depth (and the traversal stack) by MAX_SAH_DEPTH + log2(T).
@@ -150,3 +154,119 @@ def build_topology(
         slot_tri=slot_tri,
         leaf_size=leaf_size,
     )
+
+
+@dataclasses.dataclass
+class BVH:
+    """The binary BVH as the traversal kernels read it.
+
+    ``nbox`` (N * 6,) f32 node AABBs; ``meta`` (N * 2,) i32 interleaving per
+    node (leaf chunk, or ``-1 - axis`` inside; skip pointer).  Preorder makes
+    a node's left child ``i + 1`` and its right child ``skip[i + 1]``.  ``w``
+    (C, 4, 3 Tc) f32 leaf chunks in the flat-chunk layout (raw Woop rows, no
+    anchor; padding slots all zero, so never hit); ``slot_tri`` (C * Tc,)
+    i32 maps slots to triangle ids (-1 padding).  ``max_stack`` is the
+    deepest stack a near-first walk can need: the tree's depth.
+    """
+
+    nbox: torch.Tensor
+    meta: torch.Tensor
+    w: torch.Tensor
+    slot_tri: torch.Tensor
+    leaf_size: int
+    num_triangles: int
+    max_stack: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nbox.shape[0] // 6
+
+    @property
+    def num_chunks(self) -> int:
+        return self.w.shape[0]
+
+    def to(self, device) -> "BVH":
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
+
+def tree_depth(topo: BVHTopology) -> int:
+    """Edges on the longest root-to-leaf path of a preorder topology."""
+    depth = np.zeros(topo.num_nodes, np.int64)
+    for i in range(topo.num_nodes):  # a parent precedes its children
+        if topo.leaf_chunk[i] < 0:
+            depth[i + 1] = depth[topo.skip[i + 1]] = depth[i] + 1
+    return int(depth.max())
+
+
+def pack_bvh(accel: WoopAccel, topo: BVHTopology) -> BVH:
+    """Gather the accel's Woop rows into the topology's chunk slots, on the
+    host, and place the result on ``accel``'s device."""
+    tc, c = topo.leaf_size, topo.num_chunks
+    valid = (topo.slot_tri >= 0).astype(np.float32)
+    safe = np.maximum(topo.slot_tri, 0)
+    w = np.take(accel.w.cpu().numpy(), safe, axis=1) * valid[None, :]
+    w = w.reshape(12, c, tc).transpose(1, 0, 2)
+    w = w.reshape(c, 3, 4, tc).transpose(0, 2, 1, 3).reshape(c, 4, 3 * tc)
+    meta = np.stack([topo.leaf_chunk, topo.skip], axis=1).reshape(-1)
+    dev = accel.w.device
+    return BVH(
+        nbox=torch.from_numpy(topo.nbox.reshape(-1).copy()).to(dev),
+        meta=torch.from_numpy(meta.astype(np.int32)).to(dev),
+        w=torch.from_numpy(np.ascontiguousarray(w)).to(dev),
+        slot_tri=torch.from_numpy(topo.slot_tri).to(dev),
+        leaf_size=tc,
+        num_triangles=accel.num_triangles,
+        max_stack=tree_depth(topo),
+    )
+
+
+def build_bvh(accel: WoopAccel, leaf_size: int = 64, include: np.ndarray | None = None) -> BVH:
+    """Topology and packing in one call (host build).  ``include`` (T,) bool
+    keeps only those triangles (the occluder-only tree)."""
+    topo = build_topology(
+        accel.tri_min.cpu().numpy(), accel.tri_max.cpu().numpy(),
+        leaf_size=leaf_size, include=include,
+    )
+    return pack_bvh(accel, topo)
+
+
+def traverse_closest_numpy(topo: BVHTopology, woop_w: np.ndarray, o, d, t_min=1e-4):
+    """Scalar skip-pointer walk of ONE ray (numpy, test oracle) over exact
+    boxes: (t, triangle id).  ``woop_w`` (12, T) Woop rows; ``o``/``d`` (3,)."""
+    inv = np.where(d < 0, -1.0, 1.0) / np.maximum(np.abs(d), 1e-18)
+    best_t, best_id = 3.0e38, -1
+    i, tc = 0, topo.leaf_size
+    while i < topo.num_nodes:
+        box = topo.nbox[i]
+        t0 = (box[:3] - o) * inv
+        t1 = (box[3:] - o) * inv
+        tn = max(np.minimum(t0, t1).max(), t_min)
+        tf = min(np.maximum(t0, t1).min(), best_t)
+        if tn > tf:
+            i = int(topo.skip[i])
+            continue
+        chunk = topo.leaf_chunk[i]
+        for tri in topo.slot_tri[chunk * tc:(chunk + 1) * tc] if chunk >= 0 else ():
+            if tri < 0:
+                continue
+            w = woop_w[:, tri]
+            dz = w[8] * d[0] + w[9] * d[1] + w[10] * d[2]
+            if abs(dz) <= 1e-15:
+                continue
+            t = -(w[8] * o[0] + w[9] * o[1] + w[10] * o[2] + w[11]) / dz
+            if not t_min < t < best_t:
+                continue
+            p = o + t * d
+            b1 = w[0] * p[0] + w[1] * p[1] + w[2] * p[2] + w[3]
+            b2 = w[4] * p[0] + w[5] * p[1] + w[6] * p[2] + w[7]
+            if b1 >= -1e-6 and b2 >= -1e-6 and b1 + b2 <= 1.0 + 1e-6:
+                best_t, best_id = t, int(tri)
+        i += 1
+    return best_t, best_id

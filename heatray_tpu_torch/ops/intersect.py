@@ -175,6 +175,25 @@ def any_rows(org: Vec3, d: Vec3, rows, t_min, t_max, anchor=None):
     return blocked
 
 
+def chunk_boxes(accel: WoopAccel, chunk: int, n_chunks: int) -> torch.Tensor:
+    """(n_chunks, 6) AABBs [min xyz, max xyz] of consecutive ``chunk``-triangle
+    runs; padding triangles form empty (inverted) boxes."""
+    big = 3.0e38
+    pad = n_chunks * chunk - accel.num_triangles
+    tmin = torch.nn.functional.pad(accel.tri_min, (0, pad), value=big)
+    tmax = torch.nn.functional.pad(accel.tri_max, (0, pad), value=-big)
+    cmin = tmin.reshape(3, n_chunks, chunk).amin(dim=2)
+    cmax = tmax.reshape(3, n_chunks, chunk).amax(dim=2)
+    return torch.cat([cmin, cmax]).T.contiguous()
+
+
+def chunk_rows(w: torch.Tensor) -> torch.Tensor:
+    """Chunk-packed leaf columns (C, 4, 3 Tc) back to (12, C Tc) Woop rows,
+    ``rows[4 g + f, c Tc + j] = w[c, f, g Tc + j]``."""
+    c, tc = w.shape[0], w.shape[2] // 3
+    return w.view(c, 4, 3, tc).permute(2, 1, 0, 3).reshape(12, c * tc)
+
+
 def intersect_closest(accel: WoopAccel, origins: Vec3, directions: Vec3, t_min=1e-4):
     """Closest-hit query of rays (Vec3 of (R,)) against all triangles.
     Returns (t, tri_id, hit); misses get (``MISS_T``, -1)."""

@@ -1,0 +1,110 @@
+"""Binary-BVH traversal: the closest-hit and occlusion queries over the
+skip-pointer tree of ``ops.bvh``, whose wrappers launch the CUDA kernels of
+``csrc/bvh2.cu``.
+
+Port of ``heatray_tpu.ops.traverse_pallas`` (``intersect_closest_bvh``,
+``intersect_any_bvh``; the module keeps the reference's name).  Closest hit
+returns ``(t, triangle id, hit)``: the kernel finds a slot and the wrapper
+maps it through ``slot_tri``, so the ids index a triangle-ordered table.
+
+On a CUDA tensor a wrapper launches its kernel (built at first use) and
+counts the launch in its ``launches`` attribute; on a CPU tensor it runs the
+plain PyTorch version, a brute force over the tree's leaf rows with no walk.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..vec import Vec3
+from . import cuda_build
+from .bvh import BVH
+from .intersect import any_rows, chunk_rows, closest_rows
+from .wide_bvh import launch_any, launch_closest, on_cpu
+
+
+def _to_triangles(bvh: BVH, t, slot, hit):
+    """(t, slot, hit) -> (t, triangle id, hit)."""
+    tri = torch.where(hit, bvh.slot_tri[slot.clamp(min=0).long()], -1)
+    return t, tri, hit
+
+
+# --- plain versions ----------------------------------------------------------
+
+
+def closest_bvh_plain(bvh: BVH, origins: Vec3, directions: Vec3, t_min=1e-4):
+    """Brute-force closest hit over the tree's leaf rows: (t, triangle id,
+    hit); ties go to the lowest slot."""
+    return _to_triangles(bvh, *closest_rows(origins, directions, chunk_rows(bvh.w), t_min))
+
+
+def any_bvh_plain(bvh: BVH, origins: Vec3, directions: Vec3, t_min=1e-4, t_max=3.0e37):
+    """Brute-force any hit in (t_min, t_max) over the tree's leaf rows."""
+    return any_rows(origins, directions, chunk_rows(bvh.w), t_min, t_max)
+
+
+# --- kernel wrappers ---------------------------------------------------------
+
+_P = ctypes.c_void_p
+_TREE = [_P, _P, _P, ctypes.c_int]  # nbox, meta, w, leaf size
+_TAIL = [ctypes.c_float] * 3
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels() -> ctypes.CDLL:
+    lib = cuda_build.load("bvh2")
+    lib.bvh2_stack_depth.argtypes = []
+    lib.bvh2_stack_depth.restype = ctypes.c_int
+    lib.closest_bvh.argtypes = [_P] * 6 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P, _P]
+    lib.any_bvh.argtypes = [_P] * 7 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P]
+    lib.closest_bvh.restype = lib.any_bvh.restype = ctypes.c_int
+    return lib
+
+
+def _tree_args(bvh: BVH, lib) -> list:
+    depth = lib.bvh2_stack_depth()
+    if bvh.max_stack > depth:
+        raise ValueError(f"tree needs a traversal stack of {bvh.max_stack}, the kernel has {depth}")
+    for name, dtype in (("nbox", torch.float32), ("meta", torch.int32), ("w", torch.float32)):
+        a = getattr(bvh, name)
+        if a.dtype != dtype or not a.is_contiguous():
+            raise ValueError(f"BVH.{name} must be a contiguous {dtype} tensor")
+    return [bvh.nbox.data_ptr(), bvh.meta.data_ptr(), bvh.w.data_ptr(), bvh.leaf_size]
+
+
+def intersect_closest_bvh(bvh: BVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
+    """Closest hit of each ray (Vec3 of (R,)): ``(t, triangle id, hit)``,
+    ``(MISS_T, -1)`` on a miss.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``closest_bvh_kernel`` on the tree's device and its current stream."""
+    if on_cpu(bvh):
+        return closest_bvh_plain(bvh, origins, directions, t_min)
+    lib = _kernels()
+    out = launch_closest(lib.closest_bvh, _tree_args(bvh, lib), bvh, origins, directions, t_min)
+    if origins.x.numel():
+        intersect_closest_bvh.launches += 1
+    return _to_triangles(bvh, *out)
+
+
+def intersect_any_bvh(bvh: BVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4,
+                      t_max=3.0e37):
+    """Occlusion: any hit in (t_min, t_max) of each ray; ``t_max`` is a float
+    or an (R,) tensor.  Returns an (R,) bool mask.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``any_bvh_kernel``."""
+    if on_cpu(bvh):
+        return any_bvh_plain(bvh, origins, directions, t_min, t_max)
+    lib = _kernels()
+    out = launch_any(lib.any_bvh, _tree_args(bvh, lib), bvh, origins, directions, t_min, t_max)
+    if origins.x.numel():
+        intersect_any_bvh.launches += 1
+    return out
+
+
+intersect_closest_bvh.launches = 0
+intersect_any_bvh.launches = 0

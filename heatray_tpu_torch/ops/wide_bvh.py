@@ -29,7 +29,7 @@ import torch
 from ..vec import Vec3
 from . import cuda_build
 from .bvh import BVHTopology, build_topology
-from .intersect import BARY_EPS, MISS_T, WoopAccel, any_rows, closest_rows
+from .intersect import BARY_EPS, MISS_T, WoopAccel, any_rows, chunk_rows, closest_rows
 
 ARITY = 8
 _BIG = np.float32(3.0e38)
@@ -222,9 +222,7 @@ def build_wide_bvh(
 def slot_rows(bvh: WideBVH):
     """The leaf data as slot-ordered Woop rows: (rows (12, S), anchor (3, S))
     with ``rows[4 g + f, c Tc + j] = w[c, f, g Tc + j]``."""
-    c, tc = bvh.num_chunks, bvh.leaf_size
-    rows = bvh.w.view(c, 4, 3, tc).permute(2, 1, 0, 3).reshape(12, c * tc)
-    return rows, bvh.wanchor.repeat_interleave(tc, dim=1)
+    return chunk_rows(bvh.w), bvh.wanchor.repeat_interleave(bvh.leaf_size, dim=1)
 
 
 def closest_wide_plain(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min=1e-4):
@@ -288,12 +286,12 @@ def _stream_kernels() -> ctypes.CDLL:
                  "closest_stream", "any_stream")
 
 
-def _on_cpu(bvh: WideBVH) -> bool:
-    """True for a tree on the CPU (plain version); raises unless it lies
-    on a CUDA device (kernel)."""
-    device = bvh.w.device
+def on_cpu(tree) -> bool:
+    """True for a tree (or chunk pack) on the CPU (plain version); raises
+    unless it lies on a CUDA device (kernel)."""
+    device = tree.w.device
     if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no wide-BVH kernel for device {device}")
+        raise ValueError(f"no traversal kernel for device {device}")
     return device.type == "cpu"
 
 
@@ -340,8 +338,10 @@ def _check_launch(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
 
 
-def _launch_closest(kernel, tree: list, bvh: WideBVH, origins: Vec3, directions: Vec3,
-                    t_min: float):
+def launch_closest(kernel, tree: list, bvh, origins: Vec3, directions: Vec3, t_min: float):
+    """Launch a closest-hit kernel whose C entry takes the six ray planes,
+    their count, ``tree``, t_min, the slab widening, t and slot outputs and
+    the stream: (t, slot, hit) on ``bvh.w``'s device."""
     device = bvh.w.device
     comps, ptrs = _ray_ptrs(origins, directions, device)
     r = comps[0].shape[0]
@@ -357,8 +357,9 @@ def _launch_closest(kernel, tree: list, bvh: WideBVH, origins: Vec3, directions:
     return t, slot, slot >= 0
 
 
-def _launch_any(kernel, tree: list, bvh: WideBVH, origins: Vec3, directions: Vec3,
-                t_min: float, t_max):
+def launch_any(kernel, tree: list, bvh, origins: Vec3, directions: Vec3, t_min: float, t_max):
+    """As ``launch_closest``, for an occlusion kernel: per-ray t_max after the
+    ray planes, one blocked byte per ray out."""
     device = bvh.w.device
     comps, ptrs = _ray_ptrs(origins, directions, device)
     r = comps[0].shape[0]
@@ -380,10 +381,10 @@ def intersect_closest_wide(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min:
 
     CPU tensors take the plain version; CUDA tensors launch
     ``closest_wide_kernel`` on the tree's device and its current stream."""
-    if _on_cpu(bvh):
+    if on_cpu(bvh):
         return closest_wide_plain(bvh, origins, directions, t_min)
     lib = _kernels()
-    out = _launch_closest(lib.closest_wide, _tree_args(bvh, lib.wide_bvh_stack_depth()),
+    out = launch_closest(lib.closest_wide, _tree_args(bvh, lib.wide_bvh_stack_depth()),
                           bvh, origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_wide.launches += 1
@@ -398,10 +399,10 @@ def intersect_any_wide(
 
     CPU tensors take the plain version; CUDA tensors launch
     ``any_wide_kernel`` on the tree's device and its current stream."""
-    if _on_cpu(bvh):
+    if on_cpu(bvh):
         return any_wide_plain(bvh, origins, directions, t_min, t_max)
     lib = _kernels()
-    out = _launch_any(lib.any_wide, _tree_args(bvh, lib.wide_bvh_stack_depth()),
+    out = launch_any(lib.any_wide, _tree_args(bvh, lib.wide_bvh_stack_depth()),
                       bvh, origins, directions, t_min, t_max)
     if origins.x.numel():
         intersect_any_wide.launches += 1
@@ -416,10 +417,10 @@ def intersect_closest_stream(bvh: WideBVH, origins: Vec3, directions: Vec3,
     CPU tensors take the plain version; CUDA tensors launch
     ``closest_stream_kernel`` (``csrc/wide_bvh_stream.cu``), which walks the
     tree once per block of 256 rays and stages leaf chunks in shared memory."""
-    if _on_cpu(bvh):
+    if on_cpu(bvh):
         return closest_stream_plain(bvh, origins, directions, t_min)
     lib = _stream_kernels()
-    out = _launch_closest(lib.closest_stream, _stream_tree_args(bvh, lib),
+    out = launch_closest(lib.closest_stream, _stream_tree_args(bvh, lib),
                           bvh, origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_stream.launches += 1
@@ -434,10 +435,10 @@ def intersect_any_stream(
 
     CPU tensors take the plain version; CUDA tensors launch
     ``any_stream_kernel`` (``csrc/wide_bvh_stream.cu``)."""
-    if _on_cpu(bvh):
+    if on_cpu(bvh):
         return any_stream_plain(bvh, origins, directions, t_min, t_max)
     lib = _stream_kernels()
-    out = _launch_any(lib.any_stream, _stream_tree_args(bvh, lib),
+    out = launch_any(lib.any_stream, _stream_tree_args(bvh, lib),
                       bvh, origins, directions, t_min, t_max)
     if origins.x.numel():
         intersect_any_stream.launches += 1

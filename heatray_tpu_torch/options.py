@@ -87,7 +87,9 @@ class RenderOptions:
             if getattr(self, name) not in (True, False, "auto"):
                 raise ValueError(f"RenderOptions.{name} must be True, False or 'auto'")
         unported = {
-            "intersect_backend": self.intersect_backend not in ("auto", "wide", "stream"),
+            "intersect_backend": self.intersect_backend
+            not in ("auto", "wide", "stream", "bvh", "pallas"),
+            "wide_leaf_math": self.wide_leaf_math != "mxu",
             "stream_leaf_math": self.stream_leaf_math != "mxu",
             "aov": self.aov != AOV.NONE,
             "interactive_block": self.interactive_block,

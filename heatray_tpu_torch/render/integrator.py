@@ -1,5 +1,5 @@
 """The wavefront path-tracing integrator (port of
-``heatray_tpu.render.integrator`` for the wide-BVH backends).
+``heatray_tpu.render.integrator``).
 
 Per pass every pixel traces one camera ray; a Python loop over bounce depth
 intersects (closest-hit kernel), gathers one shading row per hit, shades
@@ -8,9 +8,22 @@ accumulates into a planar ``(4, H, W)`` buffer whose channel 3 counts
 passes.  The wavefront is a flat ``(R,)`` set of tensors; dead lanes are
 parked outside every box rather than compacted.
 
-Backends: ``"wide"`` (32-triangle leaves, ``csrc/wide_bvh.cu``) up to
-250,000 triangles and ``"stream"`` (128-triangle leaves staged in shared
-memory, ``csrc/wide_bvh_stream.cu``) above, on the card and the CPU alike.
+Backends, on the card and the CPU alike (``intersect_backend``):
+
+- ``"wide"``: arity-8 BVH, 32-triangle leaves (``csrc/wide_bvh.cu``), what
+  ``"auto"`` picks up to 250,000 triangles;
+- ``"stream"``: the same with 128-triangle leaves staged in shared memory
+  (``csrc/wide_bvh_stream.cu``), what ``"auto"`` picks above;
+- ``"bvh"``: binary skip-pointer BVH, ``bvh_leaf_size`` leaves
+  (``csrc/bvh2.cu``);
+- ``"pallas"``: no tree, ``pallas_tri_chunk``-triangle chunks culled by
+  their boxes (``csrc/chunks.cu``).
+
+A context made without a scene is the rebuild mode: every pass rebuilds the
+Woop rows, the chunk packs and the shading table from the scene it is given
+and traces them through the chunk kernels, whatever the backend.  The
+wide-BVH backends return slots and shade from a table in slot order; the
+others return triangle ids and shade from one in triangle order.
 
 From the second bounce on, the wavefront can be sorted by direction octant
 and origin Morton code (coherent kernel tiles, live lanes first) and the
@@ -28,7 +41,15 @@ import dataclasses
 import torch
 
 from ..camera import CameraParams
+from ..ops.bvh import BVH, build_bvh
 from ..ops.intersect import WoopAccel, build_woop
+from ..ops.intersect_pallas import (
+    WoopPallas,
+    intersect_any_pallas,
+    intersect_closest_pallas,
+    pack_for_pallas,
+)
+from ..ops.traverse_pallas import intersect_any_bvh, intersect_closest_bvh
 from ..ops.wide_bvh import (
     WideBVH,
     build_wide_bvh,
@@ -60,21 +81,34 @@ STREAM_THRESHOLD = 250_000
 _INTERSECTORS = {
     "wide": (intersect_closest_wide, intersect_any_wide),
     "stream": (intersect_closest_stream, intersect_any_stream),
+    "bvh": (intersect_closest_bvh, intersect_any_bvh),
+    "pallas": (intersect_closest_pallas, intersect_any_pallas),
 }
 
 
 @dataclasses.dataclass
 class AccelPack:
-    """Per-scene acceleration state: the Woop rows, the wide BVH of all
-    triangles, the occluder tree (the same tree unless some material is
-    alpha-masked), the shading table in the tree's slot order, and the
-    backend whose kernels walk the trees."""
+    """Acceleration state: the Woop rows, the backend's structure for all
+    triangles and its occluder counterpart (the same object unless some
+    material is alpha-masked), the shading table in the order of the ids
+    the backend returns, and the backend.  Only the backend's pair of
+    structures is set: ``wide``/``wide_occl`` (``"wide"``, ``"stream"``),
+    ``bvh``/``bvh_occl`` or ``packed``/``packed_occl``."""
 
     accel: WoopAccel
-    wide: WideBVH
-    wide_occl: WideBVH
     shade_table: torch.Tensor
     backend: str
+    wide: WideBVH | None = None
+    wide_occl: WideBVH | None = None
+    bvh: BVH | None = None
+    bvh_occl: BVH | None = None
+    packed: WoopPallas | None = None
+    packed_occl: WoopPallas | None = None
+
+    def structures(self):
+        """(closest-hit structure, occluder structure) of the backend."""
+        name = {"wide": "wide", "stream": "wide", "bvh": "bvh", "pallas": "packed"}[self.backend]
+        return getattr(self, name), getattr(self, name + "_occl")
 
 
 def _select_backend(options: RenderOptions, num_triangles: int) -> str:
@@ -102,26 +136,65 @@ def _device(device) -> torch.device:
     return device
 
 
-def build_accel(scene: Scene, options: RenderOptions) -> AccelPack:
-    """Build the acceleration state on the scene's device (the BVH itself
-    is built on the host)."""
+def _occluder_mask(scene: Scene) -> torch.Tensor:
+    """(T,) bool: the triangles that block shadow rays (alpha-masked ones do
+    not, ``Mesh.cpp:95-100``)."""
+    return scene.materials.alpha_mask[scene.geometry.material_ids.long()] == 0
+
+
+def _occluder_accel(accel: WoopAccel, scene: Scene) -> WoopAccel:
+    """The accel without its alpha-masked triangles: zeroed Woop rows are
+    never hit, and their boxes become empty."""
+    mask = _occluder_mask(scene)[None, :]
+    return WoopAccel(
+        w=accel.w * mask.float(),
+        geo_normal=accel.geo_normal,
+        tri_min=torch.where(mask, accel.tri_min, 3.0e38),
+        tri_max=torch.where(mask, accel.tri_max, -3.0e38),
+    )
+
+
+def rebuild_pack(scene: Scene, options: RenderOptions) -> AccelPack:
+    """The ``"pallas"`` pack, which the rebuild mode makes every pass: Woop
+    rows, chunk packs and a triangle-order shading table, all built on the
+    scene's device with no host step."""
     accel = build_woop(scene.geometry.positions, scene.geometry.indices)
-    backend = _select_backend(options, accel.num_triangles)
+    packed = pack_for_pallas(accel, options.pallas_tri_chunk)
+    packed_occl = (
+        pack_for_pallas(_occluder_accel(accel, scene), options.pallas_tri_chunk)
+        if scene.has_alpha_mask else packed
+    )
+    return AccelPack(accel=accel, shade_table=build_shade_table(scene, accel), backend="pallas",
+                     packed=packed, packed_occl=packed_occl)
+
+
+def build_accel(scene: Scene, options: RenderOptions) -> AccelPack:
+    """Build the acceleration state on the scene's device (the trees
+    themselves are built on the host)."""
+    backend = _select_backend(options, scene.geometry.num_triangles)
+    if backend == "pallas":
+        return rebuild_pack(scene, options)
+    accel = build_woop(scene.geometry.positions, scene.geometry.indices)
+    include = _occluder_mask(scene).cpu().numpy() if scene.has_alpha_mask else None
+    table = build_shade_table(scene, accel)
+    if backend == "bvh":
+        bvh = build_bvh(accel, leaf_size=options.bvh_leaf_size)
+        bvh_occl = bvh if include is None else build_bvh(
+            accel, leaf_size=options.bvh_leaf_size, include=include)
+        return AccelPack(accel=accel, shade_table=table, backend=backend,
+                         bvh=bvh, bvh_occl=bvh_occl)
     leaf = options.stream_leaf_size if backend == "stream" else options.wide_leaf_size
     wide = build_wide_bvh(accel, leaf_size=leaf)
-    if scene.has_alpha_mask:
-        mats = scene.materials.alpha_mask[scene.geometry.material_ids.long()]
-        wide_occl = build_wide_bvh(accel, leaf_size=leaf, include=(mats == 0).cpu().numpy())
-    else:
-        wide_occl = wide
-    table = slot_order_table(build_shade_table(scene, accel), wide.slot_tri)
-    return AccelPack(accel=accel, wide=wide, wide_occl=wide_occl, shade_table=table,
-                     backend=backend)
+    wide_occl = wide if include is None else build_wide_bvh(accel, leaf_size=leaf,
+                                                            include=include)
+    return AccelPack(accel=accel, shade_table=slot_order_table(table, wide.slot_tri),
+                     backend=backend, wide=wide, wide_occl=wide_occl)
 
 
 def make_context(options: RenderOptions, scene: Scene | None = None, device="cuda") -> RenderContext:
     """Sample tables and, given a scene (already on ``device``), its
-    acceleration state."""
+    acceleration state; without a scene, the rebuild mode (see the module
+    docstring)."""
     device = _device(device)
     return RenderContext(
         tables=build_tables(
@@ -271,13 +344,28 @@ def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions
     )
 
 
+def _make_intersectors(pack: AccelPack):
+    """(closest, any) over the pack's structures: ``closest(org, dir, t_min)``
+    gives (t, id, hit) with the ids of ``pack.shade_table``,
+    ``any(org, dir, t_min, t_max)`` the blocked mask."""
+    closest_k, any_k = _INTERSECTORS[pack.backend]
+    tree, tree_occl = pack.structures()
+
+    def closest(org, direction, t_min):
+        return closest_k(tree, org, direction, t_min)
+
+    def any_hit(org, direction, t_min, t_max):
+        return any_k(tree_occl, org, direction, t_min, t_max)
+
+    return closest, any_hit
+
+
 def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
-           frame: FrameGlobals, depth: int, paths: Paths):
-    """One bounce of the wavefront: closest hit, one row gather, shading,
-    NEE occlusion, and the extension rays.  Returns the next
-    ``Paths`` and the ``ShadowRays`` traced."""
-    pack = ctx.accel_pack
-    closest_fn, any_fn = _INTERSECTORS[pack.backend]
+           frame: FrameGlobals, depth: int, paths: Paths, pack: AccelPack):
+    """One bounce of the wavefront against ``pack``: closest hit, one row
+    gather, shading, NEE occlusion, and the extension rays.  Returns the
+    next ``Paths`` and the ``ShadowRays`` traced."""
+    closest_fn, any_fn = _make_intersectors(pack)
     eps = options.ray_epsilon
     lights = scene.lights
     org, direction, weight = paths.org, paths.direction, paths.weight
@@ -286,7 +374,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     def clamp(c: Vec3) -> Vec3:
         return c.minimum(frame.max_channel_value)
 
-    _, slot, hit = closest_fn(pack.wide, org, direction, eps)
+    _, hit_id, hit = closest_fn(org, direction, eps)
     hit = hit & active
 
     # Miss: the environment, for camera and glass-refraction rays.
@@ -297,7 +385,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
 
     # One row gather; t and barycentrics re-evaluated from the gathered
     # Woop rows; facing from the geometric normal.
-    rows = gather_rows(pack.shade_table, slot.clamp(min=0))
+    rows = gather_rows(pack.shade_table, hit_id.clamp(min=0))
     geo_n = rows.vec(GEO_N)
     front = direction.dot(geo_n) < 0.0
     t_d, b1, b2 = hit_attributes_rows(rows, org, direction, hit)
@@ -318,7 +406,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
         _offset_origin(p, geo_n, res.shadow_dir, eps), res.shadow_dir, res.shadow_active
     )
     shadow = ShadowRays(s_org, s_dir, res.shadow_max_t - 2.0 * eps, res.shadow_active)
-    blocked = any_fn(pack.wide_occl, s_org, s_dir, eps, shadow.t_max)
+    blocked = any_fn(s_org, s_dir, eps, shadow.t_max)
     lit = res.shadow_active & ~blocked
     contrib = contrib + Vec3.where(lit, clamp(res.shadow_weight * res.shadow_radiance), 0.0)
 
@@ -370,9 +458,9 @@ def _wavefront_sort_key(org: Vec3, direction: Vec3, active, lo, hi) -> torch.Ten
     return torch.where(active, key, torch.tensor(1 << 28, dtype=torch.int32, device=key.device))
 
 
-def _sort_bounds(ctx: RenderContext):
+def _sort_bounds(pack: AccelPack):
     """(lo, hi): the scene box the sort key quantises origins in."""
-    tri = ctx.accel_pack.accel
+    tri = pack.accel
     return tri.tri_min.min(dim=1).values, tri.tri_max.max(dim=1).values
 
 
@@ -385,10 +473,11 @@ def _sort_paths(paths: Paths, lo, hi) -> Paths:
 
 
 def _bounce_modes(ctx: RenderContext, options: RenderOptions, r: int):
-    """(sort, gate) for this pass: "auto" sorts where the tree lies on a CUDA
-    device, and gates whenever it sorts (gating needs the sorted prefix)."""
+    """(sort, gate) for this pass: "auto" sorts where the context lies on a
+    CUDA device (the kernels), and gates whenever it sorts (gating needs the
+    sorted prefix)."""
     if options.sort_bounces == "auto":
-        sort_on = ctx.accel_pack.wide.w.device.type == "cuda"
+        sort_on = ctx.device.type == "cuda"
     else:
         sort_on = bool(options.sort_bounces)
     sort_on = sort_on and options.max_ray_depth > 1
@@ -419,14 +508,14 @@ def render_pass(
 
     With ``with_stats=True`` returns ``(accum, {"rays": n})``, ``n`` the
     traced rays: per bounce, the live closest-hit lanes plus the shadow
-    lanes (the rays/s benchmark count)."""
-    if ctx.accel_pack is None:
-        raise NotImplementedError("rendering without a prebuilt AccelPack is not ported yet")
+    lanes (the rays/s benchmark count).  A context without a pack renders
+    in the rebuild mode."""
+    pack = ctx.accel_pack if ctx.accel_pack is not None else rebuild_pack(scene, options)
     paths = start_paths(camera, ctx, options, frame.sample_index)
     r = paths.active.shape[0]
     sort_on, gate_on = _bounce_modes(ctx, options, r)
     if sort_on:
-        lo, hi = _sort_bounds(ctx)
+        lo, hi = _sort_bounds(pack)
     ray_count = torch.zeros((), dtype=torch.int64, device=ctx.device)
     for depth in range(1, options.max_ray_depth + 1):
         # Camera rays arrive in pixel order, already coherent: the first
@@ -439,7 +528,7 @@ def render_pass(
         if n == 0:
             continue  # no live lane: the carry passes through unchanged
         head = paths if n == r else paths.map(lambda p: p[:n])
-        nxt, shadow = bounce(scene, ctx, options, frame, depth, head)
+        nxt, shadow = bounce(scene, ctx, options, frame, depth, head, pack)
         if with_stats:
             ray_count += head.active.sum() + shadow.active.sum()
         # Lanes past the live prefix keep their carry unchanged.

@@ -7,6 +7,7 @@ cost or save on the Cornell box.
 Run from the root of a checkout, on a machine with one card:
 
     python3 profile_torch_pass.py [--scene cornell|high-poly] [--passes 5]
+                                  [--backend auto|wide|stream|bvh|pallas|rebuild]
                                   [--root DIR] [--trace FILE]
 
 ``--root`` imports the package from another tree (for example an unpacked
@@ -22,16 +23,19 @@ It prints, one reading per line:
   bounce sort and segment gating on and with both off, in turns, and their
   means;
 - ``[pass]``: the chosen scene (``--scene``; ``high-poly`` is ``high_poly()``
-  framed as ``bench.py`` frames it) at 1920x1080, depth 4, with the options'
-  defaults: the ms of each steady pass after two warm-up passes (host clock
-  around ``render_pass``, ended by ``torch.cuda.synchronize()``) and their
-  mean;
+  framed as ``bench.py`` frames it) at 1920x1080, depth 4, through the chosen
+  backend (``--backend``: an ``intersect_backend``, ``auto`` by default, or
+  ``rebuild``, a context without a scene, whose passes rebuild their Woop
+  rows, chunk packs and shading table): the ms of each steady pass after two
+  warm-up passes (host clock around ``render_pass``, ended by
+  ``torch.cuda.synchronize()``) and their mean;
 - ``[prof]``: one more pass under ``torch.profiler``, its stages labelled from
   outside the package with ``record_function``: the pass's wall ms, the sum
   of its CUDA kernels' self time (the "kernel ms" every share below divides
   by), their count, that sum over the wall, peak device memory, the lanes
   each gated bounce ran, each label's device ms, and the closest-hit and
-  occlusion kernels' ms per launch.
+  occlusion kernels' ms per launch.  In the rebuild mode the rebuild is a
+  label of its own.
 
 It imports no jax.  ``--trace`` also writes the profiler's Chrome trace.
 """
@@ -58,8 +62,13 @@ KERNELS = {
     "any_wide_kernel": "K2 occlusion",
     "closest_stream_kernel": "K3a closest hit (streaming)",
     "any_stream_kernel": "K3b occlusion (streaming)",
+    "closest_chunks_kernel": "K7a closest hit (chunks)",
+    "any_chunks_kernel": "K7b occlusion (chunks)",
+    "closest_bvh_kernel": "K6a closest hit (binary BVH)",
+    "any_bvh_kernel": "K6b occlusion (binary BVH)",
 }
 LABELS = [
+    ("integrator", "rebuild_pack", "rebuild"),
     ("integrator", "generate_primary_rays", "raygen"),
     ("integrator", "_sort_paths", "bounce sort"),
     ("integrator", "gather_rows", "row gather"),
@@ -113,6 +122,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("cornell", "high-poly"), default="cornell",
                     help="scene of the [pass] and [prof] readings")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "wide", "stream", "bvh", "pallas", "rebuild"),
+                    help="intersect_backend of the [pass] and [prof] readings, or rebuild")
     ap.add_argument("--passes", type=int, default=5, help="steady passes to time")
     ap.add_argument("--root", type=Path, default=REPO, help="tree to import the package from")
     ap.add_argument("--trace", type=Path, help="write the profiled pass's Chrome trace here")
@@ -161,15 +173,15 @@ def main() -> int:
         f"{sum(ms[True]) / len(ms[True])!r}; unsorted ms {ms[False]!r}, mean "
         f"{sum(ms[False]) / len(ms[False])!r}")
 
-    if args.scene != "cornell":
-        t0 = time.perf_counter()
-        scene, camera = scene_and_camera(args.scene, device)
-        ctx = integrator.make_context(opts, scene, device)
-        torch.cuda.synchronize()
-        wide = ctx.accel_pack.wide
-        log(f"[setup] {args.scene}: {wide.num_triangles} triangles, backend "
-            f"{ctx.accel_pack.backend!r}, {wide.num_chunks} leaves of {wide.leaf_size}, "
-            f"built in {time.perf_counter() - t0!r} s")
+    rebuild = args.backend == "rebuild"
+    opts = dataclasses.replace(opts, intersect_backend="pallas" if rebuild else args.backend)
+    t0 = time.perf_counter()
+    scene, camera = scene_and_camera(args.scene, device)
+    ctx = integrator.make_context(opts, None if rebuild else scene, device)
+    torch.cuda.synchronize()
+    log(f"[setup] {args.scene}: {scene.geometry.num_triangles} triangles, backend "
+        f"{'rebuild' if rebuild else ctx.accel_pack.backend!r}, context in "
+        f"{time.perf_counter() - t0!r} s")
     warm = [one_pass(scene, camera, ctx, opts, i) for i in range(2)]
     ms = [one_pass(scene, camera, ctx, opts, 2 + i) for i in range(args.passes)]
     log(f"[pass] {args.scene} {WIDTH}x{HEIGHT} depth {DEPTH}: warm-up ms {warm!r}; "

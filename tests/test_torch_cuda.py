@@ -13,9 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from heatray_tpu_torch import cornell_box, orbit_camera, render
+from heatray_tpu_torch import cornell_box, make_context, orbit_camera, render
 from heatray_tpu_torch.options import RenderOptions
-from heatray_tpu_torch.ops import wide_bvh
+from heatray_tpu_torch.ops import intersect_pallas, traverse_pallas, wide_bvh
+from heatray_tpu_torch.ops.bvh import build_bvh
 from heatray_tpu_torch.ops.intersect import build_woop
 from heatray_tpu_torch.vec import Vec3
 
@@ -154,6 +155,86 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         wide_bvh.intersect_any_stream(dataclasses.replace(bvh, w=huge, leaf_size=2048), o, d)
 
 
+def _flat_queries(kind, accel):
+    """(structure, closest kernel, closest plain, any kernel, any plain) of
+    the chunk kernels (K7) or the binary-BVH kernels (K6)."""
+    if kind == "chunks":
+        m = intersect_pallas
+        return (m.pack_for_pallas(accel, 512), m.intersect_closest_pallas, m.closest_chunks_plain,
+                m.intersect_any_pallas, m.any_chunks_plain)
+    m = traverse_pallas
+    return (build_bvh(accel, leaf_size=64), m.intersect_closest_bvh, m.closest_bvh_plain,
+            m.intersect_any_bvh, m.any_bvh_plain)
+
+
+@pytest.mark.parametrize("kind", ["chunks", "bvh2"])
+@pytest.mark.parametrize("n_rays", [8191, 0])
+def test_flat_and_binary_kernels_match_plain(cuda_device, kind, n_rays):
+    """K7 and K6 on a 5,000-triangle soup: a ray count that leaves the last
+    block part-empty, and no rays at all.  Triangle ids equal except where
+    two triangles tie in t."""
+    accel = _soup(5000, 11, cuda_device)
+    tree, closest, closest_plain, any_, any_plain = _flat_queries(kind, accel)
+    o, d = _rays(n_rays, 7, cuda_device)
+    launches = closest.launches
+    t_k, id_k, hit_k = closest(tree, o, d)
+    t_p, id_p, hit_p = closest_plain(tree, o, d)
+    torch.cuda.synchronize()
+    assert closest.launches == launches + (n_rays > 0)
+    assert t_k.shape == id_k.shape == (n_rays,)
+    assert torch.equal(hit_k, hit_p)
+    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
+    assert n_rays == 0 or (id_k == id_p).float().mean() > 0.999
+
+    t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
+    launches = any_.launches
+    blocked = any_(tree, o, d, t_max=t_max)
+    assert torch.equal(blocked, any_plain(tree, o, d, t_max=t_max))
+    assert any_.launches == launches + (n_rays > 0)
+    assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
+
+
+@pytest.mark.parametrize("kind", ["chunks", "bvh2"])
+def test_flat_and_binary_kernels_find_hits_just_past_an_edge(cuda_device, kind):
+    """The ray of ``test_kernel_finds_hits_just_past_an_edge`` through K7's
+    chunk boxes and K6's node boxes."""
+    scene = cornell_box(light="both", with_spheres=True).to(cuda_device)
+    accel = build_woop(scene.geometry.positions, scene.geometry.indices)
+    tree, closest, closest_plain, any_, _ = _flat_queries(kind, accel)
+    o = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (1.999899983406067, 0.021646535024046898, 0.026903629302978516)))
+    d = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (-0.643088698387146, -0.5480369329452515, 0.5348762273788452)))
+    t_k, id_k, hit_k = closest(tree, o, d)
+    t_p, id_p, hit_p = closest_plain(tree, o, d)
+    assert bool(hit_p[0]) and bool(hit_k[0])
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    assert bool(any_(tree, o, d, t_max=t_p + 1e-3)[0])
+
+
+def test_flat_and_binary_wrappers_raise(cuda_device):
+    """A tree deeper than K6's stack, a misaligned pack, and a chunk too
+    large for a block's shared memory (the launch itself fails)."""
+    accel = _soup(300, 5, cuda_device)
+    o, d = _rays(64, 3, cuda_device)
+    bvh = build_bvh(accel, leaf_size=16)
+    with pytest.raises(ValueError, match="stack of 97"):
+        traverse_pallas.intersect_closest_bvh(dataclasses.replace(bvh, max_stack=97), o, d)
+    with pytest.raises(ValueError, match="float32"):
+        traverse_pallas.intersect_any_bvh(bvh, o.map(lambda c: c.double()), d)
+    packed = intersect_pallas.pack_for_pallas(accel, 64)
+    shifted = torch.empty(packed.w.numel() + 1, device=cuda_device)[1:].view(packed.w.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        intersect_pallas.intersect_closest_pallas(dataclasses.replace(packed, w=shifted), o, d)
+    launches = intersect_pallas.intersect_any_pallas.launches
+    huge = intersect_pallas.pack_for_pallas(accel, 8192)  # 384 KB of columns per chunk
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        intersect_pallas.intersect_any_pallas(huge, o, d)
+    assert intersect_pallas.intersect_any_pallas.launches == launches
+    blocked = intersect_pallas.intersect_any_pallas(packed, o, d)  # the card still works
+    assert torch.equal(blocked, intersect_pallas.any_chunks_plain(packed, o, d))
+
+
 def test_render_matches_cpu(cuda_device):
     """The golden configuration config2 (48x48, 4 passes, depth 4) on the
     card (kernels) and on the CPU (plain versions), at the golden's
@@ -167,3 +248,21 @@ def test_render_matches_cpu(cuda_device):
     on_card, _ = render(scene, camera, opts, num_passes=passes, device=cuda_device)
     on_cpu, _ = render(scene, camera, opts, num_passes=passes, device="cpu")
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("backend", ["bvh", "pallas", "rebuild"])
+def test_other_routes_render_matches_cpu(cuda_device, backend):
+    """config2 through the binary BVH (K6), the prebuilt chunk pack and the
+    rebuild mode (K7), on the card and on the CPU, at the golden's
+    tolerance."""
+    size, passes = 48, 4
+    opts = RenderOptions(width=size, height=size, max_render_passes=passes, max_ray_depth=4,
+                         intersect_backend="pallas" if backend == "rebuild" else backend)
+    scene = cornell_box(light="both", with_spheres=True)
+    camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        ctx = make_context(opts, device=device) if backend == "rebuild" else None
+        out[device.type], _ = render(scene, camera, opts, num_passes=passes, ctx=ctx,
+                                     device=device)
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-3, atol=5e-3)

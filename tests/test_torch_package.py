@@ -44,8 +44,8 @@ def test_imports_without_jax():
     "field, value",
     [
         ("intersect_backend", "xla"),
-        ("intersect_backend", "bvh"),
-        ("intersect_backend", "pallas"),
+        ("intersect_backend", "sharded"),
+        ("wide_leaf_math", "vpu"),
         ("stream_leaf_math", "vpu"),
         ("aov", AOV.BASE_COLOR),
         ("interactive_block", True),
@@ -59,6 +59,7 @@ def test_unported_options_raise(field, value):
 
 def test_supported_options_accepted():
     for kw in ({}, {"intersect_backend": "wide"}, {"intersect_backend": "stream"},
+               {"intersect_backend": "bvh"}, {"intersect_backend": "pallas"},
                {"sort_bounces": False}, {"gate_bounces": False},
                {"sort_bounces": True, "gate_bounces": True}, {"stream_ray_tile": 512}):
         RenderOptions(width=8, height=8, **kw)
