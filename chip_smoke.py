@@ -47,7 +47,23 @@ per source, started together) and then:
    lanes, no K1-K3) and timing the rebuild within each pass, and compares
    each image with phase 3's ``"wide"`` image of the same passes;
 11. times K7a, K7b, K6a and K6b on phase 4's rays, and their plain
-   versions on all of them.
+   versions on all of them;
+12. checks K5a and K5b (``wide_bvh_t.cu``) under Route A (the Cornell box
+   with ``wide_leaf_math="vpu"``: "auto" keeps "wide" and rounds the leaf of
+   32 up to 128) against their plain versions, at the shapes the 1080p path
+   gives them (as in 5), and on the 50,000-triangle soup at leaf 128: hit
+   masks equal, t within TOL, and no slot differences at all;
+13. renders Route A (as in 3), counting launches (K5a and K5b once per
+   bounce with live lanes, no other traversal kernel), and compares its
+   image with phase 3's ``"wide"`` image of the same passes;
+14. the same for K4a and K4b (``wide_bvh_t.cu``) under Route B (``high_poly``
+   with ``stream_leaf_math="vpu"``, leaf 128): their checks at the path's
+   shapes and on the soup, the path, and its image against phase 6's
+   ``"stream"`` image;
+15. times K5a and K5b on phase 4's rays, beside K1 and K2 on the same rays
+   (phase 4, over the leaf-32 tree, and here over Route A's leaf-128 tree),
+   and K4a and K4b on phase 7's rays, beside K3a and K3b (phase 7, over the
+   same tree).
 
 Each kernel's bound is the larger of the bytes it must move over the
 H100's 3.35 TB/s and the float32 operations its rays need over 67 TFLOP/s.
@@ -81,7 +97,7 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2")
+SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
     "closest_wide": ("heatray_tpu_torch/csrc/wide_bvh.cu", "heatray_tpu/ops/wide_bvh.py:297"),
@@ -94,6 +110,10 @@ KERNELS = {
     "any_chunks": ("heatray_tpu_torch/csrc/chunks.cu", "heatray_tpu/ops/intersect_pallas.py:318"),
     "closest_bvh": ("heatray_tpu_torch/csrc/bvh2.cu", "heatray_tpu/ops/traverse_pallas.py:113"),
     "any_bvh": ("heatray_tpu_torch/csrc/bvh2.cu", "heatray_tpu/ops/traverse_pallas.py:164"),
+    "closest_wide_t": ("heatray_tpu_torch/csrc/wide_bvh_t.cu", "heatray_tpu/ops/wide_bvh.py:526"),
+    "any_wide_t": ("heatray_tpu_torch/csrc/wide_bvh_t.cu", "heatray_tpu/ops/wide_bvh.py:607"),
+    "closest_stream_t": ("heatray_tpu_torch/csrc/wide_bvh_t.cu", "heatray_tpu/ops/wide_bvh.py:960"),
+    "any_stream_t": ("heatray_tpu_torch/csrc/wide_bvh_t.cu", "heatray_tpu/ops/wide_bvh.py:1059"),
 }
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and float32 FLOP/s outside the
 # tensor cores.
@@ -142,6 +162,10 @@ def queries():
         "any_chunks": (ip.intersect_any_pallas, ip.any_chunks_plain),
         "closest_bvh": (tp.intersect_closest_bvh, tp.closest_bvh_plain),
         "any_bvh": (tp.intersect_any_bvh, tp.any_bvh_plain),
+        "closest_wide_t": (wb.intersect_closest_vpu, wb.closest_wide_plain),
+        "any_wide_t": (wb.intersect_any_vpu, wb.any_wide_plain),
+        "closest_stream_t": (wb.intersect_closest_stream_vpu, wb.closest_stream_plain),
+        "any_stream_t": (wb.intersect_any_stream_vpu, wb.any_stream_plain),
     }
 
 
@@ -199,9 +223,10 @@ def live_pick(active, gen):
     return live[torch.randperm(live.numel(), generator=gen)[:N_CHECK].to(live.device)]
 
 
-def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4):
+def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4, exact=False):
     """The kernel on all the rays against the plain version on the lanes
-    ``pick`` (all when None)."""
+    ``pick`` (all when None).  ``exact``: no slot may differ, not even on a
+    tie."""
     import torch
 
     kernel, plain = queries()[name]
@@ -221,8 +246,9 @@ def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4):
     # A different slot is allowed only where it ties with the plain one.
     other = s_k != s_p
     tie = (slot_t(bvh, org, d, s_k) - t_p).abs() <= TOL + TOL * t_p.abs()
-    if (other & ~tie).any():
-        raise AssertionError(f"{label}: {int((other & ~tie).sum())} slots differ without a tie")
+    if (other & ~tie).any() or (exact and other.any()):
+        raise AssertionError(f"{label}: {int(other.sum())} slots differ, "
+                             f"{int((other & ~tie).sum())} without a tie")
     dt = float(diff[h_p].max()) if h_p.any() else 0.0
     err[name] = max(err[name], dt)
     log(f"[check] {label}: {name} ok on {h_k.numel()} of {n_all} rays launched, "
@@ -249,12 +275,12 @@ def check_any(name, bvh, org, d, t_max, label, err, pick=None, t_min=1e-4):
         f"{int(b_k.sum())} blocked")
 
 
-def check_path_rays(names, scene, camera, ctx, opts, gen, label, err):
+def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=False):
     """Each kernel launched at the shapes a pass gives it, against its plain
     version on N_CHECK seeded live lanes of each launch: all primary rays,
     the first bounce's shadow lanes, and the second bounce's sorted, gated
-    head and its shadow lanes.  Returns the primary and first-bounce shadow
-    rays."""
+    head and its shadow lanes (``exact``: see ``check_closest``).  Returns
+    the primary and first-bounce shadow rays."""
     from heatray_tpu_torch.options import FrameGlobals
     from heatray_tpu_torch.render import integrator
 
@@ -266,7 +292,7 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err):
     frame = FrameGlobals.create(0, device=ctx.device)
     primary = integrator.start_paths(camera, ctx, opts, 0)
     check_closest(closest, tree, primary.org, primary.direction, f"{label} primary", err,
-                  live_pick(primary.active, gen), eps)
+                  live_pick(primary.active, gen), eps, exact)
     first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary, pack)
     check_any(any_, tree_occl, shadow.org, shadow.direction, shadow.t_max,
               f"{label} first-bounce shadow", err, live_pick(shadow.active, gen), eps)
@@ -277,7 +303,7 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err):
     head = paths.map(lambda p: p[:n])
     tag = f"{label} depth-2 sorted head ({n} of {paths.active.numel()} lanes)"
     check_closest(closest, tree, head.org, head.direction, tag, err,
-                  live_pick(head.active, gen), eps)
+                  live_pick(head.active, gen), eps, exact)
     _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head, pack)
     check_any(any_, tree_occl, shadow2.org, shadow2.direction, shadow2.t_max,
               f"{tag} shadow", err, live_pick(shadow2.active, gen), eps)
@@ -530,7 +556,7 @@ def time_kernels(spec, err, launches):
         n_plain = r if plain_all else sample.numel()
         # A walk that knows each ray's hit distance (and, for occlusion, its
         # t_max) needs no more than this.
-        family = name.split("_")[1]
+        family = name.split("_", 1)[1]
         t_far = queries()["closest_" + family][0](bvh, org, d)[0]
         if t_max is not None:
             t_far = torch.minimum(t_far, t_max)
@@ -622,6 +648,36 @@ def run_path(label, scene, camera, ctx, opts, expect):
         log(f"[{label}] rebuild ms per pass {[round(m, 3) for m in rebuild_ms]}, mean "
             f"{sum(rebuild_ms) / PASSES:.3f}")
     return launches, img
+
+
+def compare_images(label, img, ref, ref_label):
+    """At most IMAGE_SHARE of the pixels of ``img`` may differ from ``ref``
+    by more than IMAGE_TOL."""
+    diff = (img - ref).abs().amax(dim=2)
+    n_bad = int((diff > IMAGE_TOL).sum())
+    log(f"[image] {label} against {ref_label}: {n_bad} of {diff.numel()} pixels differ by "
+        f"more than {IMAGE_TOL}, max |diff| {float(diff.max()):.4g}")
+    if n_bad > IMAGE_SHARE * diff.numel():
+        raise AssertionError(f"{label}: {n_bad} pixels differ from the {ref_label} path")
+
+
+def vpu_context(label, scene, opts, route, device):
+    """A context of a transposed-leaf-math route, built through
+    ``make_context`` as a user builds one; its tree must have leaves of 128."""
+    import torch
+
+    from heatray_tpu_torch.render import integrator
+
+    t0 = time.perf_counter()
+    ctx = integrator.make_context(opts, scene, device)
+    torch.cuda.synchronize()
+    pack = ctx.accel_pack
+    log(f"[setup] {label} context in {time.perf_counter() - t0:.2f} s: route {pack.route!r}, "
+        f"{pack.wide.num_nodes} nodes, {pack.wide.num_chunks} leaves of {pack.wide.leaf_size}, "
+        f"stack {pack.wide.max_stack}")
+    if (pack.route, pack.wide.leaf_size) != (route, 128):
+        raise AssertionError(f"{label} got route {pack.route!r}, leaf {pack.wide.leaf_size}")
+    return ctx
 
 
 def main() -> int:
@@ -763,8 +819,8 @@ def main() -> int:
                                       hp_ctx, opts, gen, "high_poly", err)
 
     # --- 6. the high_poly path -------------------------------------------------
-    hp_launches, _ = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
-                              ("closest_stream", "any_stream"))
+    hp_launches, hp_img = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
+                                   ("closest_stream", "any_stream"))
 
     # --- 7. K3 times, and K1/K2 on a 32-triangle-leaf tree of the same scene ---
     kernels += time_kernels([
@@ -787,7 +843,8 @@ def main() -> int:
         log(f"[compare] high_poly on {primary.org.x.numel()} rays: K1 on leaf 32 {k1:.4f} ms vs "
             f"K3a on leaf 128 {k3['closest_stream']:.4f} ms; K2 on leaf 32 {k2:.4f} ms vs "
             f"K3b {k3['any_stream']:.4f} ms; card {card}")
-    del hp_ctx, hp, wide32, primary, shadow
+    hp_rays = (primary, shadow)  # phase 15 times K4 on them
+    del hp_ctx, hp, wide32
 
     # --- 8. K7 in the rebuild mode and K6 under "bvh", against plain -----------
     routes = {
@@ -832,12 +889,7 @@ def main() -> int:
         launches, img = run_path(f"cornell {route}", scene, camera, ctxs[route], r_opts, names)
         for name in names:
             kernels_launches[name] = launches[name]
-        diff = (img - wide_img).abs().amax(dim=2)
-        n_bad = int((diff > IMAGE_TOL).sum())
-        log(f"[image] cornell {route} against wide: {n_bad} of {diff.numel()} pixels differ by "
-            f"more than {IMAGE_TOL}, max |diff| {float(diff.max()):.4g}")
-        if n_bad > IMAGE_SHARE * diff.numel():
-            raise AssertionError(f"cornell {route}: {n_bad} pixels differ from the wide path")
+        compare_images(f"cornell {route}", img, wide_img, "wide")
 
     # --- 11. K7 and K6 times on phase 4's rays -----------------------------------
     prim, shadow = cornell_rays
@@ -849,6 +901,59 @@ def main() -> int:
         ("closest_bvh", bvh_pack.bvh, prim.org, prim.direction, None, True),
         ("any_bvh", bvh_pack.bvh_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, kernels_launches)
+    del ctxs, chunk_pack, bvh_pack
+
+    # --- 12. K5 under Route A against its plain versions ------------------------
+    a_names = ("closest_wide_t", "any_wide_t")
+    a_opts = dataclasses.replace(opts, wide_leaf_math="vpu")
+    a_ctx = vpu_context("Cornell 1080p route A", scene, a_opts, "wide/vpu", device)
+    check_path_rays(a_names, scene, camera, a_ctx, a_opts, gen, "cornell vpu", err, exact=True)
+    soup128 = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=128)
+    log(f"[setup] {SOUP_TRIANGLES}-triangle soup at leaf 128: {soup128.num_nodes} nodes, "
+        f"{soup128.num_chunks} leaves, stack {soup128.max_stack}")
+    check_closest("closest_wide_t", soup128, s_org, s_dir, "soup leaf 128", err, exact=True)
+    check_any("any_wide_t", soup128, s_org, s_dir, t_max, "soup leaf 128", err)
+
+    # --- 13. the Cornell path through Route A ----------------------------------
+    a_launches, img = run_path("cornell vpu", scene, camera, a_ctx, a_opts, a_names)
+    compare_images("cornell vpu", img, wide_img, "wide")
+
+    # --- 14. K4 and the high_poly path through Route B ----------------------------
+    b_names = ("closest_stream_t", "any_stream_t")
+    b_opts = dataclasses.replace(opts, stream_leaf_math="vpu")
+    b_ctx = vpu_context("high_poly 1080p route B", hp_scene, b_opts, "stream/vpu", device)
+    check_path_rays(b_names, hp_scene, hp_camera, b_ctx, b_opts, gen, "high_poly vpu", err,
+                    exact=True)
+    check_closest("closest_stream_t", soup128, s_org, s_dir, "soup leaf 128", err, exact=True)
+    check_any("any_stream_t", soup128, s_org, s_dir, t_max, "soup leaf 128", err)
+    b_launches, img = run_path("high_poly vpu", hp_scene, hp_camera, b_ctx, b_opts, b_names)
+    compare_images("high_poly vpu", img, hp_img, "stream")
+    del img, hp_img, wide_img, soup128
+
+    # --- 15. K5 and K4 times beside K1/K2 and K3 on the same rays -----------------
+    a_pack, b_pack = a_ctx.accel_pack, b_ctx.accel_pack
+    kernels += time_kernels([
+        ("closest_wide_t", a_pack.wide, prim.org, prim.direction, None, True),
+        ("any_wide_t", a_pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
+    ], err, a_launches)
+    k1_128 = time_ms(lambda: wide_bvh.intersect_closest_wide(a_pack.wide, prim.org,
+                                                             prim.direction), 10)
+    k2_128 = time_ms(lambda: wide_bvh.intersect_any_wide(
+        a_pack.wide_occl, shadow.org, shadow.direction, t_max=shadow.t_max), 10)
+    hp_primary, hp_shadow = hp_rays
+    kernels += time_kernels([
+        ("closest_stream_t", b_pack.wide, hp_primary.org, hp_primary.direction, None, False),
+        ("any_stream_t", b_pack.wide_occl, hp_shadow.org, hp_shadow.direction, hp_shadow.t_max,
+         False),
+    ], err, b_launches)
+    ms = {k["name"]: k["ms"] for k in kernels}
+    log(f"[compare] cornell on {prim.org.x.numel()} rays: K5a {ms['closest_wide_t']:.4f} ms "
+        f"vs K1 {ms['closest_wide']:.4f} ms on leaf 32 and {k1_128:.4f} ms on the same leaf-128 "
+        f"tree; K5b {ms['any_wide_t']:.4f} ms vs K2 {ms['any_wide']:.4f} ms on leaf 32 and "
+        f"{k2_128:.4f} ms on leaf 128; card {card}")
+    log(f"[compare] high_poly on {hp_primary.org.x.numel()} rays, one leaf-128 tree: K4a "
+        f"{ms['closest_stream_t']:.4f} ms vs K3a {ms['closest_stream']:.4f} ms; K4b "
+        f"{ms['any_stream_t']:.4f} ms vs K3b {ms['any_stream']:.4f} ms; card {card}")
 
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,8 +3,9 @@
 A differentiable wavefront path tracer's forward render, on PyTorch tensors,
 with the traversal kernels written in CUDA for Hopper: the wide BVH
 (``csrc/wide_bvh.cu``, and ``csrc/wide_bvh_stream.cu`` for scenes past
-250,000 triangles), the binary BVH (``csrc/bvh2.cu``) and the flat chunks
-of the rebuild mode (``csrc/chunks.cu``).  It imports torch and numpy,
+250,000 triangles; ``csrc/wide_bvh_t.cu`` for the transposed "vpu" leaf
+math of either), the binary BVH (``csrc/bvh2.cu``) and the flat chunks of
+the rebuild mode (``csrc/chunks.cu``).  It imports torch and numpy,
 never jax.
 """
 

@@ -142,13 +142,6 @@ cudaError_t chunk_memory(Kernel kernel, int tc, size_t* bytes) {
                               static_cast<int>(*bytes));
 }
 
-// A refused opt-in is also the thread's last error: clear it, or the next
-// launch (this library's or PyTorch's) would report it as its own.
-inline int refused(cudaError_t err) {
-  cudaGetLastError();
-  return static_cast<int>(err);
-}
-
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on `stream`, does not

@@ -1,0 +1,135 @@
+// The block-wide walk of the streaming kernels (wide_bvh_stream.cu,
+// wide_bvh_t.cu): one block of 256 rays walks the tree together, with the
+// current node and the stack in shared memory so that the loop is the same
+// for every thread; a child is visited if any ray of the block enters it,
+// near to far by the block's summed direction along the node's sort axis;
+// the live leaf chunks of a node are copied with cp.async into up to 8
+// shared-memory slots, one commit group each, all started before the first
+// wait.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "wide_bvh_common.cuh"
+
+namespace wide_bvh {
+
+constexpr int kTile = 256;         // rays per block, stream_ray_tile
+constexpr int kBlockStack = 256;   // STACK_DEPTH of the TPU kernels
+constexpr int kTileWarps = kTile / 32;
+
+// Block-wide walk state, in static shared memory.
+struct Walk {
+  int stack[kBlockStack];
+  int node;
+  int sp;
+  unsigned warp_bits[kTileWarps];
+  float warp_dir[kTileWarps][3];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+// Per axis: does the block travel predominantly +axis (low child near)?
+// Every thread gets the same three answers (fixed summation order).
+__device__ __forceinline__ void block_signs(Walk& s, bool valid, const Ray& r,
+                                            bool sign[3]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float dx = warp_sum(valid ? r.dx : 0.0f);
+  const float dy = warp_sum(valid ? r.dy : 0.0f);
+  const float dz = warp_sum(valid ? r.dz : 0.0f);
+  if (lane == 0) {
+    s.warp_dir[warp][0] = dx;
+    s.warp_dir[warp][1] = dy;
+    s.warp_dir[warp][2] = dz;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float t = 0.0f;
+    for (int k = 0; k < kTileWarps; ++k) t += s.warp_dir[k][a];
+    sign[a] = t >= 0.0f;
+  }
+}
+
+// OR of every thread's child bits, the same on every thread.
+__device__ __forceinline__ unsigned block_or(Walk& s, unsigned bits) {
+  bits = __reduce_or_sync(kFullMask, bits);
+  if ((threadIdx.x & 31) == 0) s.warp_bits[threadIdx.x >> 5] = bits;
+  __syncthreads();
+  unsigned live = 0;
+#pragma unroll
+  for (int k = 0; k < kTileWarps; ++k) live |= s.warp_bits[k];
+  return live;
+}
+
+// Start the copies of every live leaf chunk of the node, near to far, into
+// slots 0, 1, ...; one commit group per chunk.  Returns their count.
+__device__ __forceinline__ int stage_leaves(const int* __restrict__ codes,
+                                            unsigned live, bool low_first,
+                                            const float* __restrict__ w,
+                                            int chunk_floats, float* slots) {
+  int n = 0;
+  for (int k = 0; k < kArity; ++k) {
+    const int c = low_first ? k : kArity - 1 - k;
+    const int code = codes[c];
+    if (!((live >> c) & 1u) || code > -2) continue;
+    const float4* src =
+        reinterpret_cast<const float4*>(w + (size_t)(-2 - code) * chunk_floats);
+    float4* dst = reinterpret_cast<float4*>(slots + n * chunk_floats);
+    for (int p = threadIdx.x; p < chunk_floats / 4; p += kTile) cp_async16(dst + p, src + p);
+    cp_async_commit();
+    ++n;
+  }
+  return n;
+}
+
+// Thread 0 pushes the live internal children far to near (the stack then
+// pops near first) and pops the next node; -1 ends the walk.
+__device__ __forceinline__ void push_and_pop(Walk& s, const int* __restrict__ codes,
+                                             unsigned live, bool low_first) {
+  if (threadIdx.x != 0) return;
+  int sp = s.sp;
+  for (int k = 0; k < kArity; ++k) {
+    const int c = low_first ? kArity - 1 - k : k;
+    const int code = codes[c];
+    if (((live >> c) & 1u) && code >= 0) s.stack[sp++] = code;
+  }
+  s.node = sp > 0 ? s.stack[--sp] : -1;
+  s.sp = sp;
+}
+
+inline int tiles_for(int n) { return (n + kTile - 1) / kTile; }
+
+// Dynamic shared memory of the 8 leaf slots; above 48 KB it needs the
+// kernel's opt-in.
+template <typename Kernel>
+cudaError_t slot_memory(Kernel kernel, int leaf_size, size_t* bytes) {
+  *bytes = sizeof(float) * kArity * 12 * (size_t)leaf_size;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(*bytes));
+}
+
+}  // namespace wide_bvh

@@ -1,6 +1,7 @@
 // Arity-8 BVH pieces shared by the traversal kernels (wide_bvh.cu,
-// wide_bvh_stream.cu): the ray, the widened slab test of a node's children
-// and the exact-f32 Woop pair test of one triangle of a leaf chunk.
+// wide_bvh_stream.cu, wide_bvh_t.cu): the ray, the widened slab test of a
+// node's children, the exact-f32 Woop pair test of one triangle of a leaf
+// chunk, and that test spread across the lanes of a warp.
 //
 // Numerics: built with --fmad=false, so every product and sum rounds
 // separately, in the order the plain PyTorch version
@@ -27,6 +28,14 @@ constexpr float kBaryEps = 1e-6f;
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
+
+// A refused launch setting (a shared-memory opt-in) is also the thread's
+// last error: clear it, or the next launch (this library's or PyTorch's)
+// would report it as its own.  Returns the error.
+inline int refused(cudaError_t err) {
+  cudaGetLastError();
+  return static_cast<int>(err);
+}
 
 __device__ __forceinline__ float safe_inv(float d) {
   return (d < 0.0f ? -1.0f : 1.0f) / fmaxf(fabsf(d), 1e-18f);
@@ -119,6 +128,134 @@ __device__ __forceinline__ float tri_t(const float* __restrict__ W, int tc,
   const bool inside =
       b1 >= -kBaryEps && b2 >= -kBaryEps && b1 + b2 <= 1.0f + kBaryEps;
   return inside ? t : kMissT;
+}
+
+// --- warp-transposed leaf tests (wide_bvh_t.cu) ------------------------------
+//
+// The counterpart of the TPU's transposed "VPU leaf math"
+// (heatray_tpu/ops/intersect_pallas.py `_pair_hits_t`, rays x 3 Tc with the
+// leaf's triangles across the lanes): one ray at a time, the same on every
+// lane of a warp, against a whole leaf chunk, lane l testing columns l,
+// l + 32, ..., so that each load of a Woop row reads 32 consecutive floats.
+// Every call must be made by all 32 lanes of the warp.
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  return v;
+}
+
+// Lane `src`'s ray on every lane.  The pair test reads only the origin and
+// the direction, so the reciprocals are left unset.
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray q = {};
+  q.ox = __shfl_sync(kFullMask, r.ox, src);
+  q.oy = __shfl_sync(kFullMask, r.oy, src);
+  q.oz = __shfl_sync(kFullMask, r.oz, src);
+  q.dx = __shfl_sync(kFullMask, r.dx, src);
+  q.dy = __shfl_sync(kFullMask, r.dy, src);
+  q.dz = __shfl_sync(kFullMask, r.dz, src);
+  return q;
+}
+
+// Closest hit of the ray `q` against chunk `W`: on every lane, the smallest
+// t of the chunk that is at most `t_best` (t_best itself included, so that a
+// lower slot can still win a tie) and its column, the lowest on ties; kMissT
+// when there is none.
+__device__ __forceinline__ void warp_leaf_closest(const float* __restrict__ W,
+                                                  int tc, float ax, float ay,
+                                                  float az, const Ray& q,
+                                                  float t_min, float t_best,
+                                                  float* t_out, int* col_out) {
+  // t < t_lim <=> t <= t_best (+inf as the direction)
+  const float t_lim = nextafterf(t_best, __int_as_float(0x7f800000));
+  float t = kMissT;
+  int col = -1;
+  for (int j = threadIdx.x & 31; j < tc; j += 32) {
+    const float tj = tri_t(W, tc, j, ax, ay, az, q, t_min, t_lim);
+    if (tj < t) {  // columns rise per lane: the lower one keeps a tie
+      t = tj;
+      col = j;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {  // the same minimum on every lane
+    const float ot = __shfl_xor_sync(kFullMask, t, o);
+    const int oc = __shfl_xor_sync(kFullMask, col, o);
+    if (ot < t || (ot == t && static_cast<unsigned>(oc) < static_cast<unsigned>(col))) {
+      t = ot;
+      col = oc;
+    }
+  }
+  *t_out = t;
+  *col_out = col;
+}
+
+// Any hit of the ray `q` in (t_min, t_max) against chunk `W`, on every lane.
+__device__ __forceinline__ bool warp_leaf_any(const float* __restrict__ W, int tc,
+                                              float ax, float ay, float az,
+                                              const Ray& q, float t_min, float t_max) {
+  bool hit = false;
+  for (int j = threadIdx.x & 31; j < tc && !hit; j += 32) {
+    hit = tri_t(W, tc, j, ax, ay, az, q, t_min, t_max) < kMissT;
+  }
+  return __any_sync(kFullMask, hit);
+}
+
+// One leaf visit of a warp, closest hit: each ray of the warp whose own
+// widened slab enters the leaf's box before its best hit (`box`, the child
+// box in its parent's wbox row) is tested in turn by the whole warp against
+// the chunk `W` (global or shared memory), and its own lane keeps the
+// result, ties in t to the lowest slot.  Rays that miss the box cost nothing.
+__device__ __forceinline__ void warp_visit_closest(
+    const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
+    const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool valid,
+    float t_min, Widen widen, float& best, int& best_slot) {
+  unsigned want = __ballot_sync(kFullMask, valid && slab(box, r, t_min, best, widen));
+  if (!want) return;
+  const float cx = wanchor[chunk], cy = wanchor[n_chunks + chunk],
+              cz = wanchor[2 * n_chunks + chunk];
+  const int lane = threadIdx.x & 31;
+  while (want) {
+    const int src = __ffs(static_cast<int>(want)) - 1;
+    want &= want - 1;
+    const Ray q = shfl_ray(r, src);
+    const float q_best = __shfl_sync(kFullMask, best, src);
+    float t;
+    int col;
+    warp_leaf_closest(W, tc, q.ox - cx, q.oy - cy, q.oz - cz, q, t_min, q_best, &t, &col);
+    const int slot = chunk * tc + col;
+    if (lane == src && (t < best || (t == best && t < kMissT && slot < best_slot))) {
+      best = t;
+      best_slot = slot;
+    }
+  }
+}
+
+// One leaf visit of a warp, any hit: each unblocked ray of the warp
+// (`active`) whose own widened slab enters the box before its `t_max` is
+// tested in turn by the whole warp; its lane becomes blocked on a hit.
+__device__ __forceinline__ void warp_visit_any(
+    const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
+    const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool active,
+    float t_min, float t_max, Widen widen, bool& blocked) {
+  unsigned want = __ballot_sync(kFullMask, active && slab(box, r, t_min, t_max, widen));
+  if (!want) return;
+  const float cx = wanchor[chunk], cy = wanchor[n_chunks + chunk],
+              cz = wanchor[2 * n_chunks + chunk];
+  const int lane = threadIdx.x & 31;
+  while (want) {
+    const int src = __ffs(static_cast<int>(want)) - 1;
+    want &= want - 1;
+    const Ray q = shfl_ray(r, src);
+    const float q_max = __shfl_sync(kFullMask, t_max, src);
+    if (warp_leaf_any(W, tc, q.ox - cx, q.oy - cy, q.oz - cz, q, t_min, q_max) &&
+        lane == src) {
+      blocked = true;
+    }
+  }
 }
 
 }  // namespace wide_bvh

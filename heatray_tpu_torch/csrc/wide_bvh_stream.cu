@@ -22,6 +22,9 @@
 // is blocked or the stack is empty.  Threads past the last ray stay in the
 // loop as dead lanes, since every iteration has block-wide barriers.
 //
+// The block walk itself is in wide_bvh_block.cuh, shared with K4
+// (wide_bvh_t.cu).
+//
 // What bounds it on an H100: the leaf pair tests.  A leaf that any ray of
 // the block enters is tested by all 256 rays (about 40 FLOPs per pair), and
 // the whole `w` of a 300k-triangle scene (about 21 MB) stays in the 50 MB
@@ -31,123 +34,11 @@
 
 #include <cuda_runtime.h>
 
-#include "wide_bvh_common.cuh"
+#include "wide_bvh_block.cuh"
 
 namespace {
 
 using namespace wide_bvh;
-
-constexpr int kTile = 256;         // rays per block, stream_ray_tile
-constexpr int kStackDepth = 256;   // STACK_DEPTH of the TPU kernels
-constexpr int kWarps = kTile / 32;
-
-// Block-wide walk state, in static shared memory.
-struct Walk {
-  int stack[kStackDepth];
-  int node;
-  int sp;
-  unsigned warp_bits[kWarps];
-  float warp_dir[kWarps][3];
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most `pending` of this thread's commit groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Per axis: does the block travel predominantly +axis (low child near)?
-// Every thread gets the same three answers (fixed summation order).
-__device__ __forceinline__ void block_signs(Walk& s, bool valid, const Ray& r,
-                                            bool sign[3]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float dx = warp_sum(valid ? r.dx : 0.0f);
-  const float dy = warp_sum(valid ? r.dy : 0.0f);
-  const float dz = warp_sum(valid ? r.dz : 0.0f);
-  if (lane == 0) {
-    s.warp_dir[warp][0] = dx;
-    s.warp_dir[warp][1] = dy;
-    s.warp_dir[warp][2] = dz;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float t = 0.0f;
-    for (int k = 0; k < kWarps; ++k) t += s.warp_dir[k][a];
-    sign[a] = t >= 0.0f;
-  }
-}
-
-// OR of every thread's child bits, the same on every thread.
-__device__ __forceinline__ unsigned block_or(Walk& s, unsigned bits) {
-  bits = __reduce_or_sync(0xffffffffu, bits);
-  if ((threadIdx.x & 31) == 0) s.warp_bits[threadIdx.x >> 5] = bits;
-  __syncthreads();
-  unsigned live = 0;
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) live |= s.warp_bits[k];
-  return live;
-}
-
-// Start the copies of every live leaf chunk of the node, near to far, into
-// slots 0, 1, ...; one commit group per chunk.  Returns their count.
-__device__ __forceinline__ int stage_leaves(const int* __restrict__ codes,
-                                            unsigned live, bool low_first,
-                                            const float* __restrict__ w,
-                                            int chunk_floats, float* slots) {
-  int n = 0;
-  for (int k = 0; k < kArity; ++k) {
-    const int c = low_first ? k : kArity - 1 - k;
-    const int code = codes[c];
-    if (!((live >> c) & 1u) || code > -2) continue;
-    const float4* src =
-        reinterpret_cast<const float4*>(w + (size_t)(-2 - code) * chunk_floats);
-    float4* dst = reinterpret_cast<float4*>(slots + n * chunk_floats);
-    for (int p = threadIdx.x; p < chunk_floats / 4; p += kTile) cp_async16(dst + p, src + p);
-    cp_async_commit();
-    ++n;
-  }
-  return n;
-}
-
-// Thread 0 pushes the live internal children far to near (the stack then
-// pops near first) and pops the next node; -1 ends the walk.
-__device__ __forceinline__ void push_and_pop(Walk& s, const int* __restrict__ codes,
-                                             unsigned live, bool low_first) {
-  if (threadIdx.x != 0) return;
-  int sp = s.sp;
-  for (int k = 0; k < kArity; ++k) {
-    const int c = low_first ? kArity - 1 - k : k;
-    const int code = codes[c];
-    if (((live >> c) & 1u) && code >= 0) s.stack[sp++] = code;
-  }
-  s.node = sp > 0 ? s.stack[--sp] : -1;
-  s.sp = sp;
-}
 
 __global__ void __launch_bounds__(kTile) closest_stream_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -287,24 +178,13 @@ __global__ void __launch_bounds__(kTile) any_stream_kernel(
   if (valid) blocked_out[i] = blocked ? 1 : 0;
 }
 
-inline int blocks_for(int n) { return (n + kTile - 1) / kTile; }
-
-// Dynamic shared memory of the 8 leaf slots; above 48 KB it needs the
-// kernel's opt-in.
-template <typename Kernel>
-cudaError_t slot_memory(Kernel kernel, int leaf_size, size_t* bytes) {
-  *bytes = sizeof(float) * kArity * 12 * (size_t)leaf_size;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
-}
-
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  `w` must be 16-byte aligned.
 
-extern "C" int wide_bvh_stream_stack_depth() { return kStackDepth; }
+extern "C" int wide_bvh_stream_stack_depth() { return kBlockStack; }
 
 extern "C" int closest_stream(const float* ox, const float* oy, const float* oz,
                               const float* dx, const float* dy, const float* dz,
@@ -316,8 +196,8 @@ extern "C" int closest_stream(const float* ox, const float* oy, const float* oz,
   if (n_rays > 0) {
     size_t bytes = 0;
     const cudaError_t err = slot_memory(closest_stream_kernel, leaf_size, &bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    closest_stream_kernel<<<blocks_for(n_rays), kTile, bytes,
+    if (err != cudaSuccess) return refused(err);
+    closest_stream_kernel<<<tiles_for(n_rays), kTile, bytes,
                             static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
         n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, t_out, slot_out);
@@ -335,8 +215,8 @@ extern "C" int any_stream(const float* ox, const float* oy, const float* oz,
   if (n_rays > 0) {
     size_t bytes = 0;
     const cudaError_t err = slot_memory(any_stream_kernel, leaf_size, &bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    any_stream_kernel<<<blocks_for(n_rays), kTile, bytes,
+    if (err != cudaSuccess) return refused(err);
+    any_stream_kernel<<<tiles_for(n_rays), kTile, bytes,
                         static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w,
         wanchor, n_chunks, leaf_size, t_min, Widen{box_pad, far_scale},

@@ -1,0 +1,373 @@
+// Arity-8 BVH traversal with the leaf test spread across a warp's lanes:
+// closest hit and any hit, over leaves of 128 triangles or a multiple of it.
+//
+// K5a `closest_wide_t_kernel`, K5b `any_wide_t_kernel` replace the Pallas
+// TPU kernels `_closest_kernel_t` and `_any_kernel_t` of
+// heatray_tpu/ops/wide_bvh.py (`wide_leaf_math="vpu"`).  K4a
+// `closest_stream_t_kernel`, K4b `any_stream_t_kernel` replace
+// `_closest_stream_kernel_t` and `_any_stream_kernel_t`
+// (`stream_leaf_math="vpu"`).  On the TPU, "VPU leaf math" is a layout: a
+// ray tile walks the tree in the row layout, and each live leaf is tested as
+// one transposed (rays x 3 Tc) broadcast tile with the leaf's triangles
+// across the lanes (`_pair_hits_t`), which is why Tc must be a multiple of
+// 128.  On the card the transposed layout becomes a warp that takes one ray
+// at a time and spreads the leaf's triangles over its 32 lanes, 4 per lane
+// at Tc = 128: lane j reads column j of each Woop row (coalesced), the warp
+// reduces (t, slot) with shuffles to the ray's own lane, and a ray whose own
+// widened slab misses the leaf is skipped by the whole warp at once
+// (wide_bvh_common.cuh, `warp_visit_closest` / `warp_visit_any`).  Unlike
+// K1-K3, a leaf costs only the rays that enter it.
+//
+// K5: the group that walks the tree together is one warp of 32 rays (the
+// TPU walks a 512-ray tile).  A warp needs no block barrier: the live mask is
+// a `__reduce_or_sync` of the lanes' slab tests, the node order comes from
+// the warp's summed direction, and the warp's stack lives in shared memory;
+// 32 rays share fewer dead children than 512 would.  A child is visited if
+// any ray of the warp enters it; leaves near to far along the node's sort
+// axis by that summed direction, internal children pushed far to near.  The
+// leaf chunk is read straight from device memory: Cornell's leaf-128 `w`
+// (about 400 KB) lives in the 50 MB L2, the counterpart of the TPU's
+// VMEM-resident pack.  Any hit: a blocked ray enters no box and tests
+// nothing more, and the warp leaves once all its rays are blocked.
+//
+// K4: the block walk of K3 (wide_bvh_block.cuh: one block of 256 rays, the
+// node and the stack in shared memory, the live leaves of a node staged by
+// cp.async into 8 shared-memory slots before the first wait), with each
+// staged leaf tested by K5's warp-transposed test, per warp, only on the
+// rays that enter it.
+//
+// Numerics: the pair test is K1's (`tri_t`, exact f32, IEEE divide, built
+// with --fmad=false); the reference's `_recip_fast` is TPU rounding.  Ties
+// in t go to the lowest slot, across leaves too, so a result equals the
+// brute force over the same slot rows bit for bit: the plain version.
+//
+// What bounds them on an H100: latency, not bytes or operations.  Every
+// warp step (the node's 8 slab tests, a ballot, a ray's 4 pair tests per
+// lane and its 5-step shuffle reduction) is a short chain of dependent
+// instructions and loads, with few warps in flight doing it.  The design
+// removes K3's waste (a leaf opened for one ray tested by all 256), which is
+// what bounded K3, and leaves the rest to later work: no wgmma pair tests,
+// no TMA, no persistent blocks, no ray reordering within a warp.
+
+#include <cuda_runtime.h>
+
+#include "wide_bvh_block.cuh"
+
+namespace {
+
+using namespace wide_bvh;
+
+constexpr int kWideThreads = 128;  // 4 independent warps per block
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideStack = 64;     // K1's depth
+
+// Bit a of the result: the warp travels predominantly +axis a (low child
+// near).  The same on every lane (xor-butterfly sums).
+__device__ __forceinline__ unsigned warp_signs(const Ray& r, bool valid) {
+  const float sx = warp_sum(valid ? r.dx : 0.0f);
+  const float sy = warp_sum(valid ? r.dy : 0.0f);
+  const float sz = warp_sum(valid ? r.dz : 0.0f);
+  return (sx >= 0.0f ? 1u : 0u) | (sy >= 0.0f ? 2u : 0u) | (sz >= 0.0f ? 4u : 0u);
+}
+
+// Pushes the live internal children far to near on the warp's stack (lane 0
+// writes, every lane keeps the same `sp`) and pops the next node; -1 ends
+// the walk.
+__device__ __forceinline__ int warp_push_pop(int* stack, int& sp, const int* __restrict__ codes,
+                                             unsigned live, bool low_first) {
+  for (int k = 0; k < kArity; ++k) {
+    const int c = low_first ? kArity - 1 - k : k;
+    const int code = codes[c];
+    if (((live >> c) & 1u) && code >= 0) {
+      if ((threadIdx.x & 31) == 0) stack[sp] = code;
+      ++sp;
+    }
+  }
+  __syncwarp();
+  const int node = sp > 0 ? stack[--sp] : -1;
+  __syncwarp();  // every lane has read the top before it is written again
+  return node;
+}
+
+__global__ void __launch_bounds__(kWideThreads) closest_wide_t_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
+    const float* __restrict__ wbox, const int* __restrict__ wchild,
+    const int* __restrict__ waxis, const float* __restrict__ w,
+    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
+    Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
+  __shared__ int stacks[kWideWarps][kWideStack];
+  const int i = blockIdx.x * kWideThreads + threadIdx.x;
+  const bool valid = i < n_rays;
+  if (!__any_sync(kFullMask, valid)) return;  // the whole warp is past the end
+  int* stack = stacks[threadIdx.x >> 5];
+  Ray r = {};
+  if (valid) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  const unsigned signs = warp_signs(r, valid);
+  const int chunk_floats = 12 * tc;
+
+  float best = kMissT;
+  int best_slot = -1;
+  int sp = 0;
+  for (int node = 0; node >= 0;) {
+    const float* boxes = wbox + (size_t)node * kArity * 8;
+    const int* codes = wchild + (size_t)node * kArity;
+    const unsigned mine = valid ? live_children(boxes, codes, r, t_min, best, widen) : 0u;
+    const unsigned live = __reduce_or_sync(kFullMask, mine);
+    const bool low_first = (signs >> waxis[node]) & 1u;
+    for (int k = 0; k < kArity; ++k) {  // leaves near to far
+      const int c = low_first ? k : kArity - 1 - k;
+      const int code = codes[c];
+      if (!((live >> c) & 1u) || code > -2) continue;
+      const int chunk = -2 - code;
+      warp_visit_closest(boxes + 8 * c, w + (size_t)chunk * chunk_floats, tc, chunk,
+                         wanchor, n_chunks, r, valid, t_min, widen, best, best_slot);
+    }
+    node = warp_push_pop(stack, sp, codes, live, low_first);
+  }
+  if (valid) {
+    t_out[i] = best;
+    slot_out[i] = best_slot;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads) any_wide_t_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t_max, int n_rays,
+    const float* __restrict__ wbox, const int* __restrict__ wchild,
+    const int* __restrict__ waxis, const float* __restrict__ w,
+    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
+    Widen widen, unsigned char* __restrict__ blocked_out) {
+  __shared__ int stacks[kWideWarps][kWideStack];
+  const int i = blockIdx.x * kWideThreads + threadIdx.x;
+  const bool valid = i < n_rays;
+  if (!__any_sync(kFullMask, valid)) return;
+  int* stack = stacks[threadIdx.x >> 5];
+  Ray r = {};
+  float t_hi = 0.0f;
+  if (valid) {
+    r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    t_hi = t_max[i];
+  }
+  const unsigned signs = warp_signs(r, valid);
+  const int chunk_floats = 12 * tc;
+
+  bool blocked = false;
+  int sp = 0;
+  for (int node = 0; node >= 0;) {
+    const float* boxes = wbox + (size_t)node * kArity * 8;
+    const int* codes = wchild + (size_t)node * kArity;
+    const bool active = valid && !blocked;  // a blocked ray enters no box
+    const unsigned mine = active ? live_children(boxes, codes, r, t_min, t_hi, widen) : 0u;
+    const unsigned live = __reduce_or_sync(kFullMask, mine);
+    const bool low_first = (signs >> waxis[node]) & 1u;
+    for (int k = 0; k < kArity; ++k) {
+      const int c = low_first ? k : kArity - 1 - k;
+      const int code = codes[c];
+      if (!((live >> c) & 1u) || code > -2) continue;
+      const int chunk = -2 - code;
+      warp_visit_any(boxes + 8 * c, w + (size_t)chunk * chunk_floats, tc, chunk, wanchor,
+                     n_chunks, r, valid && !blocked, t_min, t_hi, widen, blocked);
+    }
+    node = warp_push_pop(stack, sp, codes, live, low_first);
+    if (!__any_sync(kFullMask, valid && !blocked)) break;  // every ray is blocked
+  }
+  if (valid) blocked_out[i] = blocked ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kTile) closest_stream_t_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
+    const float* __restrict__ wbox, const int* __restrict__ wchild,
+    const int* __restrict__ waxis, const float* __restrict__ w,
+    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
+    Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
+  __shared__ Walk s;
+  extern __shared__ float4 slot_mem[];
+  float* slots = reinterpret_cast<float*>(slot_mem);
+  const int chunk_floats = 12 * tc;
+
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const bool valid = i < n_rays;
+  Ray r = {};
+  if (valid) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  bool sign[3];
+  block_signs(s, valid, r, sign);
+
+  float best = kMissT;
+  int best_slot = -1;
+  if (threadIdx.x == 0) {
+    s.node = 0;
+    s.sp = 0;
+  }
+  __syncthreads();
+  for (int node = s.node; node >= 0; node = s.node) {
+    const float* boxes = wbox + (size_t)node * kArity * 8;
+    const int* codes = wchild + (size_t)node * kArity;
+    const unsigned mine = valid ? live_children(boxes, codes, r, t_min, best, widen) : 0u;
+    const unsigned live = block_or(s, mine);
+    const bool low_first = sign[waxis[node]];
+
+    const int n = stage_leaves(codes, live, low_first, w, chunk_floats, slots);
+    for (int k = 0, q = 0; k < kArity; ++k) {
+      const int c = low_first ? k : kArity - 1 - k;
+      const int code = codes[c];
+      if (!((live >> c) & 1u) || code > -2) continue;
+      cp_async_wait(n - 1 - q);
+      __syncthreads();  // slot q has arrived for every thread's share
+      warp_visit_closest(boxes + 8 * c, slots + q * chunk_floats, tc, -2 - code, wanchor,
+                         n_chunks, r, valid, t_min, widen, best, best_slot);
+      ++q;
+    }
+    __syncthreads();  // every thread is done with the slots and warp_bits
+    push_and_pop(s, codes, live, low_first);
+    __syncthreads();  // the next node is visible
+  }
+  if (valid) {
+    t_out[i] = best;
+    slot_out[i] = best_slot;
+  }
+}
+
+__global__ void __launch_bounds__(kTile) any_stream_t_kernel(
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t_max, int n_rays,
+    const float* __restrict__ wbox, const int* __restrict__ wchild,
+    const int* __restrict__ waxis, const float* __restrict__ w,
+    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
+    Widen widen, unsigned char* __restrict__ blocked_out) {
+  __shared__ Walk s;
+  extern __shared__ float4 slot_mem[];
+  float* slots = reinterpret_cast<float*>(slot_mem);
+  const int chunk_floats = 12 * tc;
+
+  const int i = blockIdx.x * kTile + threadIdx.x;
+  const bool valid = i < n_rays;
+  Ray r = {};
+  float t_hi = 0.0f;
+  if (valid) {
+    r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    t_hi = t_max[i];
+  }
+  bool sign[3];
+  block_signs(s, valid, r, sign);
+
+  bool blocked = false;
+  if (threadIdx.x == 0) {
+    s.node = 0;
+    s.sp = 0;
+  }
+  // The walk goes on while the stack has a node and some ray is unblocked.
+  bool alive = __syncthreads_or(valid);
+  for (int node = s.node; node >= 0 && alive; node = s.node) {
+    const float* boxes = wbox + (size_t)node * kArity * 8;
+    const int* codes = wchild + (size_t)node * kArity;
+    const bool active = valid && !blocked;  // a blocked ray enters no box
+    const unsigned mine = active ? live_children(boxes, codes, r, t_min, t_hi, widen) : 0u;
+    const unsigned live = block_or(s, mine);
+    const bool low_first = sign[waxis[node]];
+
+    const int n = stage_leaves(codes, live, low_first, w, chunk_floats, slots);
+    for (int k = 0, q = 0; k < kArity; ++k) {
+      const int c = low_first ? k : kArity - 1 - k;
+      const int code = codes[c];
+      if (!((live >> c) & 1u) || code > -2) continue;
+      cp_async_wait(n - 1 - q);
+      __syncthreads();  // slot q has arrived for every thread's share
+      warp_visit_any(boxes + 8 * c, slots + q * chunk_floats, tc, -2 - code, wanchor,
+                     n_chunks, r, valid && !blocked, t_min, t_hi, widen, blocked);
+      ++q;
+    }
+    __syncthreads();  // every thread is done with the slots and warp_bits
+    push_and_pop(s, codes, live, low_first);
+    alive = __syncthreads_or(valid && !blocked);  // and the next node is visible
+  }
+  if (valid) blocked_out[i] = blocked ? 1 : 0;
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  Each launches on `stream`, does not
+// synchronise, and returns the first CUDA error (0 = the launch was
+// accepted).  The leaf size must be a multiple of 32 (the wrappers ask for
+// 128); for K4, `w` must be 16-byte aligned.
+
+extern "C" int wide_t_stack_depth() { return kWideStack; }
+
+extern "C" int stream_t_stack_depth() { return kBlockStack; }
+
+extern "C" int closest_wide_t(const float* ox, const float* oy, const float* oz,
+                              const float* dx, const float* dy, const float* dz,
+                              int n_rays, const float* wbox, const int* wchild,
+                              const int* waxis, const float* w,
+                              const float* wanchor, int n_chunks, int leaf_size,
+                              float t_min, float box_pad, float far_scale,
+                              float* t_out, int* slot_out, void* stream) {
+  if (n_rays > 0) {
+    closest_wide_t_kernel<<<(n_rays + kWideThreads - 1) / kWideThreads, kWideThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+        n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, t_out, slot_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int any_wide_t(const float* ox, const float* oy, const float* oz,
+                          const float* dx, const float* dy, const float* dz,
+                          const float* t_max, int n_rays, const float* wbox,
+                          const int* wchild, const int* waxis, const float* w,
+                          const float* wanchor, int n_chunks, int leaf_size,
+                          float t_min, float box_pad, float far_scale,
+                          unsigned char* blocked_out, void* stream) {
+  if (n_rays > 0) {
+    any_wide_t_kernel<<<(n_rays + kWideThreads - 1) / kWideThreads, kWideThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+        n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, blocked_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int closest_stream_t(const float* ox, const float* oy, const float* oz,
+                                const float* dx, const float* dy, const float* dz,
+                                int n_rays, const float* wbox, const int* wchild,
+                                const int* waxis, const float* w,
+                                const float* wanchor, int n_chunks, int leaf_size,
+                                float t_min, float box_pad, float far_scale,
+                                float* t_out, int* slot_out, void* stream) {
+  if (n_rays > 0) {
+    size_t bytes = 0;
+    const cudaError_t err = slot_memory(closest_stream_t_kernel, leaf_size, &bytes);
+    if (err != cudaSuccess) return refused(err);
+    closest_stream_t_kernel<<<tiles_for(n_rays), kTile, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+        n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, t_out, slot_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int any_stream_t(const float* ox, const float* oy, const float* oz,
+                            const float* dx, const float* dy, const float* dz,
+                            const float* t_max, int n_rays, const float* wbox,
+                            const int* wchild, const int* waxis, const float* w,
+                            const float* wanchor, int n_chunks, int leaf_size,
+                            float t_min, float box_pad, float far_scale,
+                            unsigned char* blocked_out, void* stream) {
+  if (n_rays > 0) {
+    size_t bytes = 0;
+    const cudaError_t err = slot_memory(any_stream_t_kernel, leaf_size, &bytes);
+    if (err != cudaSuccess) return refused(err);
+    any_stream_t_kernel<<<tiles_for(n_rays), kTile, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+        ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+        n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, blocked_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,20 +1,22 @@
-"""Wide (arity-8) BVH: the host builder and the two traversal queries.
+"""Wide (arity-8) BVH: the host builder and its traversal queries.
 
 Port of ``heatray_tpu.ops.wide_bvh`` (``collapse_topology``,
 ``build_wide_bvh`` with the f32 leaf layout, ``intersect_closest_wide``,
-``intersect_any_wide`` and the large-leaf ``intersect_closest_stream``,
-``intersect_any_stream``).  The queries keep the JAX package's contract:
-closest hit returns ``(t, slot, hit)`` with raw chunk-slot ids
+``intersect_any_wide``, the large-leaf ``intersect_closest_stream``,
+``intersect_any_stream``, and the transposed leaf math:
+``intersect_closest_vpu``, ``intersect_any_vpu`` and the streaming pair's
+``leaf_math="vpu"``).  The queries keep the JAX package's contract: closest
+hit returns ``(t, slot, hit)`` with raw chunk-slot ids
 (``chunk * leaf_size + j``) and ``(MISS_T, -1)`` on a miss; any hit returns
 an (R,) blocked mask.
 
 Each query has two versions.  On a CUDA tensor the wrapper launches the
-hand-written kernel of ``csrc/wide_bvh.cu`` or ``csrc/wide_bvh_stream.cu``
-(built at first use) and counts the launch in its ``launches`` attribute;
-on a CPU tensor it runs the plain
-PyTorch version, a brute force over the same slot-ordered, anchor-centred
-leaf rows (``ops.intersect``).  The brute force has no tree, stack or visit
-order, so it checks the kernel's walk independently.
+hand-written kernel of ``csrc/wide_bvh.cu``, ``csrc/wide_bvh_stream.cu`` or
+``csrc/wide_bvh_t.cu`` (built at first use) and counts the launch in its
+``launches`` attribute; on a CPU tensor it runs the plain PyTorch version, a
+brute force over the same slot-ordered, anchor-centred leaf rows
+(``ops.intersect``).  The brute force has no tree, stack or visit order, so
+it checks the kernel's walk independently.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ _BIG = np.float32(3.0e38)
 # the plain version finds.
 BOX_PAD = 4.0 * BARY_EPS
 FAR_SCALE = 1.0 + 2.0**-20
+# Leaf pair-test math of the wide trees: "mxu" (K1/K3, one thread per ray
+# and triangle) or "vpu" (K5/K4, the leaf test spread across a warp), whose
+# leaves are a multiple of VPU_LEAF_ALIGN triangles.
+LEAF_MATHS = ("mxu", "vpu")
+VPU_LEAF_ALIGN = 128
 
 
 @dataclasses.dataclass
@@ -265,25 +272,35 @@ _ANY_ARGS = (
 _STREAM_SLOT_BYTES = 200 * 1024
 
 
-def _bind(name: str, depth_fn: str, closest: str, any_: str) -> ctypes.CDLL:
+def _bind(name: str, depth_fns: tuple, pairs: tuple) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu`` and declare its stack-depth getters and its
+    (closest hit, occlusion) entry points."""
     lib = cuda_build.load(name)
-    getattr(lib, depth_fn).argtypes = []
-    getattr(lib, depth_fn).restype = ctypes.c_int
-    for fn, args in ((closest, _CLOSEST_ARGS), (any_, _ANY_ARGS)):
-        getattr(lib, fn).argtypes = args
+    for fn in depth_fns:
+        getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
+    for closest, any_ in pairs:
+        for fn, args in ((closest, _CLOSEST_ARGS), (any_, _ANY_ARGS)):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
-    return _bind("wide_bvh", "wide_bvh_stack_depth", "closest_wide", "any_wide")
+    return _bind("wide_bvh", ("wide_bvh_stack_depth",), (("closest_wide", "any_wide"),))
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_kernels() -> ctypes.CDLL:
-    return _bind("wide_bvh_stream", "wide_bvh_stream_stack_depth",
-                 "closest_stream", "any_stream")
+    return _bind("wide_bvh_stream", ("wide_bvh_stream_stack_depth",),
+                 (("closest_stream", "any_stream"),))
+
+
+@functools.lru_cache(maxsize=None)
+def _t_kernels() -> ctypes.CDLL:
+    return _bind("wide_bvh_t", ("wide_t_stack_depth", "stream_t_stack_depth"),
+                 (("closest_wide_t", "any_wide_t"), ("closest_stream_t", "any_stream_t")))
 
 
 def on_cpu(tree) -> bool:
@@ -320,10 +337,10 @@ def _tree_args(bvh: WideBVH, depth: int) -> list:
             bvh.w.data_ptr(), bvh.wanchor.data_ptr(), bvh.num_chunks, bvh.leaf_size]
 
 
-def _stream_tree_args(bvh: WideBVH, lib) -> list:
+def _stream_tree_args(bvh: WideBVH, depth: int) -> list:
     """``_tree_args`` plus what the leaf staging needs: 16-byte copies and
     8 chunks in shared memory."""
-    tree = _tree_args(bvh, lib.wide_bvh_stream_stack_depth())
+    tree = _tree_args(bvh, depth)
     if bvh.w.data_ptr() % 16:
         raise ValueError("WideBVH.w must be 16-byte aligned for the streaming kernels")
     if ARITY * bvh.w[0].numel() * 4 > _STREAM_SLOT_BYTES:
@@ -409,39 +426,137 @@ def intersect_any_wide(
     return out
 
 
+def _check_leaf_math(leaf_math: str) -> None:
+    if leaf_math not in LEAF_MATHS:
+        raise ValueError(f"leaf_math must be one of {LEAF_MATHS}, not {leaf_math!r}")
+
+
 def intersect_closest_stream(bvh: WideBVH, origins: Vec3, directions: Vec3,
-                             t_min: float = 1e-4):
+                             t_min: float = 1e-4, leaf_math: str = "mxu"):
     """Closest hit over a tree with large leaves (``stream_leaf_size``), the
     contract of ``intersect_closest_wide``.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``closest_stream_kernel`` (``csrc/wide_bvh_stream.cu``), which walks the
-    tree once per block of 256 rays and stages leaf chunks in shared memory."""
+    tree once per block of 256 rays and stages leaf chunks in shared memory,
+    or with ``leaf_math="vpu"`` ``intersect_closest_stream_vpu``'s kernel."""
+    _check_leaf_math(leaf_math)
+    if leaf_math == "vpu":
+        return intersect_closest_stream_vpu(bvh, origins, directions, t_min)
     if on_cpu(bvh):
         return closest_stream_plain(bvh, origins, directions, t_min)
     lib = _stream_kernels()
-    out = launch_closest(lib.closest_stream, _stream_tree_args(bvh, lib),
-                          bvh, origins, directions, t_min)
+    out = launch_closest(lib.closest_stream,
+                         _stream_tree_args(bvh, lib.wide_bvh_stream_stack_depth()),
+                         bvh, origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_stream.launches += 1
     return out
 
 
 def intersect_any_stream(
-    bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
+    bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37,
+    leaf_math: str = "mxu",
 ):
     """Occlusion over a tree with large leaves, the contract of
     ``intersect_any_wide``.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``any_stream_kernel`` (``csrc/wide_bvh_stream.cu``)."""
+    ``any_stream_kernel`` (``csrc/wide_bvh_stream.cu``), or with
+    ``leaf_math="vpu"`` ``intersect_any_stream_vpu``'s kernel."""
+    _check_leaf_math(leaf_math)
+    if leaf_math == "vpu":
+        return intersect_any_stream_vpu(bvh, origins, directions, t_min, t_max)
     if on_cpu(bvh):
         return any_stream_plain(bvh, origins, directions, t_min, t_max)
     lib = _stream_kernels()
-    out = launch_any(lib.any_stream, _stream_tree_args(bvh, lib),
-                      bvh, origins, directions, t_min, t_max)
+    out = launch_any(lib.any_stream, _stream_tree_args(bvh, lib.wide_bvh_stream_stack_depth()),
+                     bvh, origins, directions, t_min, t_max)
     if origins.x.numel():
         intersect_any_stream.launches += 1
+    return out
+
+
+# --- the transposed ("vpu") leaf math ------------------------------------------
+
+
+def _check_t_leaf(bvh: WideBVH) -> None:
+    """The transposed kernels, like the reference's, take leaves of a
+    multiple of 128 triangles (4 per lane of a warp, or more)."""
+    if bvh.leaf_size % VPU_LEAF_ALIGN:
+        raise ValueError(
+            f"the 'vpu' leaf math needs a leaf size that is a multiple of {VPU_LEAF_ALIGN}, "
+            f"not {bvh.leaf_size}"
+        )
+
+
+def intersect_closest_vpu(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
+    """Closest hit with the transposed leaf math (``wide_leaf_math="vpu"``),
+    the contract of ``intersect_closest_wide``; the leaf size must be a
+    multiple of 128.
+
+    CPU tensors take the plain version (``closest_wide_plain``); CUDA tensors
+    launch ``closest_wide_t_kernel`` (``csrc/wide_bvh_t.cu``): a warp of 32
+    rays walks the tree, and each ray that enters a leaf is tested against it
+    by the whole warp, its triangles spread across the lanes."""
+    _check_t_leaf(bvh)
+    if on_cpu(bvh):
+        return closest_wide_plain(bvh, origins, directions, t_min)
+    lib = _t_kernels()
+    out = launch_closest(lib.closest_wide_t, _tree_args(bvh, lib.wide_t_stack_depth()),
+                         bvh, origins, directions, t_min)
+    if origins.x.numel():
+        intersect_closest_vpu.launches += 1
+    return out
+
+
+def intersect_any_vpu(
+    bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
+):
+    """Occlusion with the transposed leaf math, the contract of
+    ``intersect_any_wide``; CUDA tensors launch ``any_wide_t_kernel``."""
+    _check_t_leaf(bvh)
+    if on_cpu(bvh):
+        return any_wide_plain(bvh, origins, directions, t_min, t_max)
+    lib = _t_kernels()
+    out = launch_any(lib.any_wide_t, _tree_args(bvh, lib.wide_t_stack_depth()),
+                     bvh, origins, directions, t_min, t_max)
+    if origins.x.numel():
+        intersect_any_vpu.launches += 1
+    return out
+
+
+def intersect_closest_stream_vpu(bvh: WideBVH, origins: Vec3, directions: Vec3,
+                                 t_min: float = 1e-4):
+    """``intersect_closest_stream(..., leaf_math="vpu")``: CUDA tensors launch
+    ``closest_stream_t_kernel`` (``csrc/wide_bvh_t.cu``), the streaming walk
+    of 256-ray blocks with each staged leaf tested warp by warp, only on the
+    rays that enter it."""
+    _check_t_leaf(bvh)
+    if on_cpu(bvh):
+        return closest_stream_plain(bvh, origins, directions, t_min)
+    lib = _t_kernels()
+    out = launch_closest(lib.closest_stream_t,
+                         _stream_tree_args(bvh, lib.stream_t_stack_depth()),
+                         bvh, origins, directions, t_min)
+    if origins.x.numel():
+        intersect_closest_stream_vpu.launches += 1
+    return out
+
+
+def intersect_any_stream_vpu(
+    bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
+):
+    """``intersect_any_stream(..., leaf_math="vpu")``: CUDA tensors launch
+    ``any_stream_t_kernel``."""
+    _check_t_leaf(bvh)
+    if on_cpu(bvh):
+        return any_stream_plain(bvh, origins, directions, t_min, t_max)
+    lib = _t_kernels()
+    out = launch_any(lib.any_stream_t, _stream_tree_args(bvh, lib.stream_t_stack_depth()),
+                     bvh, origins, directions, t_min, t_max)
+    if origins.x.numel():
+        intersect_any_stream_vpu.launches += 1
     return out
 
 
@@ -449,3 +564,7 @@ intersect_closest_wide.launches = 0
 intersect_any_wide.launches = 0
 intersect_closest_stream.launches = 0
 intersect_any_stream.launches = 0
+intersect_closest_vpu.launches = 0
+intersect_any_vpu.launches = 0
+intersect_closest_stream_vpu.launches = 0
+intersect_any_stream_vpu.launches = 0

@@ -3,8 +3,16 @@
 ``RenderOptions`` keeps the JAX package's field names and defaults.  Fields
 that choose a path the port does not have yet raise ``NotImplementedError``
 when set away from what it supports; they are never silently ignored.
-Fields that only tune the TPU kernels (tile sizes, MXU schedule, remat,
-unrolling) have no effect here.
+Fields that only tune the TPU kernels have no effect here and change nothing
+the port computes: ``wide_ray_tile`` and ``stream_ray_tile`` (each kernel
+fixes its own group of rays: a thread, a warp or a 256-ray block),
+``wide_precision`` (every kernel is exact float32), ``pallas_ray_tile``,
+``tri_chunk``, ``ray_block``, ``sort_impl``, ``remat_bounces`` and
+``unroll_bounces``.  ``wide_leaf_math`` and ``stream_leaf_math`` ("mxu" or
+"vpu") do choose the kernels (K1/K3 or K5/K4) and, for ``"wide"``, the leaf
+size (rounded up to a multiple of 128), but every route runs the same exact
+pair test; only a different leaf size, whose leaf anchors round otherwise,
+can move a t by an ulp.
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ import dataclasses
 import enum
 
 import torch
+
+from .ops.wide_bvh import LEAF_MATHS
 
 
 class AOV(enum.Enum):
@@ -86,11 +96,12 @@ class RenderOptions:
         for name in ("sort_bounces", "gate_bounces"):
             if getattr(self, name) not in (True, False, "auto"):
                 raise ValueError(f"RenderOptions.{name} must be True, False or 'auto'")
+        for name in ("wide_leaf_math", "stream_leaf_math"):
+            if getattr(self, name) not in LEAF_MATHS:
+                raise ValueError(f"RenderOptions.{name} must be one of {LEAF_MATHS}")
         unported = {
             "intersect_backend": self.intersect_backend
             not in ("auto", "wide", "stream", "bvh", "pallas"),
-            "wide_leaf_math": self.wide_leaf_math != "mxu",
-            "stream_leaf_math": self.stream_leaf_math != "mxu",
             "aov": self.aov != AOV.NONE,
             "interactive_block": self.interactive_block,
             "ms_impl": self.ms_impl != "fit",

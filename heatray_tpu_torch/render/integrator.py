@@ -14,6 +14,10 @@ Backends, on the card and the CPU alike (``intersect_backend``):
   ``"auto"`` picks up to 250,000 triangles;
 - ``"stream"``: the same with 128-triangle leaves staged in shared memory
   (``csrc/wide_bvh_stream.cu``), what ``"auto"`` picks above;
+- either of the two with the transposed leaf math (``wide_leaf_math`` or
+  ``stream_leaf_math`` ``"vpu"``; ``csrc/wide_bvh_t.cu``): leaves of a
+  multiple of 128 triangles, each tested by a warp only on the rays that
+  enter it (``"wide"`` rounds its leaf size up to that);
 - ``"bvh"``: binary skip-pointer BVH, ``bvh_leaf_size`` leaves
   (``csrc/bvh2.cu``);
 - ``"pallas"``: no tree, ``pallas_tri_chunk``-triangle chunks culled by
@@ -51,11 +55,16 @@ from ..ops.intersect_pallas import (
 )
 from ..ops.traverse_pallas import intersect_any_bvh, intersect_closest_bvh
 from ..ops.wide_bvh import (
+    VPU_LEAF_ALIGN,
     WideBVH,
     build_wide_bvh,
     intersect_any_stream,
+    intersect_any_stream_vpu,
+    intersect_any_vpu,
     intersect_any_wide,
     intersect_closest_stream,
+    intersect_closest_stream_vpu,
+    intersect_closest_vpu,
     intersect_closest_wide,
 )
 from ..options import FrameGlobals, RenderOptions
@@ -77,10 +86,13 @@ _PARK_ORG = 3.0e37
 # VMEM budget, ``integrator.py:124``; kept as the port's rule).
 STREAM_THRESHOLD = 250_000
 
-# (closest hit, occlusion) per backend.
+# (closest hit, occlusion) per route: a backend, and for the wide trees
+# their leaf math (``AccelPack.route``).
 _INTERSECTORS = {
     "wide": (intersect_closest_wide, intersect_any_wide),
+    "wide/vpu": (intersect_closest_vpu, intersect_any_vpu),
     "stream": (intersect_closest_stream, intersect_any_stream),
+    "stream/vpu": (intersect_closest_stream_vpu, intersect_any_stream_vpu),
     "bvh": (intersect_closest_bvh, intersect_any_bvh),
     "pallas": (intersect_closest_pallas, intersect_any_pallas),
 }
@@ -91,19 +103,27 @@ class AccelPack:
     """Acceleration state: the Woop rows, the backend's structure for all
     triangles and its occluder counterpart (the same object unless some
     material is alpha-masked), the shading table in the order of the ids
-    the backend returns, and the backend.  Only the backend's pair of
-    structures is set: ``wide``/``wide_occl`` (``"wide"``, ``"stream"``),
+    the backend returns, the backend and, for the wide trees, the leaf math
+    their leaves were built for.  Only the backend's pair of structures is
+    set: ``wide``/``wide_occl`` (``"wide"``, ``"stream"``),
     ``bvh``/``bvh_occl`` or ``packed``/``packed_occl``."""
 
     accel: WoopAccel
     shade_table: torch.Tensor
     backend: str
+    leaf_math: str = "mxu"
     wide: WideBVH | None = None
     wide_occl: WideBVH | None = None
     bvh: BVH | None = None
     bvh_occl: BVH | None = None
     packed: WoopPallas | None = None
     packed_occl: WoopPallas | None = None
+
+    @property
+    def route(self) -> str:
+        """The key of ``_INTERSECTORS``: the backend, with ``/vpu`` for a
+        wide tree built for the transposed leaf math."""
+        return self.backend + ("/vpu" if self.leaf_math == "vpu" else "")
 
     def structures(self):
         """(closest-hit structure, occluder structure) of the backend."""
@@ -183,12 +203,29 @@ def build_accel(scene: Scene, options: RenderOptions) -> AccelPack:
             accel, leaf_size=options.bvh_leaf_size, include=include)
         return AccelPack(accel=accel, shade_table=table, backend=backend,
                          bvh=bvh, bvh_occl=bvh_occl)
-    leaf = options.stream_leaf_size if backend == "stream" else options.wide_leaf_size
+    leaf, math = _wide_leaf(options, backend)
     wide = build_wide_bvh(accel, leaf_size=leaf)
     wide_occl = wide if include is None else build_wide_bvh(accel, leaf_size=leaf,
                                                             include=include)
     return AccelPack(accel=accel, shade_table=slot_order_table(table, wide.slot_tri),
-                     backend=backend, wide=wide, wide_occl=wide_occl)
+                     backend=backend, leaf_math=math, wide=wide, wide_occl=wide_occl)
+
+
+def _wide_leaf(options: RenderOptions, backend: str):
+    """(leaf size, leaf math) of the ``"wide"`` or ``"stream"`` tree
+    (``heatray_tpu/render/integrator.py:217-223``): ``"wide"`` with the
+    ``"vpu"`` leaf math rounds its leaf size up to a multiple of 128;
+    ``"stream"`` with it needs one."""
+    if backend == "stream":
+        leaf, math = options.stream_leaf_size, options.stream_leaf_math
+        if math == "vpu" and leaf % VPU_LEAF_ALIGN:
+            raise ValueError(f"stream_leaf_math='vpu' needs a stream_leaf_size that is a "
+                             f"multiple of {VPU_LEAF_ALIGN}, not {leaf}")
+        return leaf, math
+    leaf, math = options.wide_leaf_size, options.wide_leaf_math
+    if math == "vpu":
+        leaf = -(-leaf // VPU_LEAF_ALIGN) * VPU_LEAF_ALIGN
+    return leaf, math
 
 
 def make_context(options: RenderOptions, scene: Scene | None = None, device="cuda") -> RenderContext:
@@ -348,7 +385,7 @@ def _make_intersectors(pack: AccelPack):
     """(closest, any) over the pack's structures: ``closest(org, dir, t_min)``
     gives (t, id, hit) with the ids of ``pack.shade_table``,
     ``any(org, dir, t_min, t_max)`` the blocked mask."""
-    closest_k, any_k = _INTERSECTORS[pack.backend]
+    closest_k, any_k = _INTERSECTORS[pack.route]
     tree, tree_occl = pack.structures()
 
     def closest(org, direction, t_min):

@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one card:
 
     python3 profile_torch_pass.py [--scene cornell|high-poly] [--passes 5]
                                   [--backend auto|wide|stream|bvh|pallas|rebuild]
-                                  [--root DIR] [--trace FILE]
+                                  [--leaf-math mxu|vpu] [--root DIR] [--trace FILE]
 
 ``--root`` imports the package from another tree (for example an unpacked
 parent commit), so two versions can be compared within one machine session.
@@ -26,8 +26,10 @@ It prints, one reading per line:
   framed as ``bench.py`` frames it) at 1920x1080, depth 4, through the chosen
   backend (``--backend``: an ``intersect_backend``, ``auto`` by default, or
   ``rebuild``, a context without a scene, whose passes rebuild their Woop
-  rows, chunk packs and shading table): the ms of each steady pass after two
-  warm-up passes (host clock around ``render_pass``, ended by
+  rows, chunk packs and shading table) and, for the wide trees, the chosen
+  leaf math (``--leaf-math vpu``: ``wide_leaf_math`` and ``stream_leaf_math``
+  ``"vpu"``, the transposed kernels K5 and K4): the ms of each steady pass
+  after two warm-up passes (host clock around ``render_pass``, ended by
   ``torch.cuda.synchronize()``) and their mean;
 - ``[prof]``: one more pass under ``torch.profiler``, its stages labelled from
   outside the package with ``record_function``: the pass's wall ms, the sum
@@ -66,6 +68,10 @@ KERNELS = {
     "any_chunks_kernel": "K7b occlusion (chunks)",
     "closest_bvh_kernel": "K6a closest hit (binary BVH)",
     "any_bvh_kernel": "K6b occlusion (binary BVH)",
+    "closest_wide_t_kernel": "K5a closest hit (transposed leaf test)",
+    "any_wide_t_kernel": "K5b occlusion (transposed leaf test)",
+    "closest_stream_t_kernel": "K4a closest hit (streaming, transposed leaf test)",
+    "any_stream_t_kernel": "K4b occlusion (streaming, transposed leaf test)",
 }
 LABELS = [
     ("integrator", "rebuild_pack", "rebuild"),
@@ -125,6 +131,8 @@ def main() -> int:
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "wide", "stream", "bvh", "pallas", "rebuild"),
                     help="intersect_backend of the [pass] and [prof] readings, or rebuild")
+    ap.add_argument("--leaf-math", choices=("mxu", "vpu"), default="mxu",
+                    help="wide_leaf_math and stream_leaf_math of the [pass] and [prof] readings")
     ap.add_argument("--passes", type=int, default=5, help="steady passes to time")
     ap.add_argument("--root", type=Path, default=REPO, help="tree to import the package from")
     ap.add_argument("--trace", type=Path, help="write the profiled pass's Chrome trace here")
@@ -174,13 +182,15 @@ def main() -> int:
         f"{sum(ms[False]) / len(ms[False])!r}")
 
     rebuild = args.backend == "rebuild"
-    opts = dataclasses.replace(opts, intersect_backend="pallas" if rebuild else args.backend)
+    opts = dataclasses.replace(opts, intersect_backend="pallas" if rebuild else args.backend,
+                               wide_leaf_math=args.leaf_math, stream_leaf_math=args.leaf_math)
     t0 = time.perf_counter()
     scene, camera = scene_and_camera(args.scene, device)
     ctx = integrator.make_context(opts, None if rebuild else scene, device)
     torch.cuda.synchronize()
     log(f"[setup] {args.scene}: {scene.geometry.num_triangles} triangles, backend "
-        f"{'rebuild' if rebuild else ctx.accel_pack.backend!r}, context in "
+        f"{'rebuild' if rebuild else ctx.accel_pack.backend!r}, leaf math {args.leaf_math}, "
+        f"context in "
         f"{time.perf_counter() - t0!r} s")
     warm = [one_pass(scene, camera, ctx, opts, i) for i in range(2)]
     ms = [one_pass(scene, camera, ctx, opts, 2 + i) for i in range(args.passes)]

@@ -155,6 +155,75 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         wide_bvh.intersect_any_stream(dataclasses.replace(bvh, w=huge, leaf_size=2048), o, d)
 
 
+def _t_queries(route):
+    """(closest, any) of the transposed kernels: K5 (``"wide"``) or K4."""
+    if route == "wide":
+        return wide_bvh.intersect_closest_vpu, wide_bvh.intersect_any_vpu
+    return wide_bvh.intersect_closest_stream_vpu, wide_bvh.intersect_any_stream_vpu
+
+
+@pytest.mark.parametrize("route", ["wide", "stream"])
+@pytest.mark.parametrize("n_rays", [8191, 0])
+def test_transposed_kernels_match_plain(cuda_device, route, n_rays):
+    """K5a/K5b and K4a/K4b on a 50k-triangle soup at leaf 128: a ray count
+    that leaves the last warp and block part-empty, and no rays at all.
+    Ties go to the lowest slot across leaves too, so slots are equal
+    everywhere."""
+    bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=128)
+    o, d = _rays(n_rays, 7, cuda_device)
+    closest, any_ = _t_queries(route)
+    launches = (closest.launches, any_.launches)
+    t_k, slot_k, hit_k = closest(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
+    blocked = any_(bvh, o, d, t_max=t_max)
+    torch.cuda.synchronize()
+    assert (closest.launches, any_.launches) == tuple(n + (n_rays > 0) for n in launches)
+    assert t_k.shape == slot_k.shape == blocked.shape == (n_rays,)
+    assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p)
+    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
+    assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
+
+
+@pytest.mark.parametrize("route", ["wide", "stream"])
+def test_transposed_kernels_find_hits_just_past_an_edge(cuda_device, route):
+    """K5a and K4a on the ray of ``test_kernel_finds_hits_just_past_an_edge``,
+    over the Cornell box in 128-triangle leaves: its own slab must enter the
+    floor's leaf for the warp to test it."""
+    scene = cornell_box(light="both", with_spheres=True).to(cuda_device)
+    bvh = wide_bvh.build_wide_bvh(
+        build_woop(scene.geometry.positions, scene.geometry.indices), leaf_size=128
+    )
+    o = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (1.999899983406067, 0.021646535024046898, 0.026903629302978516)))
+    d = Vec3(*(torch.tensor([c], device=cuda_device)
+               for c in (-0.643088698387146, -0.5480369329452515, 0.5348762273788452)))
+    closest, any_ = _t_queries(route)
+    t_k, slot_k, hit_k = closest(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert bool(hit_p[0]) and bool(hit_k[0])
+    assert torch.equal(t_k, t_p) and torch.equal(slot_k, slot_p)
+    assert bool(any_(bvh, o, d, t_max=t_p + 1e-3)[0])
+
+
+@pytest.mark.parametrize("route", ["wide", "stream"])
+def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, route):
+    """A leaf that is not a multiple of 128, a leaf pack that is not float32,
+    and a tree deeper than the kernel's stack (64 for K5, 256 for K4)."""
+    accel = _soup(300, 5, cuda_device)
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128)
+    o, d = _rays(64, 3, cuda_device)
+    closest, any_ = _t_queries(route)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        closest(wide_bvh.build_wide_bvh(accel, leaf_size=64), o, d)
+    with pytest.raises(ValueError, match="float32"):
+        any_(dataclasses.replace(bvh, w=bvh.w.double()), o, d)
+    depth = 65 if route == "wide" else 257
+    with pytest.raises(ValueError, match=f"stack of {depth}"):
+        closest(dataclasses.replace(bvh, max_stack=depth), o, d)
+
+
 def _flat_queries(kind, accel):
     """(structure, closest kernel, closest plain, any kernel, any plain) of
     the chunk kernels (K7) or the binary-BVH kernels (K6)."""
@@ -250,14 +319,19 @@ def test_render_matches_cpu(cuda_device):
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("backend", ["bvh", "pallas", "rebuild"])
+@pytest.mark.parametrize("backend", ["bvh", "pallas", "rebuild", "wide-vpu", "stream-vpu"])
 def test_other_routes_render_matches_cpu(cuda_device, backend):
     """config2 through the binary BVH (K6), the prebuilt chunk pack and the
-    rebuild mode (K7), on the card and on the CPU, at the golden's
+    rebuild mode (K7), and the transposed leaf math of the wide (K5) and the
+    streaming (K4) trees, on the card and on the CPU, at the golden's
     tolerance."""
     size, passes = 48, 4
-    opts = RenderOptions(width=size, height=size, max_render_passes=passes, max_ray_depth=4,
-                         intersect_backend="pallas" if backend == "rebuild" else backend)
+    opts = RenderOptions(width=size, height=size, max_render_passes=passes, max_ray_depth=4)
+    opts = dataclasses.replace(opts, **{
+        "rebuild": {"intersect_backend": "pallas"},
+        "wide-vpu": {"wide_leaf_math": "vpu"},
+        "stream-vpu": {"intersect_backend": "stream", "stream_leaf_math": "vpu"},
+    }.get(backend, {"intersect_backend": backend}))
     scene = cornell_box(light="both", with_spheres=True)
     camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
     out = {}

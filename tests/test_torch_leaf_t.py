@@ -1,0 +1,302 @@
+"""The port's transposed ("vpu") leaf math against the JAX package:
+``intersect_closest_vpu``/``intersect_any_vpu`` (K5) and the streaming pair
+with ``leaf_math="vpu"`` (K4), their plain versions against the TPU kernels
+in interpret mode and the XLA brute force; a plain-torch emulation of the
+kernels' walk (a group of rays descends together, each leaf is tested only
+on the rays whose own widened slab enters it, ties go to the lowest slot);
+the two routes sorted and gated against unsorted; and ``build_accel``'s
+leaf sizes.  The routes' images against the JAX render are in
+test_torch_render.py and test_torch_stream.py, beside the JAX renders those
+files already make.
+
+All inputs are made from numpy seeds and handed to both packages.  The CUDA
+kernels themselves are checked in test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from heatray_tpu.ops import intersect_any as jax_intersect_any
+from heatray_tpu.ops import intersect_closest as jax_intersect_closest
+from heatray_tpu.ops.wide_bvh import build_wide_bvh as jax_build_wide_bvh
+from heatray_tpu.ops.wide_bvh import intersect_any_stream as jax_any_stream
+from heatray_tpu.ops.wide_bvh import intersect_any_vpu as jax_any_vpu
+from heatray_tpu.ops.wide_bvh import intersect_closest_stream as jax_closest_stream
+from heatray_tpu.ops.wide_bvh import intersect_closest_vpu as jax_closest_vpu
+from heatray_tpu_torch import RenderOptions, cornell_box, frame_scene, high_poly, orbit_camera
+from heatray_tpu_torch import scene_aabb
+from heatray_tpu_torch.ops import intersect, wide_bvh
+from heatray_tpu_torch.options import FrameGlobals
+from heatray_tpu_torch.render import integrator
+
+from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
+
+SIZE = 16
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """One triangle soup and ray set for every test here, so each JAX
+    function compiles once: (JAX accel, port accel, JAX rays, port rays,
+    t_max (R,) numpy, XLA closest (t, id, hit), XLA blocked)."""
+    jax_accel, accel = _soup(700, 11)
+    (jo, jd), (o, d) = _rays(512, 7)
+    t_max = np.random.default_rng(0).uniform(1.0, 12.0, 512).astype(np.float32)
+    t_ref, id_ref, _, hit_ref = (np.asarray(a) for a in jax_intersect_closest(jax_accel, jo, jd))
+    blocked_ref = np.asarray(jax_intersect_any(jax_accel, jo, jd, t_max=t_max))
+    return jax_accel, accel, (jo, jd), (o, d), t_max, (t_ref, id_ref, hit_ref), blocked_ref
+
+
+def _queries(route):
+    """(closest, any) of a route, each taking (bvh, o, d[, t_max])."""
+    if route == "wide":
+        return wide_bvh.intersect_closest_vpu, lambda bvh, o, d, t_max: (
+            wide_bvh.intersect_any_vpu(bvh, o, d, t_max=t_max))
+
+    def closest(bvh, o, d):
+        return wide_bvh.intersect_closest_stream(bvh, o, d, leaf_math="vpu")
+
+    def any_(bvh, o, d, t_max):
+        return wide_bvh.intersect_any_stream(bvh, o, d, t_max=t_max, leaf_math="vpu")
+
+    return closest, any_
+
+
+@pytest.mark.parametrize("route", ["wide", "stream"])
+@pytest.mark.parametrize("leaf_size", [128, 256])
+def test_plain_matches_xla(soup, route, leaf_size):
+    """Against the exact XLA brute force (the reference's own VPU kernels
+    round t with ``_recip_fast``): hit masks equal, t at 1e-5, triangle ids
+    through ``slot_tri`` equal but for ties, occlusion masks equal."""
+    _, accel, _, (o, d), t_max, (t_ref, id_ref, hit_ref), blocked_ref = soup
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=leaf_size)
+    closest, any_ = _queries(route)
+    t, slot, hit = closest(bvh, o, d)
+    np.testing.assert_array_equal(hit.numpy(), hit_ref)
+    np.testing.assert_allclose(t.numpy()[hit_ref], t_ref[hit_ref], rtol=1e-5, atol=1e-5)
+    assert (t.numpy()[~hit_ref] == intersect.MISS_T).all() and (slot.numpy()[~hit_ref] == -1).all()
+    assert (bvh.slot_tri.numpy()[slot.numpy()[hit_ref]] == id_ref[hit_ref]).mean() > 0.999
+    blocked = any_(bvh, o, d, torch.from_numpy(t_max))
+    np.testing.assert_array_equal(blocked.numpy(), blocked_ref)
+    assert 0 < int(blocked.sum()) < 512
+
+
+# One leaf size per JAX function, so that each compiles once.
+@pytest.mark.parametrize("route, leaf_size", [("wide", 128), ("stream", 256)])
+def test_closest_matches_jax_kernel(soup, route, leaf_size):
+    """Against the TPU kernel in interpret mode on the same JAX-built tree,
+    carried over by ``wide_bvh_from_arrays``: hit masks equal, t at rtol
+    1e-4 (``_recip_fast``), slots equal but for ties."""
+    from heatray_tpu_torch.bridge import wide_bvh_from_arrays
+
+    jax_accel, _, (jo, jd), (o, d), *_ = soup
+    ref_bvh = jax_build_wide_bvh(jax_accel, leaf_size=leaf_size, schedule="f32")
+    arrays = {f.name: np.asarray(getattr(ref_bvh, f.name)) for f in dataclasses.fields(ref_bvh)}
+    bvh = wide_bvh_from_arrays(arrays, ref_bvh.leaf_size, ref_bvh.num_triangles, device="cpu")
+    if route == "wide":
+        ref = jax_closest_vpu(ref_bvh, jo, jd, ray_tile=256, interpret=True, return_slots=True)
+    else:
+        ref = jax_closest_stream(ref_bvh, jo, jd, ray_tile=256, interpret=True,
+                                 return_slots=True, leaf_math="vpu")
+    t_ref, slot_ref, hit_ref = (np.asarray(a) for a in ref)
+    t, slot, hit = _queries(route)[0](bvh, o, d)
+    np.testing.assert_array_equal(hit.numpy(), hit_ref)
+    np.testing.assert_allclose(t.numpy()[hit_ref], t_ref[hit_ref], rtol=1e-4)
+    assert (slot.numpy()[hit_ref] == slot_ref[hit_ref]).mean() > 0.999
+
+
+@pytest.mark.parametrize("route, leaf_size", [("wide", 256), ("stream", 128)])
+def test_any_matches_jax_kernel(soup, route, leaf_size):
+    from heatray_tpu_torch.bridge import wide_bvh_from_arrays
+
+    jax_accel, _, (jo, jd), (o, d), t_max, *_ = soup
+    ref_bvh = jax_build_wide_bvh(jax_accel, leaf_size=leaf_size, schedule="f32")
+    arrays = {f.name: np.asarray(getattr(ref_bvh, f.name)) for f in dataclasses.fields(ref_bvh)}
+    bvh = wide_bvh_from_arrays(arrays, ref_bvh.leaf_size, ref_bvh.num_triangles, device="cpu")
+    if route == "wide":
+        ref = jax_any_vpu(ref_bvh, jo, jd, t_max=t_max, ray_tile=256, interpret=True)
+    else:
+        ref = jax_any_stream(ref_bvh, jo, jd, t_max=t_max, ray_tile=256, interpret=True,
+                             leaf_math="vpu")
+    blocked = _queries(route)[1](bvh, o, d, torch.from_numpy(t_max))
+    np.testing.assert_array_equal(blocked.numpy(), np.asarray(ref))
+
+
+def _enters(box, org, rcp, t_far, t_min):
+    """The kernels' widened slab test of one (8,) child box, per ray."""
+    near, far = [], []
+    for a in range(3):
+        p = (box[3 + a] - box[a]) * wide_bvh.BOX_PAD
+        t0 = ((box[a] - p) - org[a]) * rcp[a]
+        t1 = ((box[3 + a] + p) - org[a]) * rcp[a]
+        near.append(torch.minimum(t0, t1))
+        far.append(torch.maximum(t0, t1))
+    tn = torch.clamp(torch.maximum(torch.maximum(near[0], near[1]), near[2]), min=t_min)
+    tf = torch.minimum(torch.minimum(torch.minimum(far[0], far[1]), far[2]), t_far)
+    return tn <= tf * wide_bvh.FAR_SCALE
+
+
+def _group_walk(bvh, o, d, group, t_max=None, t_min=1e-4):
+    """Plain-torch emulation of the transposed kernels' walk.  Per group of
+    ``group`` rays (a warp for K5, a block for K4): one shared stack; a child
+    is visited if any ray of the group enters its widened box before that
+    ray's far end (its best t, or its t_max until it is blocked); leaves
+    near to far by the group's summed direction along the node's axis,
+    internal children pushed far to near.  At each visited leaf only the
+    rays whose own slab still enters it (against the best t they have by
+    then) are tested, ties in t to the lowest slot.  Returns ((t, slot) or
+    the blocked mask, the count of (ray, leaf) pairs a visited leaf skipped)."""
+    rows, anchor = wide_bvh.slot_rows(bvh)
+    codes = bvh.wchild.view(-1, wide_bvh.ARITY).tolist()
+    axes = bvh.waxis.tolist()
+    tc, big = bvh.leaf_size, intersect.MISS_T
+    closest = t_max is None
+    outs, skipped = [], 0
+    for lo in range(0, o.x.shape[0], group):
+        ob, db = o.map(lambda c: c[lo:lo + group]), d.map(lambda c: c[lo:lo + group])
+        n = ob.x.shape[0]
+        org = (ob.x, ob.y, ob.z)
+        rcp = tuple(torch.where(c < 0, -1.0, 1.0) / torch.clamp(c.abs(), min=1e-18)
+                    for c in (db.x, db.y, db.z))
+        low_first = [float(c.sum()) >= 0.0 for c in (db.x, db.y, db.z)]
+        best = torch.full((n,), big)
+        slot = torch.full((n,), -1, dtype=torch.int32)
+        hi = None if closest else torch.as_tensor(t_max, dtype=torch.float32)[lo:lo + group]
+        blocked = torch.zeros((n,), dtype=torch.bool)
+
+        def far_end():
+            return best if closest else torch.where(blocked, t_min - 1.0, hi)
+
+        stack, node = [], 0
+        while node >= 0 and (closest or not bool(blocked.all())):
+            boxes = bvh.wbox[node]
+            live = [code != -1 and bool(_enters(boxes[k], org, rcp, far_end(), t_min).any())
+                    for k, code in enumerate(codes[node])]
+            order = range(wide_bvh.ARITY) if low_first[axes[node]] else range(
+                wide_bvh.ARITY - 1, -1, -1)
+            for k in order:
+                code = codes[node][k]
+                if not live[k] or code > -2:
+                    continue
+                rays = _enters(boxes[k], org, rcp, far_end(), t_min).nonzero()[:, 0]
+                skipped += n - rays.numel()
+                cols = slice((-2 - code) * tc, (-1 - code) * tc)
+                sub = (ob.map(lambda c: c[rays]), db.map(lambda c: c[rays]))
+                if closest:
+                    t = intersect.pair_t(*sub, rows[:, cols], t_min, big, anchor[:, cols])
+                    cand, arg = torch.min(t, dim=1)
+                    cand_slot = (arg + cols.start).int()
+                    b, s = best[rays], slot[rays]
+                    better = (cand < b) | ((cand == b) & (cand < big) & (cand_slot < s))
+                    best[rays] = torch.where(better, cand, b)
+                    slot[rays] = torch.where(better, cand_slot, s)
+                else:
+                    t = intersect.pair_t(*sub, rows[:, cols], t_min, hi[rays], anchor[:, cols])
+                    blocked[rays] |= (t < big).any(dim=1)
+            stack += [codes[node][k] for k in reversed(order) if live[k] and codes[node][k] >= 0]
+            node = stack.pop() if stack else -1
+        outs.append((best, slot) if closest else blocked)
+    if closest:
+        return (torch.cat([a for a, _ in outs]), torch.cat([b for _, b in outs])), skipped
+    return torch.cat(outs), skipped
+
+
+@pytest.mark.parametrize("group", [32, 256])
+def test_group_walk_equals_plain(group):
+    """Rays aimed just past the Cornell box's triangle edges (and the one
+    that grazes the floor's open front edge), over its leaf-128 tree: the
+    walk of K5 (warps of 32) and of K4 (blocks of 256), with its per-ray
+    leaf skip, gives the plain version's t and slots bit for bit, and its
+    occlusion; and the skip does skip."""
+    bvh, o, d = cornell_edge_rays(767, leaf_size=128)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
+    (t_w, slot_w), skipped = _group_walk(bvh, o, d, group)
+    assert torch.equal(t_w, t_p) and torch.equal(slot_w, slot_p)
+    assert skipped > 0
+
+    t_max = torch.where(hit_p, t_p * 1.001, 5.0)
+    blocked, skipped = _group_walk(bvh, o, d, group, t_max=t_max)
+    assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
+    assert bool(blocked[-1]) and skipped > 0
+
+
+def _route(name):
+    """(scene, camera, options) of Route A (Cornell, ``wide_leaf_math="vpu"``)
+    or Route B (``high_poly`` at 5,000 triangles, ``stream_leaf_math="vpu"``)
+    at SIZE x SIZE, depth 4."""
+    opts = RenderOptions(width=SIZE, height=SIZE, max_render_passes=4, max_ray_depth=4)
+    if name == "A":
+        scene = cornell_box(light="both", with_spheres=True)
+        camera = orbit_camera(SIZE, SIZE, distance=6.2, focal_length_mm=35.0)
+        return scene, camera, dataclasses.replace(opts, wide_leaf_math="vpu")
+    scene = high_poly(triangles=5_000)
+    camera = frame_scene(scene_aabb(scene.geometry), SIZE, SIZE, theta=0.35)
+    return scene, camera, dataclasses.replace(opts, intersect_backend="stream",
+                                              stream_leaf_math="vpu")
+
+
+@pytest.mark.parametrize("name, route", [("A", "wide/vpu"), ("B", "stream/vpu")])
+def test_route_sorted_gated_equals_unsorted(name, route):
+    """Each route's pass with the bounce sort and segment gating equals the
+    unsorted pass to the bit, with the same ray count, through the route's
+    own queries (leaves of 128)."""
+    scene, camera, opts = _route(name)
+    zero = torch.zeros((4, SIZE, SIZE))
+    ctx = integrator.make_context(opts, scene, device="cpu")
+    pack = ctx.accel_pack
+    assert (pack.route, pack.wide.leaf_size) == (route, 128)
+    out = {}
+    for on in (False, True):
+        o = dataclasses.replace(opts, sort_bounces=on, gate_bounces=on)
+        assert integrator._bounce_modes(ctx, o, SIZE * SIZE) == (on, on)
+        out[on] = integrator.render_pass(scene, camera, ctx, o, FrameGlobals.create(1), zero,
+                                         with_stats=True)
+    assert torch.equal(out[True][0], out[False][0]) and out[True][1] == out[False][1]
+    assert float(out[True][0][:3].max()) > 0.0
+
+
+def test_build_accel_leaf_sizes():
+    """``"wide"`` with the vpu leaf math rounds its leaf up to a multiple of
+    128; ``"stream"`` with it rejects a leaf that is not one; the mxu
+    routes keep theirs."""
+    scene = cornell_box()
+    cases = [({}, "wide", 32), ({"wide_leaf_math": "vpu"}, "wide/vpu", 128),
+             ({"wide_leaf_math": "vpu", "wide_leaf_size": 200}, "wide/vpu", 256),
+             ({"intersect_backend": "stream", "stream_leaf_size": 192}, "stream", 192),
+             ({"intersect_backend": "stream", "stream_leaf_math": "vpu",
+               "stream_leaf_size": 256}, "stream/vpu", 256)]
+    for kw, route, leaf in cases:
+        pack = integrator.build_accel(scene, RenderOptions(width=8, height=8, **kw))
+        assert (pack.route, pack.wide.leaf_size) == (route, leaf), kw
+        assert pack.wide_occl is pack.wide
+    with pytest.raises(ValueError, match="multiple of 128"):
+        integrator.build_accel(scene, RenderOptions(
+            width=8, height=8, intersect_backend="stream", stream_leaf_math="vpu",
+            stream_leaf_size=192))
+
+
+def test_cpu_wrappers_take_the_plain_versions():
+    """On the CPU each wrapper returns its plain version and counts no
+    launch; a leaf that is not a multiple of 128 raises everywhere."""
+    _, accel = _soup(300, 5)
+    _, (o, d) = _rays(128, 3)
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128)
+    counters = (wide_bvh.intersect_closest_vpu, wide_bvh.intersect_any_vpu,
+                wide_bvh.intersect_closest_stream_vpu, wide_bvh.intersect_any_stream_vpu,
+                wide_bvh.intersect_closest_stream, wide_bvh.intersect_any_stream)
+    before = [f.launches for f in counters]
+    want = wide_bvh.closest_wide_plain(bvh, o, d)
+    for closest, any_ in (_queries("wide"), _queries("stream")):
+        assert all(torch.equal(a, b) for a, b in zip(closest(bvh, o, d), want))
+        assert torch.equal(any_(bvh, o, d, 3.0), wide_bvh.any_wide_plain(bvh, o, d, t_max=3.0))
+    assert [f.launches for f in counters] == before
+    small = wide_bvh.build_wide_bvh(accel, leaf_size=64)
+    for fn in counters[:4]:
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(small, o, d)
+    with pytest.raises(ValueError, match="leaf_math"):
+        wide_bvh.intersect_closest_stream(bvh, o, d, leaf_math="bf16")

@@ -1,5 +1,6 @@
 """The port's package boundary: it imports without jax or flax, options
-that select a path it does not have yet raise instead of being ignored."""
+that select a path it does not have yet raise instead of being ignored, and
+values no path takes raise ``ValueError``."""
 
 import os
 import subprocess
@@ -45,8 +46,6 @@ def test_imports_without_jax():
     [
         ("intersect_backend", "xla"),
         ("intersect_backend", "sharded"),
-        ("wide_leaf_math", "vpu"),
-        ("stream_leaf_math", "vpu"),
         ("aov", AOV.BASE_COLOR),
         ("interactive_block", True),
         ("ms_impl", "lut"),
@@ -69,3 +68,16 @@ def test_supported_options_accepted():
 def test_sort_and_gate_take_true_false_or_auto(field):
     with pytest.raises(ValueError, match=field):
         RenderOptions(**{field: "yes"})
+
+
+@pytest.mark.parametrize("field, value", [("wide_leaf_math", "vpu"), ("stream_leaf_math", "vpu")])
+def test_ported_options_accepted(field, value):
+    """The transposed leaf math of the wide and streaming trees (K5, K4)."""
+    assert getattr(RenderOptions(width=8, height=8, **{field: value}), field) == value
+
+
+@pytest.mark.parametrize("field", ["wide_leaf_math", "stream_leaf_math"])
+@pytest.mark.parametrize("value", ["bf16", "VPU"])
+def test_leaf_math_takes_mxu_or_vpu(field, value):
+    with pytest.raises(ValueError, match=field):
+        RenderOptions(**{field: value})

@@ -1,5 +1,6 @@
 """The port's forward render of the Cornell box against the JAX package:
-per pixel at 16x16 (one pass, depth 4), and against the stored golden of
+per pixel at 16x16 (one pass, depth 4; also through the transposed leaf
+math, ``wide_leaf_math="vpu"``), and against the stored golden of
 ``tests/test_goldens.py``'s config2 at 48x48 (4 passes, depth 4)."""
 
 import dataclasses
@@ -60,6 +61,18 @@ def test_small_render_matches_jax(jax_small, port_small):
     img = resolve(port_small).numpy()
     assert img.shape == (SMALL, SMALL, 3) and np.isfinite(img).all()
     np.testing.assert_allclose(img, jax_small[2], rtol=1e-3, atol=1e-4)
+
+
+def test_small_render_vpu_leaf_math_matches_jax(jax_small):
+    """Route A, ``wide_leaf_math="vpu"``: the leaf of 32 rounded up to 128
+    and the transposed kernels' queries (their plain versions here), per
+    pixel against the same JAX render at the same tolerance."""
+    scene = cornell_box(light="both", with_spheres=True)
+    camera = orbit_camera(SMALL, SMALL, distance=6.2, focal_length_mm=35.0)
+    opts = dataclasses.replace(_options(SMALL), wide_leaf_math="vpu")
+    accum, ctx = render(scene, camera, opts, num_passes=1, device="cpu")
+    assert (ctx.accel_pack.route, ctx.accel_pack.wide.leaf_size) == ("wide/vpu", 128)
+    np.testing.assert_allclose(resolve(accum).numpy(), jax_small[2], rtol=1e-3, atol=1e-4)
 
 
 def test_bridged_scene_renders_identically(jax_small, port_small):

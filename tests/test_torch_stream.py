@@ -1,7 +1,8 @@
 """The port's large-scene slice against the JAX package: ``high_poly``,
 ``scene_aabb`` and ``frame_scene``; the streaming queries' plain versions
 and an emulation of the streaming kernels' packet walk; the bounce sort
-key, the backend rule, and renders with the bounce sort and segment gating.
+key, the backend rule, and renders with the bounce sort and segment gating
+(also through the transposed leaf math, ``stream_leaf_math="vpu"``).
 
 All inputs are made from numpy seeds and handed to both packages.  The
 streaming CUDA kernels themselves are checked in test_torch_cuda.py.
@@ -265,25 +266,49 @@ def test_auto_sorts_only_on_the_card():
     assert ctx.accel_pack.backend == "wide"
 
 
-def test_high_poly_stream_render_matches_jax(scenes):
-    """``high_poly`` at 5,000 triangles, 16x16, depth 2, forced through the
-    streaming backend (leaf 128), against the JAX package's brute-force
-    render (unsorted) at ``test_small_render_matches_jax``'s tolerance."""
-    ref, ours = scenes
+@pytest.fixture(scope="module")
+def jax_image(scenes):
+    """The JAX package's brute-force render (unsorted) of ``high_poly`` at
+    5,000 triangles, 16x16, depth 2, one pass (its JIT compile dominates
+    this file's time), and the port's options of the same render."""
+    ref, _ = scenes
     size = 16
     jax_opts = JaxRenderOptions(width=size, height=size, max_render_passes=4, max_ray_depth=2,
                                 intersect_backend="xla", sort_bounces=False)
     jax_camera = jax_frame_scene(np.asarray(jax_scene_aabb(ref.geometry)), size, size, theta=0.35)
     jax_accum, _ = jax_render(ref, jax_camera, jax_opts, num_passes=1)
-
     opts = RenderOptions(width=size, height=size, max_render_passes=4, max_ray_depth=2,
                          intersect_backend="stream", sort_bounces=True, gate_bounces=True)
-    camera = frame_scene(scene_aabb(ours.geometry), size, size, theta=0.35)
+    return np.asarray(jax_resolve(jax_accum)), opts
+
+
+def _port_render(scenes, opts):
+    _, ours = scenes
+    camera = frame_scene(scene_aabb(ours.geometry), opts.width, opts.height, theta=0.35)
     accum, ctx = integrator.render(ours, camera, opts, num_passes=1, device="cpu")
-    assert ctx.accel_pack.backend == "stream" and ctx.accel_pack.wide.leaf_size == 128
     img = resolve(accum).numpy()
     assert np.isfinite(img).all() and img.max() > 0.0
-    np.testing.assert_allclose(img, np.asarray(jax_resolve(jax_accum)), rtol=1e-3, atol=1e-4)
+    return img, ctx.accel_pack
+
+
+def test_high_poly_stream_render_matches_jax(scenes, jax_image):
+    """``high_poly`` at 5,000 triangles, 16x16, depth 2, forced through the
+    streaming backend (leaf 128), against the JAX package's brute-force
+    render (unsorted) at ``test_small_render_matches_jax``'s tolerance."""
+    ref_img, opts = jax_image
+    img, pack = _port_render(scenes, opts)
+    assert pack.backend == "stream" and pack.wide.leaf_size == 128
+    np.testing.assert_allclose(img, ref_img, rtol=1e-3, atol=1e-4)
+
+
+def test_high_poly_stream_vpu_render_matches_jax(scenes, jax_image):
+    """Route B, ``stream_leaf_math="vpu"``: the same render through the
+    transposed streaming kernels' queries (their plain versions here),
+    against the same JAX render at the same tolerance."""
+    ref_img, opts = jax_image
+    img, pack = _port_render(scenes, dataclasses.replace(opts, stream_leaf_math="vpu"))
+    assert (pack.route, pack.wide.leaf_size) == ("stream/vpu", 128)
+    np.testing.assert_allclose(img, ref_img, rtol=1e-3, atol=1e-4)
 
 
 def test_entry_points_default_to_the_card():
