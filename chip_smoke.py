@@ -63,7 +63,28 @@ per source, started together) and then:
 15. times K5a and K5b on phase 4's rays, beside K1 and K2 on the same rays
    (phase 4, over the leaf-32 tree, and here over Route A's leaf-128 tree),
    and K4a and K4b on phase 7's rays, beside K3a and K3b (phase 7, over the
-   same tree).
+   same tree);
+16. runs the P3 probe (``heatray_tpu_torch.probes.visit_stats``, kernel
+   ``visit_stats_kernel`` of ``probes.cu``) through its entry point: the
+   Cornell box over its leaf-32 ``"wide"`` tree on the 1080p primary rays
+   and the unsorted bounces 2-4, plain and seeded, and ``high_poly`` over
+   phase 5's leaf-128 tree on its primary rays and first bounce; on 64
+   seeded whole tiles of each wavefront the plain walk must give the same
+   node, leaf and improving counts and overlap sums within 1e-6 relative;
+17. runs the P1 probe (``probes.kernel_probe``: ``grid``, ``nodes`` and
+   ``leaves``, with K1 as ``full``) on the 1080p Cornell primary rays at
+   leaf {32, 64, 128} x tile {256, 512, 1024}; each probe is checked
+   against its plain version on N_CHECK seeded lanes (``nodes``: t and
+   visit counts equal; ``leaves``: hit masks equal, t within TOL, and
+   equal to the tree's brute force ``closest_wide_plain``);
+18. runs the P4 probe (``probes.vpu_leaf``: the row and warp-transposed
+   brute force) at tc {128, 256, 512} x tile {256, 512}, each layout
+   against the plain brute force on N_CHECK seeded lanes and against the
+   other on all rays.
+
+Each probe phase sets the probe kernels' launch counts to 0 just before
+its run and reads them just after; every kernel of the probe must have
+run.
 
 Each kernel's bound is the larger of the bytes it must move over the
 H100's 3.35 TB/s and the float32 operations its rays need over 67 TFLOP/s.
@@ -97,7 +118,7 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t")
+SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
     "closest_wide": ("heatray_tpu_torch/csrc/wide_bvh.cu", "heatray_tpu/ops/wide_bvh.py:297"),
@@ -115,6 +136,17 @@ KERNELS = {
     "closest_stream_t": ("heatray_tpu_torch/csrc/wide_bvh_t.cu", "heatray_tpu/ops/wide_bvh.py:960"),
     "any_stream_t": ("heatray_tpu_torch/csrc/wide_bvh_t.cu", "heatray_tpu/ops/wide_bvh.py:1059"),
 }
+# The probe kernels (csrc/probes.cu): name -> (TPU kernel it replaces, the
+# other TPU kernel that computes the same function, if any).
+PROBE_SOURCE = "heatray_tpu_torch/csrc/probes.cu"
+PROBE_KERNELS = {
+    "visit_stats": ("tpu_visit_stats.py:68", None),
+    "nodes": ("tpu_kernel_probe.py:89", None),
+    "rows_brute": ("tpu_kernel_probe.py:126", "tpu_vpu_leaf.py:85"),
+    "warp_brute": ("tpu_vpu_leaf.py:134", None),
+    "empty": ("tpu_kernel_probe.py:141", None),
+}
+P3_TILES = 64  # seeded whole tiles of each wavefront held against the plain walk
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -176,6 +208,34 @@ def reset_launches():
 
 def read_launches() -> dict:
     return {name: kernel.launches for name, (kernel, _) in queries().items()}
+
+
+def probe_wrappers() -> dict:
+    """Probe kernel name -> the wrapper that counts its launches."""
+    from heatray_tpu_torch.probes import kernel_probe, visit_stats, vpu_leaf
+
+    return {"visit_stats": visit_stats.visit_stats, "nodes": kernel_probe.node_walk,
+            "rows_brute": vpu_leaf.rows_closest, "warp_brute": vpu_leaf.warp_closest,
+            "empty": kernel_probe.empty}
+
+
+def run_probe(label, names, fn):
+    """Drive one probe's path: every probe count set to 0 just before
+    ``fn()`` and read just after; each kernel of ``names`` must have run,
+    and no other probe kernel.  Returns (fn's result, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for wrapper in probe_wrappers().values():
+        wrapper.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in probe_wrappers().items()}
+    if any(launches[n] == 0 for n in names) or any(
+            n for name, n in launches.items() if name not in names):
+        raise AssertionError(f"{label}: probe kernel launches {launches}, expected {names}")
+    log(f"[{label}] launches {launches}")
+    return out, launches
 
 
 def subset(v, idx):
@@ -347,15 +407,17 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
+def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True):
     """What these rays need of the tree: a dict of child-box tests, pair
     tests, pairs whose t lies in (t_min, t_far], and the nodes, leaves and
     leaf triangles reached.  Each ray tests the non-empty children of every
     node whose widened box it enters before ``t_far`` (its hit distance),
-    and every triangle of each such leaf.  A plain level-by-level walk."""
+    and every triangle of each such leaf (none without ``with_leaves``: the
+    node walk alone).  A plain level-by-level walk."""
     import torch
 
     from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.ops.wide_bvh import widened_slab
 
     device = bvh.w.device
     codes = bvh.wchild.view(-1, wb.ARITY).long()
@@ -378,16 +440,11 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
             c, b = codes[level], bvh.wbox[level]
             filled = c != -1
             boxes += int((reach.sum(0) * filled.sum(1)).sum())
-            near, far = torch.full_like(b[None, ..., 0], t_min), tfc[:, None, None]
-            for a in range(3):
-                p = (b[..., 3 + a] - b[..., a]) * wb.BOX_PAD
-                t0 = ((b[..., a] - p) - o[a]) * inv[a]
-                t1 = ((b[..., 3 + a] + p) - o[a]) * inv[a]
-                near = torch.maximum(near, torch.minimum(t0, t1))
-                far = torch.minimum(far, torch.maximum(t0, t1))
-            ok = (near <= far * wb.FAR_SCALE) & reach[:, :, None] & filled[None]
+            corners = b.permute(2, 0, 1)  # (8, L, 8): coordinate, node, child
+            ok = widened_slab(corners[0:3], corners[3:6], o, inv, tfc[:, None, None], t_min)
+            ok = ok & reach[:, :, None] & filled[None]
             # Every (ray, leaf) pair reached: the t of each triangle.
-            ray, node, k = (ok & (c <= -2)[None]).nonzero(as_tuple=True)
+            ray, node, k = (ok & (c <= -2)[None] & with_leaves).nonzero(as_tuple=True)
             chunk_id = -2 - c[node, k]
             leaf_seen[chunk_id] = True
             fill = filled_slot[chunk_id]
@@ -406,24 +463,6 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
     return {"boxes": boxes, "pairs": pairs, "in_range": in_range,
             "tree_bytes": nodes * NODE_BYTES + leaves * ANCHOR_BYTES + tris * TRI_BYTES,
             "reached": f"{nodes} nodes, {leaves} leaves ({tris} triangles)"}
-
-
-def _enters(lo, hi, o, inv, t_far, t_min):
-    """The kernels' widened slab test, broadcast: box corners ``lo``/``hi``,
-    ray origins and reciprocal directions, three tensors each."""
-    import torch
-
-    from heatray_tpu_torch.ops import wide_bvh as wb
-
-    near = far = None
-    for a in range(3):
-        p = (hi[a] - lo[a]) * wb.BOX_PAD
-        t0 = ((lo[a] - p) - o[a]) * inv[a]
-        t1 = ((hi[a] + p) - o[a]) * inv[a]
-        n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)
-        near = n if near is None else torch.maximum(near, n)
-        far = f if far is None else torch.minimum(far, f)
-    return near.clamp(min=t_min) <= torch.minimum(far, t_far) * wb.FAR_SCALE
 
 
 def _ray_chunks(org, d, t_far, chunk):
@@ -453,6 +492,7 @@ def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192):
     import torch
 
     from heatray_tpu_torch.ops.intersect import chunk_rows
+    from heatray_tpu_torch.ops.wide_bvh import widened_slab
 
     rows, tc = chunk_rows(packed.w), packed.tri_chunk
     tri = torch.arange(packed.num_chunks * tc, device=rows.device).view(-1, tc)
@@ -461,7 +501,7 @@ def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192):
     b = packed.boxes.T[:, None, :]  # (6, 1, C)
     pairs = in_range = 0
     for oc, inv, dc, tf in _ray_chunks(org, d, t_far, chunk):
-        ok = _enters(b[:3], b[3:], [c[:, None] for c in oc], [c[:, None] for c in inv],
+        ok = widened_slab(b[:3], b[3:], [c[:, None] for c in oc], [c[:, None] for c in inv],
                      tf[:, None], t_min) & (b[0] <= b[3])
         seen |= ok.any(0)
         ray, c = ok.nonzero(as_tuple=True)
@@ -483,6 +523,7 @@ def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
     import torch
 
     from heatray_tpu_torch.ops.intersect import chunk_rows
+    from heatray_tpu_torch.ops.wide_bvh import widened_slab
 
     rows, tc = chunk_rows(bvh.w), bvh.leaf_size
     nbox, meta = bvh.nbox.view(-1, 6), bvh.meta.view(-1, 2).long()
@@ -498,7 +539,7 @@ def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
             node_seen[level] = True
             boxes += int(reach.sum())
             b = nbox[level].T[:, None, :]
-            ok = reach & _enters(b[:3], b[3:], [c[:, None] for c in oc],
+            ok = reach & widened_slab(b[:3], b[3:], [c[:, None] for c in oc],
                                  [c[:, None] for c in inv], tf[:, None], t_min)
             code = meta[level, 0]
             ray, k = (ok & (code >= 0)[None]).nonzero(as_tuple=True)
@@ -680,6 +721,236 @@ def vpu_context(label, scene, opts, route, device):
     return ctx
 
 
+def brute_in_range(accel, org, d, t_hit, t_min=1e-4, chunk=2048):
+    """(ray, triangle) pairs over every triangle of ``accel`` whose t lies
+    in (t_min, t_hit]: the pairs whose barycentrics a brute force needs."""
+    rows = accel.w
+    n = 0
+    for lo in range(0, org.x.numel(), chunk):
+        ox, oy, oz = (c[lo:lo + chunk, None] for c in (org.x, org.y, org.z))
+        dx, dy, dz = (c[lo:lo + chunk, None] for c in (d.x, d.y, d.z))
+        t = -(ox * rows[8] + oy * rows[9] + oz * rows[10] + rows[11]) / (
+            dx * rows[8] + dy * rows[9] + dz * rows[10])
+        n += int(((t > t_min) & (t <= t_hit[lo:lo + chunk, None])).sum())
+    return n
+
+
+def probe_bound(label, nbytes, flops):
+    """(bound ms, what bounds it) of a probe kernel that must move ``nbytes``
+    and do ``flops`` float32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    log(f"[bound] {label}: {nbytes / 1e6:.3f} MB -> {t_bytes:.4f} ms; {flops / 1e9:.3f} GFLOP "
+        f"-> {t_ops:.4f} ms")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def probe_entry(name, ms, rays, plain, bound, library_ms=None, **extra):
+    """One kernels-line entry of a probe kernel; ``plain`` is (ms, rays) of
+    its plain version, ``bound`` (ms, by).  Launches and errors are filled
+    in at the end."""
+    replaces, also = PROBE_KERNELS[name]
+    entry = {"name": name, "route": "cuda", "source": PROBE_SOURCE, "replaces": replaces,
+             "launches": 0, "max_abs_err": 0.0, "ms": ms, "rays": rays, "plain_ms": plain[0],
+             "plain_rays": plain[1], "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": library_ms}
+    if also:
+        entry["also_replaces"] = also
+    entry.update(extra)
+    return entry
+
+
+def timed_once(fn):
+    """(host ms around ``fn`` with synchronisations, its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_p3(cornell, high_poly, gen, err):
+    """Phase 16: P3 through ``visit_stats.run`` on the Cornell and
+    ``high_poly`` wavefronts, each checked on P3_TILES seeded whole tiles
+    against the plain walk.  Returns (kernels-line entry, launches)."""
+    import torch
+
+    from heatray_tpu_torch.probes import visit_stats as vs
+
+    scene, camera, opts, ctx, tree = cornell
+    hp_scene, hp_camera, hp_opts, hp_ctx = high_poly
+    hp_tree = hp_ctx.accel_pack.wide
+
+    def path():
+        return (vs.run(scene, camera, ctx, opts, tree, DEPTH, log=log),
+                vs.run(hp_scene, hp_camera, hp_ctx, hp_opts, hp_tree, 2, log=log))
+
+    (c_recs, hp_recs), launches = run_probe("P3 visit_stats", ("visit_stats",), path)
+    plain = None
+    for label, t, recs in (("cornell leaf 32", tree, c_recs), ("high_poly leaf 128", hp_tree,
+                                                                hp_recs)):
+        for rec in recs:
+            device = rec["org"].x.device
+            n_tiles = rec["org"].x.numel() // vs.TILE
+            tiles = torch.randperm(n_tiles, generator=gen)[:P3_TILES]
+            lanes = (tiles[:, None] * vs.TILE + torch.arange(vs.TILE)).reshape(-1).to(device)
+            sw, sa = rec["seed"]
+            ms, want = timed_once(lambda: vs.visit_stats_plain(
+                t, subset(rec["org"], lanes), subset(rec["direction"], lanes), sw, sa,
+                seed_k=rec["seed_k"]))
+            got = [a[tiles.to(device)] for a in rec["stats"]]
+            for i, (a, b) in enumerate(zip(got, want)):
+                same = ((a - b).abs() <= 1e-6 * b.abs()).all() if i == 2 else torch.equal(a, b)
+                if not bool(same):
+                    raise AssertionError(f"P3 {label} depth {rec['depth']} {rec['tag']}: count {i} "
+                                         f"differs on {int((a != b).sum())} tiles")
+                err["visit_stats"] = max(err["visit_stats"], float((a - b).abs().max()))
+            log(f"[check] P3 {label} depth {rec['depth']} {rec['tag']}: {tiles.numel()} tiles of "
+                f"{n_tiles} equal to the plain walk ({ms:.1f} ms); kernel {rec['ms']:.4f} ms")
+            plain = plain or (ms, lanes.numel())
+    # The entry: the Cornell primary rays, unseeded.  Its bound counts the
+    # work its counts need (``vs.WORK``, counted by the kernel and held
+    # against the plain walk on P3_TILES tiles): each ray's tests of the
+    # filled children of the visited nodes, and its pair tests (with their
+    # barycentrics where t lies in range) of the leaves its own slab entered.
+    rec = c_recs[0]
+    org, d = rec["org"], rec["direction"]
+    r = org.x.numel()
+    *counts, spent = vs.visit_stats(tree, org, d, work=True)
+    tiles = torch.randperm(r // vs.TILE, generator=gen)[:P3_TILES]
+    lanes = (tiles[:, None] * vs.TILE + torch.arange(vs.TILE)).reshape(-1).to(org.x.device)
+    want = vs.visit_stats_plain(tree, subset(org, lanes), subset(d, lanes), work=True)[4]
+    if not (all(torch.equal(a, b) for a, b in zip(counts, rec["stats"]))
+            and torch.equal(spent[tiles.to(spent.device)], want)):
+        raise AssertionError("P3 cornell leaf 32 depth 1 plain: the work counts differ from "
+                             "the plain walk's, or the counts from the timed run's")
+    box_tests, pair_tests, in_range = (int(x) for x in spent.sum(dim=0).tolist())
+    log(f"[check] P3 cornell leaf 32 depth 1 plain: the work counts equal the plain walk's on "
+        f"{tiles.numel()} tiles")
+    flops = box_tests * SLAB_FLOPS + pair_tests * PAIR_T_FLOPS + in_range * BARY_FLOPS
+    bound = probe_bound(f"P3 on {r} rays: {box_tests} box tests, {pair_tests} pair tests "
+                        f"({in_range} in range)", 24 * r + 16 * (r // vs.TILE), flops)
+    return probe_entry("visit_stats", rec["ms"], r, plain, bound), launches
+
+
+def phase_p1(accel, prim, gen, err):
+    """Phase 17: P1 through ``kernel_probe.run``, each probe checked against
+    its plain version on N_CHECK seeded lanes.  Returns (kernels-line
+    entries, launches, the primary rays' closest t)."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.ops.intersect import MISS_T
+    from heatray_tpu_torch.probes import kernel_probe as kp
+    from heatray_tpu_torch.probes.vpu_leaf import closest_brute_plain
+
+    org, d = prim.org, prim.direction
+    r = org.x.numel()
+    recs, launches = run_probe("P1 kernel_probe", ("empty", "nodes", "rows_brute"),
+                               lambda: kp.run(accel, org, d, reps=5, log=log))
+    lanes = torch.randperm(r, generator=gen)[:N_CHECK].to(org.x.device)
+    s_org, s_d = subset(org, lanes), subset(d, lanes)
+    plain_ms = {}
+    for rec in recs:
+        bvh, ls = rec["bvh"], rec["leaf"]
+        plain_ms["nodes", ls], (_, visits_p) = timed_once(lambda: kp.node_walk_plain(
+            bvh, s_org, s_d))
+        plain_ms["leaves", ls], t_p = timed_once(lambda: closest_brute_plain(
+            bvh.w, s_org, s_d, bvh.wanchor))
+        t_tree = wb.closest_wide_plain(bvh, s_org, s_d)[0]
+        for (probe, rt), out in rec["out"].items():
+            if probe == "grid":
+                if not torch.equal(out[lanes], kp.empty_plain(s_org)):
+                    raise AssertionError(f"P1 grid leaf {ls} rt {rt} differs")
+            elif probe == "nodes":
+                t, visits = out
+                if not (bool((t == MISS_T).all()) and torch.equal(visits[lanes], visits_p)):
+                    raise AssertionError(f"P1 nodes leaf {ls} rt {rt}: t or visits differ")
+            elif probe == "leaves":
+                t = out[lanes]
+                for ref, what in ((t_p, "plain"), (t_tree, "closest_wide_plain")):
+                    hit = ref < MISS_T
+                    diff = (t - ref).abs()
+                    if not torch.equal(t < MISS_T, hit) or bool(
+                            (diff[hit] > TOL + TOL * ref[hit].abs()).any()):
+                        raise AssertionError(f"P1 leaves leaf {ls} rt {rt} differs from {what}")
+                    err["rows_brute"] = max(err["rows_brute"],
+                                            float(diff[hit].max()) if hit.any() else 0.0)
+        log(f"[check] P1 leaf {ls}: grid, nodes and leaves at every tile equal their plain "
+            f"versions on {lanes.numel()} lanes, leaves equal closest_wide_plain; max visits "
+            f"{int(visits_p.max())}, mean {float(visits_p.float().mean()):.3f}")
+    rec = recs[0]  # leaf 32, tile 256: the entries
+    bvh, ls = rec["bvh"], rec["leaf"]
+    t_hit = rec["out"]["leaves", 256]
+    work = walk_work(bvh, org, d, torch.full_like(t_hit, MISS_T), with_leaves=False)
+    nodes_bound = probe_bound(f"P1 nodes on {r} rays: {work['reached']} reached, "
+                              f"{work['boxes'] / r:.3f} box tests per ray",
+                              work["tree_bytes"] + 32 * r, work["boxes"] * SLAB_FLOPS)
+    in_range = brute_in_range(accel, org, d, t_hit)
+    n_tri = accel.num_triangles
+    brute = (r * 28 + n_tri * TRI_BYTES + bvh.num_chunks * ANCHOR_BYTES,
+             r * n_tri * PAIR_T_FLOPS + in_range * BARY_FLOPS)
+    leaves_bound = probe_bound(f"P1 leaves on {r} rays: {n_tri} triangles, "
+                               f"{in_range / r:.3f} pairs in range per ray", *brute)
+    ms = rec["ms"]
+    library_ms = time_ms(lambda: torch.mul(org.x, 0.0), 10)
+    entries = [
+        probe_entry("nodes", ms["nodes", 256], r, (plain_ms["nodes", ls], N_CHECK), nodes_bound,
+                    leaf=ls, ray_tile=256),
+        probe_entry("rows_brute", ms["leaves", 256], r, (plain_ms["leaves", ls], N_CHECK),
+                    leaves_bound, leaf=ls, ray_tile=256),
+        probe_entry("empty", ms["grid", 256], r, (time_ms(lambda: kp.empty_plain(org), 10), r),
+                    probe_bound(f"P1 grid on {r} rays", 8 * r, 0), library_ms, ray_tile=256),
+    ]
+    log(f"[compare] P1 on {r} rays, leaf {ls}, tile 256: grid {ms['grid', 256]:.4f} ms, nodes "
+        f"{ms['nodes', 256]:.4f}, leaves {ms['leaves', 256]:.4f}, full (K1) "
+        f"{ms['full', None]:.4f}")
+    return entries, launches, brute
+
+
+def phase_p4(accel, prim, gen, err, brute):
+    """Phase 18: P4 through ``vpu_leaf.run``, each layout checked against the
+    plain brute force on N_CHECK seeded lanes and against the other on all
+    rays.  ``brute``: (bytes, FLOPs) of the brute force on these rays.
+    Returns (kernels-line entry of the warp layout, launches, row ms)."""
+    import torch
+
+    from heatray_tpu_torch.ops.intersect import MISS_T
+    from heatray_tpu_torch.probes import vpu_leaf
+
+    org, d = prim.org, prim.direction
+    r = org.x.numel()
+    recs, launches = run_probe("P4 vpu_leaf", ("rows_brute", "warp_brute"),
+                               lambda: vpu_leaf.run(accel, org, d, reps=5, log=log))
+    lanes = torch.randperm(r, generator=gen)[:N_CHECK].to(org.x.device)
+    s_org, s_d = subset(org, lanes), subset(d, lanes)
+    plain = {}
+    for rec in recs:
+        tc = rec["tc"]
+        if tc not in plain:
+            plain[tc] = timed_once(lambda: vpu_leaf.closest_brute_plain(rec["w"], s_org, s_d))
+        t_p = plain[tc][1]
+        hit = t_p < MISS_T
+        for name, key in (("rows_brute", "row_t"), ("warp_brute", "warp_t")):
+            t = rec[key][lanes]
+            diff = (t - t_p).abs()
+            if not torch.equal(t < MISS_T, hit) or bool(
+                    (diff[hit] > TOL + TOL * t_p[hit].abs()).any()):
+                raise AssertionError(f"P4 {name} tc {tc} rt {rec['rt']} differs from plain")
+            err[name] = max(err[name], float(diff[hit].max()) if hit.any() else 0.0)
+        if rec["agree"] != 1.0 or rec["max_dt"] > TOL:
+            raise AssertionError(f"P4 tc {tc} rt {rec['rt']}: layouts agree on {rec['agree']}, "
+                                 f"max |dt| {rec['max_dt']}")
+        log(f"[check] P4 tc {tc} rt {rec['rt']}: row and warp equal the plain brute force on "
+            f"{lanes.numel()} lanes, agree on all {r} rays (max |dt| {rec['max_dt']:.3g})")
+    rec = recs[0]  # tc 128, tile 256
+    bound = probe_bound(f"P4 on {r} rays", *brute)
+    entry = probe_entry("warp_brute", rec["warp_ms"], r, (plain[rec["tc"]][0], N_CHECK), bound,
+                        leaf=rec["tc"], ray_tile=rec["rt"])
+    return entry, launches, rec["row_ms"]
+
+
 def main() -> int:
     import torch
 
@@ -716,7 +987,7 @@ def main() -> int:
             if "registers" in line or "stack frame" in line:
                 log(f"[build] {lib.name}:", line.strip())
 
-    err = dict.fromkeys(KERNELS, 0.0)
+    err = dict.fromkeys([*KERNELS, *PROBE_KERNELS], 0.0)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
     # --- 1. K1/K2 against their plain versions -----------------------------
@@ -844,7 +1115,7 @@ def main() -> int:
             f"K3a on leaf 128 {k3['closest_stream']:.4f} ms; K2 on leaf 32 {k2:.4f} ms vs "
             f"K3b {k3['any_stream']:.4f} ms; card {card}")
     hp_rays = (primary, shadow)  # phase 15 times K4 on them
-    del hp_ctx, hp, wide32
+    del hp, wide32  # phase 16 walks hp_ctx's tree
 
     # --- 8. K7 in the rebuild mode and K6 under "bvh", against plain -----------
     routes = {
@@ -954,6 +1225,31 @@ def main() -> int:
     log(f"[compare] high_poly on {hp_primary.org.x.numel()} rays, one leaf-128 tree: K4a "
         f"{ms['closest_stream_t']:.4f} ms vs K3a {ms['closest_stream']:.4f} ms; K4b "
         f"{ms['any_stream_t']:.4f} ms vs K3b {ms['any_stream']:.4f} ms; card {card}")
+
+    del a_ctx, b_ctx, a_pack, b_pack
+
+    # --- 16. P3: visit counts per block, through the probe's entry point ------
+    from heatray_tpu_torch.probes import visit_stats
+
+    p_setup = visit_stats.setup("cornell", WIDTH, HEIGHT, DEPTH, device)
+    p3_entry, p3_launches = phase_p3(p_setup, (hp_scene, hp_camera, opts, hp_ctx), gen, err)
+    del hp_ctx
+
+    # --- 17-18. P1 (node walk, leaf tests, launch) and P4 (row and warp) --------
+    _, p_camera, p_opts, p_ctx, _ = p_setup
+    p_prim = integrator.start_paths(p_camera, p_ctx, p_opts, 0)
+    p_accel = p_ctx.accel_pack.accel
+    p1_entries, p1_launches, brute = phase_p1(p_accel, p_prim, gen, err)
+    p4_entry, p4_launches, p4_row_ms = phase_p4(p_accel, p_prim, gen, err, brute)
+    probe_launches = {name: p3_launches[name] + p1_launches[name] + p4_launches[name]
+                      for name in PROBE_KERNELS}
+    p1_entries[1]["p4_ms"] = p4_row_ms  # rows_brute at P4's tc 128, tile 256
+    for entry in [p3_entry, *p1_entries, p4_entry]:
+        entry["launches"] = probe_launches[entry["name"]]
+        entry["max_abs_err"] = err[entry["name"]]
+        kernels.append(entry)
+    log(f"[compare] P4 on {p_prim.org.x.numel()} rays, tc 128, tile 256: row "
+        f"{p4_row_ms:.4f} ms, warp {p4_entry['ms']:.4f} ms; card {card}")
 
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -226,6 +226,28 @@ def build_wide_bvh(
 # --- plain versions ----------------------------------------------------------
 
 
+def widened_slab(lo, hi, org, rcp, t_far, t_min):
+    """The kernels' widened slab test (``wide_bvh_common.cuh`` ``slab``, the
+    box grown by BOX_PAD, the far end by FAR_SCALE), broadcast: box corners
+    ``lo``/``hi``, ray origins and reciprocal directions, three tensors
+    each, and the far end ``t_far``."""
+    near = far = None
+    for a in range(3):
+        p = (hi[a] - lo[a]) * BOX_PAD
+        t0 = ((lo[a] - p) - org[a]) * rcp[a]
+        t1 = ((hi[a] + p) - org[a]) * rcp[a]
+        n, f = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = n if near is None else torch.maximum(near, n)
+        far = f if far is None else torch.minimum(far, f)
+    return near.clamp(min=t_min) <= torch.minimum(far, t_far) * FAR_SCALE
+
+
+def reciprocals(directions: Vec3):
+    """The kernels' safe reciprocal directions (``safe_inv``), three tensors."""
+    return tuple(torch.where(c < 0, -1.0, 1.0) / c.abs().clamp(min=1e-18)
+                 for c in (directions.x, directions.y, directions.z))
+
+
 def slot_rows(bvh: WideBVH):
     """The leaf data as slot-ordered Woop rows: (rows (12, S), anchor (3, S))
     with ``rows[4 g + f, c Tc + j] = w[c, f, g Tc + j]``."""
@@ -304,9 +326,9 @@ def _t_kernels() -> ctypes.CDLL:
 
 
 def on_cpu(tree) -> bool:
-    """True for a tree (or chunk pack) on the CPU (plain version); raises
-    unless it lies on a CUDA device (kernel)."""
-    device = tree.w.device
+    """True for a tree, chunk pack or tensor on the CPU (plain version);
+    raises unless it lies on a CUDA device (kernel)."""
+    device = tree.device if isinstance(tree, torch.Tensor) else tree.w.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no traversal kernel for device {device}")
     return device.type == "cpu"

@@ -17,7 +17,8 @@ from heatray_tpu_torch import cornell_box, make_context, orbit_camera, render
 from heatray_tpu_torch.options import RenderOptions
 from heatray_tpu_torch.ops import intersect_pallas, traverse_pallas, wide_bvh
 from heatray_tpu_torch.ops.bvh import build_bvh
-from heatray_tpu_torch.ops.intersect import build_woop
+from heatray_tpu_torch.ops.intersect import MISS_T, build_woop
+from heatray_tpu_torch.probes import kernel_probe, visit_stats, vpu_leaf
 from heatray_tpu_torch.vec import Vec3
 
 pytestmark = pytest.mark.cuda
@@ -340,3 +341,75 @@ def test_other_routes_render_matches_cpu(cuda_device, backend):
         out[device.type], _ = render(scene, camera, opts, num_passes=passes, ctx=ctx,
                                      device=device)
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-3, atol=5e-3)
+
+
+# --- the traversal probes (csrc/probes.cu) -------------------------------------
+
+
+def _cornell_tree(device, leaf_size):
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    accel = build_woop(scene.geometry.positions, scene.geometry.indices)
+    return scene, accel, wide_bvh.build_wide_bvh(accel, leaf_size=leaf_size)
+
+
+@pytest.mark.parametrize("leaf_size", [32, 128])
+def test_visit_stats_kernel_matches_plain(cuda_device, leaf_size):
+    """P3: per-tile counts of the kernel's block walk, and the work they
+    need, equal the plain walk's, plain and seeded, with a partial last tile
+    whose absent lanes count for nothing."""
+    scene, accel, bvh = _cornell_tree(cuda_device, leaf_size)
+    o, d = _rays(2 * 256 + 100, 5, cuda_device)
+    seed_w, seed_anchor, _ = visit_stats.seed_chunk(scene, accel)
+    for k in (0, 32):
+        launches = visit_stats.visit_stats.launches
+        got = visit_stats.visit_stats(bvh, o, d, seed_w, seed_anchor, seed_k=k, work=True)
+        want = visit_stats.visit_stats_plain(bvh, o, d, seed_w, seed_anchor, seed_k=k,
+                                             work=True)
+        torch.cuda.synchronize()
+        assert visit_stats.visit_stats.launches == launches + 1
+        assert len(got) == len(want) == 5
+        for a, b in zip(got, want):
+            assert a.shape[0] == 3 and torch.equal(a, b)
+        assert float(got[1].sum()) > 0 and int(got[4][:, 2].sum()) > 0
+
+
+@pytest.mark.parametrize("ray_tile, n_rays", [(256, 8191), (1024, 8191), (512, 0)])
+def test_node_walk_and_empty_kernels_match_plain(cuda_device, ray_tile, n_rays):
+    """P1 ``nodes`` and ``grid``: t = MISS_T and each ray's node visits
+    equal the plain frontier count; x * 0 equal; no launch counted for no
+    rays."""
+    _, _, bvh = _cornell_tree(cuda_device, 32)
+    o, d = _rays(n_rays, 9, cuda_device)
+    launches = (kernel_probe.node_walk.launches, kernel_probe.empty.launches)
+    t, visits = kernel_probe.node_walk(bvh, o, d, ray_tile)
+    t_p, visits_p = kernel_probe.node_walk_plain(bvh, o, d)
+    zero = kernel_probe.empty(o, ray_tile)
+    torch.cuda.synchronize()
+    assert torch.equal(t, t_p) and torch.equal(visits, visits_p)
+    assert torch.equal(zero, kernel_probe.empty_plain(o))
+    n = int(n_rays > 0)
+    assert (kernel_probe.node_walk.launches, kernel_probe.empty.launches) == (
+        launches[0] + n, launches[1] + n)
+    if n_rays:
+        assert int(visits.max()) > 1
+
+
+@pytest.mark.parametrize("layout", ["rows", "warp"])
+@pytest.mark.parametrize("anchored, ray_tile", [(False, 256), (True, 512)])
+def test_brute_kernels_match_plain(cuda_device, layout, anchored, ray_tile):
+    """P1 ``leaves`` and P4: both layouts of the brute force equal the plain
+    version (the same float32 arithmetic: t within 1e-5), over the
+    un-anchored pack of P4 and over a tree's anchored chunks with their
+    anchors, with a last warp of 31 rays."""
+    _, accel, bvh = _cornell_tree(cuda_device, 128)
+    w, anchor = (bvh.w, bvh.wanchor) if anchored else (vpu_leaf.pack_chunks(accel, 128), None)
+    o, d = _rays(8191, 13, cuda_device)
+    fn = vpu_leaf.rows_closest if layout == "rows" else vpu_leaf.warp_closest
+    launches = fn.launches
+    t = fn(w, o, d, anchor, ray_tile)
+    t_p = vpu_leaf.closest_brute_plain(w, o, d, anchor)
+    torch.cuda.synchronize()
+    assert fn.launches == launches + 1
+    assert torch.equal(t < MISS_T, t_p < MISS_T)
+    torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
+    assert 0 < int((t < MISS_T).sum()) < 8191

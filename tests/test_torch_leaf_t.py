@@ -1,9 +1,10 @@
 """The port's transposed ("vpu") leaf math against the JAX package:
 ``intersect_closest_vpu``/``intersect_any_vpu`` (K5) and the streaming pair
 with ``leaf_math="vpu"`` (K4), their plain versions against the TPU kernels
-in interpret mode and the XLA brute force; a plain-torch emulation of the
-kernels' walk (a group of rays descends together, each leaf is tested only
-on the rays whose own widened slab enters it, ties go to the lowest slot);
+in interpret mode and the XLA brute force; the plain-torch emulation of the
+kernels' walk (``probes.visit_stats.group_walk``: a group of rays descends
+together, each leaf is tested only on the rays whose own widened slab
+enters it, ties go to the lowest slot);
 the two routes sorted and gated against unsorted; and ``build_accel``'s
 leaf sizes.  The routes' images against the JAX render are in
 test_torch_render.py and test_torch_stream.py, beside the JAX renders those
@@ -30,6 +31,7 @@ from heatray_tpu_torch import RenderOptions, cornell_box, frame_scene, high_poly
 from heatray_tpu_torch import scene_aabb
 from heatray_tpu_torch.ops import intersect, wide_bvh
 from heatray_tpu_torch.options import FrameGlobals
+from heatray_tpu_torch.probes.visit_stats import group_walk
 from heatray_tpu_torch.render import integrator
 
 from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
@@ -125,85 +127,6 @@ def test_any_matches_jax_kernel(soup, route, leaf_size):
     np.testing.assert_array_equal(blocked.numpy(), np.asarray(ref))
 
 
-def _enters(box, org, rcp, t_far, t_min):
-    """The kernels' widened slab test of one (8,) child box, per ray."""
-    near, far = [], []
-    for a in range(3):
-        p = (box[3 + a] - box[a]) * wide_bvh.BOX_PAD
-        t0 = ((box[a] - p) - org[a]) * rcp[a]
-        t1 = ((box[3 + a] + p) - org[a]) * rcp[a]
-        near.append(torch.minimum(t0, t1))
-        far.append(torch.maximum(t0, t1))
-    tn = torch.clamp(torch.maximum(torch.maximum(near[0], near[1]), near[2]), min=t_min)
-    tf = torch.minimum(torch.minimum(torch.minimum(far[0], far[1]), far[2]), t_far)
-    return tn <= tf * wide_bvh.FAR_SCALE
-
-
-def _group_walk(bvh, o, d, group, t_max=None, t_min=1e-4):
-    """Plain-torch emulation of the transposed kernels' walk.  Per group of
-    ``group`` rays (a warp for K5, a block for K4): one shared stack; a child
-    is visited if any ray of the group enters its widened box before that
-    ray's far end (its best t, or its t_max until it is blocked); leaves
-    near to far by the group's summed direction along the node's axis,
-    internal children pushed far to near.  At each visited leaf only the
-    rays whose own slab still enters it (against the best t they have by
-    then) are tested, ties in t to the lowest slot.  Returns ((t, slot) or
-    the blocked mask, the count of (ray, leaf) pairs a visited leaf skipped)."""
-    rows, anchor = wide_bvh.slot_rows(bvh)
-    codes = bvh.wchild.view(-1, wide_bvh.ARITY).tolist()
-    axes = bvh.waxis.tolist()
-    tc, big = bvh.leaf_size, intersect.MISS_T
-    closest = t_max is None
-    outs, skipped = [], 0
-    for lo in range(0, o.x.shape[0], group):
-        ob, db = o.map(lambda c: c[lo:lo + group]), d.map(lambda c: c[lo:lo + group])
-        n = ob.x.shape[0]
-        org = (ob.x, ob.y, ob.z)
-        rcp = tuple(torch.where(c < 0, -1.0, 1.0) / torch.clamp(c.abs(), min=1e-18)
-                    for c in (db.x, db.y, db.z))
-        low_first = [float(c.sum()) >= 0.0 for c in (db.x, db.y, db.z)]
-        best = torch.full((n,), big)
-        slot = torch.full((n,), -1, dtype=torch.int32)
-        hi = None if closest else torch.as_tensor(t_max, dtype=torch.float32)[lo:lo + group]
-        blocked = torch.zeros((n,), dtype=torch.bool)
-
-        def far_end():
-            return best if closest else torch.where(blocked, t_min - 1.0, hi)
-
-        stack, node = [], 0
-        while node >= 0 and (closest or not bool(blocked.all())):
-            boxes = bvh.wbox[node]
-            live = [code != -1 and bool(_enters(boxes[k], org, rcp, far_end(), t_min).any())
-                    for k, code in enumerate(codes[node])]
-            order = range(wide_bvh.ARITY) if low_first[axes[node]] else range(
-                wide_bvh.ARITY - 1, -1, -1)
-            for k in order:
-                code = codes[node][k]
-                if not live[k] or code > -2:
-                    continue
-                rays = _enters(boxes[k], org, rcp, far_end(), t_min).nonzero()[:, 0]
-                skipped += n - rays.numel()
-                cols = slice((-2 - code) * tc, (-1 - code) * tc)
-                sub = (ob.map(lambda c: c[rays]), db.map(lambda c: c[rays]))
-                if closest:
-                    t = intersect.pair_t(*sub, rows[:, cols], t_min, big, anchor[:, cols])
-                    cand, arg = torch.min(t, dim=1)
-                    cand_slot = (arg + cols.start).int()
-                    b, s = best[rays], slot[rays]
-                    better = (cand < b) | ((cand == b) & (cand < big) & (cand_slot < s))
-                    best[rays] = torch.where(better, cand, b)
-                    slot[rays] = torch.where(better, cand_slot, s)
-                else:
-                    t = intersect.pair_t(*sub, rows[:, cols], t_min, hi[rays], anchor[:, cols])
-                    blocked[rays] |= (t < big).any(dim=1)
-            stack += [codes[node][k] for k in reversed(order) if live[k] and codes[node][k] >= 0]
-            node = stack.pop() if stack else -1
-        outs.append((best, slot) if closest else blocked)
-    if closest:
-        return (torch.cat([a for a, _ in outs]), torch.cat([b for _, b in outs])), skipped
-    return torch.cat(outs), skipped
-
-
 @pytest.mark.parametrize("group", [32, 256])
 def test_group_walk_equals_plain(group):
     """Rays aimed just past the Cornell box's triangle edges (and the one
@@ -214,14 +137,14 @@ def test_group_walk_equals_plain(group):
     bvh, o, d = cornell_edge_rays(767, leaf_size=128)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
-    (t_w, slot_w), skipped = _group_walk(bvh, o, d, group)
+    (t_w, slot_w), stats = group_walk(bvh, o, d, group)
     assert torch.equal(t_w, t_p) and torch.equal(slot_w, slot_p)
-    assert skipped > 0
+    assert stats[:, 4].sum() > 0
 
     t_max = torch.where(hit_p, t_p * 1.001, 5.0)
-    blocked, skipped = _group_walk(bvh, o, d, group, t_max=t_max)
+    blocked, stats = group_walk(bvh, o, d, group, t_max=t_max)
     assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
-    assert bool(blocked[-1]) and skipped > 0
+    assert bool(blocked[-1]) and stats[:, 4].sum() > 0
 
 
 def _route(name):
