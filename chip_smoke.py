@@ -80,7 +80,16 @@ per source, started together) and then:
 18. runs the P4 probe (``probes.vpu_leaf``: the row and warp-transposed
    brute force) at tc {128, 256, 512} x tile {256, 512}, each layout
    against the plain brute force on N_CHECK seeded lanes and against the
-   other on all rays.
+   other on all rays;
+19. runs the P2 probe (``probes.kernel_variants``, kernels of
+   ``variants.cu``) on the 1080p Cornell box's sorted depth-2 wavefront
+   over the leaf-32 tree: ``v0``-``v4`` at tiles 512 and 1024 (v4 at group
+   32 and 128), v6 and v7 at batch 4 and 8, v8 at batch 8 and 16 x tiles
+   512, 1024 and 2048, and K1 on the same rays; each case is held against
+   its plain version on P2_TILES seeded whole tiles (the last, partial one
+   among them): hit masks equal, t within TOL, slots equal (all -1 for
+   v3); and the tests per tile must show v2 and v3 walking as v0, v1 more,
+   v4 no more.
 
 Each probe phase sets the probe kernels' launch counts to 0 just before
 its run and reads them just after; every kernel of the probe must have
@@ -118,7 +127,7 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes")
+SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes", "variants")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
     "closest_wide": ("heatray_tpu_torch/csrc/wide_bvh.cu", "heatray_tpu/ops/wide_bvh.py:297"),
@@ -146,7 +155,19 @@ PROBE_KERNELS = {
     "warp_brute": ("tpu_vpu_leaf.py:134", None),
     "empty": ("tpu_kernel_probe.py:141", None),
 }
+# P2's kernels (csrc/variants.cu): name -> (TPU kernel it replaces, the case
+# whose time stands in the entry).
+P2_SOURCE = "heatray_tpu_torch/csrc/variants.cu"
+P2_KERNELS = {
+    "variant_walk": ("tpu_kernel_variants_probe.py:455", "v0", 512),
+    "queue_walk_tile": ("tpu_kernel_variants_probe.py:309", "v6b4", 512),
+    "queue_walk_none": ("tpu_kernel_variants_probe.py:85", "v7b4", 512),
+    "queue_walk_chunk": ("tpu_kernel_variants_probe.py:201", "v8b8", 512),
+}
+P2_VARIANTS = ("v0", "v1", "v2", "v3", "v4g32", "v4g128", "v6b4", "v6b8", "v7b4", "v7b8")
+P2_QUEUES = {"v6": "queue_walk_tile", "v7": "queue_walk_none", "v8": "queue_walk_chunk"}
 P3_TILES = 64  # seeded whole tiles of each wavefront held against the plain walk
+P2_TILES = 64
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -212,11 +233,14 @@ def read_launches() -> dict:
 
 def probe_wrappers() -> dict:
     """Probe kernel name -> the wrapper that counts its launches."""
-    from heatray_tpu_torch.probes import kernel_probe, visit_stats, vpu_leaf
+    from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
 
     return {"visit_stats": visit_stats.visit_stats, "nodes": kernel_probe.node_walk,
             "rows_brute": vpu_leaf.rows_closest, "warp_brute": vpu_leaf.warp_closest,
-            "empty": kernel_probe.empty}
+            "empty": kernel_probe.empty, "variant_walk": kernel_variants.variant_walk,
+            "queue_walk_tile": kernel_variants.closest_v6,
+            "queue_walk_none": kernel_variants.closest_v7,
+            "queue_walk_chunk": kernel_variants.closest_v8}
 
 
 def run_probe(label, names, fn):
@@ -951,8 +975,105 @@ def phase_p4(accel, prim, gen, err, brute):
     return entry, launches, rec["row_ms"]
 
 
+def phase_p2(cornell, gen, err, card):
+    """Phase 19: P2 through ``kernel_variants.run`` on the sorted depth-2
+    wavefront, each case checked on P2_TILES seeded whole tiles against its
+    plain version.  Returns (kernels-line entries, launches)."""
+    import torch
+
+    from heatray_tpu_torch.ops.intersect import MISS_T
+    from heatray_tpu_torch.probes import kernel_variants as kv
+
+    scene, camera, opts, ctx, tree = cornell
+    t0 = time.perf_counter()
+    paths = kv.wavefront(scene, camera, ctx, opts)
+    rows = kv.unanchored_rows(ctx.accel_pack.accel, tree)
+    org, d = paths.org, paths.direction
+    r = org.x.numel()
+    torch.cuda.synchronize()
+    log(f"[setup] P2 wavefront in {time.perf_counter() - t0:.2f} s: {r} lanes, "
+        f"{int(paths.active.sum())} live")
+    cases = kv.default_cases()
+    cases += [c for c in kv.variant_cases(P2_VARIANTS)[1:] if c not in cases]
+    res, launches = run_probe("P2 kernel_variants", tuple(P2_KERNELS),
+                              lambda: kv.run(tree, rows, org, d, cases, reps=5, log=log))
+    device = org.x.device
+    plain, by_case = {}, {}
+    for rec in res["cases"]:
+        case = rec["case"]
+        rt = case.ray_tile
+        n_tiles = -(-r // rt)
+        family = {"v6": ("v6", rt), "v7": ("v7", rt)}.get(case.variant, ("k1", rt))
+        if family not in plain:
+            # Seeded whole tiles, the last (partial at 2,048) among them, each
+            # tile's lanes together so that v6's centroids are the kernel's.
+            tiles = torch.cat([torch.randperm(n_tiles - 1, generator=gen)[:P2_TILES - 1],
+                               torch.tensor([n_tiles - 1])])
+            lanes = (tiles[:, None] * rt + torch.arange(rt)).reshape(-1)
+            lanes = lanes[lanes < r].to(device)
+            probe = kv.Case(family[0] if family[0] != "k1" else "v0", rt)
+            ms, want = timed_once(lambda: kv.case_plain(probe, tree, rows, subset(org, lanes),
+                                                        subset(d, lanes)))
+            plain[family] = (lanes, want, ms, tiles.numel())
+        lanes, (t_p, slot_p), _, n_checked = plain[family]
+        if case.variant == "v3":
+            slot_p = torch.full_like(slot_p, -1)
+        t, slot = rec["t"][lanes], rec["slot"][lanes]
+        hit = t_p < MISS_T
+        diff = (t - t_p).abs()
+        bad = (t < MISS_T) != hit
+        bad |= hit & (diff > TOL + TOL * t_p.abs())
+        bad |= slot != slot_p
+        name = P2_QUEUES.get(case.variant, "variant_walk")
+        if bool(bad.any()):
+            raise AssertionError(f"P2 {case.name} rt {rt}: {int(bad.sum())} of {lanes.numel()} "
+                                 f"lanes differ from the plain version (first: "
+                                 f"{lanes[bad.nonzero()[:8, 0]].tolist()})")
+        err[name] = max(err[name], float(diff[hit].max()) if hit.any() else 0.0)
+        by_case[case.name, rt] = rec
+        log(f"[check] P2 {case.name} rt {rt}: equal to the plain version on {lanes.numel()} "
+            f"lanes of {n_checked} tiles; {rec['ms']:.4f} ms, {rec['tests_per_tile']:.2f} leaf "
+            f"tests per tile")
+    for rt in (512, 1024):
+        tests = {n: by_case[n, rt]["tests"] for n in ("v0", "v1", "v2", "v3", "v4g32", "v4g128")}
+        if not (torch.equal(tests["v2"], tests["v0"]) and torch.equal(tests["v3"], tests["v0"])
+                and bool((tests["v1"] > tests["v0"]).all())
+                and all(bool((tests[g] <= tests["v0"]).all()) for g in ("v4g32", "v4g128"))):
+            raise AssertionError(f"P2 rt {rt}: the tests per tile do not follow the variants")
+    k1 = res["k1"]
+    if not (torch.equal(k1["t"], by_case["v0", 512]["t"])
+            and torch.equal(k1["slot"], by_case["v0", 512]["slot"])):
+        raise AssertionError("P2: v0 differs from K1 on the wavefront")
+    log(f"[check] P2: v2 and v3 ran v0's tests, v1 more, v4 no more; v0 equals K1 on all {r} "
+        f"lanes")
+    bound_ms, bound_by = bound(r, walk_work(tree, org, d, k1["t"]), False)
+    entries = []
+    for name, (replaces, case_name, rt) in P2_KERNELS.items():
+        rec = by_case[case_name, rt]
+        mine = [key for key, other in by_case.items()
+                if P2_QUEUES.get(other["case"].variant, "variant_walk") == name]
+        family = {"v6": ("v6", rt), "v7": ("v7", rt)}.get(rec["case"].variant, ("k1", rt))
+        lanes, _, plain_ms, _ = plain[family]
+        entries.append({
+            "name": name, "route": "cuda", "source": P2_SOURCE, "replaces": replaces,
+            "launches": 0, "max_abs_err": 0.0, "ms": rec["ms"], "rays": r,
+            "plain_ms": plain_ms, "plain_rays": lanes.numel(), "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "case": case_name, "ray_tile": rt,
+            "settings": {f"{n}@{t}": by_case[n, t]["ms"] for n, t in mine},
+            "tests_per_tile": {f"{n}@{t}": by_case[n, t]["tests_per_tile"] for n, t in mine},
+            "k1_ms": k1["ms"],
+        })
+    log(f"[compare] P2 on {r} lanes of the sorted depth-2 wavefront: "
+        + ", ".join(f"{n}@{t} {rec['ms']:.4f} ms ({rec['tests_per_tile']:.1f} tests/tile)"
+                    for (n, t), rec in by_case.items())
+        + f"; K1 {k1['ms']:.4f} ms; card {card}")
+    return entries, launches
+
+
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a card")
@@ -987,7 +1108,7 @@ def main() -> int:
             if "registers" in line or "stack frame" in line:
                 log(f"[build] {lib.name}:", line.strip())
 
-    err = dict.fromkeys([*KERNELS, *PROBE_KERNELS], 0.0)
+    err = dict.fromkeys([*KERNELS, *PROBE_KERNELS, *P2_KERNELS], 0.0)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
 
     # --- 1. K1/K2 against their plain versions -----------------------------
@@ -1241,16 +1362,21 @@ def main() -> int:
     p_accel = p_ctx.accel_pack.accel
     p1_entries, p1_launches, brute = phase_p1(p_accel, p_prim, gen, err)
     p4_entry, p4_launches, p4_row_ms = phase_p4(p_accel, p_prim, gen, err, brute)
+    log(f"[compare] P4 on {p_prim.org.x.numel()} rays, tc 128, tile 256: row "
+        f"{p4_row_ms:.4f} ms, warp {p4_entry['ms']:.4f} ms; card {card}")
+    del p_prim
+
+    # --- 19. P2: the walk variants on the sorted depth-2 wavefront --------------
+    p2_entries, p2_launches = phase_p2(p_setup, gen, err, card)
     probe_launches = {name: p3_launches[name] + p1_launches[name] + p4_launches[name]
-                      for name in PROBE_KERNELS}
+                      + p2_launches[name] for name in [*PROBE_KERNELS, *P2_KERNELS]}
     p1_entries[1]["p4_ms"] = p4_row_ms  # rows_brute at P4's tc 128, tile 256
-    for entry in [p3_entry, *p1_entries, p4_entry]:
+    for entry in [p3_entry, *p1_entries, p4_entry, *p2_entries]:
         entry["launches"] = probe_launches[entry["name"]]
         entry["max_abs_err"] = err[entry["name"]]
         kernels.append(entry)
-    log(f"[compare] P4 on {p_prim.org.x.numel()} rays, tc 128, tile 256: row "
-        f"{p4_row_ms:.4f} ms, warp {p4_entry['ms']:.4f} ms; card {card}")
 
+    log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -6,8 +6,8 @@ with the traversal kernels written in CUDA for Hopper: the wide BVH
 250,000 triangles; ``csrc/wide_bvh_t.cu`` for the transposed "vpu" leaf
 math of either), the binary BVH (``csrc/bvh2.cu``) and the flat chunks of
 the rebuild mode (``csrc/chunks.cu``); ``probes/`` holds the traversal
-probes and their kernels (``csrc/probes.cu``).  It imports torch and
-numpy, never jax.
+probes and their kernels (``csrc/probes.cu``, ``csrc/variants.cu``).  It
+imports torch and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera

@@ -1,0 +1,528 @@
+// Variants of the block-wide BVH walk on a sorted bounce wavefront: how a
+// node's live leaves are tested, and how the leaf tests are batched.
+//
+// Replaces the Pallas TPU kernels of the repository's root probe script
+// tpu_kernel_variants_probe.py (P2):
+//
+//   variant_walk_kernel  `make_kernel` (run_variant): a tile-wide walk whose
+//                        variants differ in the leaf step of each node:
+//     kBranch  (v0)      a block-uniform branch per live leaf, then every ray
+//                        of the block tests it (the TPU's `pl.when` per leaf);
+//     kMasked  (v1)      every child slot tested, its update masked: a child
+//                        that is not a live leaf tests chunk max(-2 - code, 0)
+//                        with a bound below t_min, so the test runs in full
+//                        up to its t and keeps nothing;
+//     kQueue   (v2)      thread 0 writes the node's live leaves into a
+//                        shared-memory queue, then the block drains it;
+//     kNoSlot  (v3)      v0 keeping t only: slots stay -1;
+//     kGroup   (v4/v5)   per live leaf, a group of `group` rays (1, 2 or 4
+//                        warps) tests it only if one of its rays entered the
+//                        leaf's box at node entry (the warps' ORs of
+//                        block_or);
+//   queue_walk_kernel    `make_kernel_v6`, `_v7` and `_v8`: the node walk
+//                        appends live leaves to a shared-memory queue of 64
+//                        entries across nodes; whenever it holds `batch` or
+//                        more, the last `batch` are drained, each ray testing
+//                        them all against its best t as it stood before the
+//                        drain and merging the results once; the rest drains
+//                        at the end.  Three anchors:
+//     kTile    (v6)      the ray origins re-centred on the tile's origin
+//                        centroid, and the unanchored leaf rows staged in
+//                        shared memory with their translation re-centred on
+//                        it (the TPU kernel re-centres the origins but not
+//                        the rows, so it tests rays moved by minus the
+//                        centroid: ROADMAP F10);
+//     kNone    (v7)      unanchored rows, absolute coordinates;
+//     kChunk   (v8)      the tree's anchored rows and per-chunk anchors.
+//
+// The walk is K3's (wide_bvh_block.cuh): a block is the ray tile, the node
+// and the stack in shared memory, a child visited if any ray of the block
+// enters its widened box before that ray's best t as it stood at node
+// entry, leaves near to far and internal children pushed far to near by the
+// block's summed direction.  The blocks are 256, 512 or 1024 threads; the
+// queue kernel also runs tiles of 2,048 rays as 1,024 threads with two rays
+// each (ray j of thread t is ray j * 1024 + t of the tile).  Lanes past the
+// last ray are absent: they enter no box, test nothing and add nothing to a
+// sum (the TPU kernels pad the last tile with rays of origin 0).  Leaf rows
+// are read from global memory (the Cornell box's leaf-32 `w`, 263 KB, stays
+// in L2), except v6's re-centred ones.  Each kernel also writes, per tile,
+// the ray-chunk tests it ran (a chunk tested by the whole tile counts its
+// rays), which says what each variant's work was.
+//
+// Every barrier sits on a condition that is the same for the whole block
+// (the node, its OR-ed child bits, the queue count); v4's group test is the
+// same across a group's warps and has no barrier under it.  Ties in t go to
+// the lowest slot in every variant, so each computes the function of its
+// plain version exactly (heatray_tpu_torch/probes/kernel_variants.py):
+// v0-v2, v4 and v8 that of K1, v3 its t, v6 and v7 a brute force over the
+// unanchored rows with the tile's centroid or no anchor.
+//
+// What bounds them on an H100: like K3, the pair tests of rays that do not
+// enter the leaf they test, and the block-serial walk; the tree stays in
+// L2, so device memory is not the limit.  They are probes: nothing here is
+// tuned.
+//
+// Numerics, layouts, the slab and pair tests: wide_bvh_common.cuh.
+
+#include <cuda_runtime.h>
+
+#include "wide_bvh_block.cuh"
+
+namespace {
+
+using namespace wide_bvh;
+
+constexpr int kQueueSize = 64;  // the TPU kernels' SMEM leaf queue
+constexpr int kMaxBatch = 16;   // so that batch - 1 + 8 entries always fit
+
+enum class Variant { kBranch, kMasked, kQueue, kNoSlot, kGroup };
+enum class Anchor { kTile, kNone, kChunk };
+
+struct WalkArgs {
+  const float *ox, *oy, *oz, *dx, *dy, *dz;
+  int n_rays;
+  const float* wbox;
+  const int* wchild;
+  const int* waxis;
+  const float* w;  // (C, 4, 3 tc): anchored (with wanchor) or not
+  const float* wanchor;
+  int n_chunks;
+  int tc;
+  int param;  // kGroup: warps per group; queue_walk_kernel: batch
+  float t_min;
+  Widen widen;
+  float* t_out;
+  int* slot_out;
+  int* tests_out;  // (tiles,)
+};
+
+// Per axis, the sum over the tile's rays of v (0 on absent lanes), the same
+// on every thread, in a fixed order: a butterfly within each warp of 32
+// rays, then the warps in ray order (kernel_variants.tile_sums).
+template <int Threads, int Rays>
+__device__ __forceinline__ void tile_sums(float (&part)[Rays * Threads / 32][3],
+                                          const float (&v)[Rays][3], float out[3]) {
+  constexpr int kWarps = Threads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < Rays; ++j) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float s = warp_sum(v[j][a]);
+      if (lane == 0) part[j * kWarps + warp][a] = s;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float t = 0.0f;
+    for (int k = 0; k < Rays * kWarps; ++k) t += part[k][a];
+    out[a] = t;
+  }
+  __syncthreads();  // part may be written again
+}
+
+// Closest hit of `r`, its origin re-centred to (ax, ay, az), over the tc
+// columns of chunk W, at most `bound` (t == bound kept, so that a lower slot
+// can still win a tie): its t and column, the lowest on ties; (kMissT, -1)
+// without one.
+__device__ __forceinline__ void chunk_closest(const float* __restrict__ W, int tc,
+                                              float ax, float ay, float az,
+                                              const Ray& r, float t_min, float bound,
+                                              float& t_out, int& col_out) {
+  const float t_lim = nextafterf(bound, __int_as_float(0x7f800000));
+  float t = kMissT;
+  int col = -1;
+  for (int j = 0; j < tc; ++j) {
+    const float tj = tri_t(W, tc, j, ax, ay, az, r, t_min, t_lim);
+    if (tj < t) {
+      t = tj;
+      col = j;
+    }
+  }
+  t_out = t;
+  col_out = col;
+}
+
+__device__ __forceinline__ void take(float t, int slot, float& best, int& best_slot) {
+  if (t < best || (t == best && t < kMissT && slot < best_slot)) {
+    best = t;
+    best_slot = slot;
+  }
+}
+
+// The block's total of every thread's count, written by thread 0.
+__device__ __forceinline__ void write_tests(int* total, int mine, int* out) {
+  mine = __reduce_add_sync(kFullMask, mine);
+  if ((threadIdx.x & 31) == 0) atomicAdd(total, mine);
+  __syncthreads();
+  if (threadIdx.x == 0) out[blockIdx.x] = *total;
+}
+
+template <Variant V, int Threads>
+__global__ void __launch_bounds__(Threads) variant_walk_kernel(WalkArgs a) {
+  __shared__ BlockWalk<Threads> s;
+  __shared__ float part[Threads / 32][3];
+  __shared__ int queue[kArity];
+  __shared__ int n_queue;
+  __shared__ int tile_tests;
+
+  const int i = blockIdx.x * Threads + threadIdx.x;
+  const bool valid = i < a.n_rays;
+  Ray r = {};
+  if (valid) r = load_ray(a.ox, a.oy, a.oz, a.dx, a.dy, a.dz, i);
+  float sums[3];
+  {
+    const float dir[1][3] = {{r.dx, r.dy, r.dz}};  // 0 on an absent lane
+    tile_sums<Threads, 1>(part, dir, sums);
+  }
+  const bool sign[3] = {sums[0] >= 0.0f, sums[1] >= 0.0f, sums[2] >= 0.0f};
+
+  float best = kMissT;
+  int best_slot = -1;
+  int tests = 0;
+  const int warps_per_group = a.param;
+
+  // One leaf test of this thread's ray, against its best t or, masked,
+  // against a bound no t passes.
+  auto visit = [&](int chunk, bool masked) {
+    const float ax = r.ox - a.wanchor[chunk];
+    const float ay = r.oy - a.wanchor[a.n_chunks + chunk];
+    const float az = r.oz - a.wanchor[2 * a.n_chunks + chunk];
+    const float* W = a.w + (size_t)chunk * 12 * a.tc;
+    ++tests;
+    if constexpr (V == Variant::kNoSlot) {
+      float t = kMissT;
+      for (int j = 0; j < a.tc; ++j) {
+        t = fminf(t, tri_t(W, a.tc, j, ax, ay, az, r, a.t_min, best));
+      }
+      best = fminf(best, t);
+    } else {
+      float t;
+      int col;
+      chunk_closest(W, a.tc, ax, ay, az, r, a.t_min, masked ? -1.0f : best, t, col);
+      take(t, chunk * a.tc + col, best, best_slot);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    s.node = 0;
+    s.sp = 0;
+    tile_tests = 0;
+  }
+  __syncthreads();
+  for (int node = s.node; node >= 0; node = s.node) {
+    const float* boxes = a.wbox + (size_t)node * kArity * 8;
+    const int* codes = a.wchild + (size_t)node * kArity;
+    const unsigned mine =
+        valid ? live_children(boxes, codes, r, a.t_min, best, a.widen) : 0u;
+    const unsigned live = block_or(s, mine);
+    const bool low_first = sign[a.waxis[node]];
+
+    if constexpr (V == Variant::kQueue) {
+      if (threadIdx.x == 0) {
+        int n = 0;
+        for (int k = 0; k < kArity; ++k) {
+          const int c = low_first ? k : kArity - 1 - k;
+          if (((live >> c) & 1u) && codes[c] <= -2) queue[n++] = -2 - codes[c];
+        }
+        n_queue = n;
+      }
+      __syncthreads();  // the queue is written
+      for (int q = 0; q < n_queue; ++q) {
+        if (valid) visit(queue[q], false);
+      }
+    } else if constexpr (V == Variant::kMasked) {
+      for (int k = 0; k < kArity; ++k) {
+        const int c = low_first ? k : kArity - 1 - k;
+        const int code = codes[c];
+        const bool on = ((live >> c) & 1u) && code <= -2;
+        if (valid) visit(max(-2 - code, 0), !on);
+      }
+    } else {
+      unsigned group_live = live;
+      if constexpr (V == Variant::kGroup) {
+        const int first = (threadIdx.x >> 5) / warps_per_group * warps_per_group;
+        group_live = 0;
+        for (int k = 0; k < warps_per_group; ++k) group_live |= s.warp_bits[first + k];
+      }
+      for (int k = 0; k < kArity; ++k) {
+        const int c = low_first ? k : kArity - 1 - k;
+        const int code = codes[c];
+        if (!((live >> c) & 1u) || code > -2) continue;  // the same on the whole block
+        if (!((group_live >> c) & 1u)) continue;         // the same on the whole group
+        if (valid) visit(-2 - code, false);
+      }
+    }
+    __syncthreads();  // every thread is done with warp_bits and the queue
+    push_and_pop(s, codes, live, low_first);
+    __syncthreads();  // the next node is visible
+  }
+  if (valid) {
+    a.t_out[i] = best;
+    a.slot_out[i] = V == Variant::kNoSlot ? -1 : best_slot;
+  }
+  write_tests(&tile_tests, tests, a.tests_out);
+}
+
+template <Anchor A, int Threads, int Rays>
+__global__ void __launch_bounds__(Threads) queue_walk_kernel(WalkArgs a) {
+  constexpr int kTileRays = Threads * Rays;
+  __shared__ BlockWalk<Threads> s;
+  __shared__ float part[Rays * Threads / 32][3];
+  __shared__ int queue[kQueueSize];
+  __shared__ int tile_tests;
+  // kTile: the drained chunks, their translation re-centred on the anchor.
+  extern __shared__ float4 slot_mem[];
+  float* slots = reinterpret_cast<float*>(slot_mem);
+  const int chunk_floats = 12 * a.tc;
+  const int batch = a.param;
+
+  const int base = blockIdx.x * kTileRays;
+  Ray r[Rays];
+  bool valid[Rays];
+  float best[Rays];
+  int best_slot[Rays];
+  float v[Rays][3];
+#pragma unroll
+  for (int j = 0; j < Rays; ++j) {
+    const int i = base + j * Threads + threadIdx.x;
+    valid[j] = i < a.n_rays;
+    r[j] = Ray{};
+    if (valid[j]) r[j] = load_ray(a.ox, a.oy, a.oz, a.dx, a.dy, a.dz, i);
+    best[j] = kMissT;
+    best_slot[j] = -1;
+    v[j][0] = r[j].dx;
+    v[j][1] = r[j].dy;
+    v[j][2] = r[j].dz;
+  }
+  float sums[3];
+  tile_sums<Threads, Rays>(part, v, sums);
+  const bool sign[3] = {sums[0] >= 0.0f, sums[1] >= 0.0f, sums[2] >= 0.0f};
+
+  // The origins the pair tests see (kTile: minus the tile's centroid over
+  // its rays; kChunk re-centres per chunk at the test).
+  float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+  if constexpr (A == Anchor::kTile) {
+#pragma unroll
+    for (int j = 0; j < Rays; ++j) {
+      v[j][0] = r[j].ox;
+      v[j][1] = r[j].oy;
+      v[j][2] = r[j].oz;
+    }
+    tile_sums<Threads, Rays>(part, v, sums);
+    const float n = static_cast<float>(min(kTileRays, a.n_rays - base));
+    cx = sums[0] / n;
+    cy = sums[1] / n;
+    cz = sums[2] / n;
+  }
+  float ro[Rays][3];
+#pragma unroll
+  for (int j = 0; j < Rays; ++j) {
+    ro[j][0] = r[j].ox - cx;
+    ro[j][1] = r[j].oy - cy;
+    ro[j][2] = r[j].oz - cz;
+  }
+  int tests = 0;
+
+  // Test every valid ray against the n chunks qs[0..n), each against the
+  // ray's best t before the drain, and merge once.  Called by the whole block.
+  auto drain = [&](const int* qs, int n) {
+    if constexpr (A == Anchor::kTile) {
+      __syncthreads();  // the slots' last readers are done
+      const int cols = 3 * a.tc;
+      for (int p = threadIdx.x; p < n * cols; p += Threads) {
+        const int b = p / cols, col = p - b * cols;
+        const float* src = a.w + (size_t)qs[b] * chunk_floats;
+        float* dst = slots + b * chunk_floats;
+        const float c0 = src[col], c1 = src[cols + col], c2 = src[2 * cols + col];
+        dst[col] = c0;
+        dst[cols + col] = c1;
+        dst[2 * cols + col] = c2;
+        dst[3 * cols + col] = cx * c0 + cy * c1 + cz * c2 + src[3 * cols + col];
+      }
+      __syncthreads();  // the slots are written
+    }
+#pragma unroll
+    for (int j = 0; j < Rays; ++j) {
+      if (!valid[j]) continue;
+      const float bound = best[j];
+      float t_batch = kMissT;
+      int slot_batch = -1;
+      for (int b = 0; b < n; ++b) {
+        const int chunk = qs[b];
+        const float* W = A == Anchor::kTile ? slots + b * chunk_floats
+                                            : a.w + (size_t)chunk * chunk_floats;
+        float ax = ro[j][0], ay = ro[j][1], az = ro[j][2];
+        if constexpr (A == Anchor::kChunk) {
+          ax -= a.wanchor[chunk];
+          ay -= a.wanchor[a.n_chunks + chunk];
+          az -= a.wanchor[2 * a.n_chunks + chunk];
+        }
+        float t;
+        int col;
+        chunk_closest(W, a.tc, ax, ay, az, r[j], a.t_min, bound, t, col);
+        take(t, chunk * a.tc + col, t_batch, slot_batch);
+      }
+      take(t_batch, slot_batch, best[j], best_slot[j]);
+      tests += n;
+    }
+  };
+
+  int nq = 0;  // the queue's length, the same on every thread
+  if (threadIdx.x == 0) {
+    s.node = 0;
+    s.sp = 0;
+    tile_tests = 0;
+  }
+  __syncthreads();
+  for (int node = s.node; node >= 0; node = s.node) {
+    const float* boxes = a.wbox + (size_t)node * kArity * 8;
+    const int* codes = a.wchild + (size_t)node * kArity;
+    unsigned mine = 0;
+#pragma unroll
+    for (int j = 0; j < Rays; ++j) {
+      if (valid[j]) mine |= live_children(boxes, codes, r[j], a.t_min, best[j], a.widen);
+    }
+    const unsigned live = block_or(s, mine);
+    const bool low_first = sign[a.waxis[node]];
+    for (int k = 0; k < kArity; ++k) {  // live leaves, near to far
+      const int c = low_first ? k : kArity - 1 - k;
+      if (((live >> c) & 1u) && codes[c] <= -2) {
+        if (threadIdx.x == 0) queue[nq] = -2 - codes[c];
+        ++nq;
+      }
+    }
+    __syncthreads();  // the queue is written
+    for (; nq >= batch; nq -= batch) drain(queue + nq - batch, batch);
+    __syncthreads();  // every thread is done with warp_bits and the queue
+    push_and_pop(s, codes, live, low_first);
+    __syncthreads();  // the next node is visible
+  }
+  if (nq > 0) drain(queue, nq);
+#pragma unroll
+  for (int j = 0; j < Rays; ++j) {
+    if (valid[j]) {
+      const int i = base + j * Threads + threadIdx.x;
+      a.t_out[i] = best[j];
+      a.slot_out[i] = best_slot[j];
+    }
+  }
+  write_tests(&tile_tests, tests, a.tests_out);
+}
+
+template <Variant V, int Threads>
+int launch_variant(const WalkArgs& a, cudaStream_t stream) {
+  const int tiles = (a.n_rays + Threads - 1) / Threads;
+  variant_walk_kernel<V, Threads><<<tiles, Threads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <Variant V>
+int launch_variant(const WalkArgs& a, int ray_tile, cudaStream_t stream) {
+  switch (ray_tile) {
+    case 256: return launch_variant<V, 256>(a, stream);
+    case 512: return launch_variant<V, 512>(a, stream);
+    case 1024: return launch_variant<V, 1024>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <Anchor A, int Threads, int Rays>
+int launch_queue(const WalkArgs& a, cudaStream_t stream) {
+  auto kernel = queue_walk_kernel<A, Threads, Rays>;
+  size_t bytes = 0;
+  if (A == Anchor::kTile) {
+    bytes = sizeof(float) * 12 * (size_t)a.tc * a.param;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return refused(err);
+  }
+  const int tiles = (a.n_rays + Threads * Rays - 1) / (Threads * Rays);
+  kernel<<<tiles, Threads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <Anchor A>
+int launch_queue(const WalkArgs& a, int ray_tile, cudaStream_t stream) {
+  switch (ray_tile) {
+    case 256: return launch_queue<A, 256, 1>(a, stream);
+    case 512: return launch_queue<A, 512, 1>(a, stream);
+    case 1024: return launch_queue<A, 1024, 1>(a, stream);
+    case 2048: return launch_queue<A, 1024, 2>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+WalkArgs walk_args(const float* ox, const float* oy, const float* oz, const float* dx,
+                   const float* dy, const float* dz, int n_rays, const float* wbox,
+                   const int* wchild, const int* waxis, const float* w,
+                   const float* wanchor, int n_chunks, int leaf_size, int param,
+                   float t_min, float box_pad, float far_scale, float* t_out,
+                   int* slot_out, int* tests_out) {
+  return WalkArgs{ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+                  n_chunks, leaf_size, param, t_min, Widen{box_pad, far_scale},
+                  t_out, slot_out, tests_out};
+}
+
+}  // namespace
+
+// Plain C entry points for ctypes.  Each launches on `stream`, does not
+// synchronise, and returns the first CUDA error (0 = the launch was
+// accepted; cudaErrorInvalidValue for a setting the kernels do not take).
+//
+// variant_walk: `variant` 0-4 (v0, v1, v2, v3, v4), `ray_tile` 256, 512 or
+// 1024 threads, `group` 32, 64 or 128 rays dividing the tile (v4 only).
+// queue_walk: `anchor` 0 (tile, v6: `w` unanchored), 1 (none, v7: `w`
+// unanchored) or 2 (chunk, v8: the tree's anchored `w` and `wanchor`),
+// `ray_tile` 256, 512, 1024 or 2048 rays, `batch` 1-16.  Both write t and
+// slot per ray and the ray-chunk tests per tile (`tests_out`, one int per
+// tile of `ray_tile` rays).
+
+extern "C" int variants_stack_depth() { return kBlockStack; }
+
+extern "C" int variant_walk(const float* ox, const float* oy, const float* oz,
+                            const float* dx, const float* dy, const float* dz, int n_rays,
+                            const float* wbox, const int* wchild, const int* waxis,
+                            const float* w, const float* wanchor, int n_chunks,
+                            int leaf_size, int variant, int ray_tile, int group,
+                            float t_min, float box_pad, float far_scale, float* t_out,
+                            int* slot_out, int* tests_out, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (group < 32 || group > 128 || group % 32 || ray_tile % group) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const WalkArgs a = walk_args(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w,
+                               wanchor, n_chunks, leaf_size, group / 32, t_min, box_pad,
+                               far_scale, t_out, slot_out, tests_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case 0: return launch_variant<Variant::kBranch>(a, ray_tile, st);
+    case 1: return launch_variant<Variant::kMasked>(a, ray_tile, st);
+    case 2: return launch_variant<Variant::kQueue>(a, ray_tile, st);
+    case 3: return launch_variant<Variant::kNoSlot>(a, ray_tile, st);
+    case 4: return launch_variant<Variant::kGroup>(a, ray_tile, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+extern "C" int queue_walk(const float* ox, const float* oy, const float* oz,
+                          const float* dx, const float* dy, const float* dz, int n_rays,
+                          const float* wbox, const int* wchild, const int* waxis,
+                          const float* w, const float* wanchor, int n_chunks, int leaf_size,
+                          int anchor, int ray_tile, int batch, float t_min, float box_pad,
+                          float far_scale, float* t_out, int* slot_out, int* tests_out,
+                          void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  if (batch < 1 || batch > kMaxBatch) return static_cast<int>(cudaErrorInvalidValue);
+  const WalkArgs a = walk_args(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w,
+                               wanchor, n_chunks, leaf_size, batch, t_min, box_pad,
+                               far_scale, t_out, slot_out, tests_out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (anchor) {
+    case 0: return launch_queue<Anchor::kTile>(a, ray_tile, st);
+    case 1: return launch_queue<Anchor::kNone>(a, ray_tile, st);
+    case 2: return launch_queue<Anchor::kChunk>(a, ray_tile, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -1,5 +1,6 @@
 // The block-wide walk of the streaming kernels (wide_bvh_stream.cu,
-// wide_bvh_t.cu): one block of 256 rays walks the tree together, with the
+// wide_bvh_t.cu: blocks of 256 rays) and of the walk variants (variants.cu:
+// blocks of 256-1024 threads): one block walks the tree together, with the
 // current node and the stack in shared memory so that the loop is the same
 // for every thread; a child is visited if any ray of the block enters it,
 // near to far by the block's summed direction along the node's sort axis;
@@ -19,14 +20,18 @@ constexpr int kTile = 256;         // rays per block, stream_ray_tile
 constexpr int kBlockStack = 256;   // STACK_DEPTH of the TPU kernels
 constexpr int kTileWarps = kTile / 32;
 
-// Block-wide walk state, in static shared memory.
-struct Walk {
+// Block-wide walk state of a block of `Threads` threads, in static shared
+// memory.
+template <int Threads>
+struct BlockWalk {
+  static constexpr int kWarps = Threads / 32;
   int stack[kBlockStack];
   int node;
   int sp;
-  unsigned warp_bits[kTileWarps];
-  float warp_dir[kTileWarps][3];
+  unsigned warp_bits[kWarps];
+  float warp_dir[kWarps][3];
 };
+using Walk = BlockWalk<kTile>;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -74,14 +79,16 @@ __device__ __forceinline__ void block_signs(Walk& s, bool valid, const Ray& r,
   }
 }
 
-// OR of every thread's child bits, the same on every thread.
-__device__ __forceinline__ unsigned block_or(Walk& s, unsigned bits) {
+// OR of every thread's child bits, the same on every thread; each warp's
+// own OR stays in `s.warp_bits` until the next barrier.
+template <int Threads>
+__device__ __forceinline__ unsigned block_or(BlockWalk<Threads>& s, unsigned bits) {
   bits = __reduce_or_sync(kFullMask, bits);
   if ((threadIdx.x & 31) == 0) s.warp_bits[threadIdx.x >> 5] = bits;
   __syncthreads();
   unsigned live = 0;
 #pragma unroll
-  for (int k = 0; k < kTileWarps; ++k) live |= s.warp_bits[k];
+  for (int k = 0; k < BlockWalk<Threads>::kWarps; ++k) live |= s.warp_bits[k];
   return live;
 }
 
@@ -108,7 +115,9 @@ __device__ __forceinline__ int stage_leaves(const int* __restrict__ codes,
 
 // Thread 0 pushes the live internal children far to near (the stack then
 // pops near first) and pops the next node; -1 ends the walk.
-__device__ __forceinline__ void push_and_pop(Walk& s, const int* __restrict__ codes,
+template <int Threads>
+__device__ __forceinline__ void push_and_pop(BlockWalk<Threads>& s,
+                                             const int* __restrict__ codes,
                                              unsigned live, bool low_first) {
   if (threadIdx.x != 0) return;
   int sp = s.sp;

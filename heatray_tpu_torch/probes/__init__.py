@@ -12,7 +12,10 @@ PyTorch versions:
 - ``kernel_probe`` (``tpu_kernel_probe.py``, P1): the walk without its leaf
   tests, the leaf tests without the walk, and an empty launch, beside K1;
 - ``vpu_leaf`` (``tpu_vpu_leaf.py``, P4): the brute-force leaf pair test in
-  the row layout against the warp-transposed one.
+  the row layout against the warp-transposed one;
+- ``kernel_variants`` (``tpu_kernel_variants_probe.py``, P2; its kernels in
+  ``csrc/variants.cu``): variants of the block-wide walk's leaf step, leaf
+  queues and batched drains on the sorted depth-2 wavefront, beside K1.
 
 Each runs as ``python -m heatray_tpu_torch.probes.<name>``, on the card
 unless ``--device cpu`` is given (the plain versions, at a size given by
@@ -45,17 +48,34 @@ _SIGNATURES = {
     "probe_warp": _RAYS + [_P, _P, _I, _I, _I, _F, _P, _P],
     "probe_empty": [_P, _I, _I, _P, _P],
 }
+_WALK = _RAYS + [_P] * 5 + [_I] * 5 + [_F] * 3 + [_P] * 4
+_VARIANT_SIGNATURES = {
+    "variants_stack_depth": [],
+    "variant_walk": _WALK,
+    "queue_walk": _WALK,
+}
+
+
+def _declare(name: str, signatures: dict) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    for fn, args in signatures.items():
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = _I
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/probes.cu``, with its entry points
     declared."""
-    lib = cuda_build.load("probes")
-    for name, args in _SIGNATURES.items():
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = _I
-    return lib
+    return _declare("probes", _SIGNATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def variant_kernels() -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/variants.cu`` (P2), with its entry
+    points declared."""
+    return _declare("variants", _VARIANT_SIGNATURES)
 
 
 def check_ray_tile(ray_tile: int) -> None:

@@ -18,7 +18,7 @@ from heatray_tpu_torch.options import RenderOptions
 from heatray_tpu_torch.ops import intersect_pallas, traverse_pallas, wide_bvh
 from heatray_tpu_torch.ops.bvh import build_bvh
 from heatray_tpu_torch.ops.intersect import MISS_T, build_woop
-from heatray_tpu_torch.probes import kernel_probe, visit_stats, vpu_leaf
+from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
 from heatray_tpu_torch.vec import Vec3
 
 pytestmark = pytest.mark.cuda
@@ -413,3 +413,77 @@ def test_brute_kernels_match_plain(cuda_device, layout, anchored, ray_tile):
     assert torch.equal(t < MISS_T, t_p < MISS_T)
     torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
     assert 0 < int((t < MISS_T).sum()) < 8191
+
+
+# --- the walk variants (csrc/variants.cu) ---------------------------------------
+
+
+def _assert_equal_to_plain(case, out, want):
+    t, slot, tests = out
+    t_p, slot_p = want
+    assert torch.equal(t < MISS_T, t_p < MISS_T), case
+    torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(slot, slot_p), case
+    return tests
+
+
+@pytest.mark.parametrize("ray_tile", [256, 512, 1024])
+def test_walk_variant_kernels_match_plain(cuda_device, ray_tile):
+    """P2a: every variant of ``variant_walk_kernel`` (v4 at groups 32, 64 and
+    128) equals its plain version on whole tiles with a partial last one (t
+    within 1e-5, slots equal, all -1 for v3).  The tests per tile say what
+    each variant did: v2 and v3 walk and test as v0; v1 tests every child of
+    every visited node; v4 no more than v0."""
+    _, _, bvh = _cornell_tree(cuda_device, 32)
+    o, d = _rays(3 * ray_tile + 100, 21, cuda_device)
+    kv = kernel_variants
+    tests = {}
+    for variant, group in [("v0", 128), ("v1", 128), ("v2", 128), ("v3", 128),
+                           ("v4", 32), ("v4", 64), ("v4", 128)]:
+        case = kv.Case(variant, ray_tile, group)
+        launches = kv.variant_walk.launches
+        out = kv.variant_walk(bvh, o, d, variant, ray_tile, group)
+        torch.cuda.synchronize()
+        assert kv.variant_walk.launches == launches + 1
+        tests[case.name] = _assert_equal_to_plain(case, out, kv.case_plain(case, bvh, None, o, d))
+    assert tests["v0"].shape == (4,) and int(tests["v0"].min()) > 0
+    assert torch.equal(tests["v2"], tests["v0"]) and torch.equal(tests["v3"], tests["v0"])
+    assert bool((tests["v1"] > tests["v0"]).all())
+    for g in (32, 64, 128):
+        assert bool((tests[f"v4g{g}"] <= tests["v0"]).all())
+    assert bool((tests["v4g32"] < tests["v0"]).any())
+
+
+@pytest.mark.parametrize("ray_tile", [256, 512, 1024, 2048])
+def test_queue_kernels_match_plain(cuda_device, ray_tile):
+    """P2b-d: ``queue_walk_kernel`` with the tile's centroid (v6), no anchor
+    (v7) and per-chunk anchors (v8), at batches 4, 8 and 16, equals its plain
+    version on whole tiles with a partial last one (at tile 2,048: 1,024
+    threads with two rays each)."""
+    scene, accel, bvh = _cornell_tree(cuda_device, 32)
+    rows = kernel_variants.unanchored_rows(accel, bvh)
+    o, d = _rays(3 * ray_tile + 100, 23, cuda_device)
+    kv = kernel_variants
+    wrappers = {"v6": kv.closest_v6, "v7": kv.closest_v7, "v8": kv.closest_v8}
+    for variant, fn in wrappers.items():
+        for batch in (4, 8, 16):
+            case = kv.Case(variant, ray_tile, batch=batch)
+            launches = fn.launches
+            args = (bvh, o, d) if variant == "v8" else (bvh, rows, o, d)
+            out = fn(*args, ray_tile, batch)
+            torch.cuda.synchronize()
+            assert fn.launches == launches + 1
+            tests = _assert_equal_to_plain(case, out, kv.case_plain(case, bvh, rows, o, d))
+            assert tests.shape == (4,) and int(tests.min()) > 0
+
+
+def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    scene, accel, bvh = _cornell_tree(cuda_device, 32)
+    o, d = _rays(300, 25, cuda_device)
+    rows = kernel_variants.unanchored_rows(accel, bvh)
+    with pytest.raises(ValueError, match="leaf rows"):
+        kernel_variants.closest_v7(bvh, rows.cpu(), o, d)
+    with pytest.raises(ValueError, match="ray_tile"):
+        kernel_variants.variant_walk(bvh, o, d, "v0", 2048)
+    with pytest.raises(ValueError, match="batch"):
+        kernel_variants.closest_v8(bvh, o, d, 512, 32)

@@ -1,6 +1,7 @@
 """The port's traversal probes (``heatray_tpu_torch.probes``) against the
 reference probe kernels of the root scripts ``tpu_visit_stats.py`` (P3),
-``tpu_kernel_probe.py`` (P1) and ``tpu_vpu_leaf.py`` (P4), on the Cornell box.
+``tpu_kernel_probe.py`` (P1), ``tpu_vpu_leaf.py`` (P4) and
+``tpu_kernel_variants_probe.py`` (P2), on the Cornell box.
 
 The scripts build a 1080p scene when imported, so they are not imported:
 only their ``import`` statements and the kernels' ``def``s (and the few
@@ -34,7 +35,7 @@ from heatray_tpu_torch import cornell_box
 from heatray_tpu_torch.bridge import wide_bvh_from_arrays
 from heatray_tpu_torch.ops import intersect, wide_bvh
 from heatray_tpu_torch.ops.intersect import MISS_T
-from heatray_tpu_torch.probes import kernel_probe, visit_stats, vpu_leaf
+from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
 from heatray_tpu_torch.vec import Vec3
 
 REPO = Path(__file__).resolve().parents[1]
@@ -430,6 +431,178 @@ def test_brute_layouts_match_reference(cornell, rays512, layout):
     assert 100 < hit.sum() < 512
 
 
+# --- P2 ------------------------------------------------------------------------
+
+P2_SCRIPT = "tpu_kernel_variants_probe.py"
+
+
+@pytest.fixture(scope="module")
+def p2(p3, cornell):
+    """The reference's four ``pallas_call`` families (``make_kernel*`` and
+    ``run_*``) and its leaf packs (:643-664, built from ``pack``: the JAX
+    fused leaf-32 tree and Woop rows), the port's tree of the same build and
+    its unanchored rows, and 2 tiles of 256 seeded rays."""
+    _, fused, bvh, _ = p3
+    _, jax_accel, accel = cornell
+    ns = _reference(
+        P2_SCRIPT,
+        ("make_kernel_v7", "make_kernel_v8", "make_kernel_v6", "make_kernel", "run_variant",
+         "run_v7", "run_v6", "run_v8"),
+        (_line(P2_SCRIPT, "import ml_dtypes"), _line(P2_SCRIPT, "WSF = ")),
+        env={"pack": types.SimpleNamespace(wide=fused, accel=jax_accel)},
+    )
+    return ns, fused, bvh, kernel_variants.unanchored_rows(accel, bvh), _cornell_rays(512, 7)
+
+
+def _assert_like_reference(t, slot, ref, bvh, o, d, slots=True):
+    """Hit masks equal, t at the reference's rtol 1e-4 / atol 1e-5 (its
+    bf16x3 products and approximate reciprocal), slots equal except on ties:
+    where they differ, the reference's slot is a hit at the port's t within
+    that tolerance."""
+    t_ref, slot_ref = (np.asarray(a) for a in ref)
+    t, slot = t.numpy(), slot.numpy()
+    hit = t_ref < MISS_T
+    np.testing.assert_array_equal(t < MISS_T, hit)
+    np.testing.assert_allclose(t, t_ref, rtol=1e-4, atol=1e-5)
+    assert 100 < hit.sum() < 512
+    if not slots:
+        assert (slot == -1).all() and (slot_ref == -1).all()
+        return
+    odd = np.flatnonzero(slot != slot_ref)
+    if odd.size:
+        rows, anchor = wide_bvh.slot_rows(bvh)
+        cols = torch.from_numpy(slot_ref[odd]).long()
+        sub = (o.map(lambda c: c[odd]), d.map(lambda c: c[odd]))
+        t_odd = intersect.pair_t(*sub, rows[:, cols], T_MIN, MISS_T, anchor[:, cols])
+        np.testing.assert_allclose(t_odd.diagonal().numpy(), t[odd], rtol=1e-4)
+    assert odd.size <= 2
+
+
+@pytest.mark.parametrize("variant", ["v0", "v1", "v2", "v3", "v4"])
+def test_walk_variants_match_reference(p2, variant):
+    """``run_variant`` (``make_kernel``) at tile 256, group 128, in interpret
+    mode, against ``variant_walk``'s plain version: K1's function for each
+    (its t only for v3, whose ids stay -1 on both sides)."""
+    ns, fused, bvh, _, ((jo, jd), (o, d)) = p2
+    ref = ns["run_variant"](fused, jo, jd, variant=variant, ray_tile=256, group=128)
+    t, slot, tests = kernel_variants.variant_walk(bvh, o, d, variant, 256, 128)
+    assert tests is None
+    _assert_like_reference(t, slot, ref, bvh, o, d, slots=variant != "v3")
+
+
+@pytest.mark.parametrize("variant, batch", [("v7", 4), ("v8", 8)])
+def test_queue_variants_match_reference(p2, variant, batch):
+    """``run_v7`` (unanchored f32 rows at HIGHEST) at batch 4 and ``run_v8``
+    (per-chunk anchors) at batch 8, tile 256, in interpret mode, against
+    the plain versions of ``closest_v7`` (the brute force over the
+    unanchored rows) and ``closest_v8`` (K1's)."""
+    ns, fused, bvh, rows, ((jo, jd), (o, d)) = p2
+    if variant == "v7":
+        ref = ns["run_v7"](fused, ns["WB1F"], ns["WB2F"], ns["WSF"], jo, jd, ray_tile=256,
+                           batch=batch)
+        t, slot, _ = kernel_variants.closest_v7(bvh, rows, o, d, 256, batch)
+    else:
+        ref = ns["run_v8"](fused, jo, jd, ray_tile=256, batch=batch)
+        t, slot, _ = kernel_variants.closest_v8(bvh, o, d, 256, batch)
+    _assert_like_reference(t, slot, ref, bvh, o, d)
+
+
+def test_unanchored_rows_match_reference(p2):
+    """``unanchored_rows`` is the reference's f32 pack of v7 (WB1F, WB2F,
+    WSF side by side), to the bit, and its rows are the tree's anchored rows
+    with the anchors taken out: the same closest hits, at rtol 1e-5."""
+    ns, _, bvh, rows, (_, (o, d)) = p2
+    ref = np.concatenate([np.asarray(ns[k]) for k in ("WB1F", "WB2F", "WSF")], axis=2)
+    np.testing.assert_array_equal(rows.numpy(), ref)
+    t7, s7 = kernel_variants.closest_rows_plain(rows, o, d, None)
+    t0, s0, _ = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert torch.equal(t7 < MISS_T, t0 < MISS_T)
+    torch.testing.assert_close(t7, t0, rtol=1e-5, atol=1e-5)
+
+
+def test_reference_v6_moves_rays_by_the_tile_centroid(p2):
+    """``run_v6`` (batch 4, tile 256) re-centres the origins on the tile's
+    centroid but tests them against rows with no anchor folded in, so it
+    tests rays moved by minus the centroid: its t agrees with K1's on the
+    misses only (found: 7% of lanes), and with the brute force over those
+    moved rays on 98.8% (its walk culls by the rays' true origins).  The
+    port's v6 re-centres the rows too: its t equals K1's at rtol 1e-4, hit
+    masks equal."""
+    ns, fused, bvh, rows, ((jo, jd), (o, d)) = p2
+    t_ref, _ = (np.asarray(a) for a in ns["run_v6"](fused, ns["WB1"], ns["WB2"], ns["WS"], jo,
+                                                      jd, ray_tile=256, batch=4))
+    t0 = wide_bvh.closest_wide_plain(bvh, o, d)[0]
+    centroid = kernel_variants.tile_centroids(o, 256).repeat_interleave(256, dim=0)
+    moved = Vec3(o.x - centroid[:, 0], o.y - centroid[:, 1], o.z - centroid[:, 2])
+    t_moved = kernel_variants.closest_rows_plain(rows, moved, d, None)[0].numpy()
+    close = functools.partial(np.isclose, rtol=1e-4, atol=1e-5)
+    assert close(t_ref, t0.numpy()).mean() < 0.2
+    assert close(t_ref, t_moved).mean() > 0.95
+    t6, s6, _ = kernel_variants.closest_v6(bvh, rows, o, d, 256, 4)
+    assert torch.equal(t6 < MISS_T, t0 < MISS_T)
+    torch.testing.assert_close(t6, t0, rtol=1e-4, atol=1e-5)
+
+
+def test_reference_cases_and_batch_from_group(monkeypatch):
+    """The default cases are the reference's (:736-738), batch for v8.  Under
+    ``VARIANTS=`` the reference runs each named variant at tiles 512 and
+    1024 with group 128, which v6-v8 take as their batch (over a queue of 64
+    entries); the port's cases keep the batch apart (a bare v6-v8 takes
+    the ``run_v*`` default of 4)."""
+    span = (_line(P2_SCRIPT, "cases = [("), _line(P2_SCRIPT, 'if os.environ.get("VARIANTS")'))
+    monkeypatch.delenv("VARIANTS", raising=False)
+    ref = _reference(P2_SCRIPT, (), span)["cases"]
+    assert [(c.name, c.ray_tile, c.batch) for c in kernel_variants.default_cases()[1:]] == ref
+    monkeypatch.setenv("VARIANTS", "v1,v4,v6")
+    ref = _reference(P2_SCRIPT, (), span)["cases"]
+    ours = kernel_variants.variant_cases(["v1", "v4", "v6"])
+    assert [(c.variant, c.ray_tile) for c in ours] == [(v[:2], rt) for v, rt, _ in ref]
+    assert [g for _, _, g in ref] == [128] * 7
+    assert [(c.group, c.batch) for c in ours if c.variant == "v4"] == [(128, 4)] * 2
+    assert [c.batch for c in ours if c.variant == "v6"] == [4, 4]
+    assert kernel_variants.parse_case("v8b16", 2048) == kernel_variants.Case("v8", 2048,
+                                                                             batch=16)
+    for bad in ("v9", "v4b8", "v8g32", "v0g32", "x"):
+        with pytest.raises(ValueError):
+            kernel_variants.parse_case(bad, 512)
+
+
+def test_tile_sums_follow_the_kernel_order():
+    """Tile sums and centroids in the kernels' float32 order (a butterfly
+    within each warp of 32, then the warps in turn), with a partial last tile
+    whose absent lanes add nothing and count for nothing."""
+    v = torch.zeros(2 * 64 + 40)
+    v[0], v[1], v[2], v[32] = 2.0**-24, 2.0**-24, 1.0, -(1.0 + 2.0**-23)
+    v[128:] = 3.0
+    sums = kernel_variants.tile_sums(v, 64)
+    assert float(v[:64].double().sum()) == 0.0 and float(sums[0]) == -(2.0**-23)
+    assert sums.tolist() == [-(2.0**-23), 0.0, 120.0]
+    centroid = kernel_variants.tile_centroids(Vec3(v, -v, v * 0), 64)
+    assert centroid[2].tolist() == [3.0, -3.0, 0.0]
+
+
+def test_wavefront_is_the_sorted_bounce():
+    """``wavefront`` at 48x32 is sample 2's first bounce, sorted by
+    ``_sort_paths``: its key nondecreasing over all lanes, dead ones last."""
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.probes import cornell as probe_cornell
+    from heatray_tpu_torch.render import integrator
+
+    scene, camera, opts, ctx = probe_cornell(48, 32, 4, "cpu")
+    paths = kernel_variants.wavefront(scene, camera, ctx, opts)
+    pack = ctx.accel_pack
+    bounced, _ = integrator.bounce(scene, ctx, opts, FrameGlobals.create(2), 1,
+                                   integrator.start_paths(camera, ctx, opts, 2), pack)
+    want = integrator._sort_paths(bounced, *integrator._sort_bounds(pack))
+    for a, b in ((paths.org, want.org), (paths.direction, want.direction)):
+        assert all(torch.equal(x, y) for x, y in zip((a.x, a.y, a.z), (b.x, b.y, b.z)))
+    key = integrator._wavefront_sort_key(paths.org, paths.direction, paths.active,
+                                         *integrator._sort_bounds(pack))
+    assert bool((key[1:] >= key[:-1]).all())
+    n_live = int(paths.active.sum())
+    assert 0 < n_live < 48 * 32 and bool(paths.active[:n_live].all())
+
+
 # --- wrappers and entry points ---------------------------------------------------
 
 
@@ -459,10 +632,36 @@ def test_cpu_wrappers_take_the_plain_versions(p3, cornell, rays512):
         visit_stats.visit_stats(bvh, o, d, seed_k=32)
 
 
+def test_variant_wrappers_take_the_plain_versions(p2):
+    """On the CPU the P2 wrappers return their plain versions, with no tests
+    per tile, and count no launch; settings the kernels do not take raise."""
+    _, _, bvh, rows, (_, (o, d)) = p2
+    kv = kernel_variants
+    counters = (kv.variant_walk, kv.closest_v6, kv.closest_v7, kv.closest_v8)
+    before = [f.launches for f in counters]
+    t0, s0, _ = wide_bvh.closest_wide_plain(bvh, o, d)
+    for out in (kv.variant_walk(bvh, o, d, "v2", 1024), kv.closest_v8(bvh, o, d, 2048, 16)):
+        assert torch.equal(out[0], t0) and torch.equal(out[1], s0) and out[2] is None
+    t6, s6, _ = kv.closest_v6(bvh, rows, o, d, 512, 8)
+    t6_p, s6_p = kv.closest_rows_plain(rows, o, d, "tile", 512)
+    assert torch.equal(t6, t6_p) and torch.equal(s6, s6_p)
+    assert [f.launches for f in counters] == before
+    for bad in (dict(ray_tile=2048), dict(group=96), dict(ray_tile=256, group=512)):
+        with pytest.raises(ValueError, match="ray_tile"):
+            kv.variant_walk(bvh, o, d, **bad)
+    with pytest.raises(ValueError, match="variant"):
+        kv.variant_walk(bvh, o, d, "v6")
+    with pytest.raises(ValueError, match="batch"):
+        kv.closest_v7(bvh, rows, o, d, batch=17)
+    with pytest.raises(ValueError, match="v0"):
+        kv.run(bvh, rows, o, d, kv.variant_cases(["v1"])[1:])
+
+
 @pytest.mark.parametrize("probe, argv", [
     (visit_stats, ["--size", "16", "16", "--depth", "2"]),
     (kernel_probe, ["quick", "--size", "16", "16"]),
     (vpu_leaf, ["--size", "16", "16"]),
+    (kernel_variants, ["--size", "16", "16", "--variants", "v1,v4g32,v6b8,v7"]),
 ])
 def test_entry_points_run_on_the_cpu_only_when_asked(probe, argv, capsys):
     """Each ``python -m`` entry point refuses to run without a card unless
