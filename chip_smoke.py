@@ -26,14 +26,18 @@ per source, started together) and then:
    launched at the shapes the path gives it: all 2,073,600 primary rays,
    the first bounce's shadow lanes, and the second bounce's sorted, gated
    head and its shadow lanes.  The plain version runs on 65,536 seeded live
-   lanes of each launch.  K3 walks the tree once per block of 256 rays, so
-   what a ray gets may depend on which rays share its block;
+   lanes of each launch, and on the 50,000-triangle soup at leaf 128.  K3
+   walks the tree once per ray and shares only the leaf tests across the
+   warp, so a ray's result does not depend on which rays share its warp:
+   no slot may differ at all;
 6. renders the ``high_poly`` path, 1920x1080, depth 4, 4 passes, framed as
    ``bench.py`` frames it, counting kernel launches: each kernel runs once
    per bounce that has live lanes, and the script counts those bounces;
 7. times K3a and K3b on all 2,073,600 primary rays and first-bounce shadow
-   lanes (their plain versions on the 65,536-ray sample), and K1 and K2 on
-   the same rays over a 32-triangle-leaf tree of the same scene;
+   lanes (their plain versions on the 65,536-ray sample) and on phase 5's
+   depth-2 sorted head and its shadow lanes; beside them, on the same four
+   launches, K4a/K4b and K1/K2 over the same leaf-128 tree, and K1 and K2 on
+   the primary and shadow rays over a 32-triangle-leaf tree of the scene;
 8. checks K7a and K7b (``chunks.cu``) in the rebuild mode (a context made
    without a scene: every pass rebuilds the Woop rows, the 512-triangle
    chunk packs and the shading table) and K6a and K6b (``bvh2.cu``) under
@@ -62,8 +66,8 @@ per source, started together) and then:
    ``"stream"`` image;
 15. times K5a and K5b on phase 4's rays, beside K1 and K2 on the same rays
    (phase 4, over the leaf-32 tree, and here over Route A's leaf-128 tree),
-   and K4a and K4b on phase 7's rays, beside K3a and K3b (phase 7, over the
-   same tree);
+   and K4a and K4b on phase 7's rays for the kernels line (phase 7 sets
+   them beside K3a and K3b over the same tree);
 16. runs the P3 probe (``heatray_tpu_torch.probes.visit_stats``, kernel
    ``visit_stats_kernel`` of ``probes.cu``) through its entry point: the
    Cornell box over its leaf-32 ``"wide"`` tree on the 1080p primary rays
@@ -364,7 +368,8 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=Fals
     version on N_CHECK seeded live lanes of each launch: all primary rays,
     the first bounce's shadow lanes, and the second bounce's sorted, gated
     head and its shadow lanes (``exact``: see ``check_closest``).  Returns
-    the primary and first-bounce shadow rays."""
+    the primary rays, the first-bounce shadow rays, the depth-2 head and its
+    shadow rays."""
     from heatray_tpu_torch.options import FrameGlobals
     from heatray_tpu_torch.render import integrator
 
@@ -391,7 +396,7 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=Fals
     _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head, pack)
     check_any(any_, tree_occl, shadow2.org, shadow2.direction, shadow2.t_max,
               f"{tag} shadow", err, live_pick(shadow2.active, gen), eps)
-    return primary, shadow
+    return primary, shadow, head, shadow2
 
 
 def random_soup(n_tri, n_rays, device):
@@ -637,6 +642,52 @@ def time_kernels(spec, err, launches):
             "library_ms": None,
         })
     return out
+
+
+def compare_stream(kernels, hp, primary_rays, head_rays, card):
+    """Phase 7's comparison on one leaf-128 tree: K3a/K3b beside K4a/K4b and
+    K1/K2 (K1's stack of 64 holds the tree's) on the primary rays and
+    first-bounce shadow lanes and on the depth-2 sorted head and its shadow
+    lanes.  Each is timed over 10 launches, except K3 on the primary and
+    shadow rays, which ``time_kernels`` has just timed: its kernels-line
+    entries give those times, and get the head's rays, time and bound."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    entries = {k["name"]: k for k in kernels}
+    parts = []
+    for tag, (rays, shadow) in (("primary", primary_rays), ("depth-2 head", head_rays)):
+        org, d = rays.org, rays.direction
+        s_org, s_dir, t_max = shadow.org, shadow.direction, shadow.t_max
+        closest = {name: time_ms(lambda: fn(hp.wide, org, d), 10) for name, fn in (
+            ("K4a", wb.intersect_closest_stream_vpu), ("K1", wb.intersect_closest_wide))}
+        occl = {name: time_ms(lambda: fn(hp.wide_occl, s_org, s_dir, t_max=t_max), 10)
+                for name, fn in (("K4b", wb.intersect_any_stream_vpu),
+                                 ("K2", wb.intersect_any_wide))}
+        if tag == "primary":
+            closest["K3a"] = entries["closest_stream"]["ms"]
+            occl["K3b"] = entries["any_stream"]["ms"]
+        else:
+            closest["K3a"] = time_ms(lambda: wb.intersect_closest_stream(hp.wide, org, d), 10)
+            occl["K3b"] = time_ms(lambda: wb.intersect_any_stream(
+                hp.wide_occl, s_org, s_dir, t_max=t_max), 10)
+        parts.append(f"{tag} ({org.x.numel()} rays, {s_org.x.numel()} shadow lanes): "
+                     + ", ".join(f"{n} {ms:.4f}" for n, ms in {**closest, **occl}.items()))
+        if tag == "primary":
+            continue
+        for name, bvh, o, dd, tm, ms in (
+                ("closest_stream", hp.wide, org, d, None, closest["K3a"]),
+                ("any_stream", hp.wide_occl, s_org, s_dir, t_max, occl["K3b"])):
+            t_far = wb.intersect_closest_stream(bvh, o, dd)[0]
+            if tm is not None:
+                t_far = torch.minimum(t_far, tm)
+            b_ms, b_by = bound(o.x.numel(), walk_work(bvh, o, dd, t_far), tm is not None)
+            entries[name].update(head_rays=o.x.numel(), head_ms=ms, head_bound_ms=b_ms,
+                                 head_bound_by=b_by)
+            log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+    log(f"[compare] high_poly, one leaf-128 tree, ms: {'; '.join(parts)}; card {card}")
 
 
 def run_path(label, scene, camera, ctx, opts, expect):
@@ -1207,18 +1258,25 @@ def main() -> int:
         f"stack {hp.wide.max_stack}, w {hp.wide.w.numel() * 4 / 1e6:.1f} MB")
     if hp.backend != "stream" or hp.wide.leaf_size != opts.stream_leaf_size:
         raise AssertionError(f"high_poly got the {hp.backend!r} backend")
-    primary, shadow = check_path_rays(("closest_stream", "any_stream"), hp_scene, hp_camera,
-                                      hp_ctx, opts, gen, "high_poly", err)
+    primary, shadow, head, shadow2 = check_path_rays(
+        ("closest_stream", "any_stream"), hp_scene, hp_camera, hp_ctx, opts, gen, "high_poly",
+        err, exact=True)
+    soup128 = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=128)
+    log(f"[setup] {SOUP_TRIANGLES}-triangle soup at leaf 128: {soup128.num_nodes} nodes, "
+        f"{soup128.num_chunks} leaves, stack {soup128.max_stack}")
+    check_closest("closest_stream", soup128, s_org, s_dir, "soup leaf 128", err, exact=True)
+    check_any("any_stream", soup128, s_org, s_dir, t_max, "soup leaf 128", err)
 
     # --- 6. the high_poly path -------------------------------------------------
     hp_launches, hp_img = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
                                    ("closest_stream", "any_stream"))
 
-    # --- 7. K3 times, and K1/K2 on a 32-triangle-leaf tree of the same scene ---
+    # --- 7. K3 times, beside K4 and K1/K2 over the same tree and over leaf 32 ---
     kernels += time_kernels([
         ("closest_stream", hp.wide, primary.org, primary.direction, None, False),
         ("any_stream", hp.wide_occl, shadow.org, shadow.direction, shadow.t_max, False),
     ], err, hp_launches)
+    compare_stream(kernels, hp, (primary, shadow), (head, shadow2), card)
     t0 = time.perf_counter()
     wide32 = wide_bvh.build_wide_bvh(hp.accel, leaf_size=32)
     torch.cuda.synchronize()
@@ -1227,16 +1285,18 @@ def main() -> int:
     if wide32.max_stack > wide_bvh._kernels().wide_bvh_stack_depth():
         log(f"[compare] K1 cannot walk the leaf-32 tree: stack {wide32.max_stack}")
     else:
-        k1 = time_ms(lambda: wide_bvh.intersect_closest_wide(
-            wide32, primary.org, primary.direction), 10)
-        k2 = time_ms(lambda: wide_bvh.intersect_any_wide(
-            wide32, shadow.org, shadow.direction, t_max=shadow.t_max), 10)
-        k3 = {k["name"]: k["ms"] for k in kernels}
-        log(f"[compare] high_poly on {primary.org.x.numel()} rays: K1 on leaf 32 {k1:.4f} ms vs "
-            f"K3a on leaf 128 {k3['closest_stream']:.4f} ms; K2 on leaf 32 {k2:.4f} ms vs "
-            f"K3b {k3['any_stream']:.4f} ms; card {card}")
+        k3 = {k["name"]: k for k in kernels}
+        for tag, rays, sh, key in (("", primary, shadow, "ms"),
+                                   (" depth-2 head", head, shadow2, "head_ms")):
+            k1 = time_ms(lambda: wide_bvh.intersect_closest_wide(
+                wide32, rays.org, rays.direction), 10)
+            k2 = time_ms(lambda: wide_bvh.intersect_any_wide(
+                wide32, sh.org, sh.direction, t_max=sh.t_max), 10)
+            log(f"[compare] high_poly{tag} on {rays.org.x.numel()} rays: K1 on leaf 32 "
+                f"{k1:.4f} ms vs K3a on leaf 128 {k3['closest_stream'][key]:.4f} ms; K2 on "
+                f"leaf 32 {k2:.4f} ms vs K3b {k3['any_stream'][key]:.4f} ms; card {card}")
     hp_rays = (primary, shadow)  # phase 15 times K4 on them
-    del hp, wide32  # phase 16 walks hp_ctx's tree
+    del hp, wide32, head, shadow2  # phase 16 walks hp_ctx's tree
 
     # --- 8. K7 in the rebuild mode and K6 under "bvh", against plain -----------
     routes = {
@@ -1300,9 +1360,6 @@ def main() -> int:
     a_opts = dataclasses.replace(opts, wide_leaf_math="vpu")
     a_ctx = vpu_context("Cornell 1080p route A", scene, a_opts, "wide/vpu", device)
     check_path_rays(a_names, scene, camera, a_ctx, a_opts, gen, "cornell vpu", err, exact=True)
-    soup128 = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=128)
-    log(f"[setup] {SOUP_TRIANGLES}-triangle soup at leaf 128: {soup128.num_nodes} nodes, "
-        f"{soup128.num_chunks} leaves, stack {soup128.max_stack}")
     check_closest("closest_wide_t", soup128, s_org, s_dir, "soup leaf 128", err, exact=True)
     check_any("any_wide_t", soup128, s_org, s_dir, t_max, "soup leaf 128", err)
 
@@ -1322,7 +1379,7 @@ def main() -> int:
     compare_images("high_poly vpu", img, hp_img, "stream")
     del img, hp_img, wide_img, soup128
 
-    # --- 15. K5 and K4 times beside K1/K2 and K3 on the same rays -----------------
+    # --- 15. K5 times beside K1/K2 on the same rays, and K4 times ------------------
     a_pack, b_pack = a_ctx.accel_pack, b_ctx.accel_pack
     kernels += time_kernels([
         ("closest_wide_t", a_pack.wide, prim.org, prim.direction, None, True),
@@ -1343,9 +1400,6 @@ def main() -> int:
         f"vs K1 {ms['closest_wide']:.4f} ms on leaf 32 and {k1_128:.4f} ms on the same leaf-128 "
         f"tree; K5b {ms['any_wide_t']:.4f} ms vs K2 {ms['any_wide']:.4f} ms on leaf 32 and "
         f"{k2_128:.4f} ms on leaf 128; card {card}")
-    log(f"[compare] high_poly on {hp_primary.org.x.numel()} rays, one leaf-128 tree: K4a "
-        f"{ms['closest_stream_t']:.4f} ms vs K3a {ms['closest_stream']:.4f} ms; K4b "
-        f"{ms['any_stream_t']:.4f} ms vs K3b {ms['any_stream']:.4f} ms; card {card}")
 
     del a_ctx, b_ctx, a_pack, b_pack
 

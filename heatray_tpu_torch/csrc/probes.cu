@@ -24,12 +24,13 @@
 //   empty_kernel        tpu_kernel_probe.py `_empty_kernel` (P1 "grid"):
 //                       x * 0 over the same grid, the cost of the launch.
 //
-// visit_stats_kernel walks the tree as K3 does (wide_bvh_block.cuh): one
-// block of 256 rays per tile, a child visited if any ray of the block enters
-// its widened box before that ray's best t as it stood at node entry, leaves
-// near to far by the block's summed direction along the node's axis,
-// internal children pushed far to near, leaf chunks staged by cp.async.  At
-// each opened leaf every ray of the block is tested, as the TPU kernel does.
+// visit_stats_kernel walks the tree as the TPU's streaming kernels and K4
+// do (wide_bvh_block.cuh): one block of 256 rays per tile, a child visited
+// if any ray of the block enters its widened box before that ray's best t
+// as it stood at node entry, leaves near to far by the block's summed
+// direction along the node's axis, internal children pushed far to near,
+// leaf chunks staged by cp.async.  At each opened leaf every ray of the
+// block is tested, as the TPU kernel does.
 // The optional seed chunk (the K largest triangles, anchored at their box
 // centre) is tested first.  Thread 0 keeps the four counts and writes the
 // tile's row.  Lanes past the last ray are absent: they vote for no child

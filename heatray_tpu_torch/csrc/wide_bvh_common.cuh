@@ -130,7 +130,7 @@ __device__ __forceinline__ float tri_t(const float* __restrict__ W, int tc,
   return inside ? t : kMissT;
 }
 
-// --- warp-transposed leaf tests (wide_bvh_t.cu) ------------------------------
+// --- warp-transposed leaf tests (wide_bvh_t.cu, wide_bvh_stream.cu) ----------
 //
 // The counterpart of the TPU's transposed "VPU leaf math"
 // (heatray_tpu/ops/intersect_pallas.py `_pair_hits_t`, rays x 3 Tc with the
@@ -204,29 +204,30 @@ __device__ __forceinline__ bool warp_leaf_any(const float* __restrict__ W, int t
   return __any_sync(kFullMask, hit);
 }
 
-// One leaf visit of a warp, closest hit: each ray of the warp whose own
-// widened slab enters the leaf's box before its best hit (`box`, the child
-// box in its parent's wbox row) is tested in turn by the whole warp against
-// the chunk `W` (global or shared memory), and its own lane keeps the
-// result, ties in t to the lowest slot.  Rays that miss the box cost nothing.
-__device__ __forceinline__ void warp_visit_closest(
-    const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
-    const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool valid,
-    float t_min, Widen widen, float& best, int& best_slot) {
-  unsigned want = __ballot_sync(kFullMask, valid && slab(box, r, t_min, best, widen));
-  if (!want) return;
-  const float cx = wanchor[chunk], cy = wanchor[n_chunks + chunk],
-              cz = wanchor[2 * n_chunks + chunk];
+// The warp's service of the (ray, leaf) pairs its lanes offer, closest hit:
+// each lane that offers a chunk (`chunk >= 0`) has its ray tested in turn,
+// lowest lane first, by the whole warp against that chunk's rows, at
+// `w + chunk * stride` (global memory; a stride of 0 when every lane offers
+// the one chunk at `w`, which may be staged in shared memory).  Only the
+// offering lane keeps the result, a smaller t or an equal one at a lower
+// slot, so ties go to the lowest slot across leaves too.  Lanes that offer
+// nothing (chunk < 0) take part and keep what they had.
+__device__ __forceinline__ void warp_serve_closest(
+    int chunk, const float* __restrict__ w, size_t stride, int tc,
+    const float* __restrict__ wanchor, int n_chunks, const Ray& r, float t_min,
+    float& best, int& best_slot) {
   const int lane = threadIdx.x & 31;
-  while (want) {
+  for (unsigned want = __ballot_sync(kFullMask, chunk >= 0); want; want &= want - 1) {
     const int src = __ffs(static_cast<int>(want)) - 1;
-    want &= want - 1;
+    const int q_chunk = __shfl_sync(kFullMask, chunk, src);
     const Ray q = shfl_ray(r, src);
     const float q_best = __shfl_sync(kFullMask, best, src);
     float t;
     int col;
-    warp_leaf_closest(W, tc, q.ox - cx, q.oy - cy, q.oz - cz, q, t_min, q_best, &t, &col);
-    const int slot = chunk * tc + col;
+    warp_leaf_closest(w + q_chunk * stride, tc, q.ox - wanchor[q_chunk],
+                      q.oy - wanchor[n_chunks + q_chunk], q.oz - wanchor[2 * n_chunks + q_chunk],
+                      q, t_min, q_best, &t, &col);
+    const int slot = q_chunk * tc + col;
     if (lane == src && (t < best || (t == best && t < kMissT && slot < best_slot))) {
       best = t;
       best_slot = slot;
@@ -234,27 +235,52 @@ __device__ __forceinline__ void warp_visit_closest(
   }
 }
 
+// The same, any hit: true on each offering lane whose ray has a hit in
+// (t_min, its own t_max) in the chunk it offered.
+__device__ __forceinline__ bool warp_serve_any(
+    int chunk, const float* __restrict__ w, size_t stride, int tc,
+    const float* __restrict__ wanchor, int n_chunks, const Ray& r, float t_min,
+    float t_max) {
+  const int lane = threadIdx.x & 31;
+  bool hit = false;
+  for (unsigned want = __ballot_sync(kFullMask, chunk >= 0); want; want &= want - 1) {
+    const int src = __ffs(static_cast<int>(want)) - 1;
+    const int q_chunk = __shfl_sync(kFullMask, chunk, src);
+    const Ray q = shfl_ray(r, src);
+    const float q_max = __shfl_sync(kFullMask, t_max, src);
+    if (warp_leaf_any(w + q_chunk * stride, tc, q.ox - wanchor[q_chunk],
+                      q.oy - wanchor[n_chunks + q_chunk], q.oz - wanchor[2 * n_chunks + q_chunk],
+                      q, t_min, q_max) &&
+        lane == src) {
+      hit = true;
+    }
+  }
+  return hit;
+}
+
+// One leaf visit of a warp, closest hit: each ray of the warp whose own
+// widened slab enters the leaf's box before its best hit (`box`, the child
+// box in its parent's wbox row) offers the chunk `W` (global or shared
+// memory) to `warp_serve_closest`.  Rays that miss the box cost nothing.
+__device__ __forceinline__ void warp_visit_closest(
+    const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
+    const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool valid,
+    float t_min, Widen widen, float& best, int& best_slot) {
+  const bool enters = valid && slab(box, r, t_min, best, widen);
+  warp_serve_closest(enters ? chunk : -1, W, 0, tc, wanchor, n_chunks, r, t_min, best,
+                     best_slot);
+}
+
 // One leaf visit of a warp, any hit: each unblocked ray of the warp
-// (`active`) whose own widened slab enters the box before its `t_max` is
-// tested in turn by the whole warp; its lane becomes blocked on a hit.
+// (`active`) whose own widened slab enters the box before its `t_max`
+// offers the chunk; its lane becomes blocked on a hit.
 __device__ __forceinline__ void warp_visit_any(
     const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
     const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool active,
     float t_min, float t_max, Widen widen, bool& blocked) {
-  unsigned want = __ballot_sync(kFullMask, active && slab(box, r, t_min, t_max, widen));
-  if (!want) return;
-  const float cx = wanchor[chunk], cy = wanchor[n_chunks + chunk],
-              cz = wanchor[2 * n_chunks + chunk];
-  const int lane = threadIdx.x & 31;
-  while (want) {
-    const int src = __ffs(static_cast<int>(want)) - 1;
-    want &= want - 1;
-    const Ray q = shfl_ray(r, src);
-    const float q_max = __shfl_sync(kFullMask, t_max, src);
-    if (warp_leaf_any(W, tc, q.ox - cx, q.oy - cy, q.oz - cz, q, t_min, q_max) &&
-        lane == src) {
-      blocked = true;
-    }
+  const bool enters = active && slab(box, r, t_min, t_max, widen);
+  if (warp_serve_any(enters ? chunk : -1, W, 0, tc, wanchor, n_chunks, r, t_min, t_max)) {
+    blocked = true;
   }
 }
 

@@ -30,11 +30,11 @@
 // VMEM-resident pack.  Any hit: a blocked ray enters no box and tests
 // nothing more, and the warp leaves once all its rays are blocked.
 //
-// K4: the block walk of K3 (wide_bvh_block.cuh: one block of 256 rays, the
-// node and the stack in shared memory, the live leaves of a node staged by
-// cp.async into 8 shared-memory slots before the first wait), with each
-// staged leaf tested by K5's warp-transposed test, per warp, only on the
-// rays that enter it.
+// K4: the block walk of the TPU's streaming kernels (wide_bvh_block.cuh:
+// one block of 256 rays, the node and the stack in shared memory, the live
+// leaves of a node staged by cp.async into 8 shared-memory slots before the
+// first wait), with each staged leaf tested by K5's warp-transposed test,
+// per warp, only on the rays that enter it.
 //
 // Numerics: the pair test is K1's (`tri_t`, exact f32, IEEE divide, built
 // with --fmad=false); the reference's `_recip_fast` is TPU rounding.  Ties
@@ -45,9 +45,9 @@
 // warp step (the node's 8 slab tests, a ballot, a ray's 4 pair tests per
 // lane and its 5-step shuffle reduction) is a short chain of dependent
 // instructions and loads, with few warps in flight doing it.  The design
-// removes K3's waste (a leaf opened for one ray tested by all 256), which is
-// what bounded K3, and leaves the rest to later work: no wgmma pair tests,
-// no TMA, no persistent blocks, no ray reordering within a warp.
+// removes the block walk's waste (a leaf opened for one ray tested by all
+// 256), and leaves the rest to later work: no wgmma pair tests, no TMA, no
+// persistent blocks, no ray reordering within a warp.
 
 #include <cuda_runtime.h>
 

@@ -289,8 +289,8 @@ _ANY_ARGS = (
     [_P] * 7 + [ctypes.c_int] + [_P] * 5
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
 )
-# Shared memory a block of the streaming kernels may take for its 8 leaf
-# slots (of the H100's 227 KB per block, less the walk's own state).
+# Shared memory a block of the block-walk kernels (K4) may take for its 8
+# leaf slots (of the H100's 227 KB per block, less the walk's own state).
 _STREAM_SLOT_BYTES = 200 * 1024
 
 
@@ -360,11 +360,11 @@ def _tree_args(bvh: WideBVH, depth: int) -> list:
 
 
 def _stream_tree_args(bvh: WideBVH, depth: int) -> list:
-    """``_tree_args`` plus what the leaf staging needs: 16-byte copies and
-    8 chunks in shared memory."""
+    """``_tree_args`` plus what the leaf staging of a block walk (K4, P3)
+    needs: 16-byte copies and 8 chunks in shared memory."""
     tree = _tree_args(bvh, depth)
     if bvh.w.data_ptr() % 16:
-        raise ValueError("WideBVH.w must be 16-byte aligned for the streaming kernels")
+        raise ValueError("WideBVH.w must be 16-byte aligned for the block-walk kernels")
     if ARITY * bvh.w[0].numel() * 4 > _STREAM_SLOT_BYTES:
         raise ValueError(
             f"leaf size {bvh.leaf_size} does not fit 8 chunks in shared memory"
@@ -459,17 +459,17 @@ def intersect_closest_stream(bvh: WideBVH, origins: Vec3, directions: Vec3,
     contract of ``intersect_closest_wide``.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``closest_stream_kernel`` (``csrc/wide_bvh_stream.cu``), which walks the
-    tree once per block of 256 rays and stages leaf chunks in shared memory,
-    or with ``leaf_math="vpu"`` ``intersect_closest_stream_vpu``'s kernel."""
+    ``closest_stream_kernel`` (``csrc/wide_bvh_stream.cu``), in which each
+    thread walks its own ray and the warp tests each (ray, leaf) pair that
+    a walk reaches with the leaf's triangles spread across its lanes, or
+    with ``leaf_math="vpu"`` ``intersect_closest_stream_vpu``'s kernel."""
     _check_leaf_math(leaf_math)
     if leaf_math == "vpu":
         return intersect_closest_stream_vpu(bvh, origins, directions, t_min)
     if on_cpu(bvh):
         return closest_stream_plain(bvh, origins, directions, t_min)
     lib = _stream_kernels()
-    out = launch_closest(lib.closest_stream,
-                         _stream_tree_args(bvh, lib.wide_bvh_stream_stack_depth()),
+    out = launch_closest(lib.closest_stream, _tree_args(bvh, lib.wide_bvh_stream_stack_depth()),
                          bvh, origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_stream.launches += 1
@@ -484,7 +484,8 @@ def intersect_any_stream(
     ``intersect_any_wide``.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``any_stream_kernel`` (``csrc/wide_bvh_stream.cu``), or with
+    ``any_stream_kernel`` (``csrc/wide_bvh_stream.cu``: a walk per ray, the
+    leaf tests shared by the warp, a blocked ray's walk ended), or with
     ``leaf_math="vpu"`` ``intersect_any_stream_vpu``'s kernel."""
     _check_leaf_math(leaf_math)
     if leaf_math == "vpu":
@@ -492,7 +493,7 @@ def intersect_any_stream(
     if on_cpu(bvh):
         return any_stream_plain(bvh, origins, directions, t_min, t_max)
     lib = _stream_kernels()
-    out = launch_any(lib.any_stream, _stream_tree_args(bvh, lib.wide_bvh_stream_stack_depth()),
+    out = launch_any(lib.any_stream, _tree_args(bvh, lib.wide_bvh_stream_stack_depth()),
                      bvh, origins, directions, t_min, t_max)
     if origins.x.numel():
         intersect_any_stream.launches += 1

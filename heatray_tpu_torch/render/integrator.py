@@ -12,8 +12,9 @@ Backends, on the card and the CPU alike (``intersect_backend``):
 
 - ``"wide"``: arity-8 BVH, 32-triangle leaves (``csrc/wide_bvh.cu``), what
   ``"auto"`` picks up to 250,000 triangles;
-- ``"stream"``: the same with 128-triangle leaves staged in shared memory
-  (``csrc/wide_bvh_stream.cu``), what ``"auto"`` picks above;
+- ``"stream"``: the same with 128-triangle leaves, a walk per ray and each
+  leaf test shared by the warp (``csrc/wide_bvh_stream.cu``), what
+  ``"auto"`` picks above;
 - either of the two with the transposed leaf math (``wide_leaf_math`` or
   ``stream_leaf_math`` ``"vpu"``; ``csrc/wide_bvh_t.cu``): leaves of a
   multiple of 128 triangles, each tested by a warp only on the rays that

@@ -101,10 +101,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         wide_bvh.intersect_any_wide(dataclasses.replace(bvh, max_stack=1 << 20), o, d)
 
 
-@pytest.mark.parametrize("n_rays", [8191, 0])
+@pytest.mark.parametrize("n_rays", [8191, 0, 1, 31, 33])
 def test_stream_kernels_match_plain(cuda_device, n_rays):
     """K3a/K3b on a 50k-triangle soup at leaf 128: a ray count that leaves
-    the last block of 256 part-empty, and no rays at all."""
+    the last warp and block part-empty, no rays at all, one ray, and counts
+    that leave one warp or the second one part-empty.  Ties go to the
+    lowest slot across leaves too, so slots are equal everywhere."""
     bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=128)
     o, d = _rays(n_rays, 7, cuda_device)
     launches = wide_bvh.intersect_closest_stream.launches
@@ -113,14 +115,56 @@ def test_stream_kernels_match_plain(cuda_device, n_rays):
     torch.cuda.synchronize()
     assert wide_bvh.intersect_closest_stream.launches == launches + (n_rays > 0)
     assert t_k.shape == slot_k.shape == (n_rays,)
-    assert torch.equal(hit_k, hit_p)
+    assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p)
     torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
-    assert n_rays == 0 or (slot_k == slot_p).float().mean() > 0.999
 
     t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
     blocked = wide_bvh.intersect_any_stream(bvh, o, d, t_max=t_max)
     assert torch.equal(blocked, wide_bvh.any_stream_plain(bvh, o, d, t_max=t_max))
-    assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
+    assert n_rays < 8191 or 0 < int(blocked.sum()) < n_rays
+
+
+def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device):
+    """300 copies of one triangle, away from a random soup, fill four leaves
+    of 128 with the same anchor, so a ray through it ties in t on every
+    copy; K3a must keep the lowest slot of all, as the plain version does."""
+    rng = np.random.default_rng(3)
+    n_soup, n_copy = 2000, 300
+    v = rng.uniform(-4, 4, (n_soup, 3)).astype(np.float32)
+    soup = [v, v + rng.uniform(-0.5, 0.5, (n_soup, 3)).astype(np.float32),
+            v + rng.uniform(-0.5, 0.5, (n_soup, 3)).astype(np.float32)]
+    tri = np.array([[10.0, -1.0, -1.0], [10.0, 1.0, -1.0], [10.0, 0.0, 1.0]], np.float32)
+    corners = [np.concatenate([s, np.repeat(tri[k][None], n_copy, 0)]) for k, s in enumerate(soup)]
+    t = n_soup + n_copy
+    pos = torch.from_numpy(np.concatenate(corners).T.copy()).to(cuda_device)
+    idx = torch.arange(3 * t, dtype=torch.int32, device=cuda_device).reshape(3, t).contiguous()
+    bvh = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=128)
+    copy_slots = (bvh.slot_tri >= n_soup).nonzero()[:, 0]
+    assert (copy_slots // 128).unique().numel() >= 2
+    r = 4096
+    org = np.tile(np.array([[14.0, 0.0, 0.0]], np.float32), (r, 1))
+    aim = np.stack([np.full(r, 10.0), rng.uniform(-0.3, 0.3, r), rng.uniform(-0.3, 0.3, r)], 1)
+    d = (aim - org).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = Vec3(*(torch.from_numpy(np.ascontiguousarray(org[:, k])).to(cuda_device) for k in range(3)))
+    d = Vec3(*(torch.from_numpy(np.ascontiguousarray(d[:, k])).to(cuda_device) for k in range(3)))
+    t_k, slot_k, hit_k = wide_bvh.intersect_closest_stream(bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_stream_plain(bvh, o, d)
+    assert bool(hit_p.all()) and bool((slot_p == copy_slots.min()).all())
+    assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p) and torch.equal(t_k, t_p)
+
+
+def test_stream_occlusion_ends_before_every_hit(cuda_device):
+    """K3b with each ray's t_max short of its closest hit: nothing is
+    blocked, although every leaf the ray enters is tested."""
+    bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=128)
+    o, d = _rays(8191, 7, cuda_device)
+    t_hit, _, hit = wide_bvh.closest_stream_plain(bvh, o, d)
+    assert int(hit.sum()) > 4000
+    t_max = torch.where(hit, t_hit * 0.999, 100.0)
+    blocked = wide_bvh.intersect_any_stream(bvh, o, d, t_max=t_max)
+    assert not bool(blocked.any())
+    assert torch.equal(blocked, wide_bvh.any_stream_plain(bvh, o, d, t_max=t_max))
 
 
 def test_stream_kernel_finds_hits_just_past_an_edge(cuda_device):
@@ -142,18 +186,19 @@ def test_stream_kernel_finds_hits_just_past_an_edge(cuda_device):
 
 
 def test_stream_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    """K3 takes float32 rays and a tree whose stack fits its 64 entries; its
+    leaf pack needs no alignment and no shared memory."""
     bvh = wide_bvh.build_wide_bvh(_soup(300, 5, cuda_device), leaf_size=128)
     o, d = _rays(64, 3, cuda_device)
     with pytest.raises(ValueError, match="float32"):
         wide_bvh.intersect_closest_stream(bvh, o.map(lambda c: c.double()), d)
-    with pytest.raises(ValueError, match="stack"):
-        wide_bvh.intersect_any_stream(dataclasses.replace(bvh, max_stack=257), o, d)
+    with pytest.raises(ValueError, match="stack of 65"):
+        wide_bvh.intersect_any_stream(dataclasses.replace(bvh, max_stack=65), o, d)
     shifted = torch.empty(bvh.w.numel() + 1, device=cuda_device)[1:].view(bvh.w.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        wide_bvh.intersect_closest_stream(dataclasses.replace(bvh, w=shifted), o, d)
-    huge = torch.zeros((1, 4, 3 * 2048), device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        wide_bvh.intersect_any_stream(dataclasses.replace(bvh, w=huge, leaf_size=2048), o, d)
+    shifted.copy_(bvh.w)
+    t_k, slot_k, _ = wide_bvh.intersect_closest_stream(dataclasses.replace(bvh, w=shifted), o, d)
+    t_p, slot_p, _ = wide_bvh.closest_stream_plain(bvh, o, d)
+    assert torch.equal(t_k, t_p) and torch.equal(slot_k, slot_p)
 
 
 def _t_queries(route):
@@ -223,6 +268,13 @@ def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, ro
     depth = 65 if route == "wide" else 257
     with pytest.raises(ValueError, match=f"stack of {depth}"):
         closest(dataclasses.replace(bvh, max_stack=depth), o, d)
+    if route == "stream":  # K4 stages 8 leaves by 16-byte copies
+        shifted = torch.empty(bvh.w.numel() + 1, device=cuda_device)[1:].view(bvh.w.shape)
+        with pytest.raises(ValueError, match="aligned"):
+            closest(dataclasses.replace(bvh, w=shifted), o, d)
+        huge = torch.zeros((1, 4, 3 * 2048), device=cuda_device)
+        with pytest.raises(ValueError, match="shared memory"):
+            any_(dataclasses.replace(bvh, w=huge, leaf_size=2048), o, d)
 
 
 def _flat_queries(kind, accel):
