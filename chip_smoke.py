@@ -10,7 +10,9 @@ per source, started together) and then:
 
 1. checks K1 and K2 (``wide_bvh.cu``) against their plain PyTorch versions
    on the card: on the Cornell box, each kernel launched at the shapes a
-   1080p pass gives it (see 5), and on a 50,000-triangle random soup;
+   1080p pass gives it (see 5), and on a 50,000-triangle random soup at leaf
+   32.  K1/K2 walk the tree once per ray and share only the leaf tests
+   across the warp (K3's walk), so no slot may differ at all;
 2. renders the golden configuration config2 (48x48, 4 passes, depth 4) and
    compares it with ``tests/goldens/config2_cornell.npy``;
 2b. renders one 1080p Cornell pass with the bounce sort and segment gating
@@ -19,7 +21,9 @@ per source, started together) and then:
    gated, as "auto" gives on the card), counting kernel launches, and
    reports ms per pass and Mrays/s;
 4. checks K1 and K2 against their plain versions again on all 2,073,600
-   rays of a 1080p bounce, and times both there;
+   rays of a 1080p bounce (no slot may differ), and times both there and on
+   phase 1's depth-2 sorted head and its shadow lanes, beside K3's kernels
+   over the same leaf-32 tree on the same four launches;
 5. builds the ~300k-triangle ``high_poly`` scene on the card (the context
    picks the streaming backend on its own) and checks K3a and K3b
    (``wide_bvh_stream.cu``) against their plain versions.  Each kernel is
@@ -36,8 +40,8 @@ per source, started together) and then:
 7. times K3a and K3b on all 2,073,600 primary rays and first-bounce shadow
    lanes (their plain versions on the 65,536-ray sample) and on phase 5's
    depth-2 sorted head and its shadow lanes; beside them, on the same four
-   launches, K4a/K4b and K1/K2 over the same leaf-128 tree, and K1 and K2 on
-   the primary and shadow rays over a 32-triangle-leaf tree of the scene;
+   launches, K4a/K4b over the same leaf-128 tree, and K1 and K2 over a
+   32-triangle-leaf tree of the scene;
 8. checks K7a and K7b (``chunks.cu``) in the rebuild mode (a context made
    without a scene: every pass rebuilds the Woop rows, the 512-triangle
    chunk packs and the shading table) and K6a and K6b (``bvh2.cu``) under
@@ -65,9 +69,9 @@ per source, started together) and then:
    shapes and on the soup, the path, and its image against phase 6's
    ``"stream"`` image;
 15. times K5a and K5b on phase 4's rays, beside K1 and K2 on the same rays
-   (phase 4, over the leaf-32 tree, and here over Route A's leaf-128 tree),
-   and K4a and K4b on phase 7's rays for the kernels line (phase 7 sets
-   them beside K3a and K3b over the same tree);
+   (phase 4, over the leaf-32 tree), and K4a and K4b on phase 7's rays for
+   the kernels line (phase 7 sets them beside K3a and K3b over the same
+   tree);
 16. runs the P3 probe (``heatray_tpu_torch.probes.visit_stats``, kernel
    ``visit_stats_kernel`` of ``probes.cu``) through its entry point: the
    Cornell box over its leaf-32 ``"wide"`` tree on the 1080p primary rays
@@ -644,50 +648,49 @@ def time_kernels(spec, err, launches):
     return out
 
 
-def compare_stream(kernels, hp, primary_rays, head_rays, card):
-    """Phase 7's comparison on one leaf-128 tree: K3a/K3b beside K4a/K4b and
-    K1/K2 (K1's stack of 64 holds the tree's) on the primary rays and
-    first-bounce shadow lanes and on the depth-2 sorted head and its shadow
-    lanes.  Each is timed over 10 launches, except K3 on the primary and
-    shadow rays, which ``time_kernels`` has just timed: its kernels-line
-    entries give those times, and get the head's rays, time and bound."""
+def compare_launches(label, kernels, mine, rivals, trees, launches, card):
+    """One [compare] line: the kernels ``mine`` beside ``rivals`` (each a dict
+    label -> query name, closest hit then occlusion) over the same ``trees``
+    (closest hit, occlusion), on the primary rays and first-bounce shadow
+    lanes and on the depth-2 sorted head and its shadow lanes (``launches``:
+    two (rays, shadow rays) pairs).  Each is timed over 10 launches, except
+    ``mine`` on the primary and shadow rays, which ``time_kernels`` has just
+    timed: their kernels-line entries give those times, and get the head's
+    rays, time and bound."""
     import torch
 
-    from heatray_tpu_torch.ops import wide_bvh as wb
-
     entries = {k["name"]: k for k in kernels}
+    closest_name = next(name for name in mine.values() if not name.startswith("any_"))
     parts = []
-    for tag, (rays, shadow) in (("primary", primary_rays), ("depth-2 head", head_rays)):
-        org, d = rays.org, rays.direction
-        s_org, s_dir, t_max = shadow.org, shadow.direction, shadow.t_max
-        closest = {name: time_ms(lambda: fn(hp.wide, org, d), 10) for name, fn in (
-            ("K4a", wb.intersect_closest_stream_vpu), ("K1", wb.intersect_closest_wide))}
-        occl = {name: time_ms(lambda: fn(hp.wide_occl, s_org, s_dir, t_max=t_max), 10)
-                for name, fn in (("K4b", wb.intersect_any_stream_vpu),
-                                 ("K2", wb.intersect_any_wide))}
-        if tag == "primary":
-            closest["K3a"] = entries["closest_stream"]["ms"]
-            occl["K3b"] = entries["any_stream"]["ms"]
-        else:
-            closest["K3a"] = time_ms(lambda: wb.intersect_closest_stream(hp.wide, org, d), 10)
-            occl["K3b"] = time_ms(lambda: wb.intersect_any_stream(
-                hp.wide_occl, s_org, s_dir, t_max=t_max), 10)
-        parts.append(f"{tag} ({org.x.numel()} rays, {s_org.x.numel()} shadow lanes): "
-                     + ", ".join(f"{n} {ms:.4f}" for n, ms in {**closest, **occl}.items()))
+    for tag, (rays, shadow) in zip(("primary", "depth-2 head"), launches):
+        ms = {}
+        for who, name in {**mine, **rivals}.items():
+            if tag == "primary" and name in mine.values():
+                ms[who] = entries[name]["ms"]
+                continue
+            fn = queries()[name][0]
+            if name.startswith("any_"):
+                ms[who] = time_ms(lambda: fn(trees[1], shadow.org, shadow.direction,
+                                             t_max=shadow.t_max), 10)
+            else:
+                ms[who] = time_ms(lambda: fn(trees[0], rays.org, rays.direction), 10)
+        parts.append(f"{tag} ({rays.org.x.numel()} rays, {shadow.org.x.numel()} shadow lanes): "
+                     + ", ".join(f"{who} {t:.4f}" for who, t in ms.items()))
         if tag == "primary":
             continue
-        for name, bvh, o, dd, tm, ms in (
-                ("closest_stream", hp.wide, org, d, None, closest["K3a"]),
-                ("any_stream", hp.wide_occl, s_org, s_dir, t_max, occl["K3b"])):
-            t_far = wb.intersect_closest_stream(bvh, o, dd)[0]
-            if tm is not None:
-                t_far = torch.minimum(t_far, tm)
-            b_ms, b_by = bound(o.x.numel(), walk_work(bvh, o, dd, t_far), tm is not None)
-            entries[name].update(head_rays=o.x.numel(), head_ms=ms, head_bound_ms=b_ms,
+        for who, name in mine.items():
+            occl = name.startswith("any_")
+            o, dd = (shadow.org, shadow.direction) if occl else (rays.org, rays.direction)
+            bvh = trees[occl]
+            t_far = queries()[closest_name][0](bvh, o, dd)[0]
+            if occl:
+                t_far = torch.minimum(t_far, shadow.t_max)
+            b_ms, b_by = bound(o.x.numel(), walk_work(bvh, o, dd, t_far), occl)
+            entries[name].update(head_rays=o.x.numel(), head_ms=ms[who], head_bound_ms=b_ms,
                                  head_bound_by=b_by)
-            log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
-    log(f"[compare] high_poly, one leaf-128 tree, ms: {'; '.join(parts)}; card {card}")
+            log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms[who]:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[compare] {label}, ms: {'; '.join(parts)}; card {card}")
 
 
 def run_path(label, scene, camera, ctx, opts, expect):
@@ -1176,14 +1179,15 @@ def main() -> int:
         f"{pack.wide.num_triangles} triangles, {pack.wide.num_nodes} nodes, "
         f"{pack.wide.num_chunks} leaves, stack {pack.wide.max_stack}")
 
-    check_path_rays(("closest_wide", "any_wide"), scene, camera, ctx, opts, gen, "cornell", err)
+    _, _, c_head, c_shadow2 = check_path_rays(("closest_wide", "any_wide"), scene, camera, ctx,
+                                              opts, gen, "cornell", err, exact=True)
 
     pos, idx, s_org, s_dir = random_soup(SOUP_TRIANGLES, N_CHECK, device)
     t0 = time.perf_counter()
     soup = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=32)
     log(f"[setup] {SOUP_TRIANGLES}-triangle soup tree in {time.perf_counter() - t0:.1f} s: "
         f"{soup.num_nodes} nodes, stack {soup.max_stack}")
-    check_closest("closest_wide", soup, s_org, s_dir, "soup", err)
+    check_closest("closest_wide", soup, s_org, s_dir, "soup", err, exact=True)
     t_max = torch.from_numpy(
         np.random.default_rng(SEED + 1).uniform(1.0, 12.0, N_CHECK).astype(np.float32)
     ).to(device)
@@ -1233,15 +1237,19 @@ def main() -> int:
     frame = FrameGlobals.create(1, device=device)
     prim = integrator.start_paths(camera, ctx, opts, 1)
     _, shadow = integrator.bounce(scene, ctx, opts, frame, 1, prim, pack)
-    check_closest("closest_wide", pack.wide, prim.org, prim.direction, "cornell 1080p primary", err)
+    check_closest("closest_wide", pack.wide, prim.org, prim.direction, "cornell 1080p primary", err,
+                  exact=True)
     check_any("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max,
               "cornell 1080p NEE shadow", err)
     kernels = time_kernels([
         ("closest_wide", pack.wide, prim.org, prim.direction, None, True),
         ("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, cornell_launches)
+    compare_launches("cornell, one leaf-32 tree", kernels, {"K1": "closest_wide", "K2": "any_wide"},
+                     {"K3a": "closest_stream", "K3b": "any_stream"}, (pack.wide, pack.wide_occl),
+                     ((prim, shadow), (c_head, c_shadow2)), card)
     cornell_rays = (prim, shadow)  # phase 11 times K6 and K7 on them
-    del ctx, pack
+    del ctx, pack, c_head, c_shadow2
 
     # --- 5. high_poly on the card: streaming kernels against plain ------------
     t0 = time.perf_counter()
@@ -1271,12 +1279,15 @@ def main() -> int:
     hp_launches, hp_img = run_path("high_poly", hp_scene, hp_camera, hp_ctx, opts,
                                    ("closest_stream", "any_stream"))
 
-    # --- 7. K3 times, beside K4 and K1/K2 over the same tree and over leaf 32 ---
+    # --- 7. K3 times, beside K4 over the same tree and K1/K2 over leaf 32 -------
     kernels += time_kernels([
         ("closest_stream", hp.wide, primary.org, primary.direction, None, False),
         ("any_stream", hp.wide_occl, shadow.org, shadow.direction, shadow.t_max, False),
     ], err, hp_launches)
-    compare_stream(kernels, hp, (primary, shadow), (head, shadow2), card)
+    compare_launches("high_poly, one leaf-128 tree", kernels,
+                     {"K3a": "closest_stream", "K3b": "any_stream"},
+                     {"K4a": "closest_stream_t", "K4b": "any_stream_t"}, (hp.wide, hp.wide_occl),
+                     ((primary, shadow), (head, shadow2)), card)
     t0 = time.perf_counter()
     wide32 = wide_bvh.build_wide_bvh(hp.accel, leaf_size=32)
     torch.cuda.synchronize()
@@ -1385,10 +1396,6 @@ def main() -> int:
         ("closest_wide_t", a_pack.wide, prim.org, prim.direction, None, True),
         ("any_wide_t", a_pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, a_launches)
-    k1_128 = time_ms(lambda: wide_bvh.intersect_closest_wide(a_pack.wide, prim.org,
-                                                             prim.direction), 10)
-    k2_128 = time_ms(lambda: wide_bvh.intersect_any_wide(
-        a_pack.wide_occl, shadow.org, shadow.direction, t_max=shadow.t_max), 10)
     hp_primary, hp_shadow = hp_rays
     kernels += time_kernels([
         ("closest_stream_t", b_pack.wide, hp_primary.org, hp_primary.direction, None, False),
@@ -1397,9 +1404,8 @@ def main() -> int:
     ], err, b_launches)
     ms = {k["name"]: k["ms"] for k in kernels}
     log(f"[compare] cornell on {prim.org.x.numel()} rays: K5a {ms['closest_wide_t']:.4f} ms "
-        f"vs K1 {ms['closest_wide']:.4f} ms on leaf 32 and {k1_128:.4f} ms on the same leaf-128 "
-        f"tree; K5b {ms['any_wide_t']:.4f} ms vs K2 {ms['any_wide']:.4f} ms on leaf 32 and "
-        f"{k2_128:.4f} ms on leaf 128; card {card}")
+        f"vs K1 {ms['closest_wide']:.4f} ms on leaf 32; K5b {ms['any_wide_t']:.4f} ms vs K2 "
+        f"{ms['any_wide']:.4f} ms on leaf 32; card {card}")
 
     del a_ctx, b_ctx, a_pack, b_pack
 

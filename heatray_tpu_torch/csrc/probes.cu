@@ -42,11 +42,15 @@
 // and of those pairs, the ones whose t lies in (t_min, the ray's best t at
 // the leaf), which then need their barycentrics.
 //
-// nodes_kernel is K1's walk (wide_bvh.cu: one thread per ray, its own stack,
-// near child first by its own direction) with the leaf test removed.  With
-// no best hit to cull by, the set of nodes a ray visits does not depend on
-// the order.  It writes t = kMissT, as the TPU kernel does, and each ray's
-// node count, without which nothing would depend on the walk.
+// nodes_kernel is K1's walk as it stood before its leaf tests were served
+// by the warp (one thread per ray, its own stack, near child first by its
+// own direction) with the leaf test removed.  With no best hit to cull by,
+// the set of nodes a ray visits depends neither on the order nor on that
+// change: it is the node set of wide_bvh_walk.cuh's walk too.  Its time is
+// that of a thread-serial loop, not of the walk's rounds of a warp (one
+// visit a round, a vote to end), so it does not split K1's time between
+// walk and leaves.  It writes t = kMissT, as the TPU kernel does, and each
+// ray's node count, without which nothing would depend on the walk.
 //
 // What bounds them on an H100: the brute-force kernels are bound by
 // operations (15 float32 operations per pair for t, 30 more for the

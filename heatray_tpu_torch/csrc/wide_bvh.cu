@@ -1,39 +1,75 @@
-// Arity-8 BVH traversal: closest hit and any hit, one thread per ray.
+// Arity-8 BVH traversal: closest hit (K1) and any hit (K2), one walk per
+// ray, each leaf test shared by the warp.
 //
 // Replaces the Pallas TPU kernels `_closest_kernel` and `_any_kernel` of
 // heatray_tpu/ops/wide_bvh.py.  Those walk the tree once per 512-ray tile
 // with the tile's aggregate direction sign and test a whole leaf against the
 // tile as one MXU contraction.  Here every thread walks the tree for its own
-// ray, with its own stack, its own near-first child order along the node's
-// sort axis, and exact float32 leaf math.  The closest hit does not depend
-// on the order, and the slab test is widened so that it never culls a hit
-// the pair test accepts (see `slab`), so the result is that of a brute force
-// over the same leaf rows: the plain version.
+// ray (wide_bvh_walk.cuh, the loop K3 runs too: its own stack, its own
+// near-to-far order, pending leaves re-culled against its own best), and the
+// warp serves the (ray, leaf) pairs its lanes offer with `LaneServe`
+// (`lane_serve_closest` / `lane_serve_any`, wide_bvh_common.cuh): lane j
+// holds triangle j of each block of 32 of an offered leaf in 12 registers,
+// loaded once for all the lanes that offer that leaf in the round.  A small
+// group of such rays is tested one ray after the other, one column per
+// lane, the (t, column) minimum a `__reduce_min_sync` of an order-preserving
+// key and a ballot; a group of more than 24 (coherent rays) has each lane
+// test its own ray against the columns in turn, broadcast from the
+// registers by shuffles.  The Cornell box's leaves of 32 are one block; a
+// wider leaf (`wide_leaf_size` 64 or 128) is served block by block.
 //
-// What bounds it on an H100: divergent memory latency.  Each node visit
-// reads 8 child boxes (256 B) and each leaf visit 12 floats per triangle,
-// at addresses that differ from lane to lane of a warp, and lanes of one
-// warp take different paths through the tree.  The arithmetic (a few
-// hundred FLOPs per visit) is far below the card's rate.  This simple
-// design does nothing about that yet: no warp-level or sorted wavefronts,
-// no persistent threads, no staging of nodes or leaves in shared memory
-// through TMA, no `wgmma` leaf tests.  Those are later work.
+// What bounded the thread-serial design it replaces (one ray per thread,
+// each thread testing all the triangles of every leaf it entered, 12 scalar
+// loads each): on bounce rays a leaf is entered by 2-5% of a tile's rays,
+// so the warp ran each lane's 32-triangle loop in turn; that walk alone
+// (chip_smoke.py phase 17's P1 `nodes`, which still times it) took
+// 0.085-0.088 of its 0.46 ms on the primary rays.  Here a leaf costs one
+// coalesced load per Woop row per (warp, leaf, block, round) and, per ray
+// that enters it, one lane-parallel pair test or, in a large group, that
+// ray's own pass over the columns.
 //
-// Numerics, layouts and the slab and pair tests: wide_bvh_common.cuh.
-// Ties in t go to the lowest slot, as in the plain version.
+// What bounds it on an H100 (80GB HBM3, 700 W; chip_smoke.py phase 4, the
+// Cornell box's leaf-32 tree): latency, as for K3.  K1 takes 0.39 ms on the
+// 2,073,600 primary rays and 0.59 ms on the 1,814,400 lanes of the sorted
+// depth-2 head, 20x and 30x its bound (the rays and the tree they reach at
+// 3.35 TB/s; the head's pair-test operations at 67 TFLOP/s); K2 0.24 and
+// 0.25 ms on their shadow lanes, 13x and 16x.  Each round of a warp is a
+// chain of dependent steps (a node's 8 boxes, a match and a ballot, 12 loads,
+// then per ray shuffles, the pair test and a reduction), at 63-64 registers
+// a thread.  How the time splits between the walk and the leaf service is
+// not measured.
+// What is left for later: persistent warps, staging the nodes, and the
+// launches themselves: a pass is host-bound, so K1/K2 move its kernel time,
+// not its wall.
+//
+// What the card's other features would do here, and why they are not used:
+// - tensor cores (`wgmma`, TF32): the pair test is exact float32 with
+//   separately rounded products (--fmad=false), which TF32's 10 mantissa
+//   bits cannot give;
+// - shared memory or TMA staging of leaves: a leaf of 32 is 1,536 bytes,
+//   12 registers a lane; the Cornell box's 171 leaves (263 KB) exceed the
+//   227 KB a block may take and stay in L1/L2 anyway;
+// - persistent warps that fetch a new ray when a lane's walk ends: not
+//   tried.
+//
+// Numerics, layouts and the slab and pair tests: wide_bvh_common.cuh.  Ties
+// in t go to the lowest slot, across leaves too, so the result equals the
+// brute force over the same slot rows bit for bit: the plain version.
 
 #include <cuda_runtime.h>
 
-#include "wide_bvh_common.cuh"
+#include "wide_bvh_walk.cuh"
 
 namespace {
 
 using namespace wide_bvh;
 
-constexpr int kStackDepth = 64;
-constexpr int kThreads = 128;
+// At most 64 registers a thread (8 blocks of 128 per SM): uncapped, the
+// ray-per-lane branch of `lane_serve_closest` takes 72 and K1 is 3% slower
+// (profile_torch_wide.py, variant `uncapped`).
+constexpr int kMinBlocks = 8;
 
-__global__ void __launch_bounds__(kThreads) closest_wide_kernel(
+__global__ void __launch_bounds__(kWalkThreads, kMinBlocks) closest_wide_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
@@ -41,55 +77,11 @@ __global__ void __launch_bounds__(kThreads) closest_wide_kernel(
     const int* __restrict__ waxis, const float* __restrict__ w,
     const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
     Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-
-  float best = kMissT;
-  int best_slot = -1;
-  int stack[kStackDepth];
-  int sp = 0;
-  int node = 0;
-  while (node >= 0) {
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const int axis = waxis[node];
-    const float d_axis = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-    const bool low_first = d_axis >= 0.0f;
-    const unsigned live = live_children(boxes, codes, r, t_min, best, widen);
-
-    // Leaf children near to far: the running best shrinks early.
-    for (int k = 0; k < kArity; ++k) {
-      const int c = low_first ? k : kArity - 1 - k;
-      const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      const int chunk = -2 - code;
-      const float ax = r.ox - wanchor[chunk];
-      const float ay = r.oy - wanchor[n_chunks + chunk];
-      const float az = r.oz - wanchor[2 * n_chunks + chunk];
-      const float* W = w + (size_t)chunk * 4 * 3 * tc;
-      for (int j = 0; j < tc; ++j) {
-        const float t = tri_t(W, tc, j, ax, ay, az, r, t_min, kMissT);
-        const int slot = chunk * tc + j;
-        if (t < best || (t == best && t < kMissT && slot < best_slot)) {
-          best = t;
-          best_slot = slot;
-        }
-      }
-    }
-    // Internal children far to near, so the stack pops near first.
-    for (int k = 0; k < kArity; ++k) {
-      const int c = low_first ? kArity - 1 - k : k;
-      const int code = codes[c];
-      if (((live >> c) & 1u) && code >= 0) stack[sp++] = code;
-    }
-    node = sp > 0 ? stack[--sp] : -1;
-  }
-  t_out[i] = best;
-  slot_out[i] = best_slot;
+  closest_walk<LaneServe>(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+                          n_chunks, tc, t_min, widen, t_out, slot_out);
 }
 
-__global__ void __launch_bounds__(kThreads) any_wide_kernel(
+__global__ void __launch_bounds__(kWalkThreads, kMinBlocks) any_wide_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
@@ -98,49 +90,9 @@ __global__ void __launch_bounds__(kThreads) any_wide_kernel(
     const int* __restrict__ waxis, const float* __restrict__ w,
     const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
     Widen widen, unsigned char* __restrict__ blocked_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const float t_far = t_max[i];
-
-  int stack[kStackDepth];
-  int sp = 0;
-  int node = 0;
-  while (node >= 0) {
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const int axis = waxis[node];
-    const float d_axis = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-    const bool low_first = d_axis >= 0.0f;
-    const unsigned live = live_children(boxes, codes, r, t_min, t_far, widen);
-
-    for (int k = 0; k < kArity; ++k) {
-      const int c = low_first ? k : kArity - 1 - k;
-      const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      const int chunk = -2 - code;
-      const float ax = r.ox - wanchor[chunk];
-      const float ay = r.oy - wanchor[n_chunks + chunk];
-      const float az = r.oz - wanchor[2 * n_chunks + chunk];
-      const float* W = w + (size_t)chunk * 4 * 3 * tc;
-      for (int j = 0; j < tc; ++j) {
-        if (tri_t(W, tc, j, ax, ay, az, r, t_min, t_far) < kMissT) {
-          blocked_out[i] = 1;  // first occluder ends the walk
-          return;
-        }
-      }
-    }
-    for (int k = 0; k < kArity; ++k) {
-      const int c = low_first ? kArity - 1 - k : k;
-      const int code = codes[c];
-      if (((live >> c) & 1u) && code >= 0) stack[sp++] = code;
-    }
-    node = sp > 0 ? stack[--sp] : -1;
-  }
-  blocked_out[i] = 0;
+  any_walk<LaneServe>(ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+                      n_chunks, tc, t_min, widen, blocked_out);
 }
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
@@ -157,7 +109,7 @@ extern "C" int closest_wide(const float* ox, const float* oy, const float* oz,
                             float t_min, float box_pad, float far_scale,
                             float* t_out, int* slot_out, void* stream) {
   if (n_rays > 0) {
-    closest_wide_kernel<<<blocks_for(n_rays), kThreads, 0,
+    closest_wide_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
         n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, t_out, slot_out);
@@ -173,7 +125,7 @@ extern "C" int any_wide(const float* ox, const float* oy, const float* oz,
                         float t_min, float box_pad, float far_scale,
                         unsigned char* blocked_out, void* stream) {
   if (n_rays > 0) {
-    any_wide_kernel<<<blocks_for(n_rays), kThreads, 0,
+    any_wide_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w,
         wanchor, n_chunks, leaf_size, t_min, Widen{box_pad, far_scale},

@@ -1,7 +1,9 @@
 // Arity-8 BVH pieces shared by the traversal kernels (wide_bvh.cu,
 // wide_bvh_stream.cu, wide_bvh_t.cu): the ray, the widened slab test of a
 // node's children, the exact-f32 Woop pair test of one triangle of a leaf
-// chunk, and that test spread across the lanes of a warp.
+// chunk, and the warp's leaf services: that test spread across the lanes of
+// a warp, one ray at a time, or one triangle per lane held in registers for
+// every ray of the warp that offers the leaf.
 //
 // Numerics: built with --fmad=false, so every product and sum rounds
 // separately, in the order the plain PyTorch version
@@ -18,6 +20,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cfloat>
 
 namespace wide_bvh {
 
@@ -105,29 +109,57 @@ __device__ __forceinline__ unsigned live_children(
 }
 
 // Woop pair test of one triangle: its t, or kMissT outside the triangle.
-// `W` points at the chunk (global or shared memory), `j` is the triangle's
-// column in each block.
+// `col(f, g)` is the triangle's value in feature row f (x, y, z, 1) of
+// column block g (b1, b2, s); it is read where the expression needs it, so
+// a triangle in device memory loads its b1 and b2 columns only when t lies
+// in range.
+template <class Col>
+__device__ __forceinline__ float woop_t(Col col, float ax, float ay, float az,
+                                        const Ray& r, float t_min, float t_max) {
+  const float pos = ax * col(0, 2) + ay * col(1, 2) + az * col(2, 2) + col(3, 2);
+  const float pds = r.dx * col(0, 2) + r.dy * col(1, 2) + r.dz * col(2, 2);
+  const float t = -pos / pds;
+  if (!(t > t_min && t < t_max)) return kMissT;  // NaN fails here too
+  const float b1 = (ax * col(0, 0) + ay * col(1, 0) + az * col(2, 0) + col(3, 0)) +
+                   t * (r.dx * col(0, 0) + r.dy * col(1, 0) + r.dz * col(2, 0));
+  const float b2 = (ax * col(0, 1) + ay * col(1, 1) + az * col(2, 1) + col(3, 1)) +
+                   t * (r.dx * col(0, 1) + r.dy * col(1, 1) + r.dz * col(2, 1));
+  const bool inside =
+      b1 >= -kBaryEps && b2 >= -kBaryEps && b1 + b2 <= 1.0f + kBaryEps;
+  return inside ? t : kMissT;
+}
+
+// The pair test of column `j` of chunk `W` (global or shared memory).
 __device__ __forceinline__ float tri_t(const float* __restrict__ W, int tc,
                                        int j, float ax, float ay, float az,
                                        const Ray& r, float t_min, float t_max) {
   const int stride = 3 * tc;
-  const float* c0 = W;               // feature row x
-  const float* c1 = W + stride;      // feature row y
-  const float* c2 = W + 2 * stride;  // feature row z
-  const float* c3 = W + 3 * stride;  // feature row 1
-  const int s = 2 * tc + j;
-  const float pos = ax * c0[s] + ay * c1[s] + az * c2[s] + c3[s];
-  const float pds = r.dx * c0[s] + r.dy * c1[s] + r.dz * c2[s];
-  const float t = -pos / pds;
-  if (!(t > t_min && t < t_max)) return kMissT;  // NaN fails here too
-  const int u = j, v = tc + j;
-  const float b1 = (ax * c0[u] + ay * c1[u] + az * c2[u] + c3[u]) +
-                   t * (r.dx * c0[u] + r.dy * c1[u] + r.dz * c2[u]);
-  const float b2 = (ax * c0[v] + ay * c1[v] + az * c2[v] + c3[v]) +
-                   t * (r.dx * c0[v] + r.dy * c1[v] + r.dz * c2[v]);
-  const bool inside =
-      b1 >= -kBaryEps && b2 >= -kBaryEps && b1 + b2 <= 1.0f + kBaryEps;
-  return inside ? t : kMissT;
+  return woop_t([&](int f, int g) { return (W + f * stride)[g * tc + j]; }, ax, ay, az,
+                r, t_min, t_max);
+}
+
+// One triangle's 12 Woop values in registers: c[g][f], column block g (b1,
+// b2, s), feature row f (x, y, z, 1).
+struct TriCols {
+  float c[3][4];
+};
+
+// Column `j` of chunk `W`: 12 loads, each of which reads `tc` consecutive
+// floats across the lanes j = 0 .. tc - 1 of a warp.
+__device__ __forceinline__ TriCols load_cols(const float* __restrict__ W, int tc, int j) {
+  TriCols cols;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) cols.c[g][f] = W[f * 3 * tc + g * tc + j];
+  }
+  return cols;
+}
+
+// The pair test of a triangle held in registers: `tri_t`'s expression.
+__device__ __forceinline__ float tri_t(const TriCols& cols, float ax, float ay, float az,
+                                       const Ray& r, float t_min, float t_max) {
+  return woop_t([&](int f, int g) { return cols.c[g][f]; }, ax, ay, az, r, t_min, t_max);
 }
 
 // --- warp-transposed leaf tests (wide_bvh_t.cu, wide_bvh_stream.cu) ----------
@@ -204,13 +236,22 @@ __device__ __forceinline__ bool warp_leaf_any(const float* __restrict__ W, int t
   return __any_sync(kFullMask, hit);
 }
 
+// A closest-hit candidate (t, slot) against the ray's (best, best_slot): a
+// smaller t wins, an equal one at a lower slot, so ties go to the lowest
+// slot across leaves too.
+__device__ __forceinline__ void keep_closest(float t, int slot, float& best, int& best_slot) {
+  if (t < best || (t == best && t < kMissT && slot < best_slot)) {
+    best = t;
+    best_slot = slot;
+  }
+}
+
 // The warp's service of the (ray, leaf) pairs its lanes offer, closest hit:
 // each lane that offers a chunk (`chunk >= 0`) has its ray tested in turn,
 // lowest lane first, by the whole warp against that chunk's rows, at
 // `w + chunk * stride` (global memory; a stride of 0 when every lane offers
 // the one chunk at `w`, which may be staged in shared memory).  Only the
-// offering lane keeps the result, a smaller t or an equal one at a lower
-// slot, so ties go to the lowest slot across leaves too.  Lanes that offer
+// offering lane keeps the result (`keep_closest`).  Lanes that offer
 // nothing (chunk < 0) take part and keep what they had.
 __device__ __forceinline__ void warp_serve_closest(
     int chunk, const float* __restrict__ w, size_t stride, int tc,
@@ -227,11 +268,7 @@ __device__ __forceinline__ void warp_serve_closest(
     warp_leaf_closest(w + q_chunk * stride, tc, q.ox - wanchor[q_chunk],
                       q.oy - wanchor[n_chunks + q_chunk], q.oz - wanchor[2 * n_chunks + q_chunk],
                       q, t_min, q_best, &t, &col);
-    const int slot = q_chunk * tc + col;
-    if (lane == src && (t < best || (t == best && t < kMissT && slot < best_slot))) {
-      best = t;
-      best_slot = slot;
-    }
+    if (lane == src) keep_closest(t, q_chunk * tc + col, best, best_slot);
   }
 }
 
@@ -255,6 +292,138 @@ __device__ __forceinline__ bool warp_serve_any(
       hit = true;
     }
   }
+  return hit;
+}
+
+// --- one triangle per lane (wide_bvh.cu) --------------------------------------
+//
+// The service of `warp_serve_closest` / `warp_serve_any` with the chunk's
+// columns in registers: for each chunk offered in this round, lane j holds
+// column j0 + j of each block of 32 columns (`load_cols`: 12 coalesced
+// loads), loaded once for all the lanes that offer that chunk
+// (`__match_any_sync`), and their rays are tested from those registers.
+// Lanes past the chunk's last column hold nothing and find no hit.  The
+// same calls must be made by all 32 lanes of the warp.
+
+// An unsigned key in the order of the floats, for every float but NaN (-0
+// is made +0 first, so that equal floats have equal keys), and its inverse.
+__device__ __forceinline__ unsigned order_key(float t) {
+  const unsigned b = __float_as_uint(t + 0.0f);
+  return b ^ ((b & 0x80000000u) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float(k ^ ((k & 0x80000000u) ? 0x80000000u : 0xffffffffu));
+}
+
+// Lane `src`'s triangle held in registers, on every lane.
+__device__ __forceinline__ TriCols shfl_cols(const TriCols& cols, int src) {
+  TriCols out;
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) out.c[g][f] = __shfl_sync(kFullMask, cols.c[g][f], src);
+  }
+  return out;
+}
+
+// Calls `test(c, j0, cols, a, rays)` once for each distinct chunk `c`
+// offered by a lane (`chunk >= 0`), lowest offering lane first, and for
+// each of its blocks of 32 columns, lowest first: `j0` the block's first
+// column, `cols` this lane's column j0 + lane, `a` this lane's ray with its
+// origin re-centred on the chunk's anchor (as the pair test takes it),
+// `rays` the mask of the lanes that offer the chunk.
+template <class Test>
+__device__ __forceinline__ void lane_serve(int chunk, const float* __restrict__ w, int tc,
+                                           const float* __restrict__ wanchor, int n_chunks,
+                                           const Ray& r, Test test) {
+  const int lane = threadIdx.x & 31;
+  const unsigned same = __match_any_sync(kFullMask, chunk);
+  for (unsigned want = __ballot_sync(kFullMask, chunk >= 0); want;) {
+    const int lead = __ffs(static_cast<int>(want)) - 1;
+    const unsigned rays = __shfl_sync(kFullMask, same, lead);
+    want &= ~rays;
+    const int c = __shfl_sync(kFullMask, chunk, lead);
+    Ray a = r;
+    a.ox = r.ox - wanchor[c];
+    a.oy = r.oy - wanchor[n_chunks + c];
+    a.oz = r.oz - wanchor[2 * n_chunks + c];
+    for (int j0 = 0; j0 < tc; j0 += 32) {
+      TriCols cols = {};
+      if (j0 + lane < tc) cols = load_cols(w + (size_t)c * 12 * tc, tc, j0 + lane);
+      test(c, j0, cols, a, rays);
+    }
+  }
+}
+
+// Groups of more rays than this test ray per lane; smaller ones one ray at
+// a time across the columns.  On the Cornell box's launches 16-28 are
+// within 1% of one another, 8 and no ray-per-lane branch slower
+// (profile_torch_wide.py, variants `rays-*`).
+constexpr int kLaneRays = 24;
+
+// Closest hit: `warp_serve_closest`'s contract.  A group of many rays
+// (coherent rays that enter a leaf together) has each of its lanes test
+// its own ray against every column of the block in turn, the column
+// broadcast from lane j's registers by shuffles, in column order.  A small
+// group tests its rays one after the other with one column per lane, and
+// the (t, column) minimum over the lanes is two warp instructions: the
+// least order key (redux.sync), then the lowest lane that holds it, which
+// is the lowest column of that t.  The least t of the block is taken over
+// every t in range, and the ray's own lane keeps it only if it is at most
+// its best: the same result as testing against the best, without its
+// shuffle.  Blocks come lowest first, so `keep_closest` keeps ties to the
+// lowest slot across blocks as across leaves.
+__device__ __forceinline__ void lane_serve_closest(
+    int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
+    int n_chunks, const Ray& r, float t_min, float& best, int& best_slot) {
+  const int lane = threadIdx.x & 31;
+  lane_serve(chunk, w, tc, wanchor, n_chunks, r,
+             [&](int c, int j0, const TriCols& cols, const Ray& a, unsigned rays) {
+    const int base = c * tc + j0;
+    if (__popc(rays) > kLaneRays) {
+      const bool mine = (rays >> lane) & 1u;
+      // t < t_lim <=> t <= best (+inf as the direction)
+      const float t_lim = nextafterf(best, __int_as_float(0x7f800000));
+      const int n = min(tc - j0, 32);
+      for (int j = 0; j < n; ++j) {
+        const TriCols col_j = shfl_cols(cols, j);
+        if (mine) keep_closest(tri_t(col_j, a.ox, a.oy, a.oz, a, t_min, t_lim), base + j,
+                               best, best_slot);
+      }
+      return;
+    }
+    for (; rays; rays &= rays - 1) {
+      const int src = __ffs(static_cast<int>(rays)) - 1;
+      const Ray q = shfl_ray(a, src);
+      const float t =
+          j0 + lane < tc ? tri_t(cols, q.ox, q.oy, q.oz, q, t_min, FLT_MAX) : kMissT;
+      const unsigned key = order_key(t);
+      const unsigned low = __reduce_min_sync(kFullMask, key);
+      const int col = __ffs(static_cast<int>(__ballot_sync(kFullMask, key == low))) - 1;
+      if (lane == src) keep_closest(key_float(low), base + col, best, best_slot);
+    }
+  });
+}
+
+// Any hit: `warp_serve_any`'s contract, the rays of a group one after the
+// other, each until its first block with a hit.
+__device__ __forceinline__ bool lane_serve_any(
+    int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
+    int n_chunks, const Ray& r, float t_min, float t_max) {
+  const int lane = threadIdx.x & 31;
+  bool hit = false;
+  lane_serve(chunk, w, tc, wanchor, n_chunks, r,
+             [&](int, int j0, const TriCols& cols, const Ray& a, unsigned rays) {
+    for (rays &= ~__ballot_sync(kFullMask, hit); rays; rays &= rays - 1) {
+      const int src = __ffs(static_cast<int>(rays)) - 1;
+      const Ray q = shfl_ray(a, src);
+      const float q_max = __shfl_sync(kFullMask, t_max, src);
+      const bool mine =
+          j0 + lane < tc && tri_t(cols, q.ox, q.oy, q.oz, q, t_min, q_max) < kMissT;
+      if (__any_sync(kFullMask, mine) && lane == src) hit = true;
+    }
+  });
   return hit;
 }
 

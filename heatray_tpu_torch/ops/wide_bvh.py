@@ -43,9 +43,10 @@ _BIG = np.float32(3.0e38)
 # the plain version finds.
 BOX_PAD = 4.0 * BARY_EPS
 FAR_SCALE = 1.0 + 2.0**-20
-# Leaf pair-test math of the wide trees: "mxu" (K1/K3, one thread per ray
-# and triangle) or "vpu" (K5/K4, the leaf test spread across a warp), whose
-# leaves are a multiple of VPU_LEAF_ALIGN triangles.
+# Leaf pair-test math of the wide trees: "mxu" (K1/K3, exact f32 pair tests
+# in the row layout of the TPU's MXU path) or "vpu" (K5/K4, the reference's
+# transposed leaf math), whose leaves are a multiple of VPU_LEAF_ALIGN
+# triangles.
 LEAF_MATHS = ("mxu", "vpu")
 VPU_LEAF_ALIGN = 128
 
@@ -419,7 +420,9 @@ def intersect_closest_wide(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min:
     """Closest hit of each ray (Vec3 of (R,)): ``(t, slot, hit)``.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``closest_wide_kernel`` on the tree's device and its current stream."""
+    ``closest_wide_kernel`` (``csrc/wide_bvh.cu``) on the tree's device and
+    its current stream: a walk per ray, and the warp tests each (ray, leaf)
+    pair that a walk reaches, one triangle per lane in blocks of 32."""
     if on_cpu(bvh):
         return closest_wide_plain(bvh, origins, directions, t_min)
     lib = _kernels()
@@ -437,7 +440,8 @@ def intersect_any_wide(
     is a float or an (R,) tensor.  Returns an (R,) bool mask.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``any_wide_kernel`` on the tree's device and its current stream."""
+    ``any_wide_kernel`` on the tree's device and its current stream (the
+    walk of ``intersect_closest_wide``, a blocked ray's walk ended)."""
     if on_cpu(bvh):
         return any_wide_plain(bvh, origins, directions, t_min, t_max)
     lib = _kernels()

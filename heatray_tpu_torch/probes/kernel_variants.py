@@ -371,7 +371,7 @@ def run(bvh: WideBVH, rows, origins: Vec3, directions: Vec3, cases=None, reps: i
                                   reps, device)
     k1 = {"ms": ms, "t": t, "slot": slot}
     k1["match_t"], k1["match_id"] = agreement(t, slot, out[0]["t"], out[0]["slot"])
-    log(f"K1 closest_wide (one ray a thread, blocks of 128): {ms:9.4f} ms "
+    log(f"K1 closest_wide (a walk per ray, blocks of 128): {ms:9.4f} ms "
         f"match_t={k1['match_t']:.4f} match_id={k1['match_id']:.4f}")
     return {"cases": out, "k1": k1}
 

@@ -53,26 +53,29 @@ def _rays(r, seed, device):
     return vec(o), vec(d)
 
 
-@pytest.mark.parametrize("t, leaf_size", [(700, 16), (5000, 32)])
-def test_kernels_match_plain(cuda_device, t, leaf_size):
+@pytest.mark.parametrize("n_rays", [8192, 8191, 33])
+@pytest.mark.parametrize("t, leaf_size", [(700, 16), (5000, 32), (5000, 64), (5000, 128)])
+def test_kernels_match_plain(cuda_device, t, leaf_size, n_rays):
     """Both sides do the same float32 arithmetic in the same order, so t
-    agrees to rounding (rtol = atol = 1e-5) and ties go to the lowest slot
-    on both."""
+    agrees to rounding (rtol = atol = 1e-5), and ties go to the lowest slot
+    across leaves too, so slots are equal everywhere: one triangle per lane
+    in one block of columns at leaf 16 and 32, in two and four blocks at 64
+    and 128; with whole warps, a last warp of 31 rays, and a second warp of
+    one ray."""
     bvh = wide_bvh.build_wide_bvh(_soup(t, 11, cuda_device), leaf_size=leaf_size)
-    o, d = _rays(8192, 7, cuda_device)
+    o, d = _rays(n_rays, 7, cuda_device)
     launches = wide_bvh.intersect_closest_wide.launches
     t_k, slot_k, hit_k = wide_bvh.intersect_closest_wide(bvh, o, d)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     torch.cuda.synchronize()
     assert wide_bvh.intersect_closest_wide.launches == launches + 1
-    assert torch.equal(hit_k, hit_p)
+    assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p)
     torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
-    assert (slot_k == slot_p).float().mean() > 0.999
 
-    t_max = torch.linspace(0.5, 12.0, 8192, device=cuda_device)
+    t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
     blocked = wide_bvh.intersect_any_wide(bvh, o, d, t_max=t_max)
     assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
-    assert 0 < int(blocked.sum()) < 8192
+    assert n_rays < 8191 or 0 < int(blocked.sum()) < n_rays
 
 
 def test_kernel_finds_hits_just_past_an_edge(cuda_device):
@@ -124,10 +127,21 @@ def test_stream_kernels_match_plain(cuda_device, n_rays):
     assert n_rays < 8191 or 0 < int(blocked.sum()) < n_rays
 
 
-def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device):
-    """300 copies of one triangle, away from a random soup, fill four leaves
-    of 128 with the same anchor, so a ray through it ties in t on every
-    copy; K3a must keep the lowest slot of all, as the plain version does."""
+def _walk_queries(route):
+    """(closest, occlusion) of the walks per ray: K1/K2 (``"wide"``) or K3."""
+    if route == "wide":
+        return wide_bvh.intersect_closest_wide, wide_bvh.intersect_any_wide
+    return wide_bvh.intersect_closest_stream, wide_bvh.intersect_any_stream
+
+
+@pytest.mark.parametrize("route, leaf_size", [("stream", 128), ("wide", 32), ("wide", 64)])
+def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device, route,
+                                                                     leaf_size):
+    """300 copies of one triangle, away from a random soup, fill several
+    leaves (of 128 for K3a, of 32 and 64 for K1: at 64 the ties also span
+    two blocks of columns), so a ray through it ties in t on every copy;
+    the kernel must keep the lowest slot of all, as the plain version
+    does."""
     rng = np.random.default_rng(3)
     n_soup, n_copy = 2000, 300
     v = rng.uniform(-4, 4, (n_soup, 3)).astype(np.float32)
@@ -138,9 +152,9 @@ def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device)
     t = n_soup + n_copy
     pos = torch.from_numpy(np.concatenate(corners).T.copy()).to(cuda_device)
     idx = torch.arange(3 * t, dtype=torch.int32, device=cuda_device).reshape(3, t).contiguous()
-    bvh = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=128)
+    bvh = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=leaf_size)
     copy_slots = (bvh.slot_tri >= n_soup).nonzero()[:, 0]
-    assert (copy_slots // 128).unique().numel() >= 2
+    assert (copy_slots // leaf_size).unique().numel() >= 2
     r = 4096
     org = np.tile(np.array([[14.0, 0.0, 0.0]], np.float32), (r, 1))
     aim = np.stack([np.full(r, 10.0), rng.uniform(-0.3, 0.3, r), rng.uniform(-0.3, 0.3, r)], 1)
@@ -148,23 +162,25 @@ def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = Vec3(*(torch.from_numpy(np.ascontiguousarray(org[:, k])).to(cuda_device) for k in range(3)))
     d = Vec3(*(torch.from_numpy(np.ascontiguousarray(d[:, k])).to(cuda_device) for k in range(3)))
-    t_k, slot_k, hit_k = wide_bvh.intersect_closest_stream(bvh, o, d)
-    t_p, slot_p, hit_p = wide_bvh.closest_stream_plain(bvh, o, d)
+    t_k, slot_k, hit_k = _walk_queries(route)[0](bvh, o, d)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p.all()) and bool((slot_p == copy_slots.min()).all())
     assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p) and torch.equal(t_k, t_p)
 
 
-def test_stream_occlusion_ends_before_every_hit(cuda_device):
-    """K3b with each ray's t_max short of its closest hit: nothing is
-    blocked, although every leaf the ray enters is tested."""
-    bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=128)
+@pytest.mark.parametrize("route, leaf_size", [("stream", 128), ("wide", 32), ("wide", 64)])
+def test_stream_occlusion_ends_before_every_hit(cuda_device, route, leaf_size):
+    """K3b (leaf 128) and K2 (leaf 32 and 64) with each ray's t_max short of its
+    closest hit: nothing is blocked, although every leaf the ray enters is
+    tested."""
+    bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=leaf_size)
     o, d = _rays(8191, 7, cuda_device)
-    t_hit, _, hit = wide_bvh.closest_stream_plain(bvh, o, d)
+    t_hit, _, hit = wide_bvh.closest_wide_plain(bvh, o, d)
     assert int(hit.sum()) > 4000
     t_max = torch.where(hit, t_hit * 0.999, 100.0)
-    blocked = wide_bvh.intersect_any_stream(bvh, o, d, t_max=t_max)
+    blocked = _walk_queries(route)[1](bvh, o, d, t_max=t_max)
     assert not bool(blocked.any())
-    assert torch.equal(blocked, wide_bvh.any_stream_plain(bvh, o, d, t_max=t_max))
+    assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
 
 
 def test_stream_kernel_finds_hits_just_past_an_edge(cuda_device):
