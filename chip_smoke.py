@@ -5,8 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the wide-BVH kernels of ``heatray_tpu_torch/csrc`` (one ``nvcc``
-per source, started together) and then:
+It builds the kernels of ``heatray_tpu_torch/csrc`` and K7a's parent design
+(``k7a_parent.py``, phase 11's yardstick), one ``nvcc`` per source, started
+together, and then:
 
 1. checks K1 and K2 (``wide_bvh.cu``) against their plain PyTorch versions
    on the card: on the Cornell box, each kernel launched at the shapes a
@@ -47,7 +48,7 @@ per source, started together) and then:
    chunk packs and the shading table) and K6a and K6b (``bvh2.cu``) under
    ``intersect_backend="bvh"`` against their plain versions, each launched
    at the shapes the 1080p Cornell path gives it (as in 5), and on the
-   50,000-triangle soup;
+   50,000-triangle soup; K7a to every t and every id equal, bit for bit;
 9. renders config2 through the rebuild mode, ``"pallas"`` and ``"bvh"`` and
    compares each with the golden;
 10. renders the Cornell path (as in 3) in the rebuild mode and under
@@ -55,7 +56,8 @@ per source, started together) and then:
    lanes, no K1-K3) and timing the rebuild within each pass, and compares
    each image with phase 3's ``"wide"`` image of the same passes;
 11. times K7a, K7b, K6a and K6b on phase 4's rays, and their plain
-   versions on all of them;
+   versions on all of them; and K7a beside its parent design, in turns, on
+   the primary rays and the rebuild mode's sorted depth-2 head;
 12. checks K5a and K5b (``wide_bvh_t.cu``) under Route A (the Cornell box
    with ``wide_leaf_math="vpu"``: "auto" keeps "wide" and rounds the leaf of
    32 up to 128) against their plain versions, at the shapes the 1080p path
@@ -84,7 +86,9 @@ per source, started together) and then:
    leaf {32, 64, 128} x tile {256, 512, 1024}; each probe is checked
    against its plain version on N_CHECK seeded lanes (``nodes``: t and
    visit counts equal; ``leaves``: hit masks equal, t within TOL, and
-   equal to the tree's brute force ``closest_wide_plain``);
+   equal to the tree's brute force ``closest_wide_plain``); ``grid`` is
+   also timed a call beside ``torch.mul(x, 0.0)``, with the device time of
+   each alone (a CUDA-graph replay) and its host path taken apart;
 18. runs the P4 probe (``probes.vpu_leaf``: the row and warp-transposed
    brute force) at tc {128, 256, 512} x tile {256, 512}, each layout
    against the plain brute force on N_CHECK seeded lanes and against the
@@ -110,7 +114,9 @@ counts both: the bytes of the rays, of the outputs and of the nodes (or
 chunk boxes) and leaf triangles the rays reach, each once; the per-ray
 arithmetic of the box slab tests, of every pair test's t, and of the
 barycentrics of the pairs whose t lies in range.  The chunk kernels test
-every chunk's box per ray and every triangle of each chunk a ray enters.
+every chunk's box per ray and every triangle of each chunk a ray enters;
+K7a, in such a chunk, every block's box and the triangles of the blocks
+it enters.
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the card's name and power limit, the per-kernel JSON record and
@@ -121,6 +127,7 @@ before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -135,6 +142,11 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
+# K7a: its t must equal the plain version's bit for bit (the same float32
+# operations in the same order), with every id equal; and it culls by the
+# pack's block boxes too, so its bound counts the blocks' work
+# (``chunk_work(blocks=True)``).
+K7A = "closest_chunks"
 SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes", "variants")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -318,7 +330,7 @@ def live_pick(active, gen):
 def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4, exact=False):
     """The kernel on all the rays against the plain version on the lanes
     ``pick`` (all when None).  ``exact``: no slot may differ, not even on a
-    tie."""
+    tie; for K7a, no t either."""
     import torch
 
     kernel, plain = queries()[name]
@@ -333,8 +345,11 @@ def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4, exact=Fa
         raise AssertionError(f"{label}: {name} masks differ on {int((h_k != h_p).sum())} rays")
     diff = (t_k - t_p).abs()
     bad = diff > TOL + TOL * t_p.abs()
+    if exact and name == K7A:
+        bad = t_k != t_p
     if bad.any():
-        raise AssertionError(f"{label}: {name} t differs, max {float(diff.max())}")
+        raise AssertionError(f"{label}: {name} t differs on {int(bad.sum())} rays, "
+                             f"max {float(diff.max())}")
     # A different slot is allowed only where it ties with the plain one.
     other = s_k != s_p
     tie = (slot_t(bvh, org, d, s_k) - t_p).abs() <= TOL + TOL * t_p.abs()
@@ -518,35 +533,55 @@ def _pair_t(rows, oc, dc, ray, cols):
     return -(ox * r[8] + oy * r[9] + oz * r[10] + r[11]) / (dx * r[8] + dy * r[9] + dz * r[10])
 
 
-def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192):
+def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192, blocks=False):
     """``walk_work`` for the chunk kernels: every ray tests every chunk's box,
     and every triangle of each chunk whose widened box it enters before
-    ``t_far``."""
+    ``t_far``; with ``blocks`` (K7a), in such a chunk every block's box, and
+    only the triangles of the blocks it enters.  ``entries``: the (ray,
+    chunk) pairs entered, ``block_entries`` the (ray, block) pairs."""
     import torch
 
     from heatray_tpu_torch.ops.intersect import chunk_rows
+    from heatray_tpu_torch.ops.intersect_pallas import BLOCK
     from heatray_tpu_torch.ops.wide_bvh import widened_slab
 
     rows, tc = chunk_rows(packed.w), packed.tri_chunk
-    tri = torch.arange(packed.num_chunks * tc, device=rows.device).view(-1, tc)
-    filled = tri < packed.num_triangles
-    seen = torch.zeros(packed.num_chunks, dtype=torch.bool, device=rows.device)
+    n_blocks = packed.blocks.shape[1]
+    # Columns of each chunk (C, Tc), or of each block (C * NB, BLOCK; -1 past the chunk).
+    cols = torch.arange(packed.num_chunks * tc, device=rows.device).view(-1, tc)
+    if blocks:
+        cols = torch.nn.functional.pad(cols, (0, n_blocks * BLOCK - tc), value=-1)
+        cols = cols.view(-1, BLOCK)
+    filled = (cols >= 0) & (cols < packed.num_triangles)
+    seen = torch.zeros(cols.shape[0], dtype=torch.bool, device=rows.device)
     b = packed.boxes.T[:, None, :]  # (6, 1, C)
-    pairs = in_range = 0
+    bb = packed.blocks.view(-1, 6).T  # (6, C * NB)
+    pairs = in_range = entries = block_entries = 0
     for oc, inv, dc, tf in _ray_chunks(org, d, t_far, chunk):
         ok = widened_slab(b[:3], b[3:], [c[:, None] for c in oc], [c[:, None] for c in inv],
                      tf[:, None], t_min) & (b[0] <= b[3])
-        seen |= ok.any(0)
         ray, c = ok.nonzero(as_tuple=True)
+        entries += ray.numel()
+        if blocks:  # the blocks of each entered chunk
+            ray = ray[:, None].expand(-1, n_blocks).reshape(-1)
+            c = (c[:, None] * n_blocks + torch.arange(n_blocks, device=c.device)).reshape(-1)
+            box = bb[:, c]
+            ok = widened_slab(box[:3], box[3:], [x[ray] for x in oc], [x[ray] for x in inv],
+                              tf[ray], t_min) & (box[0] <= box[3])
+            ray, c = ray[ok], c[ok]
+            block_entries += ray.numel()
+        seen[c] = True
         fill = filled[c]
         pairs += int(fill.sum())
-        t = _pair_t(rows, oc, dc, ray, tri[c])
+        t = _pair_t(rows, oc, dc, ray, cols[c].clamp(min=0))
         in_range += int((fill & (t > t_min) & (t <= tf[ray][:, None])).sum())
     n_tris = int(filled[seen].sum())
-    return {"boxes": org.x.numel() * packed.num_chunks, "pairs": pairs, "in_range": in_range,
-            "tree_bytes": packed.num_chunks * BOX_BYTES + n_tris * TRI_BYTES,
-            "reached": f"{packed.num_chunks} chunk boxes, {int(seen.sum())} chunks "
-                       f"({n_tris} triangles)"}
+    n_boxes = org.x.numel() * packed.num_chunks + (entries * n_blocks if blocks else 0)
+    box_bytes = packed.num_chunks * BOX_BYTES * (1 + (n_blocks if blocks else 0))
+    return {"boxes": n_boxes, "pairs": pairs, "in_range": in_range, "entries": entries,
+            "block_entries": block_entries, "tree_bytes": box_bytes + n_tris * TRI_BYTES,
+            "reached": f"{packed.num_chunks} chunk boxes, {int(seen.sum())} "
+                       f"{'blocks' if blocks else 'chunks'} ({n_tris} triangles)"}
 
 
 def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
@@ -635,6 +670,8 @@ def time_kernels(spec, err, launches):
         if t_max is not None:
             t_far = torch.minimum(t_far, t_max)
         work = {"chunks": chunk_work, "bvh": bvh2_work}.get(family, walk_work)
+        if name == K7A:
+            work = functools.partial(chunk_work, blocks=True)
         bound_ms, bound_by = bound(r, work(bvh, org, d, t_far), t_max is not None)
         log(f"[time] {name} on {r} rays: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on "
             f"{n_plain} rays, bound {bound_ms:.4f} ms ({bound_by})")
@@ -691,6 +728,45 @@ def compare_launches(label, kernels, mine, rivals, trees, launches, card):
             log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms[who]:.4f} "
                 f"ms, bound {b_ms:.4f} ms ({b_by})")
     log(f"[compare] {label}, ms: {'; '.join(parts)}; card {card}")
+
+
+def compare_k7a_parent(kernels, packed, prim, head, parent, card):
+    """Phase 11's [compare] line: K7a beside the design it replaced
+    (``k7a_parent``, built in this run) on the primary rays and on the
+    rebuild mode's sorted depth-2 head, each timed over 10 launches in
+    turns (parent, K7a, K7a, parent), and the parent's lanes whose t or id
+    differ from K7a's.  K7a's kernels-line entry gets the
+    parent's times and the head's rays, times and bound."""
+    import torch
+
+    from heatray_tpu_torch.ops import intersect_pallas as ip
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    runs = {
+        "K7a": lambda rays: ip.intersect_closest_pallas(packed, rays.org, rays.direction),
+        "parent": lambda rays: wb.launch_closest(parent.closest_chunks, ip._pack_args(packed),
+                                                 packed, rays.org, rays.direction, 1e-4),
+    }
+    ms, parts = {who: {} for who in runs}, []
+    for tag, rays in (("primary", prim), ("depth-2 head", head)):
+        (t_k, id_k, _), (t_p, id_p, _) = runs["K7a"](rays), runs["parent"](rays)
+        differ = int(((t_k != t_p) | (id_k != id_p)).sum())
+        for who in ("parent", "K7a", "K7a", "parent"):
+            ms[who].setdefault(tag, []).append(time_ms(lambda: runs[who](rays), 10))
+        parts.append(f"{tag} ({rays.org.x.numel()} rays): K7a {ms['K7a'][tag]}, parent "
+                     f"{ms['parent'][tag]}, {differ} lanes differ")
+    entry = next(k for k in kernels if k["name"] == "closest_chunks")
+    r = head.org.x.numel()
+    t_far = runs["K7a"](head)[0]
+    b_ms, b_by = bound(r, chunk_work(packed, head.org, head.direction, t_far, blocks=True),
+                       False)
+    entry.update(parent_ms=min(ms["parent"]["primary"]), head_rays=r,
+                 head_ms=min(ms["K7a"]["depth-2 head"]),
+                 head_parent_ms=min(ms["parent"]["depth-2 head"]), head_bound_ms=b_ms,
+                 head_bound_by=b_by)
+    torch.cuda.synchronize()
+    log(f"[compare] K7a against its parent design (block walk, index order), ms in turns: "
+        f"{'; '.join(parts)}; head bound {b_ms:.4f} ms ({b_by}); card {card}")
 
 
 def run_path(label, scene, camera, ctx, opts, expect):
@@ -912,6 +988,86 @@ def phase_p3(cornell, high_poly, gen, err):
     return probe_entry("visit_stats", rec["ms"], r, plain, bound), launches
 
 
+def grid_costs(org):
+    """P1 ``grid``'s readings on the rays' x plane: ms a call of
+    ``kernel_probe.empty`` and of ``torch.mul(x, 0.0)``, each over 10 calls
+    back to back (CUDA events, ``time_ms``: the kernels line's ``ms_10``
+    and ``library_ms``; its ``ms`` stays ``kernel_probe.run``'s reading over
+    5 calls, so that it lines up with earlier runs); the
+    device time of each alone, from one CUDA-graph replay of the same 10
+    calls; and the host path of ``empty`` taken apart, each part over 1,000
+    calls (``time.perf_counter_ns``, microseconds a call) on the first 4,096
+    rays, whose launches the card finishes faster than the host makes them
+    (no part of the host path depends on the rays' count)."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.probes import check_ray_tile, kernels
+    from heatray_tpu_torch.probes import kernel_probe as kp
+    from heatray_tpu_torch.vec import Vec3
+
+    calls = {"empty": lambda: kp.empty(org), "torch.mul": lambda: torch.mul(org.x, 0.0)}
+    few = Vec3(*(c[:4096].contiguous() for c in (org.x, org.y, org.z)))
+    x = few.x
+    dev, n = x.device, x.numel()
+    lib = kernels()
+    out = torch.empty_like(x)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+
+    def graph_ms(fn):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(10):
+                fn()
+        return time_ms(graph.replay, 1) / 10
+
+    def checks():
+        check_ray_tile(256)
+        return wb.on_cpu(x) or x.dtype != torch.float32 or x.dim() != 1 or x.contiguous()
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "checks and contiguous": checks,
+        "empty_like": lambda: torch.empty_like(x),
+        "device guard (torch.cuda.device)": guard,
+        "current-device test": lambda: dev.index == torch._C._cuda_getDevice(),
+        "torch.cuda.current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream handle": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "ctypes call, no launch (cudaGetLastError)":
+            lambda: lib.probe_empty(x.data_ptr(), 0, 256, out.data_ptr(), stream),
+        "ctypes call with its launch":
+            lambda: lib.probe_empty(x.data_ptr(), n, 256, out.data_ptr(), stream),
+        "launch(), the shared helper, with that call":
+            lambda: wb.launch(lib.probe_empty, dev, x.data_ptr(), n, 256, out.data_ptr()),
+        "empty, the whole wrapper": lambda: kp.empty(few),
+        "torch.mul(x, 0.0)": lambda: torch.mul(x, 0.0),
+    }
+    host_us = {}
+    for part, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(1000):
+            fn()
+        host_us[part] = (time.perf_counter_ns() - t0) / 1000 / 1e3
+        torch.cuda.synchronize()
+    ms = {name: time_ms(fn, 10) for name, fn in calls.items()}
+    device_ms = {name: graph_ms(fn) for name, fn in calls.items()}
+    log(f"[compare] P1 grid on {org.x.numel()} rays, ms a call over 10 back to back: empty "
+        f"{ms['empty']:.4f}, torch.mul {ms['torch.mul']:.4f}; device ms a call (one graph "
+        f"replay of 10): empty {device_ms['empty']:.4f}, torch.mul "
+        f"{device_ms['torch.mul']:.4f}")
+    log(f"[host] P1 grid on {n} rays, us a call over 1,000 calls: "
+        + "; ".join(f"{part} {us:.2f}" for part, us in host_us.items()))
+    return {"ms_10": ms["empty"], "library_ms": ms["torch.mul"], "device_ms": device_ms["empty"],
+            "library_device_ms": device_ms["torch.mul"], "host_us": host_us}
+
+
 def phase_p1(accel, prim, gen, err):
     """Phase 17: P1 through ``kernel_probe.run``, each probe checked against
     its plain version on N_CHECK seeded lanes.  Returns (kernels-line
@@ -972,18 +1128,20 @@ def phase_p1(accel, prim, gen, err):
     leaves_bound = probe_bound(f"P1 leaves on {r} rays: {n_tri} triangles, "
                                f"{in_range / r:.3f} pairs in range per ray", *brute)
     ms = rec["ms"]
-    library_ms = time_ms(lambda: torch.mul(org.x, 0.0), 10)
+    grid = grid_costs(prim.org)
     entries = [
         probe_entry("nodes", ms["nodes", 256], r, (plain_ms["nodes", ls], N_CHECK), nodes_bound,
                     leaf=ls, ray_tile=256),
         probe_entry("rows_brute", ms["leaves", 256], r, (plain_ms["leaves", ls], N_CHECK),
                     leaves_bound, leaf=ls, ray_tile=256),
         probe_entry("empty", ms["grid", 256], r, (time_ms(lambda: kp.empty_plain(org), 10), r),
-                    probe_bound(f"P1 grid on {r} rays", 8 * r, 0), library_ms, ray_tile=256),
+                    probe_bound(f"P1 grid on {r} rays", 8 * r, 0), grid["library_ms"],
+                    ray_tile=256, ms_10=grid["ms_10"], device_ms=grid["device_ms"],
+                    library_device_ms=grid["library_device_ms"], host_us=grid["host_us"]),
     ]
-    log(f"[compare] P1 on {r} rays, leaf {ls}, tile 256: grid {ms['grid', 256]:.4f} ms, nodes "
-        f"{ms['nodes', 256]:.4f}, leaves {ms['leaves', 256]:.4f}, full (K1) "
-        f"{ms['full', None]:.4f}")
+    log(f"[compare] P1 on {r} rays, leaf {ls}, tile 256, ms a call over 5 back to back: grid "
+        f"{ms['grid', 256]:.4f}, nodes {ms['nodes', 256]:.4f}, leaves "
+        f"{ms['leaves', 256]:.4f}, full (K1) {ms['full', None]:.4f}")
     return entries, launches, brute
 
 
@@ -1146,6 +1304,7 @@ def main() -> int:
     from heatray_tpu_torch.ops.intersect_pallas import pack_for_pallas
     from heatray_tpu_torch.options import FrameGlobals, RenderOptions
     from heatray_tpu_torch.render import integrator
+    import k7a_parent
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1154,9 +1313,12 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        parent = pool.submit(k7a_parent.build, cuda_build.BUILD_DIR / "k7a_parent")
         libs = list(pool.map(cuda_build.build, SOURCES))
-    log(f"[build] {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
+        k7a_parent_lib = parent.result()
+    log(f"[build] {[lib.name for lib in libs]} and K7a's parent design in "
+        f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "stack frame" in line:
@@ -1314,14 +1476,15 @@ def main() -> int:
         "rebuild": (opts, ("closest_chunks", "any_chunks")),
         "bvh": (dataclasses.replace(opts, intersect_backend="bvh"), ("closest_bvh", "any_bvh")),
     }
-    ctxs = {}
+    ctxs, route_rays = {}, {}
     for route, (r_opts, names) in routes.items():
         t0 = time.perf_counter()
         ctxs[route] = integrator.make_context(r_opts, None if route == "rebuild" else scene,
                                               device)
         torch.cuda.synchronize()
         log(f"[setup] Cornell 1080p {route} context in {time.perf_counter() - t0:.2f} s")
-        check_path_rays(names, scene, camera, ctxs[route], r_opts, gen, f"cornell {route}", err)
+        route_rays[route] = check_path_rays(names, scene, camera, ctxs[route], r_opts, gen,
+                                            f"cornell {route}", err, exact=route == "rebuild")
     soup_accel = build_woop(pos, idx)
     t0 = time.perf_counter()
     soup_trees = {"chunks": pack_for_pallas(soup_accel, opts.pallas_tri_chunk),
@@ -1330,7 +1493,8 @@ def main() -> int:
         f"binary tree of {soup_trees['bvh'].num_nodes} nodes, stack "
         f"{soup_trees['bvh'].max_stack}, in {time.perf_counter() - t0:.1f} s")
     for family, tree in soup_trees.items():
-        check_closest(f"closest_{family}", tree, s_org, s_dir, "soup", err)
+        check_closest(f"closest_{family}", tree, s_org, s_dir, "soup", err,
+                      exact=family == "chunks")
         check_any(f"any_{family}", tree, s_org, s_dir, t_max, "soup", err)
     del soup_trees, soup_accel
 
@@ -1364,7 +1528,9 @@ def main() -> int:
         ("closest_bvh", bvh_pack.bvh, prim.org, prim.direction, None, True),
         ("any_bvh", bvh_pack.bvh_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, kernels_launches)
-    del ctxs, chunk_pack, bvh_pack
+    compare_k7a_parent(kernels, chunk_pack.packed, prim, route_rays["rebuild"][2], k7a_parent_lib,
+                       card)
+    del ctxs, chunk_pack, bvh_pack, route_rays
 
     # --- 12. K5 under Route A against its plain versions ------------------------
     a_names = ("closest_wide_t", "any_wide_t")

@@ -22,7 +22,8 @@
 //                       chunk, and a shuffle reduction gives the ray's t (K5's
 //                       leaf test, wide_bvh_common.cuh, without the tree);
 //   empty_kernel        tpu_kernel_probe.py `_empty_kernel` (P1 "grid"):
-//                       x * 0 over the same grid, the cost of the launch.
+//                       x * 0 over the same grid (`ray_tile` rays a block,
+//                       four a thread), the cost of the launch.
 //
 // visit_stats_kernel walks the tree as the TPU's streaming kernels and K4
 // do (wide_bvh_block.cuh): one block of 256 rays per tile, a child visited
@@ -303,10 +304,19 @@ __global__ void __launch_bounds__(1024) warp_brute_kernel(
   if (valid) t_out[i] = mine;
 }
 
-__global__ void __launch_bounds__(1024) empty_kernel(const float* __restrict__ ox,
-                                                      int n_rays, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_rays) out[i] = ox[i] * 0.0f;
+// `ray_tile` rays a block, four a thread: 16-byte reads and writes where
+// both pointers allow them, else one float at a time.
+__global__ void __launch_bounds__(256) empty_kernel(const float* __restrict__ ox, int n_rays,
+                                                     int ray_tile, float* __restrict__ out) {
+  const int i = blockIdx.x * ray_tile + 4 * threadIdx.x;
+  const bool aligned = ((reinterpret_cast<size_t>(ox) | reinterpret_cast<size_t>(out)) & 15) == 0;
+  if (aligned && i + 3 < n_rays) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(ox + i));
+    *reinterpret_cast<float4*>(out + i) =
+        make_float4(x.x * 0.0f, x.y * 0.0f, x.z * 0.0f, x.w * 0.0f);
+  } else {
+    for (int k = i; k < min(i + 4, n_rays); ++k) out[k] = ox[k] * 0.0f;
+  }
 }
 
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
@@ -315,8 +325,9 @@ inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; 
 
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = the launch was
-// accepted).  `ray_tile` is the block size of the per-ray kernels (a
-// multiple of 32, at most 1024); visit_stats_kernel's tile is 256.
+// accepted).  `ray_tile` is the rays of a block of the per-ray kernels (a
+// multiple of 32, at most 1024; a thread each, but four a thread in
+// empty_kernel); visit_stats_kernel's tile is 256.
 
 extern "C" int probe_block_stack_depth() { return kBlockStack; }
 extern "C" int probe_stack_depth() { return kStackDepth; }
@@ -387,8 +398,8 @@ extern "C" int probe_warp(const float* ox, const float* oy, const float* oz,
 extern "C" int probe_empty(const float* ox, int n_rays, int ray_tile, float* out,
                            void* stream) {
   if (n_rays > 0) {
-    empty_kernel<<<blocks_for(n_rays, ray_tile), ray_tile, 0,
-                   static_cast<cudaStream_t>(stream)>>>(ox, n_rays, out);
+    empty_kernel<<<blocks_for(n_rays, ray_tile), ray_tile / 4, 0,
+                   static_cast<cudaStream_t>(stream)>>>(ox, n_rays, ray_tile, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

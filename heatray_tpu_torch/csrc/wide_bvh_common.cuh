@@ -362,47 +362,58 @@ __device__ __forceinline__ void lane_serve(int chunk, const float* __restrict__ 
 // (profile_torch_wide.py, variants `rays-*`).
 constexpr int kLaneRays = 24;
 
-// Closest hit: `warp_serve_closest`'s contract.  A group of many rays
-// (coherent rays that enter a leaf together) has each of its lanes test
-// its own ray against every column of the block in turn, the column
-// broadcast from lane j's registers by shuffles, in column order.  A small
-// group tests its rays one after the other with one column per lane, and
+// One block of at most 32 columns, closest hit: `n` columns, `cols` this
+// lane's column (`has_col`: lane < n, written by each caller in its own
+// terms; one form for both changed K1's or K7a's scheduled code and cost
+// it 1-3%), `base` the slot of column 0, `rays` the lanes whose ray `a` (as
+// the pair test takes it) is tested.  A group of many rays (coherent rays
+// that enter a leaf together) has each of its lanes test its own ray
+// against every column in turn, the column broadcast from lane j's
+// registers by shuffles, in column order.  A small group tests its rays
+// one after the other with one column per lane, and
 // the (t, column) minimum over the lanes is two warp instructions: the
 // least order key (redux.sync), then the lowest lane that holds it, which
 // is the lowest column of that t.  The least t of the block is taken over
 // every t in range, and the ray's own lane keeps it only if it is at most
 // its best: the same result as testing against the best, without its
-// shuffle.  Blocks come lowest first, so `keep_closest` keeps ties to the
-// lowest slot across blocks as across leaves.
+// shuffle.  `keep_closest` keeps ties to the lowest slot whatever the order
+// of the blocks.  Every lane of the warp calls it.
+__device__ __forceinline__ void serve_cols_closest(const TriCols& cols, int n, bool has_col,
+                                                   int base, unsigned rays, const Ray& a,
+                                                   float t_min, float& best, int& best_slot) {
+  const int lane = threadIdx.x & 31;
+  if (__popc(rays) > kLaneRays) {
+    const bool mine = (rays >> lane) & 1u;
+    // t < t_lim <=> t <= best (+inf as the direction)
+    const float t_lim = nextafterf(best, __int_as_float(0x7f800000));
+    for (int j = 0; j < n; ++j) {
+      const TriCols col_j = shfl_cols(cols, j);
+      if (mine) keep_closest(tri_t(col_j, a.ox, a.oy, a.oz, a, t_min, t_lim), base + j, best,
+                             best_slot);
+    }
+    return;
+  }
+  for (; rays; rays &= rays - 1) {
+    const int src = __ffs(static_cast<int>(rays)) - 1;
+    const Ray q = shfl_ray(a, src);
+    const float t = has_col ? tri_t(cols, q.ox, q.oy, q.oz, q, t_min, FLT_MAX) : kMissT;
+    const unsigned key = order_key(t);
+    const unsigned low = __reduce_min_sync(kFullMask, key);
+    const int col = __ffs(static_cast<int>(__ballot_sync(kFullMask, key == low))) - 1;
+    if (lane == src) keep_closest(key_float(low), base + col, best, best_slot);
+  }
+}
+
+// Closest hit: `warp_serve_closest`'s contract, each block of 32 columns
+// served by `serve_cols_closest`, lowest first.
 __device__ __forceinline__ void lane_serve_closest(
     int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
     int n_chunks, const Ray& r, float t_min, float& best, int& best_slot) {
   const int lane = threadIdx.x & 31;
   lane_serve(chunk, w, tc, wanchor, n_chunks, r,
              [&](int c, int j0, const TriCols& cols, const Ray& a, unsigned rays) {
-    const int base = c * tc + j0;
-    if (__popc(rays) > kLaneRays) {
-      const bool mine = (rays >> lane) & 1u;
-      // t < t_lim <=> t <= best (+inf as the direction)
-      const float t_lim = nextafterf(best, __int_as_float(0x7f800000));
-      const int n = min(tc - j0, 32);
-      for (int j = 0; j < n; ++j) {
-        const TriCols col_j = shfl_cols(cols, j);
-        if (mine) keep_closest(tri_t(col_j, a.ox, a.oy, a.oz, a, t_min, t_lim), base + j,
-                               best, best_slot);
-      }
-      return;
-    }
-    for (; rays; rays &= rays - 1) {
-      const int src = __ffs(static_cast<int>(rays)) - 1;
-      const Ray q = shfl_ray(a, src);
-      const float t =
-          j0 + lane < tc ? tri_t(cols, q.ox, q.oy, q.oz, q, t_min, FLT_MAX) : kMissT;
-      const unsigned key = order_key(t);
-      const unsigned low = __reduce_min_sync(kFullMask, key);
-      const int col = __ffs(static_cast<int>(__ballot_sync(kFullMask, key == low))) - 1;
-      if (lane == src) keep_closest(key_float(low), base + col, best, best_slot);
-    }
+    serve_cols_closest(cols, min(tc - j0, 32), j0 + lane < tc, c * tc + j0, rays, a, t_min, best,
+                       best_slot);
   });
 }
 

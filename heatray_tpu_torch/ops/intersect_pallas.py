@@ -6,8 +6,10 @@ Port of ``heatray_tpu.ops.intersect_pallas`` (``WoopPallas``,
 the module keeps the reference's name).  No tree: the Woop rows, in triangle
 order, are cut into chunks of ``tri_chunk`` triangles packed as
 ``(C, 4, 3 Tc)`` (the wide BVH's leaf layout, without anchors), each with
-its AABB.  A query tests a ray against every triangle of each chunk whose
-box it enters, so the closest hit returns triangle ids directly.
+its AABB, and the AABBs of its runs of 32 triangles (``blocks``, which
+the closest-hit kernel culls by; the reference has no such boxes).  A query
+tests a ray against the triangles of each chunk whose box it enters, so the
+closest hit returns triangle ids directly.
 
 On a CUDA tensor a wrapper launches its kernel (built at first use) and
 counts the launch in its ``launches`` attribute; on a CPU tensor it runs the
@@ -28,16 +30,20 @@ from .intersect import WoopAccel, any_rows, chunk_boxes, chunk_rows, closest_row
 from .wide_bvh import launch_any, launch_closest, on_cpu
 
 TRI_CHUNK = 512
+BLOCK = 32  # triangles under one of a chunk's block boxes: a warp's width
 
 
 @dataclasses.dataclass
 class WoopPallas:
     """Kernel-layout triangle data: ``w`` (C, 4, 3 Tc) f32 (feature rows x, y,
     z, 1 against columns b1[Tc], b2[Tc], s[Tc]; padding triangles all zero,
-    so never hit) and ``boxes`` (C, 6) f32 per-chunk AABBs."""
+    so never hit), ``boxes`` (C, 6) f32 per-chunk AABBs [min xyz, max xyz]
+    and ``blocks`` (C, ceil(Tc / BLOCK), 6) f32 the AABBs of each chunk's
+    runs of BLOCK columns (inverted where a run holds no triangle)."""
 
     w: torch.Tensor
     boxes: torch.Tensor
+    blocks: torch.Tensor
     num_triangles: int
 
     @property
@@ -49,19 +55,38 @@ class WoopPallas:
         return self.w.shape[2] // 3
 
     def to(self, device) -> "WoopPallas":
-        return dataclasses.replace(self, w=self.w.to(device), boxes=self.boxes.to(device))
+        return dataclasses.replace(self, w=self.w.to(device), boxes=self.boxes.to(device),
+                                   blocks=self.blocks.to(device))
+
+
+def block_boxes(accel: WoopAccel, tri_chunk: int, n_chunks: int) -> torch.Tensor:
+    """(n_chunks, ceil(tri_chunk / BLOCK), 6) AABBs of each chunk's runs of
+    BLOCK triangles; padding triangles (and runs past the chunk's end) form
+    empty (inverted) boxes."""
+    big = 3.0e38
+    nb = -(-tri_chunk // BLOCK)
+    pad = n_chunks * tri_chunk - accel.num_triangles
+
+    def runs(x, fill, reduce):
+        x = torch.nn.functional.pad(x, (0, pad), value=fill).reshape(3, n_chunks, tri_chunk)
+        x = torch.nn.functional.pad(x, (0, nb * BLOCK - tri_chunk), value=fill)
+        return reduce(x.reshape(3, n_chunks, nb, BLOCK), dim=3)
+
+    lo, hi = runs(accel.tri_min, big, torch.amin), runs(accel.tri_max, -big, torch.amax)
+    return torch.cat([lo, hi]).permute(1, 2, 0).contiguous()
 
 
 def pack_for_pallas(accel: WoopAccel, tri_chunk: int = TRI_CHUNK) -> WoopPallas:
     """Repack the planar (12, T) Woop rows into (C, 4, 3 Tc) chunks plus the
-    chunk AABBs, on ``accel``'s device (triangles arrive Morton-ordered from
-    scene assembly, so chunks are spatially compact)."""
+    chunk and block AABBs, on ``accel``'s device (triangles arrive
+    Morton-ordered from scene assembly, so chunks are spatially compact)."""
     t = accel.num_triangles
     c = -(-t // tri_chunk)
     w = torch.nn.functional.pad(accel.w, (0, c * tri_chunk - t))
     w = w.reshape(12, c, tri_chunk).permute(1, 0, 2)
     w = w.reshape(c, 3, 4, tri_chunk).permute(0, 2, 1, 3).reshape(c, 4, 3 * tri_chunk)
-    return WoopPallas(w=w.contiguous(), boxes=chunk_boxes(accel, tri_chunk, c), num_triangles=t)
+    return WoopPallas(w=w.contiguous(), boxes=chunk_boxes(accel, tri_chunk, c),
+                      blocks=block_boxes(accel, tri_chunk, c), num_triangles=t)
 
 
 # --- plain versions ----------------------------------------------------------
@@ -82,27 +107,31 @@ def any_chunks_plain(packed: WoopPallas, origins: Vec3, directions: Vec3, t_min=
 # --- kernel wrappers ---------------------------------------------------------
 
 _P = ctypes.c_void_p
-_TREE = [_P, _P, ctypes.c_int, ctypes.c_int]  # w, boxes, chunks, tri_chunk
+_TREE = [_P, _P, ctypes.c_int, ctypes.c_int]  # w, boxes, chunks, tri_chunk (K7a: blocks first)
 _TAIL = [ctypes.c_float] * 3
+_CLOSEST_ARGS = [_P] * 6 + [ctypes.c_int, _P] + _TREE + _TAIL + [_P, _P, _P]
+_ANY_ARGS = [_P] * 7 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P]
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
     lib = cuda_build.load("chunks")
-    lib.closest_chunks.argtypes = [_P] * 6 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P, _P]
-    lib.any_chunks.argtypes = [_P] * 7 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P]
+    lib.closest_chunks.argtypes, lib.any_chunks.argtypes = _CLOSEST_ARGS, _ANY_ARGS
     lib.closest_chunks.restype = lib.any_chunks.restype = ctypes.c_int
     return lib
 
 
-def _pack_args(packed: WoopPallas) -> list:
-    for name in ("w", "boxes"):
+def _pack_args(packed: WoopPallas, blocks: bool = False) -> list:
+    """The pack's entry-point arguments: ``_TREE``, after the block boxes
+    with ``blocks`` (K7a)."""
+    for name in ("w", "boxes", "blocks"):
         a = getattr(packed, name)
         if a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError(f"WoopPallas.{name} must be a contiguous float32 tensor")
     if packed.w.data_ptr() % 16:
         raise ValueError("WoopPallas.w must be 16-byte aligned for the chunk kernels")
-    return [packed.w.data_ptr(), packed.boxes.data_ptr(), packed.num_chunks, packed.tri_chunk]
+    return ([packed.blocks.data_ptr()] if blocks else []) + [
+        packed.w.data_ptr(), packed.boxes.data_ptr(), packed.num_chunks, packed.tri_chunk]
 
 
 def intersect_closest_pallas(packed: WoopPallas, origins: Vec3, directions: Vec3,
@@ -111,10 +140,13 @@ def intersect_closest_pallas(packed: WoopPallas, origins: Vec3, directions: Vec3
     ``(MISS_T, -1)`` on a miss.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``closest_chunks_kernel`` on the pack's device and its current stream."""
+    ``closest_chunks_kernel`` on the pack's device and its current stream: a
+    walk per ray over the chunk list and each chunk's blocks of 32
+    triangles, each block tested by the warp for only the rays that enter
+    its box."""
     if on_cpu(packed):
         return closest_chunks_plain(packed, origins, directions, t_min)
-    out = launch_closest(_kernels().closest_chunks, _pack_args(packed), packed,
+    out = launch_closest(_kernels().closest_chunks, _pack_args(packed, blocks=True), packed,
                          origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_pallas.launches += 1

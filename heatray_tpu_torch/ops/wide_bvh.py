@@ -373,9 +373,20 @@ def _stream_tree_args(bvh: WideBVH, depth: int) -> list:
     return tree
 
 
-def _check_launch(err: int, name: str) -> None:
+def launch(fn, device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with the raw handle of
+    ``device``'s current stream, and raise on a refused launch.  The
+    handle is read without building a ``torch.cuda.Stream``, and the device
+    guard is entered only when ``device`` is not the current device: both
+    cost more host time than the launch itself."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA error {err}")
 
 
 def launch_closest(kernel, tree: list, bvh, origins: Vec3, directions: Vec3, t_min: float):
@@ -387,13 +398,8 @@ def launch_closest(kernel, tree: list, bvh, origins: Vec3, directions: Vec3, t_m
     r = comps[0].shape[0]
     t = torch.empty((r,), dtype=torch.float32, device=device)
     slot = torch.empty((r,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _check_launch(
-            kernel(*ptrs, r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
-                   t.data_ptr(), slot.data_ptr(), stream),
-            kernel.__name__,
-        )
+    launch(kernel, device, *ptrs, r, *tree, float(t_min), BOX_PAD, FAR_SCALE, t.data_ptr(),
+           slot.data_ptr())
     return t, slot, slot >= 0
 
 
@@ -406,13 +412,8 @@ def launch_any(kernel, tree: list, bvh, origins: Vec3, directions: Vec3, t_min: 
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=device)
     t_max = t_max.expand(r).contiguous()
     blocked = torch.empty((r,), dtype=torch.bool, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _check_launch(
-            kernel(*ptrs, t_max.data_ptr(), r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
-                   blocked.data_ptr(), stream),
-            kernel.__name__,
-        )
+    launch(kernel, device, *ptrs, t_max.data_ptr(), r, *tree, float(t_min), BOX_PAD, FAR_SCALE,
+           blocked.data_ptr())
     return blocked
 
 

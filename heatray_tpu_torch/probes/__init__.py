@@ -34,7 +34,7 @@ import time
 import torch
 
 from ..ops import cuda_build
-from ..ops.wide_bvh import _check_launch
+from ..ops.wide_bvh import launch  # noqa: F401  (the probes launch through it)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RAYS = [_P] * 6 + [_I]
@@ -83,14 +83,6 @@ def check_ray_tile(ray_tile: int) -> None:
     ``ray_tile`` threads."""
     if ray_tile % 32 or not 32 <= ray_tile <= 1024:
         raise ValueError(f"ray_tile must be a multiple of 32 in [32, 1024], not {ray_tile}")
-
-
-def launch(fn, device, *args) -> None:
-    """Call the probe entry point ``fn`` with ``args`` and the current stream
-    of ``device``, and raise on a refused launch."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _check_launch(fn(*args, stream), fn.__name__)
 
 
 def elapsed_ms(fn, reps: int, device):

@@ -120,22 +120,78 @@ def test_chunk_cull_reaches_every_plain_hit(tri_chunk):
     triangle, so outside its box.  A kernel reaches a hit iff the ray enters
     the hit's chunk box before its running best t, which is never below the
     hit's t: so it must enter it before the hit's t.  The widened slab does
-    for every hit; exact boxes of one triangle each cull some."""
+    for every hit, and so does K7a's second cull, by the box of the hit's
+    block of 32 columns; exact boxes of one triangle each cull some."""
     packed, o, d = _edge_rays_and_pack(tri_chunk)
     t, ids, hit = intersect_pallas.closest_chunks_plain(packed, o, d)
     assert bool(hit[-1]) and int(hit.sum()) > 1900
-    box = packed.boxes[ids[hit].long() // tri_chunk]
+    chunk, col = ids[hit].long() // tri_chunk, ids[hit].long() % tri_chunk
+    box = packed.boxes[chunk]
+    block = packed.blocks[chunk, col // intersect_pallas.BLOCK]
     o, d = o.map(lambda c: c[hit]), d.map(lambda c: c[hit])
-    assert _enters(box, o, d, t[hit], wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE).all()
+    for b in (box, block):
+        assert _enters(b, o, d, t[hit], wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE).all()
     if tri_chunk == 1:
         assert int((~_enters(box, o, d, t[hit], 0.0, 1.0)).sum()) > 1
 
 
-def test_chunk_walk_equals_plain():
-    """A plain-torch emulation of the chunk kernels (chunks in order, each
-    ray testing a chunk only if it enters its widened box before its running
-    best t, or for occlusion its t_max while unblocked) gives the plain
-    version's closest hits and occlusion on the edge rays, bit for bit."""
+@pytest.mark.parametrize("tri_chunk", [64, 100])
+def test_block_boxes_bound_their_columns(tri_chunk):
+    """Each chunk's block boxes are the boxes of its runs of BLOCK triangles
+    (the last run of a chunk of 100 holds 4), inverted past its triangles."""
+    _, accel = _soup(700, 3)
+    packed = intersect_pallas.pack_for_pallas(accel, tri_chunk)
+    nb = -(-tri_chunk // intersect_pallas.BLOCK)
+    assert packed.blocks.shape == (packed.num_chunks, nb, 6)
+    for c in range(packed.num_chunks):
+        for b in range(nb):
+            lo = c * tri_chunk + b * intersect_pallas.BLOCK
+            hi = min(lo + intersect_pallas.BLOCK, (c + 1) * tri_chunk, accel.num_triangles)
+            got = packed.blocks[c, b]
+            if lo >= hi:
+                assert bool((got[:3] > got[3:]).all())
+                continue
+            torch.testing.assert_close(got[:3], accel.tri_min[:, lo:hi].amin(dim=1), rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(got[3:], accel.tri_max[:, lo:hi].amax(dim=1), rtol=0,
+                                       atol=0)
+
+
+def _warp_order(packed, o, d, t_min, lanes=32):
+    """K7a's order of the chunks, per warp of ``lanes`` consecutive rays: by
+    the warp's least entry into each chunk's (unwidened) box, clamped to
+    t_min, over its rays that enter the widened box; chunks no ray of the
+    warp enters come last.  Returns per ray its warp's order (R, C) and
+    whether each of those chunks is entered (R, C)."""
+    n, c = o.x.shape[0], packed.num_chunks
+    rcp = [torch.where(x < 0, -1.0, 1.0) / x.abs().clamp(min=1e-18) for x in (d.x, d.y, d.z)]
+    keys = []
+    for k in range(c):
+        box = packed.boxes[k]
+        enter = _enters(box.expand(n, 6), o, d, torch.full_like(o.x, intersect.MISS_T),
+                        wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE)
+        near = torch.full_like(o.x, t_min)
+        for a, org in enumerate((o.x, o.y, o.z)):
+            t0, t1 = (box[a] - org) * rcp[a], (box[3 + a] - org) * rcp[a]
+            near = torch.maximum(near, torch.minimum(t0, t1))
+        keys.append(torch.where(enter, near, float("inf")))
+    keys = torch.stack(keys, dim=1)
+    warp = (torch.arange(n) // lanes)[:, None].expand(n, c)
+    least = torch.full((int(warp[-1, 0]) + 1, c), float("inf"))
+    least = least.scatter_reduce(0, warp, keys, "amin")
+    order = torch.argsort(least, dim=1, stable=True)
+    return order[warp[:, 0]], torch.isfinite(least.gather(1, order))[warp[:, 0]]
+
+
+@pytest.mark.parametrize("order", ["index", "nearest first"])
+def test_chunk_walk_equals_plain(order):
+    """A plain-torch emulation of the chunk kernels (each ray testing a chunk
+    only if it enters its widened box before its running best t, or for
+    occlusion its t_max while unblocked) gives the plain version's closest
+    hits and occlusion on the edge rays, bit for bit: with the chunks in
+    index order (K7b), and, for the closest hit, per warp of 32 rays nearest
+    entry first, each entered chunk's blocks culled by their own boxes (K7a),
+    where equal t go to the lower id whichever chunk comes first."""
     packed, o, d = _edge_rays_and_pack(512)
     rows, big, t_min = intersect.chunk_rows(packed.w), intersect.MISS_T, 1e-4
     t_p, id_p, hit_p = intersect_pallas.closest_chunks_plain(packed, o, d)
@@ -144,15 +200,42 @@ def test_chunk_walk_equals_plain():
     ids = torch.full(o.x.shape, -1, dtype=torch.int32)
     blocked = torch.zeros(o.x.shape, dtype=torch.bool)
     n = o.x.shape[0]
+    chunk_of = torch.arange(packed.num_chunks).expand(n, -1)
+    entered = torch.ones(chunk_of.shape, dtype=torch.bool)
+    if order == "nearest first":
+        chunk_of, entered = _warp_order(packed, o, d, t_min)
+        assert bool((chunk_of != torch.arange(packed.num_chunks)).any(dim=1).float().mean() > 0.5)
+    for k in range(packed.num_chunks):
+        for c in range(packed.num_chunks):  # the rays whose k-th chunk is c
+            lanes = (chunk_of[:, k] == c) & entered[:, k]
+            if not lanes.any():
+                continue
+            box = packed.boxes[c].expand(n, 6)
+            cols = slice(c * packed.tri_chunk, (c + 1) * packed.tri_chunk)
+            enter = lanes & _enters(box, o, d, best, wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE)
+            spans = [(None, cols)]
+            if order == "nearest first":
+                step = intersect_pallas.BLOCK
+                spans = [(b, slice(cols.start + b * step, min(cols.start + (b + 1) * step,
+                                                               cols.stop)))
+                         for b in range(packed.blocks.shape[1])]
+            for b, span in spans:
+                e = enter
+                if b is not None:
+                    e = e & _enters(packed.blocks[c, b].expand(n, 6), o, d, best,
+                                    wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE)
+                if not e.any():
+                    continue
+                t = torch.where(e[:, None], intersect.pair_t(o, d, rows[:, span], t_min, big),
+                                big)
+                cand, arg = torch.min(t, dim=1)
+                cand_id = (arg + span.start).int()
+                better = (cand < best) | ((cand == best) & (cand < big) & (cand_id < ids))
+                best = torch.where(better, cand, best)
+                ids = torch.where(better, cand_id, ids)
     for c in range(packed.num_chunks):
         box = packed.boxes[c].expand(n, 6)
         cols = slice(c * packed.tri_chunk, (c + 1) * packed.tri_chunk)
-        enter = _enters(box, o, d, best, wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE)
-        t = torch.where(enter[:, None], intersect.pair_t(o, d, rows[:, cols], t_min, big), big)
-        cand, arg = torch.min(t, dim=1)
-        better = cand < best
-        best = torch.where(better, cand, best)
-        ids = torch.where(better, (arg + cols.start).int(), ids)
         far = torch.where(blocked, t_min - 1.0, t_max)
         enter = _enters(box, o, d, far, wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE)
         blocked |= enter & (intersect.pair_t(o, d, rows[:, cols], t_min, t_max) < big).any(dim=1)

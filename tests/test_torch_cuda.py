@@ -19,6 +19,7 @@ from heatray_tpu_torch.ops import intersect_pallas, traverse_pallas, wide_bvh
 from heatray_tpu_torch.ops.bvh import build_bvh
 from heatray_tpu_torch.ops.intersect import MISS_T, build_woop
 from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
+from heatray_tpu_torch.render import integrator
 from heatray_tpu_torch.vec import Vec3
 
 pytestmark = pytest.mark.cuda
@@ -134,27 +135,35 @@ def _walk_queries(route):
     return wide_bvh.intersect_closest_stream, wide_bvh.intersect_any_stream
 
 
-@pytest.mark.parametrize("route, leaf_size", [("stream", 128), ("wide", 32), ("wide", 64)])
+@pytest.mark.parametrize("route, leaf_size",
+                         [("stream", 128), ("wide", 32), ("wide", 64), ("chunks", 64)])
 def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device, route,
                                                                      leaf_size):
     """300 copies of one triangle, away from a random soup, fill several
     leaves (of 128 for K3a, of 32 and 64 for K1: at 64 the ties also span
     two blocks of columns), so a ray through it ties in t on every copy;
     the kernel must keep the lowest slot of all, as the plain version
-    does."""
+    does.  K7a (``"chunks"``, chunks of 64): the copies come first, so they
+    fill five chunks, and the soup's first triangle lies beside the rays,
+    nearer their origin than the copies, so the last chunk of copies is
+    entered first, and each warp serves it before the four of lower ids."""
     rng = np.random.default_rng(3)
     n_soup, n_copy = 2000, 300
     v = rng.uniform(-4, 4, (n_soup, 3)).astype(np.float32)
     soup = [v, v + rng.uniform(-0.5, 0.5, (n_soup, 3)).astype(np.float32),
             v + rng.uniform(-0.5, 0.5, (n_soup, 3)).astype(np.float32)]
     tri = np.array([[10.0, -1.0, -1.0], [10.0, 1.0, -1.0], [10.0, 0.0, 1.0]], np.float32)
-    corners = [np.concatenate([s, np.repeat(tri[k][None], n_copy, 0)]) for k, s in enumerate(soup)]
+    copies = [np.repeat(tri[k][None], n_copy, 0) for k in range(3)]
+    if route == "chunks":
+        for k, corner in enumerate(([12.0, 2.0, 0.0], [12.0, 2.5, 0.0], [12.0, 2.0, 0.5])):
+            soup[k][0] = corner
+        corners = [np.concatenate([c, s]) for c, s in zip(copies, soup)]
+    else:
+        corners = [np.concatenate([s, c]) for s, c in zip(soup, copies)]
     t = n_soup + n_copy
     pos = torch.from_numpy(np.concatenate(corners).T.copy()).to(cuda_device)
     idx = torch.arange(3 * t, dtype=torch.int32, device=cuda_device).reshape(3, t).contiguous()
-    bvh = wide_bvh.build_wide_bvh(build_woop(pos, idx), leaf_size=leaf_size)
-    copy_slots = (bvh.slot_tri >= n_soup).nonzero()[:, 0]
-    assert (copy_slots // leaf_size).unique().numel() >= 2
+    accel = build_woop(pos, idx)
     r = 4096
     org = np.tile(np.array([[14.0, 0.0, 0.0]], np.float32), (r, 1))
     aim = np.stack([np.full(r, 10.0), rng.uniform(-0.3, 0.3, r), rng.uniform(-0.3, 0.3, r)], 1)
@@ -162,6 +171,21 @@ def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device,
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o = Vec3(*(torch.from_numpy(np.ascontiguousarray(org[:, k])).to(cuda_device) for k in range(3)))
     d = Vec3(*(torch.from_numpy(np.ascontiguousarray(d[:, k])).to(cuda_device) for k in range(3)))
+    if route == "chunks":
+        packed = intersect_pallas.pack_for_pallas(accel, leaf_size)
+        copy_chunks = torch.arange(n_copy, device=cuda_device) // leaf_size
+        assert copy_chunks.unique().numel() == 5
+        # The nearest face of each chunk of copies to the rays' origin (+x).
+        near = packed.boxes[:5, 3]
+        assert bool((near[4] > near[:4]).all())
+        t_k, id_k, hit_k = intersect_pallas.intersect_closest_pallas(packed, o, d)
+        t_p, id_p, hit_p = intersect_pallas.closest_chunks_plain(packed, o, d)
+        assert bool(hit_p.all()) and bool((id_p == 0).all())
+        assert torch.equal(hit_k, hit_p) and torch.equal(id_k, id_p) and torch.equal(t_k, t_p)
+        return
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=leaf_size)
+    copy_slots = (bvh.slot_tri >= n_soup).nonzero()[:, 0]
+    assert (copy_slots // leaf_size).unique().numel() >= 2
     t_k, slot_k, hit_k = _walk_queries(route)[0](bvh, o, d)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p.all()) and bool((slot_p == copy_slots.min()).all())
@@ -309,8 +333,9 @@ def _flat_queries(kind, accel):
 @pytest.mark.parametrize("n_rays", [8191, 0])
 def test_flat_and_binary_kernels_match_plain(cuda_device, kind, n_rays):
     """K7 and K6 on a 5,000-triangle soup: a ray count that leaves the last
-    block part-empty, and no rays at all.  Triangle ids equal except where
-    two triangles tie in t."""
+    block part-empty, and no rays at all.  K7a's t and every id equal the
+    plain version's bit for bit; K6's ids equal except where two triangles
+    tie in t."""
     accel = _soup(5000, 11, cuda_device)
     tree, closest, closest_plain, any_, any_plain = _flat_queries(kind, accel)
     o, d = _rays(n_rays, 7, cuda_device)
@@ -322,6 +347,8 @@ def test_flat_and_binary_kernels_match_plain(cuda_device, kind, n_rays):
     assert t_k.shape == id_k.shape == (n_rays,)
     assert torch.equal(hit_k, hit_p)
     torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
+    if kind == "chunks":
+        assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
     assert n_rays == 0 or (id_k == id_p).float().mean() > 0.999
 
     t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
@@ -330,6 +357,72 @@ def test_flat_and_binary_kernels_match_plain(cuda_device, kind, n_rays):
     assert torch.equal(blocked, any_plain(tree, o, d, t_max=t_max))
     assert any_.launches == launches + (n_rays > 0)
     assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
+
+
+def _cornell_rays(device, size=64):
+    """The Cornell box's primary rays at ``size`` x ``size``, and as many
+    rays from seeded points inside the box in seeded directions."""
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    opts = RenderOptions(width=size, height=size, max_render_passes=4, max_ray_depth=4)
+    camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0).to(device)
+    ctx = make_context(opts, scene, device)
+    primary = integrator.start_paths(camera, ctx, opts, 0)
+    rng = np.random.default_rng(23)
+    o = rng.uniform(-1.8, 1.8, (3, size * size)).astype(np.float32)  # the box spans [-2, 2]
+    d = rng.normal(size=(3, size * size)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    org, dirs = (Vec3.from_planar(torch.cat([v.to_planar(), torch.from_numpy(a).to(device)], 1))
+                 for v, a in ((primary.org, o), (primary.direction, d)))
+    return scene, org, dirs
+
+
+@pytest.mark.parametrize("tri_chunk", [64, 512])
+@pytest.mark.parametrize("where", ["soup", "cornell", "cornell, warps mixed"])
+def test_chunk_kernels_match_plain_bit_for_bit(cuda_device, tri_chunk, where):
+    """K7a over chunks of 64 and 512 triangles, on the soup and on the
+    Cornell box (its primary rays and rays from inside it): t and every id
+    equal the plain version's bit for bit, and K7b's masks equal.  "warps
+    mixed" deals the Cornell rays out with a stride of 128, so that the
+    lanes of a warp hit different chunks: a warp serves each chunk to its
+    own lanes alone."""
+    if where == "soup":
+        accel = _soup(5000, 11, cuda_device)
+        o, d = _rays(8192, 7, cuda_device)
+    else:
+        scene, o, d = _cornell_rays(cuda_device)
+        accel = build_woop(scene.geometry.positions, scene.geometry.indices)
+        if where == "cornell, warps mixed":
+            order = torch.arange(o.x.numel(), device=cuda_device).view(-1, 128).T.reshape(-1)
+            o, d = o.map(lambda c: c[order]), d.map(lambda c: c[order])
+    packed = intersect_pallas.pack_for_pallas(accel, tri_chunk)
+    t_k, id_k, hit_k = intersect_pallas.intersect_closest_pallas(packed, o, d)
+    t_p, id_p, hit_p = intersect_pallas.closest_chunks_plain(packed, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(hit_k, hit_p) and torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    assert int(hit_k.sum()) > o.x.numel() // 4
+    if where == "cornell, warps mixed":  # most warps' hits lie in more than one chunk
+        chunk = torch.where(hit_k, id_k // tri_chunk, -1).view(-1, 32)
+        mixed = (chunk.amax(dim=1) != torch.where(chunk < 0, chunk.amax(), chunk).amin(dim=1))
+        assert float(mixed.float().mean()) > 0.5
+    t_max = torch.where(hit_p, t_p * 0.999, 5.0)
+    blocked = intersect_pallas.intersect_any_pallas(packed, o, d, t_max=t_max)
+    assert torch.equal(blocked, intersect_pallas.any_chunks_plain(packed, o, d, t_max=t_max))
+
+
+def test_closest_chunk_kernel_takes_chunks_of_any_size(cuda_device):
+    """K7a keeps no chunk in shared memory, so a chunk of 8,192 triangles
+    (384 KB of columns, more than a block's shared memory, which K7b
+    refuses) and one of 100 (not a multiple of 4: 4-byte reads) give the
+    plain version's t and ids bit for bit."""
+    accel = _soup(9000, 5, cuda_device)
+    o, d = _rays(2048, 3, cuda_device)
+    for tri_chunk in (8192, 100):
+        packed = intersect_pallas.pack_for_pallas(accel, tri_chunk)
+        got = intersect_pallas.intersect_closest_pallas(packed, o, d)
+        want = intersect_pallas.closest_chunks_plain(packed, o, d)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert int(got[2].sum()) > 100
 
 
 @pytest.mark.parametrize("kind", ["chunks", "bvh2"])
