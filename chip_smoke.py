@@ -5,9 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the kernels of ``heatray_tpu_torch/csrc`` and K7a's parent design
-(``k7a_parent.py``, phase 11's yardstick), one ``nvcc`` per source, started
-together, and then:
+It builds the kernels of ``heatray_tpu_torch/csrc``, one ``nvcc`` per
+source, started together, and then:
 
 1. checks K1 and K2 (``wide_bvh.cu``) against their plain PyTorch versions
    on the card: on the Cornell box, each kernel launched at the shapes a
@@ -48,7 +47,8 @@ together, and then:
    chunk packs and the shading table) and K6a and K6b (``bvh2.cu``) under
    ``intersect_backend="bvh"`` against their plain versions, each launched
    at the shapes the 1080p Cornell path gives it (as in 5), and on the
-   50,000-triangle soup; K7a to every t and every id equal, bit for bit;
+   50,000-triangle soup; K7a to every t and every id equal, bit for bit,
+   K7b to equal masks;
 9. renders config2 through the rebuild mode, ``"pallas"`` and ``"bvh"`` and
    compares each with the golden;
 10. renders the Cornell path (as in 3) in the rebuild mode and under
@@ -56,13 +56,12 @@ together, and then:
    lanes, no K1-K3) and timing the rebuild within each pass, and compares
    each image with phase 3's ``"wide"`` image of the same passes;
 11. times K7a, K7b, K6a and K6b on phase 4's rays, and their plain
-   versions on all of them; and K7a beside its parent design, in turns, on
-   the primary rays and the rebuild mode's sorted depth-2 head;
+   versions on all of them;
 12. checks K5a and K5b (``wide_bvh_t.cu``) under Route A (the Cornell box
    with ``wide_leaf_math="vpu"``: "auto" keeps "wide" and rounds the leaf of
    32 up to 128) against their plain versions, at the shapes the 1080p path
    gives them (as in 5), and on the 50,000-triangle soup at leaf 128: hit
-   masks equal, t within TOL, and no slot differences at all;
+   masks equal, K5a's t and every slot bit for bit, K5b's masks equal;
 13. renders Route A (as in 3), counting launches (K5a and K5b once per
    bounce with live lanes, no other traversal kernel), and compares its
    image with phase 3's ``"wide"`` image of the same passes;
@@ -114,9 +113,10 @@ counts both: the bytes of the rays, of the outputs and of the nodes (or
 chunk boxes) and leaf triangles the rays reach, each once; the per-ray
 arithmetic of the box slab tests, of every pair test's t, and of the
 barycentrics of the pairs whose t lies in range.  The chunk kernels test
-every chunk's box per ray and every triangle of each chunk a ray enters;
-K7a, in such a chunk, every block's box and the triangles of the blocks
-it enters.
+every chunk's box per ray and, in each chunk a ray enters, every block's
+box and the triangles of the blocks it enters (K7b's entry also gives the
+bound over whole chunks); K5a, in each leaf a ray reaches, every block's
+box and the triangles of the blocks it enters.
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the card's name and power limit, the per-kernel JSON record and
@@ -142,11 +142,13 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-# K7a: its t must equal the plain version's bit for bit (the same float32
-# operations in the same order), with every id equal; and it culls by the
-# pack's block boxes too, so its bound counts the blocks' work
-# (``chunk_work(blocks=True)``).
-K7A = "closest_chunks"
+# K7a and K5a: their t must equal the plain version's bit for bit (the same
+# float32 operations in the same order), with every id equal.
+EXACT_T = ("closest_chunks", "closest_wide_t")
+# The kernels that cull by block boxes of 32 (the pack's or the tree's), so
+# that their bounds count the blocks' work (``chunk_work(blocks=True)``,
+# ``walk_work(blocks=True)``).
+BLOCK_CULLED = ("closest_chunks", "any_chunks", "closest_wide_t")
 SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes", "variants")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -330,7 +332,7 @@ def live_pick(active, gen):
 def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4, exact=False):
     """The kernel on all the rays against the plain version on the lanes
     ``pick`` (all when None).  ``exact``: no slot may differ, not even on a
-    tie; for K7a, no t either."""
+    tie; for K7a and K5a, no t either."""
     import torch
 
     kernel, plain = queries()[name]
@@ -345,7 +347,7 @@ def check_closest(name, bvh, org, d, label, err, pick=None, t_min=1e-4, exact=Fa
         raise AssertionError(f"{label}: {name} masks differ on {int((h_k != h_p).sum())} rays")
     diff = (t_k - t_p).abs()
     bad = diff > TOL + TOL * t_p.abs()
-    if exact and name == K7A:
+    if exact and name in EXACT_T:
         bad = t_k != t_p
     if bad.any():
         raise AssertionError(f"{label}: {name} t differs on {int(bad.sum())} rays, "
@@ -455,13 +457,15 @@ def time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True):
+def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True, blocks=False):
     """What these rays need of the tree: a dict of child-box tests, pair
     tests, pairs whose t lies in (t_min, t_far], and the nodes, leaves and
     leaf triangles reached.  Each ray tests the non-empty children of every
     node whose widened box it enters before ``t_far`` (its hit distance),
     and every triangle of each such leaf (none without ``with_leaves``: the
-    node walk alone).  A plain level-by-level walk."""
+    node walk alone); with ``blocks`` (K5a), in each such leaf every block
+    box (``WideBVH.blocks``), and only the triangles of the blocks it
+    enters.  A plain level-by-level walk."""
     import torch
 
     from heatray_tpu_torch.ops import wide_bvh as wb
@@ -469,10 +473,18 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True):
 
     device = bvh.w.device
     codes = bvh.wchild.view(-1, wb.ARITY).long()
-    filled_slot = bvh.slot_tri.view(bvh.num_chunks, bvh.leaf_size) >= 0
     tc = bvh.leaf_size
+    # Slots of each leaf (C, Tc), or of each block (C * NB, BLOCK; -1 past the leaf).
+    slots = torch.arange(bvh.num_chunks * tc, device=device).view(-1, tc)
+    if blocks:
+        n_blocks = bvh.blocks.shape[1]
+        slots = torch.nn.functional.pad(slots, (0, n_blocks * wb.BLOCK - tc), value=-1)
+        slots = slots.view(-1, wb.BLOCK)
+        block_box = bvh.blocks.view(-1, 6).T  # (6, C * NB)
+    filled_slot = (slots >= 0) & (bvh.slot_tri[slots.clamp(min=0)] >= 0)
+    s_col = bvh.w[:, :, 2 * tc:].permute(1, 0, 2).reshape(4, -1)  # (4, S): each slot's s column
     node_seen = torch.zeros(codes.shape[0], dtype=torch.bool, device=device)
-    leaf_seen = torch.zeros(bvh.num_chunks, dtype=torch.bool, device=device)
+    leaf_seen = torch.zeros(slots.shape[0], dtype=torch.bool, device=device)
     boxes = pairs = in_range = 0
     for lo in range(0, org.x.numel(), chunk):
         oc = [c[lo:lo + chunk] for c in (org.x, org.y, org.z)]
@@ -491,26 +503,42 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True):
             corners = b.permute(2, 0, 1)  # (8, L, 8): coordinate, node, child
             ok = widened_slab(corners[0:3], corners[3:6], o, inv, tfc[:, None, None], t_min)
             ok = ok & reach[:, :, None] & filled[None]
-            # Every (ray, leaf) pair reached: the t of each triangle.
+            # Every (ray, leaf) pair reached, or (ray, block) pair entered:
+            # the t of each triangle.
             ray, node, k = (ok & (c <= -2)[None] & with_leaves).nonzero(as_tuple=True)
-            chunk_id = -2 - c[node, k]
-            leaf_seen[chunk_id] = True
-            fill = filled_slot[chunk_id]
+            unit = -2 - c[node, k]
+            if blocks:  # the blocks of each leaf reached
+                boxes += ray.numel() * n_blocks
+                ray = ray[:, None].expand(-1, n_blocks).reshape(-1)
+                unit = (unit[:, None] * n_blocks
+                        + torch.arange(n_blocks, device=device)).reshape(-1)
+                bb = block_box[:, unit]
+                ok_b = widened_slab(bb[:3], bb[3:], [oc[i][ray] for i in range(3)],
+                                    [inv[i][ray, 0, 0] for i in range(3)], tfc[ray], t_min)
+                ok_b &= bb[0] <= bb[3]
+                ray, unit = ray[ok_b], unit[ok_b]
+            leaf_seen[unit] = True
+            fill = filled_slot[unit]
             pairs += int(fill.sum())
-            s, anchor = bvh.w[:, :, 2 * tc:][chunk_id], bvh.wanchor[:, chunk_id]
-            ax, ay, az = ((oc[i][ray] - anchor[i])[:, None] for i in range(3))
+            col = slots[unit].clamp(min=0)
+            leaf = col // tc
+            s = s_col[:, col]  # (4, pairs, columns)
+            ax, ay, az = ((oc[i][ray][:, None] - bvh.wanchor[i][leaf]) for i in range(3))
             dx, dy, dz = (dc[i][ray][:, None] for i in range(3))
-            t = -(ax * s[:, 0] + ay * s[:, 1] + az * s[:, 2] + s[:, 3]) / (
-                dx * s[:, 0] + dy * s[:, 1] + dz * s[:, 2])
+            t = -(ax * s[0] + ay * s[1] + az * s[2] + s[3]) / (dx * s[0] + dy * s[1] + dz * s[2])
             in_range += int((fill & (t > t_min) & (t <= tfc[ray][:, None])).sum())
             # Inner children some ray of the chunk enters.
             inner = (c >= 0) & ok.any(0)
             level, reach = c[inner], ok[:, inner]
-    nodes, leaves, tris = (int(node_seen.sum()), int(leaf_seen.sum()),
-                           int(filled_slot[leaf_seen].sum()))
+    nodes, units, tris = (int(node_seen.sum()), int(leaf_seen.sum()),
+                          int(filled_slot[leaf_seen].sum()))
+    leaves = units if not blocks else int(leaf_seen.view(bvh.num_chunks, -1).any(1).sum())
+    box_bytes = leaves * n_blocks * BOX_BYTES if blocks else 0
     return {"boxes": boxes, "pairs": pairs, "in_range": in_range,
-            "tree_bytes": nodes * NODE_BYTES + leaves * ANCHOR_BYTES + tris * TRI_BYTES,
-            "reached": f"{nodes} nodes, {leaves} leaves ({tris} triangles)"}
+            "tree_bytes": (nodes * NODE_BYTES + leaves * ANCHOR_BYTES + box_bytes
+                           + tris * TRI_BYTES),
+            "reached": f"{nodes} nodes, {leaves} leaves"
+                       + (f", {units} blocks" if blocks else "") + f" ({tris} triangles)"}
 
 
 def _ray_chunks(org, d, t_far, chunk):
@@ -670,8 +698,8 @@ def time_kernels(spec, err, launches):
         if t_max is not None:
             t_far = torch.minimum(t_far, t_max)
         work = {"chunks": chunk_work, "bvh": bvh2_work}.get(family, walk_work)
-        if name == K7A:
-            work = functools.partial(chunk_work, blocks=True)
+        if name in BLOCK_CULLED:
+            work = functools.partial(work, blocks=True)
         bound_ms, bound_by = bound(r, work(bvh, org, d, t_far), t_max is not None)
         log(f"[time] {name} on {r} rays: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on "
             f"{n_plain} rays, bound {bound_ms:.4f} ms ({bound_by})")
@@ -682,6 +710,9 @@ def time_kernels(spec, err, launches):
             "plain_rays": n_plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
+        if name == "any_chunks":  # the bound of the design it replaced: whole chunks
+            whole = bound(r, chunk_work(bvh, org, d, t_far), True)
+            out[-1].update(whole_chunks_bound_ms=whole[0], whole_chunks_bound_by=whole[1])
     return out
 
 
@@ -728,45 +759,6 @@ def compare_launches(label, kernels, mine, rivals, trees, launches, card):
             log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms[who]:.4f} "
                 f"ms, bound {b_ms:.4f} ms ({b_by})")
     log(f"[compare] {label}, ms: {'; '.join(parts)}; card {card}")
-
-
-def compare_k7a_parent(kernels, packed, prim, head, parent, card):
-    """Phase 11's [compare] line: K7a beside the design it replaced
-    (``k7a_parent``, built in this run) on the primary rays and on the
-    rebuild mode's sorted depth-2 head, each timed over 10 launches in
-    turns (parent, K7a, K7a, parent), and the parent's lanes whose t or id
-    differ from K7a's.  K7a's kernels-line entry gets the
-    parent's times and the head's rays, times and bound."""
-    import torch
-
-    from heatray_tpu_torch.ops import intersect_pallas as ip
-    from heatray_tpu_torch.ops import wide_bvh as wb
-
-    runs = {
-        "K7a": lambda rays: ip.intersect_closest_pallas(packed, rays.org, rays.direction),
-        "parent": lambda rays: wb.launch_closest(parent.closest_chunks, ip._pack_args(packed),
-                                                 packed, rays.org, rays.direction, 1e-4),
-    }
-    ms, parts = {who: {} for who in runs}, []
-    for tag, rays in (("primary", prim), ("depth-2 head", head)):
-        (t_k, id_k, _), (t_p, id_p, _) = runs["K7a"](rays), runs["parent"](rays)
-        differ = int(((t_k != t_p) | (id_k != id_p)).sum())
-        for who in ("parent", "K7a", "K7a", "parent"):
-            ms[who].setdefault(tag, []).append(time_ms(lambda: runs[who](rays), 10))
-        parts.append(f"{tag} ({rays.org.x.numel()} rays): K7a {ms['K7a'][tag]}, parent "
-                     f"{ms['parent'][tag]}, {differ} lanes differ")
-    entry = next(k for k in kernels if k["name"] == "closest_chunks")
-    r = head.org.x.numel()
-    t_far = runs["K7a"](head)[0]
-    b_ms, b_by = bound(r, chunk_work(packed, head.org, head.direction, t_far, blocks=True),
-                       False)
-    entry.update(parent_ms=min(ms["parent"]["primary"]), head_rays=r,
-                 head_ms=min(ms["K7a"]["depth-2 head"]),
-                 head_parent_ms=min(ms["parent"]["depth-2 head"]), head_bound_ms=b_ms,
-                 head_bound_by=b_by)
-    torch.cuda.synchronize()
-    log(f"[compare] K7a against its parent design (block walk, index order), ms in turns: "
-        f"{'; '.join(parts)}; head bound {b_ms:.4f} ms ({b_by}); card {card}")
 
 
 def run_path(label, scene, camera, ctx, opts, expect):
@@ -1304,7 +1296,6 @@ def main() -> int:
     from heatray_tpu_torch.ops.intersect_pallas import pack_for_pallas
     from heatray_tpu_torch.options import FrameGlobals, RenderOptions
     from heatray_tpu_torch.render import integrator
-    import k7a_parent
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1313,12 +1304,9 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
-        parent = pool.submit(k7a_parent.build, cuda_build.BUILD_DIR / "k7a_parent")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = list(pool.map(cuda_build.build, SOURCES))
-        k7a_parent_lib = parent.result()
-    log(f"[build] {[lib.name for lib in libs]} and K7a's parent design in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "stack frame" in line:
@@ -1476,15 +1464,15 @@ def main() -> int:
         "rebuild": (opts, ("closest_chunks", "any_chunks")),
         "bvh": (dataclasses.replace(opts, intersect_backend="bvh"), ("closest_bvh", "any_bvh")),
     }
-    ctxs, route_rays = {}, {}
+    ctxs = {}
     for route, (r_opts, names) in routes.items():
         t0 = time.perf_counter()
         ctxs[route] = integrator.make_context(r_opts, None if route == "rebuild" else scene,
                                               device)
         torch.cuda.synchronize()
         log(f"[setup] Cornell 1080p {route} context in {time.perf_counter() - t0:.2f} s")
-        route_rays[route] = check_path_rays(names, scene, camera, ctxs[route], r_opts, gen,
-                                            f"cornell {route}", err, exact=route == "rebuild")
+        check_path_rays(names, scene, camera, ctxs[route], r_opts, gen, f"cornell {route}", err,
+                        exact=route == "rebuild")
     soup_accel = build_woop(pos, idx)
     t0 = time.perf_counter()
     soup_trees = {"chunks": pack_for_pallas(soup_accel, opts.pallas_tri_chunk),
@@ -1528,9 +1516,7 @@ def main() -> int:
         ("closest_bvh", bvh_pack.bvh, prim.org, prim.direction, None, True),
         ("any_bvh", bvh_pack.bvh_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, kernels_launches)
-    compare_k7a_parent(kernels, chunk_pack.packed, prim, route_rays["rebuild"][2], k7a_parent_lib,
-                       card)
-    del ctxs, chunk_pack, bvh_pack, route_rays
+    del ctxs, chunk_pack, bvh_pack
 
     # --- 12. K5 under Route A against its plain versions ------------------------
     a_names = ("closest_wide_t", "any_wide_t")

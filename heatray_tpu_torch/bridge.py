@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .camera import CameraParams
-from .ops.wide_bvh import WideBVH, max_stack_depth
+from .ops.wide_bvh import WideBVH, leaf_blocks, max_stack_depth, slot_boxes
 from .sampling.tables import SampleTables
 from .scene.geometry import Geometry
 from .scene.lights import LightBank
@@ -64,18 +64,24 @@ def scene_from_arrays(
 
 
 def wide_bvh_from_arrays(
-    arrays: dict, leaf_size: int, num_triangles: int, device="cuda"
+    arrays: dict, leaf_size: int, num_triangles: int, accel: dict, device="cuda"
 ) -> WideBVH:
-    """A WideBVH from the arrays of a ``schedule="f32"`` build."""
+    """A WideBVH from the arrays of a ``schedule="f32"`` build, with the
+    leaves' block boxes (``WideBVH.blocks``, which the reference has not)
+    made from the ``tri_min``/``tri_max`` arrays of the ``WoopAccel`` it was
+    built from (``accel``)."""
     if np.asarray(arrays["w"]).dtype != np.float32:
         raise ValueError("only the f32 leaf layout (schedule='f32') is supported")
     t = {k: torch.from_numpy(np.array(np.asarray(arrays[k]))).to(device)
          for k in ("wbox", "wchild", "waxis", "w", "slot_tri", "wanchor")}
+    tri_min, tri_max = (torch.from_numpy(np.array(np.asarray(accel[k]), np.float32)).to(device)
+                        for k in ("tri_min", "tri_max"))
     return WideBVH(
         **t,
         leaf_size=int(leaf_size),
         num_triangles=int(num_triangles),
         max_stack=max_stack_depth(np.asarray(arrays["wchild"])),
+        blocks=leaf_blocks(*slot_boxes(t["slot_tri"], tri_min, tri_max), int(leaf_size)),
     )
 
 

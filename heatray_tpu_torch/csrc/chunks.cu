@@ -1,5 +1,5 @@
-// Flat triangle chunks culled by their AABBs: closest hit (K7a) and any hit
-// (K7b).
+// Flat triangle chunks culled by their AABBs and by the AABBs of their runs
+// of 32 triangles: closest hit (K7a) and any hit (K7b).
 //
 // Replaces the Pallas TPU kernels `_closest_kernel` and `_any_kernel` of
 // heatray_tpu/ops/intersect_pallas.py.  Those hold the whole chunk table in
@@ -52,13 +52,23 @@
 // separately rounded products, which TF32 (or 3xTF32) products cannot give,
 // and a changed t moves hit masks at triangle edges (ROADMAP.md, F2).
 //
-// K7b, any hit: one block of 256 rays (one a thread) walks the chunks in
-// order.  Each thread runs the widened slab test against the chunk's box,
-// and when any unblocked ray of the block enters it (`__syncthreads_or`)
-// the block copies the chunk's (4, 3 Tc) columns (24 KB at Tc = 512) into
-// shared memory; only the threads whose own ray enters then test its
-// triangles, in exact f32.  A blocked ray tests nothing more, and the block
-// leaves once every ray in it is blocked.
+// K7b, any hit: K7a's walk per ray (128 threads a block, no block barrier,
+// no dynamic shared memory) in index order, with K2's any-hit service:
+// - A lane enters a chunk when its ray's widened slab enters the chunk's
+//   box before its own t_max; in an entered chunk, each unblocked lane that
+//   entered it tests the blocks' boxes in turn against its t_max.
+// - A block some lanes enter is served to them alone with K2's block
+//   service (`serve_cols_any`): lane j holds column j (read from L1/L2),
+//   and the rays are tested one after the other across the 32 columns,
+//   each with its own t_max shuffled from its lane, the hit a vote.
+// - A lane blocked by a hit enters nothing more, and the warp leaves when
+//   every lane is blocked or past the last ray.  Any hit is a yes/no with no
+//   tie, so the result equals the plain brute force in any order.
+// What it replaced: one block of 256 rays walked the chunks in order,
+// staged every chunk some ray entered (24 KB at Tc = 512) in shared memory
+// behind two block barriers, and each entering thread tested all 512
+// columns in turn: 7.4552 ms on the Cornell box's 2,073,600 first-bounce
+// shadow lanes (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
 //
 // Layouts: w (C, 4, 3 Tc) f32 as in wide_bvh_common.cuh, with no anchor
 // (the rows are the raw Woop rows); boxes (C, 6) f32 [min xyz, max xyz];
@@ -73,11 +83,6 @@
 namespace {
 
 using namespace wide_bvh;
-
-__device__ __forceinline__ bool enters(const float* __restrict__ box, const Ray& r,
-                                       float t_min, float t_far, Widen widen) {
-  return box[0] <= box[3] && slab(box, r, t_min, t_far, widen);
-}
 
 // --- K7a: closest hit ---------------------------------------------------------
 
@@ -201,29 +206,33 @@ __global__ void __launch_bounds__(kChunkThreads) closest_chunks_kernel(
 
 // --- K7b: any hit ---------------------------------------------------------------
 
-constexpr int kTile = 256;
-
-// Every thread copies its share of chunk `c` into shared memory.
-__device__ __forceinline__ void stage(const float* __restrict__ w, int c,
-                                      int chunk_floats, float* chunk) {
-  const float4* src = reinterpret_cast<const float4*>(w + (size_t)c * chunk_floats);
-  float4* dst = reinterpret_cast<float4*>(chunk);
-  for (int p = threadIdx.x; p < chunk_floats / 4; p += kTile) dst[p] = src[p];
+// The block of columns j0 .. j0 + 31 of chunk `W` to the lanes of `rays`,
+// any hit, as K2 serves a block (`serve_cols_any`): `hit` becomes true on
+// each whose ray hits a column before its own `t_max`.  Lane j reads column
+// j from L1/L2: staging the block as K7a does, or a ray-per-lane branch for
+// large groups, did not pay here (`profile_torch_wide.py --kernels k7`,
+// variants `any-staged`, `any-lanes`).  Every lane of the warp calls it.
+__device__ __forceinline__ void serve_block_any(const float* __restrict__ W, int tc, int j0,
+                                                unsigned rays, const Ray& r, float t_min,
+                                                float t_max, bool& hit) {
+  const int lane = threadIdx.x & 31;
+  const int n = min(tc - j0, kBlock);
+  TriCols cols = {};
+  if (lane < n) cols = load_cols(W, tc, j0 + lane);
+  serve_cols_any(cols, lane < n, rays, r, t_min, t_max, hit);
 }
 
-__global__ void __launch_bounds__(kTile) any_chunks_kernel(
+__global__ void __launch_bounds__(kChunkThreads) any_chunks_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_max, int n_rays, const float* __restrict__ w,
-    const float* __restrict__ boxes, int n_chunks, int tc, float t_min,
-    Widen widen, unsigned char* __restrict__ blocked_out) {
-  extern __shared__ float4 chunk_mem[];
-  float* chunk = reinterpret_cast<float*>(chunk_mem);
-  const int chunk_floats = 12 * tc;
-
-  const int i = blockIdx.x * kTile + threadIdx.x;
+    const float* __restrict__ t_max, int n_rays, const float* __restrict__ blocks,
+    const float* __restrict__ w, const float* __restrict__ boxes, int n_chunks, int tc,
+    float t_min, Widen widen, unsigned char* __restrict__ blocked_out) {
+  const int i = blockIdx.x * kChunkThreads + threadIdx.x;
   const bool valid = i < n_rays;
+  if (!__any_sync(kFullMask, valid)) return;  // the whole warp is past the end
+  const int n_blocks = (tc + kBlock - 1) / kBlock;
   Ray r = {};
   float t_hi = 0.0f;
   if (valid) {
@@ -232,41 +241,26 @@ __global__ void __launch_bounds__(kTile) any_chunks_kernel(
   }
 
   bool blocked = false;
-  // The same on every thread: some ray of the block is still unblocked.
-  bool alive = __syncthreads_or(valid);
-  for (int c = 0; c < n_chunks && alive; ++c) {
-    const bool mine = valid && !blocked && enters(boxes + 6 * c, r, t_min, t_hi, widen);
-    if (!__syncthreads_or(mine)) continue;
-    stage(w, c, chunk_floats, chunk);
-    __syncthreads();
-    if (mine) {
-      for (int j = 0; j < tc; ++j) {
-        if (tri_t(chunk, tc, j, r.ox, r.oy, r.oz, r, t_min, t_hi) < kMissT) {
-          blocked = true;  // the first occluder ends this ray's tests
-          break;
-        }
-      }
+  for (int c = 0; c < n_chunks; ++c) {
+    const bool open = valid && !blocked;  // a blocked ray enters nothing more
+    if (!__any_sync(kFullMask, open)) break;  // every ray of the warp is blocked
+    const bool mine = open && enters(boxes + 6 * c, r, t_min, t_hi, widen);
+    if (!__any_sync(kFullMask, mine)) continue;
+    const float* W = w + (size_t)c * 12 * tc;
+    const float* block_box = blocks + (size_t)c * n_blocks * 6;
+    for (int b = 0; b < n_blocks; ++b) {
+      const bool in = mine && !blocked && enters(block_box + 6 * b, r, t_min, t_hi, widen);
+      const unsigned rays = __ballot_sync(kFullMask, in);
+      if (rays) serve_block_any(W, tc, b * kBlock, rays, r, t_min, t_hi, blocked);
     }
-    alive = __syncthreads_or(valid && !blocked);
   }
   if (valid) blocked_out[i] = blocked ? 1 : 0;
-}
-
-// K7b's dynamic shared memory for chunks of `tc`.  Up to the default 48 KB
-// (a chunk of 1,024) it needs no opt-in, so the render path's launches make
-// no call; above, the kernel's opt-in is made per launch (past the block's
-// 227 KB it fails).
-cudaError_t chunk_memory(int tc, size_t* bytes) {
-  *bytes = sizeof(float) * 12 * (size_t)tc;
-  if (*bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(any_chunks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
-// synchronise, and returns the first CUDA error (0 = the launch was
+// synchronise, and returns cudaGetLastError() (0 = the launch was
 // accepted).  `w` must be 16-byte aligned; `blocks` is (C, ceil(Tc / 32), 6).
 
 extern "C" int closest_chunks(const float* ox, const float* oy, const float* oz,
@@ -286,17 +280,14 @@ extern "C" int closest_chunks(const float* ox, const float* oy, const float* oz,
 
 extern "C" int any_chunks(const float* ox, const float* oy, const float* oz,
                           const float* dx, const float* dy, const float* dz,
-                          const float* t_max, int n_rays, const float* w,
+                          const float* t_max, int n_rays, const float* blocks, const float* w,
                           const float* boxes, int n_chunks, int tri_chunk,
                           float t_min, float box_pad, float far_scale,
                           unsigned char* blocked_out, void* stream) {
   if (n_rays > 0) {
-    size_t bytes = 0;
-    const cudaError_t err = chunk_memory(tri_chunk, &bytes);
-    if (err != cudaSuccess) return refused(err);
-    any_chunks_kernel<<<(n_rays + kTile - 1) / kTile, kTile, bytes,
+    any_chunks_kernel<<<(n_rays + kChunkThreads - 1) / kChunkThreads, kChunkThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, t_max, n_rays, w, boxes, n_chunks, tri_chunk,
+        ox, oy, oz, dx, dy, dz, t_max, n_rays, blocks, w, boxes, n_chunks, tri_chunk,
         t_min, Widen{box_pad, far_scale}, blocked_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -95,6 +95,13 @@ __device__ __forceinline__ bool slab(const float* __restrict__ b, const Ray& r,
   return tn <= tf * w.far;
 }
 
+// `slab` for a box that may be inverted (min above max: a run of padding
+// slots or of masked triangles), which no ray enters.
+__device__ __forceinline__ bool enters(const float* __restrict__ box, const Ray& r,
+                                       float t_min, float t_far, Widen widen) {
+  return box[0] <= box[3] && slab(box, r, t_min, t_far, widen);
+}
+
 // Bitmask of the children whose box the ray enters before t_far.  Empty
 // slots (code -1) are skipped: their inverted boxes never count.
 __device__ __forceinline__ unsigned live_children(
@@ -417,8 +424,67 @@ __device__ __forceinline__ void lane_serve_closest(
   });
 }
 
+// Closest hit over leaves with a box per block of 32 slots (K5a): the
+// groups of `lane_serve` (the lanes that offer one chunk, lowest offering
+// lane first), and in a group's chunk `c` each block whose box (`blocks`,
+// (C, ceil(Tc / 32), 6), world coordinates, inverted over padding) some
+// lane of the group enters before its own best, served by
+// `serve_cols_closest` to those lanes alone, lowest block first; a block no
+// lane enters costs each lane of the group one slab test and no load.  Its
+// own copy of `lane_serve`'s group loop: sharing one loop changed K1's and
+// K2's scheduled code.  Every lane of the warp calls it.
+__device__ __forceinline__ void lane_serve_blocks_closest(
+    int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
+    int n_chunks, const float* __restrict__ blocks, const Ray& r, float t_min, Widen widen,
+    float& best, int& best_slot) {
+  const int lane = threadIdx.x & 31;
+  const int n_blocks = (tc + 31) / 32;
+  const unsigned same = __match_any_sync(kFullMask, chunk);
+  for (unsigned want = __ballot_sync(kFullMask, chunk >= 0); want;) {
+    const int lead = __ffs(static_cast<int>(want)) - 1;
+    const unsigned group = __shfl_sync(kFullMask, same, lead);
+    want &= ~group;
+    const int c = __shfl_sync(kFullMask, chunk, lead);
+    const bool mine = (group >> lane) & 1u;
+    Ray a = r;
+    a.ox = r.ox - wanchor[c];
+    a.oy = r.oy - wanchor[n_chunks + c];
+    a.oz = r.oz - wanchor[2 * n_chunks + c];
+    const float* W = w + (size_t)c * 12 * tc;
+    const float* box = blocks + (size_t)c * n_blocks * 6;
+    for (int b = 0; b < n_blocks; ++b) {
+      const unsigned rays =
+          __ballot_sync(kFullMask, mine && enters(box + 6 * b, r, t_min, best, widen));
+      if (!rays) continue;
+      const int j0 = 32 * b;
+      TriCols cols = {};
+      if (j0 + lane < tc) cols = load_cols(W, tc, j0 + lane);
+      serve_cols_closest(cols, min(tc - j0, 32), j0 + lane < tc, c * tc + j0, rays, a, t_min,
+                         best, best_slot);
+    }
+  }
+}
+
+// One block of at most 32 columns, any hit: `cols` this lane's column
+// (`has_col`), `rays` the lanes whose ray `a` is tested, one after the
+// other across the columns, each against its own `t_max` (shuffled from its
+// lane); `hit` becomes true on each such lane whose ray hits a column.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void serve_cols_any(const TriCols& cols, bool has_col,
+                                               unsigned rays, const Ray& a, float t_min,
+                                               float t_max, bool& hit) {
+  const int lane = threadIdx.x & 31;
+  for (; rays; rays &= rays - 1) {
+    const int src = __ffs(static_cast<int>(rays)) - 1;
+    const Ray q = shfl_ray(a, src);
+    const float q_max = __shfl_sync(kFullMask, t_max, src);
+    const bool mine = has_col && tri_t(cols, q.ox, q.oy, q.oz, q, t_min, q_max) < kMissT;
+    if (__any_sync(kFullMask, mine) && lane == src) hit = true;
+  }
+}
+
 // Any hit: `warp_serve_any`'s contract, the rays of a group one after the
-// other, each until its first block with a hit.
+// other, each until its first block with a hit (`serve_cols_any`).
 __device__ __forceinline__ bool lane_serve_any(
     int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
     int n_chunks, const Ray& r, float t_min, float t_max) {
@@ -426,14 +492,8 @@ __device__ __forceinline__ bool lane_serve_any(
   bool hit = false;
   lane_serve(chunk, w, tc, wanchor, n_chunks, r,
              [&](int, int j0, const TriCols& cols, const Ray& a, unsigned rays) {
-    for (rays &= ~__ballot_sync(kFullMask, hit); rays; rays &= rays - 1) {
-      const int src = __ffs(static_cast<int>(rays)) - 1;
-      const Ray q = shfl_ray(a, src);
-      const float q_max = __shfl_sync(kFullMask, t_max, src);
-      const bool mine =
-          j0 + lane < tc && tri_t(cols, q.ox, q.oy, q.oz, q, t_min, q_max) < kMissT;
-      if (__any_sync(kFullMask, mine) && lane == src) hit = true;
-    }
+    serve_cols_any(cols, j0 + lane < tc, rays & ~__ballot_sync(kFullMask, hit), a, t_min,
+                   t_max, hit);
   });
   return hit;
 }

@@ -10,31 +10,47 @@
 // ray tile walks the tree in the row layout, and each live leaf is tested as
 // one transposed (rays x 3 Tc) broadcast tile with the leaf's triangles
 // across the lanes (`_pair_hits_t`), which is why Tc must be a multiple of
-// 128.  On the card the transposed layout becomes a warp that takes one ray
-// at a time and spreads the leaf's triangles over its 32 lanes, 4 per lane
-// at Tc = 128: lane j reads column j of each Woop row (coalesced), the warp
-// reduces (t, slot) with shuffles to the ray's own lane, and a ray whose own
-// widened slab misses the leaf is skipped by the whole warp at once
-// (wide_bvh_common.cuh, `warp_visit_closest` / `warp_visit_any`).  Unlike
-// K1-K3, a leaf costs only the rays that enter it.
+// 128.  On the card the transposed layout becomes a warp that tests a leaf
+// of 128 against the rays that enter it, its triangles spread over the 32
+// lanes, and a ray whose own widened slab misses the leaf is skipped by the
+// whole warp at once: unlike a block walk's leaf test, a leaf costs only the
+// rays that enter it.
 //
-// K5: the group that walks the tree together is one warp of 32 rays (the
+// K5a: the walk per ray of K1 (wide_bvh_walk.cuh, `closest_walk`: each
+// thread walks its own ray with its own stack, pending leaves re-culled
+// against its own best) with `BlockServe`, a leaf of 128 served block of
+// 32 by block: before each block the warp takes the ballot of the offering
+// lanes whose ray enters that block's box (the tree's `blocks`, one per run
+// of 32 slots, world coordinates, widened as every box is) before its
+// current best, skips a block no lane enters, and serves the rest with K1's
+// 32-lane block service (`serve_cols_closest`: one triangle per lane in
+// registers; a ray at a time, or ray per lane for groups above kLaneRays).
+// What it replaced, and why: the walk of one warp of 32 rays with a shared
+// stack and the warp's summed direction (K5b's below), in which every leaf
+// any ray of the warp entered was served whole (128 pair tests) to each ray
+// that entered it: 1.5815 ms on the Cornell box's primary rays, NVIDIA H100
+// 80GB HBM3, 700.00 W (PERF.md section 6).  Over leaves of 32 the same walk
+// (K1) took 0.39 ms on those rays; a leaf of 128 is four blocks of 32, and
+// culling blocks is what K7a's boxes showed to pay more than any service.
+//
+// K5b: the group that walks the tree together is one warp of 32 rays (the
 // TPU walks a 512-ray tile).  A warp needs no block barrier: the live mask is
 // a `__reduce_or_sync` of the lanes' slab tests, the node order comes from
-// the warp's summed direction, and the warp's stack lives in shared memory;
-// 32 rays share fewer dead children than 512 would.  A child is visited if
-// any ray of the warp enters it; leaves near to far along the node's sort
-// axis by that summed direction, internal children pushed far to near.  The
-// leaf chunk is read straight from device memory: Cornell's leaf-128 `w`
-// (about 400 KB) lives in the 50 MB L2, the counterpart of the TPU's
-// VMEM-resident pack.  Any hit: a blocked ray enters no box and tests
-// nothing more, and the warp leaves once all its rays are blocked.
+// the warp's summed direction, and the warp's stack lives in shared memory.
+// A child is visited if any ray of the warp enters it; leaves near to far
+// along the node's sort axis by that summed direction, internal children
+// pushed far to near.  Each leaf is tested one ray at a time across the
+// warp's lanes (wide_bvh_common.cuh, `warp_visit_any`), read straight from
+// device memory (Cornell's leaf-128 `w`, about 400 KB, lives in the 50 MB
+// L2).  A blocked ray enters no box and tests nothing more, and the warp
+// leaves once all its rays are blocked.
 //
 // K4: the block walk of the TPU's streaming kernels (wide_bvh_block.cuh:
 // one block of 256 rays, the node and the stack in shared memory, the live
 // leaves of a node staged by cp.async into 8 shared-memory slots before the
 // first wait), with each staged leaf tested by K5's warp-transposed test,
-// per warp, only on the rays that enter it.
+// per warp, only on the rays that enter it (`warp_visit_closest` /
+// `warp_visit_any`).
 //
 // Numerics: the pair test is K1's (`tri_t`, exact f32, IEEE divide, built
 // with --fmad=false); the reference's `_recip_fast` is TPU rounding.  Ties
@@ -42,16 +58,15 @@
 // brute force over the same slot rows bit for bit: the plain version.
 //
 // What bounds them on an H100: latency, not bytes or operations.  Every
-// warp step (the node's 8 slab tests, a ballot, a ray's 4 pair tests per
-// lane and its 5-step shuffle reduction) is a short chain of dependent
-// instructions and loads, with few warps in flight doing it.  The design
-// removes the block walk's waste (a leaf opened for one ray tested by all
-// 256), and leaves the rest to later work: no wgmma pair tests, no TMA, no
-// persistent blocks, no ray reordering within a warp.
+// warp step (the node's 8 slab tests, a ballot, a ray's pair tests and the
+// shuffles around them) is a short chain of dependent instructions and
+// loads.  No wgmma pair tests, no TMA, no persistent blocks, no ray
+// reordering within a warp.
 
 #include <cuda_runtime.h>
 
 #include "wide_bvh_block.cuh"
+#include "wide_bvh_walk.cuh"
 
 namespace {
 
@@ -89,47 +104,21 @@ __device__ __forceinline__ int warp_push_pop(int* stack, int& sp, const int* __r
   return node;
 }
 
-__global__ void __launch_bounds__(kWideThreads) closest_wide_t_kernel(
+// K5a's register cap: K1's (at most 64 registers a thread, 8 blocks of 128
+// per SM).
+constexpr int kMinBlocks = 8;
+static_assert(kStackDepth == kWideStack, "K5a and K5b share one stack-depth entry");
+
+__global__ void __launch_bounds__(kWalkThreads, kMinBlocks) closest_wide_t_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
-    const float* __restrict__ wbox, const int* __restrict__ wchild,
-    const int* __restrict__ waxis, const float* __restrict__ w,
-    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
-    Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
-  __shared__ int stacks[kWideWarps][kWideStack];
-  const int i = blockIdx.x * kWideThreads + threadIdx.x;
-  const bool valid = i < n_rays;
-  if (!__any_sync(kFullMask, valid)) return;  // the whole warp is past the end
-  int* stack = stacks[threadIdx.x >> 5];
-  Ray r = {};
-  if (valid) r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const unsigned signs = warp_signs(r, valid);
-  const int chunk_floats = 12 * tc;
-
-  float best = kMissT;
-  int best_slot = -1;
-  int sp = 0;
-  for (int node = 0; node >= 0;) {
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const unsigned mine = valid ? live_children(boxes, codes, r, t_min, best, widen) : 0u;
-    const unsigned live = __reduce_or_sync(kFullMask, mine);
-    const bool low_first = (signs >> waxis[node]) & 1u;
-    for (int k = 0; k < kArity; ++k) {  // leaves near to far
-      const int c = low_first ? k : kArity - 1 - k;
-      const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      const int chunk = -2 - code;
-      warp_visit_closest(boxes + 8 * c, w + (size_t)chunk * chunk_floats, tc, chunk,
-                         wanchor, n_chunks, r, valid, t_min, widen, best, best_slot);
-    }
-    node = warp_push_pop(stack, sp, codes, live, low_first);
-  }
-  if (valid) {
-    t_out[i] = best;
-    slot_out[i] = best_slot;
-  }
+    const float* __restrict__ blocks, const float* __restrict__ wbox,
+    const int* __restrict__ wchild, const int* __restrict__ waxis,
+    const float* __restrict__ w, const float* __restrict__ wanchor, int n_chunks, int tc,
+    float t_min, Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
+  closest_walk<BlockServe>(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+                           n_chunks, tc, t_min, widen, t_out, slot_out, blocks, widen);
 }
 
 __global__ void __launch_bounds__(kWideThreads) any_wide_t_kernel(
@@ -296,7 +285,8 @@ __global__ void __launch_bounds__(kTile) any_stream_t_kernel(
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  The leaf size must be a multiple of 32 (the wrappers ask for
-// 128); for K4, `w` must be 16-byte aligned.
+// 128); for K4, `w` must be 16-byte aligned; K5a's `blocks` is
+// (C, leaf_size / 32, 6), the boxes of each leaf's runs of 32 slots.
 
 extern "C" int wide_t_stack_depth() { return kWideStack; }
 
@@ -304,15 +294,15 @@ extern "C" int stream_t_stack_depth() { return kBlockStack; }
 
 extern "C" int closest_wide_t(const float* ox, const float* oy, const float* oz,
                               const float* dx, const float* dy, const float* dz,
-                              int n_rays, const float* wbox, const int* wchild,
-                              const int* waxis, const float* w,
+                              int n_rays, const float* blocks, const float* wbox,
+                              const int* wchild, const int* waxis, const float* w,
                               const float* wanchor, int n_chunks, int leaf_size,
                               float t_min, float box_pad, float far_scale,
                               float* t_out, int* slot_out, void* stream) {
   if (n_rays > 0) {
-    closest_wide_t_kernel<<<(n_rays + kWideThreads - 1) / kWideThreads, kWideThreads, 0,
+    closest_wide_t_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+        ox, oy, oz, dx, dy, dz, n_rays, blocks, wbox, wchild, waxis, w, wanchor,
         n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, t_out, slot_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,8 @@
 // One walk per ray over an arity-8 BVH, with the leaf tests served by the
 // warp: the loops of K1/K2 (wide_bvh.cu) and K3a/K3b (wide_bvh_stream.cu),
-// which differ only in the leaf service they call (`LaneServe`,
-// `WarpServe`) and in their register cap.
+// and K5a's closest hit (wide_bvh_t.cu), which differ only in the leaf
+// service they call (`LaneServe`, `WarpServe`, `BlockServe`) and in their
+// register cap.
 //
 // Each thread walks its own ray with its own stack, in its own near-to-far
 // order along the node's sort axis, culling children against its own best
@@ -16,9 +17,10 @@
 //   visits at most kVisits nodes until it has one; then the warp serves the
 //   offered (ray, leaf) pairs (wide_bvh_common.cuh: `warp_serve_*`, the
 //   leaf's triangles across the lanes, one ray at a time, or `lane_serve_*`,
-//   one triangle per lane in registers).  Only the ray's own lane keeps the
-//   result, so a leaf costs only the rays that enter it, and a ray's result
-//   does not depend on which rays share its warp.
+//   one triangle per lane in registers, for K5a culled block by block).
+//   Only the ray's own lane keeps the result, so a leaf costs only the rays
+//   that enter it, and a ray's result does not depend on which rays share
+//   its warp.
 // - The loop ends when no lane of the warp has a node or a pending leaf.
 //   Every warp collective is reached by all 32 lanes: lanes past the last
 //   ray, and lanes whose walk is over (or, for any hit, whose ray is
@@ -139,9 +141,26 @@ struct LaneServe {
   }
 };
 
+// K5a's: K1's service over leaves with a box per block of 32 slots, each
+// block served only to the offering lanes whose ray enters its box before
+// their best (`lane_serve_blocks_closest`), given the tree's block boxes
+// and the slab widening after the common arguments.
+struct BlockServe {
+  __device__ __forceinline__ static void closest(int chunk, const float* __restrict__ w, int tc,
+                                                 const float* __restrict__ wanchor, int n_chunks,
+                                                 const Ray& r, float t_min, float& best,
+                                                 int& best_slot, const float* __restrict__ blocks,
+                                                 Widen widen) {
+    lane_serve_blocks_closest(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, widen, best,
+                              best_slot);
+  }
+};
+
 // The body of a closest-hit walk kernel (one thread per ray, kWalkThreads a
 // block): t and slot of each ray's closest hit, kMissT and -1 for none.
-template <class Serve>
+// `Serve::closest` serves the offered leaves, given `extra` after its
+// common arguments (BlockServe's data; none for K1 and K3).
+template <class Serve, class... Extra>
 __device__ __forceinline__ void closest_walk(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
@@ -149,7 +168,7 @@ __device__ __forceinline__ void closest_walk(
     const float* __restrict__ wbox, const int* __restrict__ wchild,
     const int* __restrict__ waxis, const float* __restrict__ w,
     const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
-    Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
+    Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out, Extra... extra) {
   const int i = blockIdx.x * kWalkThreads + threadIdx.x;
   const bool valid = i < n_rays;
   if (!__any_sync(kFullMask, valid)) return;  // the whole warp is past the end
@@ -171,7 +190,7 @@ __device__ __forceinline__ void closest_walk(
       if (chunk >= 0 || walk.node < 0 || v == kVisits) break;
       visit(walk, wbox, wchild, waxis, r, t_min, best, widen);
     }
-    Serve::closest(chunk, w, tc, wanchor, n_chunks, r, t_min, best, best_slot);
+    Serve::closest(chunk, w, tc, wanchor, n_chunks, r, t_min, best, best_slot, extra...);
     if (!__any_sync(kFullMask, walk.node >= 0 || walk.leaves)) break;
   }
   if (valid) {

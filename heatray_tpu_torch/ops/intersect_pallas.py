@@ -7,7 +7,7 @@ the module keeps the reference's name).  No tree: the Woop rows, in triangle
 order, are cut into chunks of ``tri_chunk`` triangles packed as
 ``(C, 4, 3 Tc)`` (the wide BVH's leaf layout, without anchors), each with
 its AABB, and the AABBs of its runs of 32 triangles (``blocks``, which
-the closest-hit kernel culls by; the reference has no such boxes).  A query
+both kernels cull by; the reference has no such boxes).  A query
 tests a ray against the triangles of each chunk whose box it enters, so the
 closest hit returns triangle ids directly.
 
@@ -27,10 +27,9 @@ import torch
 from ..vec import Vec3
 from . import cuda_build
 from .intersect import WoopAccel, any_rows, chunk_boxes, chunk_rows, closest_rows
-from .wide_bvh import launch_any, launch_closest, on_cpu
+from .wide_bvh import BLOCK, launch_any, launch_closest, leaf_blocks, on_cpu
 
 TRI_CHUNK = 512
-BLOCK = 32  # triangles under one of a chunk's block boxes: a warp's width
 
 
 @dataclasses.dataclass
@@ -61,19 +60,11 @@ class WoopPallas:
 
 def block_boxes(accel: WoopAccel, tri_chunk: int, n_chunks: int) -> torch.Tensor:
     """(n_chunks, ceil(tri_chunk / BLOCK), 6) AABBs of each chunk's runs of
-    BLOCK triangles; padding triangles (and runs past the chunk's end) form
-    empty (inverted) boxes."""
-    big = 3.0e38
-    nb = -(-tri_chunk // BLOCK)
-    pad = n_chunks * tri_chunk - accel.num_triangles
-
-    def runs(x, fill, reduce):
-        x = torch.nn.functional.pad(x, (0, pad), value=fill).reshape(3, n_chunks, tri_chunk)
-        x = torch.nn.functional.pad(x, (0, nb * BLOCK - tri_chunk), value=fill)
-        return reduce(x.reshape(3, n_chunks, nb, BLOCK), dim=3)
-
-    lo, hi = runs(accel.tri_min, big, torch.amin), runs(accel.tri_max, -big, torch.amax)
-    return torch.cat([lo, hi]).permute(1, 2, 0).contiguous()
+    BLOCK triangles (``leaf_blocks``); padding triangles (and runs past the
+    chunk's end) form empty (inverted) boxes."""
+    big, pad = 3.0e38, n_chunks * tri_chunk - accel.num_triangles
+    return leaf_blocks(torch.nn.functional.pad(accel.tri_min, (0, pad), value=big),
+                       torch.nn.functional.pad(accel.tri_max, (0, pad), value=-big), tri_chunk)
 
 
 def pack_for_pallas(accel: WoopAccel, tri_chunk: int = TRI_CHUNK) -> WoopPallas:
@@ -107,9 +98,9 @@ def any_chunks_plain(packed: WoopPallas, origins: Vec3, directions: Vec3, t_min=
 # --- kernel wrappers ---------------------------------------------------------
 
 _P = ctypes.c_void_p
-_TREE = [_P, _P, ctypes.c_int, ctypes.c_int]  # w, boxes, chunks, tri_chunk (K7a: blocks first)
+_TREE = [_P, _P, _P, ctypes.c_int, ctypes.c_int]  # blocks, w, boxes, chunks, tri_chunk
 _TAIL = [ctypes.c_float] * 3
-_CLOSEST_ARGS = [_P] * 6 + [ctypes.c_int, _P] + _TREE + _TAIL + [_P, _P, _P]
+_CLOSEST_ARGS = [_P] * 6 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P, _P]
 _ANY_ARGS = [_P] * 7 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P]
 
 
@@ -121,17 +112,16 @@ def _kernels() -> ctypes.CDLL:
     return lib
 
 
-def _pack_args(packed: WoopPallas, blocks: bool = False) -> list:
-    """The pack's entry-point arguments: ``_TREE``, after the block boxes
-    with ``blocks`` (K7a)."""
+def _pack_args(packed: WoopPallas) -> list:
+    """The pack's entry-point arguments (``_TREE``)."""
     for name in ("w", "boxes", "blocks"):
         a = getattr(packed, name)
         if a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError(f"WoopPallas.{name} must be a contiguous float32 tensor")
     if packed.w.data_ptr() % 16:
         raise ValueError("WoopPallas.w must be 16-byte aligned for the chunk kernels")
-    return ([packed.blocks.data_ptr()] if blocks else []) + [
-        packed.w.data_ptr(), packed.boxes.data_ptr(), packed.num_chunks, packed.tri_chunk]
+    return [packed.blocks.data_ptr(), packed.w.data_ptr(), packed.boxes.data_ptr(),
+            packed.num_chunks, packed.tri_chunk]
 
 
 def intersect_closest_pallas(packed: WoopPallas, origins: Vec3, directions: Vec3,
@@ -146,7 +136,7 @@ def intersect_closest_pallas(packed: WoopPallas, origins: Vec3, directions: Vec3
     its box."""
     if on_cpu(packed):
         return closest_chunks_plain(packed, origins, directions, t_min)
-    out = launch_closest(_kernels().closest_chunks, _pack_args(packed, blocks=True), packed,
+    out = launch_closest(_kernels().closest_chunks, _pack_args(packed), packed,
                          origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_pallas.launches += 1
@@ -159,7 +149,9 @@ def intersect_any_pallas(packed: WoopPallas, origins: Vec3, directions: Vec3,
     or an (R,) tensor.  Returns an (R,) bool mask.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``any_chunks_kernel``."""
+    ``any_chunks_kernel``: ``intersect_closest_pallas``'s chunk and block
+    culls, in index order, against each ray's own ``t_max``; a ray's walk
+    ends at its first hit."""
     if on_cpu(packed):
         return any_chunks_plain(packed, origins, directions, t_min, t_max)
     out = launch_any(_kernels().any_chunks, _pack_args(packed), packed,

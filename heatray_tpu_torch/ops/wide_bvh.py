@@ -49,6 +49,8 @@ FAR_SCALE = 1.0 + 2.0**-20
 # triangles.
 LEAF_MATHS = ("mxu", "vpu")
 VPU_LEAF_ALIGN = 128
+BLOCK = 32  # slots under one block box (K5a, K7): a warp's width
+_BIG_BOX = 3.0e38  # the corners of an inverted (empty) box
 
 
 @dataclasses.dataclass
@@ -64,6 +66,9 @@ class WideBVH:
     ``wanchor`` (3, C) in float64 at build time.  ``slot_tri`` (C * Tc,) i32
     maps slots to triangle ids (-1 padding).  ``max_stack`` is the deepest
     traversal stack the tree can need (every child of every node live).
+    ``blocks`` (C, ceil(Tc / BLOCK), 6) f32: the world-space AABBs of each
+    leaf's runs of BLOCK slots (``leaf_blocks``), which K5a culls by; the
+    reference has none.
     """
 
     wbox: torch.Tensor
@@ -75,6 +80,7 @@ class WideBVH:
     leaf_size: int
     num_triangles: int
     max_stack: int
+    blocks: torch.Tensor
 
     @property
     def num_nodes(self) -> int:
@@ -174,6 +180,32 @@ def max_stack_depth(wchild: np.ndarray) -> int:
     return deepest
 
 
+def slot_boxes(slot_tri: torch.Tensor, tri_min: torch.Tensor, tri_max: torch.Tensor):
+    """The triangle boxes ``tri_min``/``tri_max`` (3, T) in slot order, (3, S)
+    each, inverted on padding slots (``slot_tri`` -1)."""
+    filled = slot_tri >= 0
+    tri = slot_tri.clamp(min=0).long()
+    return (torch.where(filled, tri_min[:, tri], _BIG_BOX),
+            torch.where(filled, tri_max[:, tri], -_BIG_BOX))
+
+
+def leaf_blocks(lo: torch.Tensor, hi: torch.Tensor, leaf_size: int) -> torch.Tensor:
+    """(C, ceil(leaf_size / BLOCK), 6) AABBs [min xyz, max xyz] of each
+    leaf's runs of BLOCK slots, from the slots' boxes ``lo``/``hi`` (3,
+    C * leaf_size; inverted where a slot is empty): a run of empty slots,
+    or past the leaf's end, gets an inverted box, which no ray enters."""
+    c = lo.shape[1] // leaf_size
+    nb = -(-leaf_size // BLOCK)
+
+    def runs(x, fill, reduce):
+        x = torch.nn.functional.pad(x.reshape(3, c, leaf_size), (0, nb * BLOCK - leaf_size),
+                                    value=fill)
+        return reduce(x.reshape(3, c, nb, BLOCK), dim=3)
+
+    lo, hi = runs(lo, _BIG_BOX, torch.amin), runs(hi, -_BIG_BOX, torch.amax)
+    return torch.cat([lo, hi]).permute(1, 2, 0).contiguous()
+
+
 def build_wide_bvh(
     accel: WoopAccel, leaf_size: int = 32, include: np.ndarray | None = None
 ) -> WideBVH:
@@ -211,16 +243,18 @@ def build_wide_bvh(
     w = w.reshape(c, 3, 4, tc).transpose(0, 2, 1, 3).reshape(c, 4, 3 * tc)
 
     dev = accel.w.device
+    slot_tri = torch.from_numpy(topo.slot_tri).to(dev)
     return WideBVH(
         wbox=torch.from_numpy(np.ascontiguousarray(wbox)).to(dev),
         wchild=torch.from_numpy(np.ascontiguousarray(wchild)).to(dev),
         waxis=torch.from_numpy(waxis).to(dev),
         w=torch.from_numpy(np.ascontiguousarray(w)).to(dev),
-        slot_tri=torch.from_numpy(topo.slot_tri).to(dev),
+        slot_tri=slot_tri,
         wanchor=torch.from_numpy(anchors.astype(np.float32)).to(dev),
         leaf_size=tc,
         num_triangles=accel.num_triangles,
         max_stack=max_stack_depth(wchild),
+        blocks=leaf_blocks(*slot_boxes(slot_tri, accel.tri_min, accel.tri_max), tc),
     )
 
 
@@ -290,6 +324,8 @@ _ANY_ARGS = (
     [_P] * 7 + [ctypes.c_int] + [_P] * 5
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
 )
+# K5a's: the tree's block boxes after the ray count.
+_CLOSEST_BLOCK_ARGS = _CLOSEST_ARGS[:7] + [_P] + _CLOSEST_ARGS[7:]
 # Shared memory a block of the block-walk kernels (K4) may take for its 8
 # leaf slots (of the H100's 227 KB per block, less the walk's own state).
 _STREAM_SLOT_BYTES = 200 * 1024
@@ -322,8 +358,10 @@ def _stream_kernels() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _t_kernels() -> ctypes.CDLL:
-    return _bind("wide_bvh_t", ("wide_t_stack_depth", "stream_t_stack_depth"),
-                 (("closest_wide_t", "any_wide_t"), ("closest_stream_t", "any_stream_t")))
+    lib = _bind("wide_bvh_t", ("wide_t_stack_depth", "stream_t_stack_depth"),
+                (("closest_wide_t", "any_wide_t"), ("closest_stream_t", "any_stream_t")))
+    lib.closest_wide_t.argtypes = _CLOSEST_BLOCK_ARGS
+    return lib
 
 
 def on_cpu(tree) -> bool:
@@ -358,6 +396,21 @@ def _tree_args(bvh: WideBVH, depth: int) -> list:
             raise ValueError(f"WideBVH.{name} must be a contiguous {dtype} tensor")
     return [bvh.wbox.data_ptr(), bvh.wchild.data_ptr(), bvh.waxis.data_ptr(),
             bvh.w.data_ptr(), bvh.wanchor.data_ptr(), bvh.num_chunks, bvh.leaf_size]
+
+
+def _block_tree_args(bvh: WideBVH, depth: int) -> list:
+    """``_tree_args`` after the tree's block boxes (K5a), which it must
+    carry."""
+    tree = _tree_args(bvh, depth)
+    blocks = bvh.blocks
+    if blocks is None:
+        raise ValueError("K5a culls by the leaves' block boxes: the tree has no WideBVH.blocks")
+    if (blocks.dtype != torch.float32 or not blocks.is_contiguous()
+            or blocks.shape != (bvh.num_chunks, -(-bvh.leaf_size // BLOCK), 6)
+            or blocks.device != bvh.w.device):
+        raise ValueError("WideBVH.blocks must be a contiguous float32 (C, leaf_size / 32, 6) "
+                         "tensor on the tree's device")
+    return [blocks.data_ptr()] + tree
 
 
 def _stream_tree_args(bvh: WideBVH, depth: int) -> list:
@@ -524,14 +577,15 @@ def intersect_closest_vpu(bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: 
     multiple of 128.
 
     CPU tensors take the plain version (``closest_wide_plain``); CUDA tensors
-    launch ``closest_wide_t_kernel`` (``csrc/wide_bvh_t.cu``): a warp of 32
-    rays walks the tree, and each ray that enters a leaf is tested against it
-    by the whole warp, its triangles spread across the lanes."""
+    launch ``closest_wide_t_kernel`` (``csrc/wide_bvh_t.cu``): a walk per
+    ray, and each leaf a walk reaches served block of 32 by block, each block
+    only to the rays that enter its box (``WideBVH.blocks``: a tree without
+    them raises), one triangle per lane."""
     _check_t_leaf(bvh)
     if on_cpu(bvh):
         return closest_wide_plain(bvh, origins, directions, t_min)
     lib = _t_kernels()
-    out = launch_closest(lib.closest_wide_t, _tree_args(bvh, lib.wide_t_stack_depth()),
+    out = launch_closest(lib.closest_wide_t, _block_tree_args(bvh, lib.wide_t_stack_depth()),
                          bvh, origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_vpu.launches += 1

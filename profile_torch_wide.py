@@ -1,53 +1,51 @@
 #!/usr/bin/env python3
-"""K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``) and K7a
-(``heatray_tpu_torch/csrc/chunks.cu``) beside variants of their design, on
-the Cornell box's 1080p launches on an NVIDIA card.
+"""K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a
+(``csrc/wide_bvh_t.cu``) and K7a/K7b (``csrc/chunks.cu``) beside variants
+of their design, on the Cornell box's 1080p launches on an NVIDIA card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k7] [--parent DIR]
+    python3 profile_torch_wide.py [--kernels k1,k5,k7] [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
-of ``VARIANTS`` (K1/K2) or ``CHUNK_VARIANTS`` (K7a) applied, built with the
-package's nvcc flags into ``build/wide_variants/`` (one nvcc each, all
-started together).  ``--parent DIR`` adds the ``wide_bvh.cu`` and
-``chunks.cu`` of another tree as they stand (for example an unpacked parent
-commit); without it, K7a's ``parent`` is the design it replaced
-(``k7a_parent.py``, a 256-ray block walk in index order over chunks staged
-in shared memory, each entering thread testing every triangle in turn).  The
-launches are those of a pass at depth 2, sorted and gated as on the card:
-K1 and K7a on the primary rays and on the sorted depth-2 head, K2 and K7b on
-their shadow lanes, K7 over the rebuild mode's chunk pack.  For K1/K2 it
+of ``VARIANTS`` (K1/K2), ``T_VARIANTS`` (K5a) or ``CHUNK_VARIANTS``
+(K7a/K7b) applied, built with the package's nvcc flags into
+``build/wide_variants/`` (one nvcc each, all started together).
+``--parent DIR`` adds the ``wide_bvh.cu``, ``wide_bvh_t.cu`` and
+``chunks.cu`` of another tree as they stand (for example an unpacked
+parent commit), as the variant ``parent``, and compares the SASS of each
+kernel of those sources and of ``wide_bvh_stream.cu`` (K3) with this
+tree's (``cuobjdump``).  The launches are those of a pass at depth 2,
+sorted and gated as on the card: the closest-hit kernels on the primary
+rays and on the sorted depth-2 head, the occlusion kernels on their shadow
+lanes; K1/K2 over the Cornell box's trees at leaf 32, 64 and 128, K5a over
+its leaf-128 tree (Route A's), K7 over the rebuild mode's chunk packs.  It
 prints, one reading per line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
-- ``[build]``: each variant's registers and spill bytes for K1 and K2;
+- ``[build]``: each variant's registers and spill bytes per kernel;
 - ``[check]``: each variant's results against the shipped kernel's on every
-  launch (t, slot and blocked, bit for bit); a variant of this tree must
-  equal it, the parent's count of differing lanes is printed;
+  launch it runs (t, slot or id, and blocked, bit for bit); a variant of
+  this tree must equal it, the parent's count of differing lanes is
+  printed;
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
-  in order and then in reverse, min/max of the two: every variant over the
-  Cornell box's tree at leaf 32, and ``shipped``, ``warp`` and the parent
-  over the trees at leaf 64 and 128 (``wide_leaf_size``) too;
+  in order and then in reverse, min/max of the two: K1/K2 for every variant
+  over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
+  trees at leaf 64 and 128 too; K5a for each of its variants; K7a for each
+  of ``CHUNK_VARIANTS`` and K7b for those of ``K7B_VARIANTS``;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
   leaf service meets (one per warp, offered leaf and round; the ``count``
   variant): their number, mean rays per group, and the share of groups, and
   of (ray, leaf) pairs, in groups of more than 16 and than ``kLaneRays``
-  rays.
-
-and for K7a:
-
-- ``[build]``: each variant's registers and spill bytes for K7a (K7b);
-- ``[check]``: each variant's t and ids against the shipped kernel's on the
-  primary rays and the head, bit for bit (a variant of this tree must equal
-  it; the parent's count of differing lanes is printed);
-- ``[time]``: ms per launch over 10 launches, in turns as for K1, and K7b
-  for ``shipped`` and the parent;
-- ``[pairs]``: on each launch, the pair tests K7a makes (its (ray, block)
-  services times the block's 32 columns; the ``count`` variant) against
-  those of ``chip_smoke.chunk_work`` (every block a ray enters, in every
-  chunk it enters, before its hit) and those of whole chunks (the parent's),
-  and the groups served ray per lane and one ray at a time.
+  rays;
+- ``[pairs]``: on each K7a launch, the pair tests K7a makes (its (ray,
+  block) services times the block's 32 columns; the ``count`` variant)
+  against those of ``chip_smoke.chunk_work`` (every block a ray enters, in
+  every chunk it enters, before its hit) and those of whole chunks, and the
+  groups served ray per lane and one ray at a time;
+- ``[sass]``: with ``--parent``, for each kernel, whether its SASS equals
+  the parent's instruction for instruction, or how many of its
+  instructions differ.
 
 It imports no jax.
 """
@@ -57,6 +55,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import difflib
 import re
 import shutil
 import subprocess
@@ -73,19 +72,27 @@ WIDE_LEAF_VARIANTS = ("shipped", "warp", "parent")
 
 _COMMON = "wide_bvh_common.cuh"
 _K1 = "wide_bvh.cu"
+_K3 = "wide_bvh_stream.cu"
+_K5 = "wide_bvh_t.cu"
 _K7 = "chunks.cu"
-_ANY_LANES = """    if (__popc(rays) > kLaneRays) {
-      const bool mine = (rays >> lane) & 1u;
-      const int n = min(tc - j0, 32);
-      for (int j = 0; j < n; ++j) {
-        const TriCols col_j = shfl_cols(cols, j);
-        if (mine && !hit && tri_t(col_j, a.ox, a.oy, a.oz, a, t_min, t_max) < kMissT) {
-          hit = true;
-        }
+# A ray-per-lane branch for large groups in the any-hit block service of K2
+# and K7b (`serve_cols_any`), as K1's closest-hit service has.
+_ANY_LANES = """  if (__popc(rays) > kLaneRays) {
+    const bool mine = (rays >> lane) & 1u;
+    for (int j = 0; j < 32; ++j) {
+      const TriCols col_j = shfl_cols(cols, j);
+      const bool has_j = __shfl_sync(kFullMask, has_col, j);
+      if (mine && !hit && has_j && tri_t(col_j, a.ox, a.oy, a.oz, a, t_min, t_max) < kMissT) {
+        hit = true;
       }
-      return;
     }
+    return;
+  }
 """
+_ANY_LOOP = """  for (; rays; rays &= rays - 1) {
+    const int src = __ffs(static_cast<int>(rays)) - 1;
+    const Ray q = shfl_ray(a, src);
+    const float q_max"""
 _COUNT_READ = """
 extern "C" int lane_groups_read(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, lane_groups, sizeof(lane_groups)));
@@ -116,8 +123,10 @@ _ROWS = [
     (_COMMON, "__device__ __forceinline__ void serve_cols_closest(const TriCols& cols,",
      "__device__ __forceinline__ void serve_cols_closest(const float* __restrict__ W, int tc,\n"
      "                                                   int j0, const TriCols& cols,"),
-    (_COMMON, "    serve_cols_closest(cols, min(tc - j0, 32),",
-     "    serve_cols_closest(w + (size_t)c * 12 * tc, tc, j0, cols, min(tc - j0, 32),"),
+    (_COMMON, "\n    serve_cols_closest(cols, min(tc - j0, 32),",
+     "\n    serve_cols_closest(w + (size_t)c * 12 * tc, tc, j0, cols, min(tc - j0, 32),"),
+    (_COMMON, "\n      serve_cols_closest(cols, min(tc - j0, 32),",
+     "\n      serve_cols_closest(W, tc, j0, cols, min(tc - j0, 32),"),
     (_K7, "  serve_cols_closest(cols, n,", "  serve_cols_closest(W, tc, j0, cols, n,"),
 ]
 _LOAD = _ROWS + [(_COMMON, "      const TriCols col_j = shfl_cols(cols, j);",
@@ -140,8 +149,7 @@ VARIANTS = {
     ]),
     "load": ("ray per lane reads each column from memory instead of shuffles", _LOAD),
     "any-lanes": ("K2 with K1's ray-per-lane branch for large groups", [
-        (_COMMON, "    for (rays &= ~__ballot_sync(kFullMask, hit); rays; rays &= rays - 1) {\n",
-         _ANY_LANES + "    for (rays &= ~__ballot_sync(kFullMask, hit); rays; rays &= rays - 1) {\n"),
+        (_COMMON, _ANY_LOOP, _ANY_LANES + _ANY_LOOP),
     ]),
     "count": ("the shipped kernels, counting groups by their size", [
         (_COMMON, "template <class Test>\n__device__ __forceinline__ void lane_serve(",
@@ -151,6 +159,23 @@ VARIANTS = {
          "    want &= ~rays;\n    if (lane == lead) atomicAdd(&lane_groups[__popc(rays)], 1ull);\n"),
         (_K1, "extern \"C\" int wide_bvh_stack_depth()",
          _COUNT_READ.lstrip() + "\nextern \"C\" int wide_bvh_stack_depth()"),
+    ]),
+}
+
+def _k5_serve(serve: str):
+    """K5a's walk with another leaf service, which takes no block boxes."""
+    return [(_K5, "closest_walk<BlockServe>(", f"closest_walk<{serve}>("),
+            (_K5, "t_out, slot_out, blocks, widen);", "t_out, slot_out);")]
+
+
+# K5a: name -> (what it changes, [(file, text, replacement)]), as VARIANTS.
+T_VARIANTS = {
+    "shipped": ("K5a as shipped", []),
+    "leaves": ("no block boxes: K1's lane service over whole leaves of 128",
+               _k5_serve("LaneServe")),
+    "warp": ("K3's warp service over whole leaves of 128", _k5_serve("WarpServe")),
+    "uncapped": ("no register cap (__launch_bounds__ with 1 block per SM)", [
+        (_K5, "constexpr int kMinBlocks = 8;", "constexpr int kMinBlocks = 1;"),
     ]),
 }
 
@@ -179,6 +204,74 @@ _SHUFFLED = """    for (int j = 0; j < n; ++j) {
                              best_slot);
     }
 """
+# K7b in K7a's order: each batch of 32 chunks sorted by the warp's least
+# entry into each over its unblocked lanes that enter it before their t_max.
+_K7B_NEAREST = [
+    (_K7, """  bool blocked = false;
+  for (int c = 0; c < n_chunks; ++c) {
+    const bool open = valid && !blocked;  // a blocked ray enters nothing more
+    if (!__any_sync(kFullMask, open)) break;  // every ray of the warp is blocked
+""", """  bool blocked = false;
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < n_chunks; base += 32) {
+  if (!__any_sync(kFullMask, valid && !blocked)) break;
+  const int n = min(32, n_chunks - base);
+  unsigned key = kNoEntry;
+  for (int k = 0; k < n; ++k) {
+    const float* box = boxes + 6 * (base + k);
+    const bool in = valid && !blocked && enters(box, r, t_min, t_hi, widen);
+    const unsigned near =
+        __reduce_min_sync(kFullMask, in ? order_key(entry_t(box, r, t_min)) : kNoEntry);
+    if (lane == k && near != kNoEntry) key = (near & ~31u) | k;
+  }
+  key = warp_sort(key);
+  for (int k = 0; k < n; ++k) {
+    const unsigned next = __shfl_sync(kFullMask, key, k);
+    if (next == kNoEntry) break;
+    const int c = base + static_cast<int>(next & 31u);
+    const bool open = valid && !blocked;
+    if (!__any_sync(kFullMask, open)) break;
+"""),
+    (_K7, "    }\n  }\n  if (valid) blocked_out[i] = blocked ? 1 : 0;",
+     "    }\n  }\n  }\n  if (valid) blocked_out[i] = blocked ? 1 : 0;"),
+]
+# K7b's block read, and the same block staged as K7a stages it.
+_K7B_LOAD = "  TriCols cols = {};\n  if (lane < n) cols = load_cols(W, tc, j0 + lane);\n"
+_K7B_STAGED = """  __shared__ float4 staged_any[kChunkThreads / 32][12][kBlock / 4];
+  TriCols cols = {};
+  if (n == kBlock && tc % 4 == 0) {
+    float4(*rows)[kBlock / 4] = staged_any[threadIdx.x / 32];
+    for (int p = lane; p < 12 * kBlock / 4; p += 32) {
+      const int row = p / (kBlock / 4), q = p % (kBlock / 4);
+      __pipeline_memcpy_async(&rows[row][q], W + (row % 4) * 3 * tc + (row / 4) * tc + j0 + 4 * q,
+                              16);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    const float* col = reinterpret_cast<const float*>(rows);
+    for (int g = 0; g < 3; ++g) {
+      for (int f = 0; f < 4; ++f) cols.c[g][f] = col[(4 * g + f) * kBlock + lane];
+    }
+    __syncwarp();
+  } else if (lane < n) {
+    cols = load_cols(W, tc, j0 + lane);
+  }
+"""
+# K7b's block service with a ray-per-lane branch for large groups, as K1's
+# and K7a's closest-hit service has.
+_K7B_LANES = """  if (__popc(rays) > kLaneRays) {
+    const bool mine = (rays >> lane) & 1u;
+    for (int j = 0; j < n; ++j) {
+      const TriCols col_j = shfl_cols(cols, j);
+      if (mine && !hit && tri_t(col_j, r.ox, r.oy, r.oz, r, t_min, t_max) < kMissT) hit = true;
+    }
+    return;
+  }
+  serve_cols_any(cols, lane < n, rays, r, t_min, t_max, hit);
+"""
+# The variants that time K7b: its own and the parent.
+K7B_VARIANTS = ("shipped", "nearest", "any-staged", "any-lanes", "any-chunks", "parent")
 _CHUNK_COUNT_READ = """
 extern "C" int chunk_counts_read(unsigned long long* out) {
   return static_cast<int>(cudaMemcpyFromSymbol(out, chunk_counts, sizeof(chunk_counts)));
@@ -210,11 +303,22 @@ CHUNK_VARIANTS = {
     "l2": ("each lane reads its column of a block from L1/L2, not staged in shared memory", [
         (_K7, "  if (n == kBlock && tc % 4 == 0) {  // staged", "  if (false) {  // staged"),
     ]),
+    "nearest": ("K7b: the chunks of each batch of 32 nearest entry first (K7a's order)",
+                _K7B_NEAREST),
+    "any-chunks": ("K7b without block boxes: every block of an entered chunk served", [
+        (_K7, "&& !blocked && enters(block_box + 6 * b, r, t_min, t_hi, widen);", "&& !blocked;"),
+    ]),
+    "any-staged": ("K7b: each block staged in shared memory by cp.async, as K7a's",
+                   [(_K7, _K7B_LOAD, _K7B_STAGED)]),
+    "any-lanes": ("K7b: groups of more than kLaneRays rays tested ray per lane", [
+        (_K7, "  serve_cols_any(cols, lane < n, rays, r, t_min, t_max, hit);\n", _K7B_LANES),
+    ]),
     "count": ("the shipped kernel, counting its (ray, block) services", [
-        (_K7, "// The block of columns j0 .. j0 + 31 of chunk `W`",
+        (_K7, "// The block of columns j0 .. j0 + 31 of chunk `W` (ids",
          "__device__ unsigned long long chunk_counts[4];\n\n"
-         "// The block of columns j0 .. j0 + 31 of chunk `W`"),
-        (_K7, "  const int lane = threadIdx.x & 31;\n  const int n = min(tc - j0, kBlock);\n",
+         "// The block of columns j0 .. j0 + 31 of chunk `W` (ids"),
+        (_K7, "  const int lane = threadIdx.x & 31;\n  const int n = min(tc - j0, kBlock);\n"
+              "  TriCols cols = {};\n  if (n == kBlock",
          "  const int lane = threadIdx.x & 31;\n  const int n = min(tc - j0, kBlock);\n"
          "  if (lane == __ffs(static_cast<int>(rays)) - 1) {\n"
          "    const bool big = __popc(rays) > kLaneRays;\n"
@@ -223,7 +327,7 @@ CHUNK_VARIANTS = {
          "    if (big) {\n"
          "      atomicAdd(&chunk_counts[3], static_cast<unsigned long long>(__popc(rays)));\n"
          "    }\n"
-         "  }\n"),
+         "  }\n  TriCols cols = {};\n  if (n == kBlock"),
         (_K7, "extern \"C\" int closest_chunks(",
          _CHUNK_COUNT_READ.lstrip() + "\nextern \"C\" int closest_chunks("),
     ]),
@@ -264,22 +368,48 @@ def compile_lib(name: str, source: Path):
     return so, report
 
 
-def chunk_library(so: Path, blocks: bool = True) -> ctypes.CDLL:
-    """A build of chunks.cu (or of a variant of it), its entry points
-    declared as the package declares them; without ``blocks`` (the parent
-    design), ``closest_chunks`` takes no block boxes."""
+def takes_blocks(source: Path, entry: str) -> bool:
+    """Whether the C entry point ``entry`` of ``source`` takes block boxes
+    (a parent tree's may not: K7b's before this design, K5a's)."""
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", source.read_text())
+    return m is not None and "blocks" in m.group(1)
+
+
+def library(so: Path, source: Path) -> ctypes.CDLL:
+    """A build of ``wide_bvh.cu``, ``wide_bvh_t.cu`` or ``chunks.cu`` (or a
+    variant of one), its entry points declared as the package declares
+    them, less the block boxes where ``source``'s entry takes none; each
+    entry declared gets a ``blocks`` attribute that says which."""
     from heatray_tpu_torch.ops import intersect_pallas as ip
+    from heatray_tpu_torch.ops import wide_bvh as wb
 
     lib = ctypes.CDLL(str(so))
-    closest = ip._CLOSEST_ARGS if blocks else [a for i, a in enumerate(ip._CLOSEST_ARGS) if i != 7]
-    lib.closest_chunks.argtypes, lib.closest_chunks.restype = closest, ctypes.c_int
-    if hasattr(lib, "any_chunks"):
-        lib.any_chunks.argtypes, lib.any_chunks.restype = ip._ANY_ARGS, ctypes.c_int
+    # entry -> (its arguments with block boxes, the index of that pointer)
+    entries = {"closest_wide": (wb._CLOSEST_ARGS, None), "any_wide": (wb._ANY_ARGS, None),
+               "closest_wide_t": (wb._CLOSEST_BLOCK_ARGS, 7),
+               "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8)}
+    for entry, (args, at) in entries.items():
+        if not hasattr(lib, entry):
+            continue
+        fn = getattr(lib, entry)
+        fn.blocks = at is not None and takes_blocks(source, entry)
+        fn.argtypes = args if at is None or fn.blocks else args[:at] + args[at + 1:]
+        fn.restype = ctypes.c_int
+    for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth"):
+        if hasattr(lib, depth):
+            getattr(lib, depth).restype = ctypes.c_int
     return lib
 
 
-_KERNEL_LABELS = {"closest_wide": "K1", "any_wide": "K2", "closest_chunks": "K7a",
+_KERNEL_LABELS = {"closest_wide_t": "K5a", "any_wide_t": "K5b", "closest_stream_t": "K4a",
+                  "any_stream_t": "K4b", "closest_stream": "K3a", "any_stream": "K3b",
+                  "closest_wide": "K1", "any_wide": "K2", "closest_chunks": "K7a",
                   "any_chunks": "K7b"}
+
+
+def kernel_label(name: str):
+    """The K label of a kernel's (mangled) name, or None."""
+    return next((k for n, k in _KERNEL_LABELS.items() if f"{n}_kernel" in name), None)
 
 
 def resources(report: str) -> str:
@@ -288,7 +418,7 @@ def resources(report: str) -> str:
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = next((k for name, k in _KERNEL_LABELS.items() if name in m.group(1)), None)
+            kernel = kernel_label(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and kernel:
             out.setdefault(kernel, {})["spill"] = f"{m.group(1)}/{m.group(2)} B spilled"
@@ -407,12 +537,46 @@ def profile_k1(libs, trees, rays, eps) -> None:
                     f"{pairs / max(groups, 1):.3f} rays a group; " + "; ".join(shares))
 
 
-def profile_k7(libs, chunks, rays, eps, parents) -> None:
-    """K7a's variants on the rebuild mode's chunk pack: checked bit for bit
-    against the shipped kernel, timed in turns (K7b for the shipped kernel
-    and the parent), and the pair tests of the ``count`` variant set beside
-    ``chunk_work``'s.  ``parents``: the libraries whose K7a takes no block
-    boxes."""
+def profile_k5(libs, trees, rays, eps) -> None:
+    """K5a's variants over the Cornell box's leaf-128 tree (Route A's):
+    checked bit for bit against the shipped kernel on the primary rays and
+    the head, and timed in turns."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    bvh = trees[128][0]
+
+    def run(name, what):
+        lib = libs[name]
+        ray, _ = rays[what]
+        fn = lib.closest_wide_t
+        depth = lib.wide_t_stack_depth()
+        tree = wb._block_tree_args(bvh, depth) if fn.blocks else wb._tree_args(bvh, depth)
+        return wb.launch_closest(fn, tree, bvh, ray.org, ray.direction, eps)[:2]
+
+    closest = ["primary", "head"]
+    ref = {what: run("shipped", what) for what in closest}
+    for name in libs:
+        differ = {}
+        for what in closest:
+            (t, slot), (t_ref, slot_ref) = run(name, what), ref[what]
+            differ[what] = int(((t != t_ref) | (slot != slot_ref)).sum())
+        log(f"[check] K5a {name}: lanes whose t or slot differ from shipped: {differ}")
+        if name != "parent" and any(differ.values()):
+            raise AssertionError(f"K5a variant {name} differs from the shipped kernel")
+    torch.cuda.synchronize()
+    ms = in_turns(list(libs), closest, run)
+    for name in libs:
+        log(f"[time] K5a {name}: " + ", ".join(
+            f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
+
+
+def profile_k7(libs, chunks, rays, eps) -> None:
+    """K7a's and K7b's variants on the rebuild mode's chunk packs: checked
+    bit for bit against the shipped kernel, timed in turns (K7a for every
+    variant, K7b for those of K7B_VARIANTS), and K7a's pair tests of the
+    ``count`` variant set beside ``chunk_work``'s."""
     import torch
 
     from chip_smoke import chunk_work
@@ -424,39 +588,38 @@ def profile_k7(libs, chunks, rays, eps, parents) -> None:
         lib = libs[name]
         ray, t_max = rays[what]
         packed = chunks[t_max is not None]
+        fn = lib.any_chunks if t_max is not None else lib.closest_chunks
+        args = ip._pack_args(packed)
+        args = args if fn.blocks else args[1:]
         if t_max is None:
-            args = ip._pack_args(packed, blocks=name not in parents)
-            return wb.launch_closest(lib.closest_chunks, args, packed, ray.org, ray.direction,
-                                     eps)[:2]
-        return (wb.launch_any(lib.any_chunks, ip._pack_args(packed), packed, ray.org,
-                              ray.direction, eps, t_max),)
+            return wb.launch_closest(fn, args, packed, ray.org, ray.direction, eps)[:2]
+        return (wb.launch_any(fn, args, packed, ray.org, ray.direction, eps, t_max),)
 
-    closest = ["primary", "head"]
-    ref = {what: run("shipped", what) for what in closest}
-    for name in libs:
-        differ = {}
-        for what in closest:
-            (t, ids), (t_ref, id_ref) = run(name, what), ref[what]
-            differ[what] = int(((t != t_ref) | (ids != id_ref)).sum())
-        log(f"[check] K7a {name}: lanes whose t or id differ from shipped: {differ}")
-        if name != "parent" and any(differ.values()):
-            raise AssertionError(f"K7a variant {name} differs from the shipped kernel")
-    names = list(libs)
-    ms = in_turns(names, closest, run)
-    for name in names:
-        log(f"[time] K7a {name}: " + ", ".join(
-            f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
-    occl = [n for n in ("shipped", "parent") if n in libs and hasattr(libs[n], "any_chunks")]
-    ms = in_turns(occl, ["shadow", "head shadow"], run)
-    for name in occl:
-        log(f"[time] K7b {name}: " + ", ".join(
-            f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
+    families = {"K7a": (list(libs), ["primary", "head"]),
+                "K7b": ([n for n in K7B_VARIANTS if n in libs], ["shadow", "head shadow"])}
+    for kernel, (names, whats) in families.items():
+        ref = {what: run("shipped", what) for what in whats}
+        for name in names:
+            differ = {}
+            for what in whats:
+                same = torch.ones_like(ref[what][0], dtype=torch.bool)
+                for a, b in zip(run(name, what), ref[what]):
+                    same &= a == b
+                differ[what] = int((~same).sum())
+            log(f"[check] {kernel} {name}: lanes whose results differ from shipped: {differ}")
+            if name != "parent" and any(differ.values()):
+                raise AssertionError(f"{kernel} variant {name} differs from the shipped kernel")
+        torch.cuda.synchronize()
+        ms = in_turns(names, whats, run)
+        for name in names:
+            log(f"[time] {kernel} {name}: " + ", ".join(
+                f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
 
     if "count" in libs:
         lib = libs["count"]
         counts = (ctypes.c_ulonglong * 4)()
         tc = chunks[0].tri_chunk
-        for what in closest:
+        for what in ("primary", "head"):
             ray, _ = rays[what]
             if lib.chunk_counts_clear():
                 raise RuntimeError("chunk_counts_clear failed")
@@ -478,73 +641,101 @@ def profile_k7(libs, chunks, rays, eps, parents) -> None:
                 f"({(served - lane_rays) / max(ray_groups, 1):.2f})")
 
 
+def sass(so: Path) -> dict:
+    """K label -> the kernel's SASS instructions (``cuobjdump -sass``), each
+    without its address and encoding."""
+    from heatray_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out, kernel = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = kernel_label(m.group(1))
+            if kernel:
+                out[kernel] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*(/\*.*)?$", line)
+        if kernel and m:
+            out[kernel].append(m.group(1))
+    return out
+
+
+def compare_sass(pairs) -> None:
+    """One [sass] line per kernel of each (shipped .so, parent .so) pair."""
+    for mine, parent in pairs:
+        a, b = sass(mine), sass(parent)
+        for kernel in sorted(set(a) | set(b)):
+            if kernel not in a or kernel not in b:
+                log(f"[sass] {kernel}: only in {'this tree' if kernel in a else 'the parent'}")
+                continue
+            x, y = a[kernel], b[kernel]
+            ops = difflib.SequenceMatcher(None, y, x, autojunk=False).get_opcodes()
+            changed = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2 in ops if tag != "equal")
+            log(f"[sass] {kernel}: {len(x)} instructions, parent {len(y)}; "
+                + ("equal, instruction for instruction" if x == y else
+                   f"{changed} changed, inserted or removed (difflib)"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k7",
-                    help="which families to profile: k1 (K1/K2), k7 (K7a), or both (default)")
+    ap.add_argument("--kernels", default="k1,k5,k7",
+                    help="which families to profile: any of k1 (K1/K2), k5 (K5a) and k7 "
+                         "(K7a/K7b), comma-separated (default: all three)")
     ap.add_argument("--parent", type=Path,
-                    help="another tree whose wide_bvh.cu and chunks.cu to time too")
+                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu and chunks.cu to time "
+                         "too, and whose kernels' SASS to compare")
     args = ap.parse_args()
     families = set(args.kernels.split(","))
-    if not families or families - {"k1", "k7"}:
-        raise SystemExit(f"--kernels takes k1, k7 or both, not {args.kernels!r}")
+    if not families or families - {"k1", "k5", "k7"}:
+        raise SystemExit(f"--kernels takes k1, k5 and k7, not {args.kernels!r}")
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_wide: needs an NVIDIA card")
     sys.path.insert(0, str(REPO))
-    import k7a_parent
     from chip_smoke import card_line
-    from heatray_tpu_torch.ops import wide_bvh as wb
 
     card = card_line()
     log(card)
+    tables = {"k1": (VARIANTS, _K1), "k5": (T_VARIANTS, _K5), "k7": (CHUNK_VARIANTS, _K7)}
     sources = {}  # (family, name) -> source
-    if "k1" in families:
-        for name, (_, edits) in VARIANTS.items():
-            sources["k1", name] = variant_source(f"k1-{name}", edits)
+    for family in sorted(families):
+        variants, target = tables[family]
+        for name, (_, edits) in variants.items():
+            sources[family, name] = variant_source(f"{family}-{name}", edits, target)
         if args.parent:
-            sources["k1", "parent"] = args.parent.resolve() / "heatray_tpu_torch" / "csrc" / _K1
-    if "k7" in families:
-        for name, (_, edits) in CHUNK_VARIANTS.items():
-            sources["k7", name] = variant_source(f"k7-{name}", edits, _K7)
-        if args.parent:
-            sources["k7", "parent"] = args.parent.resolve() / "heatray_tpu_torch" / "csrc" / _K7
-    parent_dir = OUT / "k7a_parent"
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        parent = (pool.submit(k7a_parent.build, parent_dir)
-                  if "k7" in families and not args.parent else None)
+            sources[family, "parent"] = (args.parent.resolve() / "heatray_tpu_torch" / "csrc"
+                                         / target)
+    if args.parent:  # K3's source, for its SASS alone
+        sources["k3", "shipped"] = variant_source("k3-shipped", [], _K3)
+        sources["k3", "parent"] = args.parent.resolve() / "heatray_tpu_torch" / "csrc" / _K3
+    with ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(
             lambda key: compile_lib("-".join(key), sources[key]), sources)))
-    libs, no_blocks = {"k1": {}, "k7": {}}, []
-    if parent is not None:
-        libs["k7"]["parent"] = parent.result()
-        no_blocks.append("parent")
-        log(f"[build] k7 parent (k7a_parent.py): "
-            f"{resources((parent_dir / 'chunks_parent.log').read_text())}")
+    libs = {family: {} for family in tables}
     for (family, name), (so, report) in built.items():
-        variants = VARIANTS if family == "k1" else CHUNK_VARIANTS
+        variants = tables.get(family, ({}, None))[0]
         what = variants[name][0] if name in variants else f"{sources[family, name]} as it stands"
         log(f"[build] {family} {name} ({what}): {resources(report)}")
         if so is None:
-            continue
-        if family == "k7":
-            # --parent's chunks.cu from before the block boxes.
-            if "const float* blocks" not in sources[family, name].read_text():
-                no_blocks.append(name)
-            libs[family][name] = chunk_library(so, blocks=name not in no_blocks)
-            continue
-        lib = ctypes.CDLL(str(so))
-        lib.wide_bvh_stack_depth.restype = ctypes.c_int
-        lib.closest_wide.argtypes, lib.any_wide.argtypes = wb._CLOSEST_ARGS, wb._ANY_ARGS
-        libs[family][name] = lib
+            raise RuntimeError(f"{family} {name} did not build")
+        if family in libs:
+            libs[family][name] = library(so, sources[family, name])
+    if args.parent:
+        compare_sass([(built[f, "shipped"][0], built[f, "parent"][0])
+                      for f in ("k1", "k3", "k5", "k7") if (f, "parent") in built])
 
     trees, chunks, rays, eps = launches(torch.device("cuda:0"))
     if libs["k1"]:
         profile_k1(libs["k1"], trees, rays, eps)
+    if libs["k5"]:
+        profile_k5(libs["k5"], trees, rays, eps)
     if libs["k7"]:
-        profile_k7(libs["k7"], chunks, rays, eps, no_blocks)
+        profile_k7(libs["k7"], chunks, rays, eps)
     log(f"[card] {card}")
     return 0
 

@@ -189,9 +189,10 @@ def test_chunk_walk_equals_plain(order):
     only if it enters its widened box before its running best t, or for
     occlusion its t_max while unblocked) gives the plain version's closest
     hits and occlusion on the edge rays, bit for bit: with the chunks in
-    index order (K7b), and, for the closest hit, per warp of 32 rays nearest
+    index order, and, for the closest hit, per warp of 32 rays nearest
     entry first, each entered chunk's blocks culled by their own boxes (K7a),
-    where equal t go to the lower id whichever chunk comes first."""
+    where equal t go to the lower id whichever chunk comes first; and
+    occlusion, in index order, the blocks culled by their boxes too (K7b)."""
     packed, o, d = _edge_rays_and_pack(512)
     rows, big, t_min = intersect.chunk_rows(packed.w), intersect.MISS_T, 1e-4
     t_p, id_p, hit_p = intersect_pallas.closest_chunks_plain(packed, o, d)
@@ -233,15 +234,41 @@ def test_chunk_walk_equals_plain(order):
                 better = (cand < best) | ((cand == best) & (cand < big) & (cand_id < ids))
                 best = torch.where(better, cand, best)
                 ids = torch.where(better, cand_id, ids)
-    for c in range(packed.num_chunks):
-        box = packed.boxes[c].expand(n, 6)
-        cols = slice(c * packed.tri_chunk, (c + 1) * packed.tri_chunk)
-        far = torch.where(blocked, t_min - 1.0, t_max)
-        enter = _enters(box, o, d, far, wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE)
-        blocked |= enter & (intersect.pair_t(o, d, rows[:, cols], t_min, t_max) < big).any(dim=1)
     assert torch.equal(best, t_p) and torch.equal(ids, id_p)
+    blocked, _ = _any_chunk_walk(packed, o, d, t_max, t_min)
     assert torch.equal(blocked, intersect_pallas.any_chunks_plain(packed, o, d, t_max=t_max))
     assert bool(blocked[-1])
+
+
+def _any_chunk_walk(packed, o, d, t_max, t_min=1e-4):
+    """A plain-torch model of K7b's walk: chunks in index order, each
+    entered by the unblocked rays whose widened slab enters its box before
+    their own t_max, and in it each block of BLOCK columns entered by those
+    of them whose slab enters the block's box; a hit in an entered block
+    blocks the ray.  Returns (blocked, (ray, block) entries).  (K7b also
+    stops a ray at its first blocked block within a chunk: the same mask.)"""
+    rows, n, tc = intersect.chunk_rows(packed.w), o.x.shape[0], packed.tri_chunk
+    nb, step = packed.blocks.shape[1], intersect_pallas.BLOCK
+    blocked = torch.zeros(n, dtype=torch.bool)
+    entries = 0
+
+    def rep(x):  # each ray once per block
+        return x.repeat_interleave(nb)
+
+    for c in range(packed.num_chunks):
+        mine = (~blocked & _enters(packed.boxes[c].expand(n, 6), o, d, t_max, wide_bvh.BOX_PAD,
+                                   wide_bvh.FAR_SCALE)).nonzero()[:, 0]
+        if not mine.numel():
+            continue
+        om, dm = o.map(lambda x: x[mine]), d.map(lambda x: x[mine])
+        boxes = packed.blocks[c].repeat(mine.numel(), 1)  # (m * NB, 6), block fastest
+        enter = _enters(boxes, om.map(rep), dm.map(rep), rep(t_max[mine]), wide_bvh.BOX_PAD,
+                        wide_bvh.FAR_SCALE).view(-1, nb)
+        entries += int(enter.sum())
+        hit = intersect.pair_t(om, dm, rows[:, c * tc:(c + 1) * tc], t_min, t_max[mine])
+        hit = torch.nn.functional.pad(hit < intersect.MISS_T, (0, nb * step - tc))
+        blocked[mine] |= (enter & hit.view(-1, nb, step).any(dim=2)).any(dim=1)
+    return blocked, entries
 
 
 @pytest.fixture(scope="module")
@@ -316,6 +343,42 @@ def test_occluder_accel_matches_jax():
     ours = integrator._occluder_accel(accel, scene)
     for name in ("w", "tri_min", "tri_max"):
         np.testing.assert_array_equal(getattr(ours, name).numpy(), np.asarray(getattr(ref, name)))
+
+
+def test_any_chunk_walk_on_the_occluder_pack_equals_plain():
+    """The metal sphere alpha-masked: in the rebuild mode's occluder pack
+    its triangles' rows are zero and their boxes inverted, so a block of
+    them alone has an inverted box, which K7b's walk never enters.  The
+    model of K7b's walk (``_any_chunk_walk``) on that pack, for rays aimed
+    just past the box's triangle edges with t_max just beyond their closest
+    hit in the full pack, gives ``any_chunks_plain``'s mask, and the block
+    boxes cull."""
+    scene = _masked(cornell_box(light="both", with_spheres=True), 5)
+    pack = integrator.rebuild_pack(scene, _options())
+    occl = pack.packed_occl
+    assert occl is not pack.packed
+    masked = ~integrator._occluder_mask(scene)
+    nb, step = occl.blocks.shape[1], intersect_pallas.BLOCK
+    # (C, NB, BLOCK): the triangle id of each block's columns, and whether it is one.
+    within = (torch.arange(nb)[:, None] * step + torch.arange(step)) < occl.tri_chunk
+    col = (torch.arange(occl.num_chunks)[:, None, None] * occl.tri_chunk
+           + torch.arange(nb)[:, None] * step + torch.arange(step))
+    inside = within & (col < occl.num_triangles)
+    all_masked = (masked[col.clamp(max=occl.num_triangles - 1)] | ~inside).all(dim=2)
+    all_masked &= inside.any(dim=2)
+    assert bool(all_masked.any())
+    inverted = occl.blocks[..., 0] > occl.blocks[..., 3]
+    assert torch.equal(inverted & inside.any(dim=2), all_masked)
+
+    _, o, d = cornell_edge_rays(2047, leaf_size=32)
+    t_p, _, hit_p = intersect_pallas.closest_chunks_plain(pack.packed, o, d)
+    t_max = torch.where(hit_p, t_p * 1.001, 5.0)
+    want = intersect_pallas.any_chunks_plain(occl, o, d, t_max=t_max)
+    blocked, entries = _any_chunk_walk(occl, o, d, t_max)
+    assert torch.equal(blocked, want)
+    assert not torch.equal(want, intersect_pallas.any_chunks_plain(pack.packed, o, d,
+                                                                   t_max=t_max))
+    assert 0 < entries < o.x.numel() * occl.num_chunks * nb // 4
 
 
 def test_alpha_masked_rebuild_matches_prebuilt(renders):

@@ -129,21 +129,26 @@ def test_stream_kernels_match_plain(cuda_device, n_rays):
 
 
 def _walk_queries(route):
-    """(closest, occlusion) of the walks per ray: K1/K2 (``"wide"``) or K3."""
+    """(closest, occlusion) of the walks per ray: K1/K2 (``"wide"``), K5a
+    with K5b (``"vpu"``) or K3."""
     if route == "wide":
         return wide_bvh.intersect_closest_wide, wide_bvh.intersect_any_wide
+    if route == "vpu":
+        return wide_bvh.intersect_closest_vpu, wide_bvh.intersect_any_vpu
     return wide_bvh.intersect_closest_stream, wide_bvh.intersect_any_stream
 
 
 @pytest.mark.parametrize("route, leaf_size",
-                         [("stream", 128), ("wide", 32), ("wide", 64), ("chunks", 64)])
+                         [("stream", 128), ("wide", 32), ("wide", 64), ("vpu", 128),
+                          ("chunks", 64)])
 def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device, route,
                                                                      leaf_size):
     """300 copies of one triangle, away from a random soup, fill several
-    leaves (of 128 for K3a, of 32 and 64 for K1: at 64 the ties also span
-    two blocks of columns), so a ray through it ties in t on every copy;
-    the kernel must keep the lowest slot of all, as the plain version
-    does.  K7a (``"chunks"``, chunks of 64): the copies come first, so they
+    leaves (of 128 for K3a and K5a, of 32 and 64 for K1: at 64 the ties also
+    span two blocks of columns, and for K5a two block boxes of one leaf), so
+    a ray through it ties in t on every copy; the kernel must keep the
+    lowest slot of all, as the plain version does.  K7a (``"chunks"``,
+    chunks of 64): the copies come first, so they
     fill five chunks, and the soup's first triangle lies beside the rays,
     nearer their origin than the copies, so the last chunk of copies is
     entered first, and each warp serves it before the four of lower ids."""
@@ -186,6 +191,9 @@ def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device,
     bvh = wide_bvh.build_wide_bvh(accel, leaf_size=leaf_size)
     copy_slots = (bvh.slot_tri >= n_soup).nonzero()[:, 0]
     assert (copy_slots // leaf_size).unique().numel() >= 2
+    if route == "vpu":  # some leaf holds copies in two of its blocks of 32
+        leaf, block = copy_slots // leaf_size, copy_slots // 32
+        assert any((block[leaf == c]).unique().numel() >= 2 for c in leaf.unique().tolist())
     t_k, slot_k, hit_k = _walk_queries(route)[0](bvh, o, d)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p.all()) and bool((slot_p == copy_slots.min()).all())
@@ -308,6 +316,13 @@ def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, ro
     depth = 65 if route == "wide" else 257
     with pytest.raises(ValueError, match=f"stack of {depth}"):
         closest(dataclasses.replace(bvh, max_stack=depth), o, d)
+    if route == "wide":  # K5a culls by the leaves' block boxes, and needs them
+        launches = closest.launches
+        with pytest.raises(ValueError, match="block boxes"):
+            closest(dataclasses.replace(bvh, blocks=None), o, d)
+        with pytest.raises(ValueError, match="WideBVH.blocks"):
+            closest(dataclasses.replace(bvh, blocks=bvh.blocks[:, :2].contiguous()), o, d)
+        assert closest.launches == launches
     if route == "stream":  # K4 stages 8 leaves by 16-byte copies
         shifted = torch.empty(bvh.w.numel() + 1, device=cuda_device)[1:].view(bvh.w.shape)
         with pytest.raises(ValueError, match="aligned"):
@@ -410,19 +425,54 @@ def test_chunk_kernels_match_plain_bit_for_bit(cuda_device, tri_chunk, where):
 
 
 def test_closest_chunk_kernel_takes_chunks_of_any_size(cuda_device):
-    """K7a keeps no chunk in shared memory, so a chunk of 8,192 triangles
-    (384 KB of columns, more than a block's shared memory, which K7b
-    refuses) and one of 100 (not a multiple of 4: 4-byte reads) give the
-    plain version's t and ids bit for bit."""
+    """K7a and K7b keep no chunk in shared memory, so chunks of 64, 512 and
+    8,192 triangles (384 KB of columns, more than a block's shared memory,
+    which K7b refused before it walked per ray) and of 100 (not a multiple
+    of 4: 4-byte reads) give the plain version's t and ids bit for bit, and
+    its occlusion masks."""
     accel = _soup(9000, 5, cuda_device)
     o, d = _rays(2048, 3, cuda_device)
-    for tri_chunk in (8192, 100):
+    t_max = torch.linspace(0.5, 12.0, 2048, device=cuda_device)
+    for tri_chunk in (8192, 100, 64, 512):
         packed = intersect_pallas.pack_for_pallas(accel, tri_chunk)
         got = intersect_pallas.intersect_closest_pallas(packed, o, d)
         want = intersect_pallas.closest_chunks_plain(packed, o, d)
+        blocked = intersect_pallas.intersect_any_pallas(packed, o, d, t_max=t_max)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
         assert int(got[2].sum()) > 100
+        assert torch.equal(blocked, intersect_pallas.any_chunks_plain(packed, o, d, t_max=t_max))
+        assert 0 < int(blocked.sum()) < 2048
+
+
+@pytest.mark.parametrize("n_rays", [0, 4095])
+def test_any_chunk_kernel_on_the_occluder_pack(cuda_device, n_rays):
+    """K7b over the rebuild mode's occluder pack of the Cornell box with the
+    metal sphere alpha-masked, whose blocks of masked triangles have zero
+    rows and inverted boxes: no rays at all, and a ray count that leaves the
+    last warp part-empty (the Cornell rays of ``_cornell_rays``, t_max just
+    beyond each ray's closest hit in the full pack)."""
+    scene, o, d = _cornell_rays(cuda_device)
+    mask = torch.zeros_like(scene.materials.alpha_mask)
+    mask[5] = 1
+    scene = dataclasses.replace(scene, has_alpha_mask=True, materials=dataclasses.replace(
+        scene.materials, alpha_mask=mask))
+    opts = RenderOptions(width=8, height=8, max_render_passes=4, max_ray_depth=4)
+    pack = integrator.rebuild_pack(scene, opts)
+    occl = pack.packed_occl
+    assert bool((occl.blocks[..., 0] > occl.blocks[..., 3]).any())
+    o, d = o.map(lambda c: c[:n_rays].contiguous()), d.map(lambda c: c[:n_rays].contiguous())
+    t, _, hit = intersect_pallas.closest_chunks_plain(pack.packed, o, d)
+    t_max = torch.where(hit, t * 1.001, 5.0)
+    launches = intersect_pallas.intersect_any_pallas.launches
+    blocked = intersect_pallas.intersect_any_pallas(occl, o, d, t_max=t_max)
+    want = intersect_pallas.any_chunks_plain(occl, o, d, t_max=t_max)
+    torch.cuda.synchronize()
+    assert intersect_pallas.intersect_any_pallas.launches == launches + (n_rays > 0)
+    assert blocked.shape == (n_rays,) and torch.equal(blocked, want)
+    if n_rays:
+        full = intersect_pallas.any_chunks_plain(pack.packed, o, d, t_max=t_max)
+        assert 0 < int(blocked.sum()) < int(full.sum())
 
 
 @pytest.mark.parametrize("kind", ["chunks", "bvh2"])
@@ -444,8 +494,8 @@ def test_flat_and_binary_kernels_find_hits_just_past_an_edge(cuda_device, kind):
 
 
 def test_flat_and_binary_wrappers_raise(cuda_device):
-    """A tree deeper than K6's stack, a misaligned pack, and a chunk too
-    large for a block's shared memory (the launch itself fails)."""
+    """A tree deeper than K6's stack, rays that are not float32, and a
+    misaligned pack."""
     accel = _soup(300, 5, cuda_device)
     o, d = _rays(64, 3, cuda_device)
     bvh = build_bvh(accel, leaf_size=16)
@@ -455,15 +505,12 @@ def test_flat_and_binary_wrappers_raise(cuda_device):
         traverse_pallas.intersect_any_bvh(bvh, o.map(lambda c: c.double()), d)
     packed = intersect_pallas.pack_for_pallas(accel, 64)
     shifted = torch.empty(packed.w.numel() + 1, device=cuda_device)[1:].view(packed.w.shape)
+    launches = intersect_pallas.intersect_any_pallas.launches
     with pytest.raises(ValueError, match="aligned"):
         intersect_pallas.intersect_closest_pallas(dataclasses.replace(packed, w=shifted), o, d)
-    launches = intersect_pallas.intersect_any_pallas.launches
-    huge = intersect_pallas.pack_for_pallas(accel, 8192)  # 384 KB of columns per chunk
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        intersect_pallas.intersect_any_pallas(huge, o, d)
+    with pytest.raises(ValueError, match="aligned"):
+        intersect_pallas.intersect_any_pallas(dataclasses.replace(packed, w=shifted), o, d)
     assert intersect_pallas.intersect_any_pallas.launches == launches
-    blocked = intersect_pallas.intersect_any_pallas(packed, o, d)  # the card still works
-    assert torch.equal(blocked, intersect_pallas.any_chunks_plain(packed, o, d))
 
 
 def test_render_matches_cpu(cuda_device):

@@ -97,7 +97,9 @@ def test_closest_matches_jax_kernel(soup, route, leaf_size):
     jax_accel, _, (jo, jd), (o, d), *_ = soup
     ref_bvh = jax_build_wide_bvh(jax_accel, leaf_size=leaf_size, schedule="f32")
     arrays = {f.name: np.asarray(getattr(ref_bvh, f.name)) for f in dataclasses.fields(ref_bvh)}
-    bvh = wide_bvh_from_arrays(arrays, ref_bvh.leaf_size, ref_bvh.num_triangles, device="cpu")
+    boxes = {k: np.asarray(getattr(jax_accel, k)) for k in ("tri_min", "tri_max")}
+    bvh = wide_bvh_from_arrays(arrays, ref_bvh.leaf_size, ref_bvh.num_triangles, boxes,
+                               device="cpu")
     if route == "wide":
         ref = jax_closest_vpu(ref_bvh, jo, jd, ray_tile=256, interpret=True, return_slots=True)
     else:
@@ -117,7 +119,9 @@ def test_any_matches_jax_kernel(soup, route, leaf_size):
     jax_accel, _, (jo, jd), (o, d), t_max, *_ = soup
     ref_bvh = jax_build_wide_bvh(jax_accel, leaf_size=leaf_size, schedule="f32")
     arrays = {f.name: np.asarray(getattr(ref_bvh, f.name)) for f in dataclasses.fields(ref_bvh)}
-    bvh = wide_bvh_from_arrays(arrays, ref_bvh.leaf_size, ref_bvh.num_triangles, device="cpu")
+    boxes = {k: np.asarray(getattr(jax_accel, k)) for k in ("tri_min", "tri_max")}
+    bvh = wide_bvh_from_arrays(arrays, ref_bvh.leaf_size, ref_bvh.num_triangles, boxes,
+                               device="cpu")
     if route == "wide":
         ref = jax_any_vpu(ref_bvh, jo, jd, t_max=t_max, ray_tile=256, interpret=True)
     else:
@@ -145,6 +149,91 @@ def test_group_walk_equals_plain(group):
     blocked, stats = group_walk(bvh, o, d, group, t_max=t_max)
     assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
     assert bool(blocked[-1]) and stats[:, 4].sum() > 0
+
+
+@pytest.mark.parametrize("tree", ["all", "occluders"])
+def test_leaf_block_boxes_bound_their_slots(tree):
+    """The Cornell box's leaf-128 tree, and its occluder tree with the metal
+    sphere alpha-masked (``include``): each leaf's four block boxes are the
+    boxes of the triangles in its runs of 32 slots, and a run of padding
+    slots has an inverted box."""
+    scene = cornell_box(light="both", with_spheres=True)
+    accel = intersect.build_woop(scene.geometry.positions, scene.geometry.indices)
+    include = None
+    if tree == "occluders":
+        mask = torch.zeros_like(scene.materials.alpha_mask)
+        mask[5] = 1
+        include = (mask[scene.geometry.material_ids.long()] == 0).numpy()
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128, include=include)
+    assert bvh.blocks.shape == (bvh.num_chunks, 4, 6)
+    runs = bvh.slot_tri.view(-1, wide_bvh.BLOCK)
+    boxes = bvh.blocks.view(-1, 6)
+    filled = runs >= 0
+    assert bool((~filled).all(dim=1).any())  # some run is all padding
+    if include is not None:
+        assert not include.all()
+        assert not bool(np.isin(runs[filled].numpy(), np.flatnonzero(~include)).any())
+    for run, box, f in zip(runs, boxes, filled):
+        if not f.any():
+            assert bool((box[:3] > box[3:]).all())
+            continue
+        tri = run[f].long()
+        assert torch.equal(box[:3], accel.tri_min[:, tri].amin(dim=1))
+        assert torch.equal(box[3:], accel.tri_max[:, tri].amax(dim=1))
+
+
+def test_block_culled_walk_reaches_every_plain_hit():
+    """K5a reaches a hit if its ray enters every box above it (the nodes',
+    the leaf's, the block's) before its running best t, which never falls
+    below the hit's t.  A model that culls by the plain hit's t itself,
+    leaves then blocks, so offers each ray fewer blocks than K5a can, must
+    still give the plain version's t and slot bit for bit, ties to the
+    lowest slot included, on rays aimed just past the Cornell box's triangle
+    edges over its leaf-128 tree; and the block boxes cull blocks of
+    entered leaves."""
+    bvh, o, d = cornell_edge_rays(767, leaf_size=128)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
+    t_min, n = 1e-4, o.x.numel()
+    org = [o.x[:, None], o.y[:, None], o.z[:, None]]
+    rcp = [c[:, None] for c in wide_bvh.reciprocals(d)]
+    far = t_p[:, None]
+
+    def enter(box):  # (R, K) rays against K boxes (K, 6), inverted ones never
+        return wide_bvh.widened_slab(box.T[:3], box.T[3:], org, rcp, far, t_min) & (
+            box[:, 0] <= box[:, 3])
+
+    codes = bvh.wchild.view(-1, wide_bvh.ARITY).long()
+    leaf_in = torch.zeros((n, bvh.num_chunks), dtype=torch.bool)
+    reach = {0: torch.ones(n, dtype=torch.bool)}
+    while reach:
+        node, rays = reach.popitem()
+        ok = rays[:, None] & enter(bvh.wbox[node, :, :6]) & (codes[node] != -1)
+        for k, code in enumerate(codes[node].tolist()):
+            if code >= 0:
+                reach[code] = ok[:, k]
+            elif code <= -2:
+                leaf_in[:, -2 - code] |= ok[:, k]
+    rows, anchor = wide_bvh.slot_rows(bvh)
+    best = torch.full((n,), intersect.MISS_T)
+    slot = torch.full((n,), -1, dtype=torch.int32)
+    served = 0
+    for c in range(bvh.num_chunks):
+        blocks = enter(bvh.blocks[c]) & leaf_in[:, c:c + 1]
+        served += int(blocks.sum())
+        for b in range(blocks.shape[1]):
+            e = blocks[:, b].nonzero()[:, 0]
+            cols = slice(c * bvh.leaf_size + b * 32, c * bvh.leaf_size + (b + 1) * 32)
+            t = intersect.pair_t(o.map(lambda x: x[e]), d.map(lambda x: x[e]), rows[:, cols],
+                                 t_min, intersect.MISS_T, anchor[:, cols])
+            cand, arg = torch.min(t, dim=1)
+            cand_slot = (arg + cols.start).int()
+            better = (cand < best[e]) | ((cand == best[e]) & (cand < intersect.MISS_T)
+                                         & (cand_slot < slot[e]))
+            best[e] = torch.where(better, cand, best[e])
+            slot[e] = torch.where(better, cand_slot, slot[e])
+    assert torch.equal(best, t_p) and torch.equal(slot, slot_p)
+    assert 0 < served < 4 * int(leaf_in.sum())
 
 
 def _route(name):

@@ -145,7 +145,8 @@ def p3(cornell):
     fused = jax_build_wide_bvh(jax_accel, leaf_size=32)
     f32 = jax_build_wide_bvh(jax_accel, leaf_size=32, schedule="f32")
     arrays = {f.name: np.asarray(getattr(f32, f.name)) for f in dataclasses.fields(f32)}
-    bvh = wide_bvh_from_arrays(arrays, f32.leaf_size, f32.num_triangles, device="cpu")
+    boxes = {k: np.asarray(getattr(jax_accel, k)) for k in ("tri_min", "tri_max")}
+    bvh = wide_bvh_from_arrays(arrays, f32.leaf_size, f32.num_triangles, boxes, device="cpu")
     assert np.array_equal(np.asarray(fused.wchild), np.asarray(f32.wchild))
     return ns, fused, bvh, _cornell_rays(2048, 3)
 

@@ -68,7 +68,9 @@ def test_build_matches_jax(t, seed, leaf_size):
     assert (ours.leaf_size, ours.num_triangles) == (ref.leaf_size, ref.num_triangles)
 
     arrays = {f.name: np.asarray(getattr(ref, f.name)) for f in dataclasses.fields(ref)}
-    bridged = wide_bvh_from_arrays(arrays, ref.leaf_size, ref.num_triangles, device="cpu")
+    boxes = {k: np.asarray(getattr(jax_accel, k)) for k in ("tri_min", "tri_max")}
+    bridged = wide_bvh_from_arrays(arrays, ref.leaf_size, ref.num_triangles, boxes,
+                                   device="cpu")
     for f in dataclasses.fields(ours):
         a, b = getattr(ours, f.name), getattr(bridged, f.name)
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
