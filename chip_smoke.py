@@ -20,6 +20,22 @@ source, started together, and then:
 3. renders the Cornell path, 1920x1080, depth 4, 4 passes (sorted and
    gated, as "auto" gives on the card), counting kernel launches, and
    reports ms per pass and Mrays/s;
+3c. takes ``bench.py``'s fwd+bwd step on the same scene: a context made with
+   ``static_shading=False`` (each pass builds its slot-ordered shading table
+   from the scene it is given) must render a pass without autograd equal,
+   bit for bit, to one through phase 1's baked table; the step is
+   ``mean(img^2)`` of one pass, with ``base_color`` and ``roughness`` as
+   leaf tensors through ``diff.inverse.apply_material_params``.  Its
+   gradients must be finite, ``base_color``'s nonzero on every material
+   the primary rays hit and ``roughness``' on the metal sphere (material
+   5); K1 and K2 must run once per bounce with live lanes in the forward and
+   never in the backward.  It times the step (one warm-up, then the slope
+   over 1 and 5 steps, as ``bench.py`` does) with ``remat_bounces`` on and
+   off in turns, with the step's peak device memory, and holds the card's
+   gradients at 24x24, depth 2 against the CPU's (within 1e-3 of each
+   key's largest |g|) and, on the card, sorted and gated against unsorted
+   (32x32, depth 3, 16 segments, so that the gate cuts lanes; rtol 1e-5,
+   atol 1e-8);
 4. checks K1 and K2 against their plain versions again on all 2,073,600
    rays of a 1080p bounce (no slot may differ), and times both there and on
    phase 1's depth-2 sorted head and its shadow lanes, beside K3's kernels
@@ -837,6 +853,184 @@ def run_path(label, scene, camera, ctx, opts, expect):
     return launches, img
 
 
+def phase_grad(scene, camera, baked_ctx, opts, card):
+    """Phase 3c: ``bench.py``'s fwd+bwd step through K1/K2 (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from heatray_tpu_torch import make_loss_fn, orbit_camera
+    from heatray_tpu_torch.bridge import params_from_arrays
+    from heatray_tpu_torch.diff.inverse import apply_material_params
+    from heatray_tpu_torch.options import FrameGlobals, RenderOptions
+    from heatray_tpu_torch.render import integrator
+
+    t_phase = time.perf_counter()
+    device = baked_ctx.device
+    t0 = time.perf_counter()
+    ctx = integrator.make_context(opts, scene, device, static_shading=False)
+    torch.cuda.synchronize()
+    pack = ctx.accel_pack
+    if pack.route != "wide" or pack.shade_table is not None:
+        raise AssertionError(f"static_shading=False gave route {pack.route!r} and a baked table")
+    log(f"[grad] context with static_shading=False in {time.perf_counter() - t0:.2f} s")
+    zero = torch.zeros((4, HEIGHT, WIDTH), dtype=torch.float32, device=device)
+
+    # The same forward: a per-pass table against the baked one, without autograd.
+    with torch.no_grad():
+        frame = FrameGlobals.create(7, device=device)
+        in_graph = integrator.render_pass(scene, camera, ctx, opts, frame, zero)
+        baked = integrator.render_pass(scene, camera, baked_ctx, opts, frame, zero)
+    if not torch.equal(in_graph, baked):
+        d = (in_graph - baked).abs()
+        raise AssertionError(f"in-graph table pass differs from the baked one: "
+                             f"{int((d > 0).sum())} values, max {float(d.max())}")
+    log("[grad] a pass through the in-graph table equals one through the baked table, "
+        "bit for bit")
+    del in_graph, baked
+
+    mats = scene.materials
+    params = params_from_arrays({"base_color": mats.base_color.cpu().numpy(),
+                                 "roughness": mats.roughness.cpu().numpy()}, device)
+
+    def forward(o, idx, with_stats=False):
+        out = integrator.render_pass(apply_material_params(scene, params), camera, ctx, o,
+                                     FrameGlobals.create(idx, device=device), zero,
+                                     with_stats=with_stats)
+        a, stats = out if with_stats else (out, None)
+        img = a[:3] / torch.clamp(a[3:], min=1.0)
+        return torch.mean(img * img), stats
+
+    # One step with the launches counted in its forward and in its backward.
+    lanes, gated = [], integrator._gated_lanes
+
+    def count_lanes(*args):
+        lanes.append(gated(*args))
+        return lanes[-1]
+
+    integrator._gated_lanes = count_lanes
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        loss, stats = forward(opts, 0, with_stats=True)
+        torch.cuda.synchronize()
+        fwd = read_launches()
+        reset_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd = read_launches()
+    finally:
+        integrator._gated_lanes = gated
+    runs = 1 + sum(n > 0 for n in lanes)
+    expect = {name: runs if name in ("closest_wide", "any_wide") else 0 for name in fwd}
+    if fwd != expect or any(bwd.values()):
+        raise AssertionError(f"step launches: forward {fwd}, backward {bwd}; expected forward "
+                             f"{expect} (gated lanes {lanes}) and none in the backward")
+    rays = stats["rays"]
+    log(f"[grad] step launches: forward {fwd['closest_wide']} K1, {fwd['any_wide']} K2 "
+        f"(gated lanes {lanes}); backward none; loss {float(loss.detach())!r}, {rays} rays")
+    grads = {k: v.grad for k, v in params.items()}
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError("step gradients are not finite")
+    with torch.no_grad():
+        prim = integrator.start_paths(camera, ctx, opts, 0)
+        _, slot, hit = integrator._make_intersectors(pack)[0](prim.org, prim.direction,
+                                                              opts.ray_epsilon)
+        tri = pack.wide.slot_tri[slot[hit].long()].long()
+        seen = torch.unique(scene.geometry.material_ids[tri].long())
+    if not bool((grads["base_color"][:, seen] != 0).all()) or float(grads["roughness"][5]) == 0:
+        raise AssertionError(f"zero gradients: base_color {grads['base_color'].tolist()} on "
+                             f"materials {seen.tolist()}, roughness {grads['roughness'].tolist()}")
+    log(f"[grad] base_color gradient {grads['base_color'].tolist()} (materials the primary "
+        f"rays hit: {seen.tolist()}); roughness {grads['roughness'].tolist()}")
+
+    # The step's time and memory, remat on and off in turns.
+    def step(o, idx):
+        for v in params.values():
+            v.grad = None
+        forward(o, idx)[0].backward()
+
+    def chain(o, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(o, 1 + i)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    modes = {True: opts, False: dataclasses.replace(opts, remat_bounces=False)}
+    for remat in (True, False, False, True):
+        o = modes[remat]
+        chain(o, 1)  # warm-up
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = chain(o, 1)
+        peak = torch.cuda.max_memory_allocated()
+        t5 = chain(o, 5)
+        dt = max((t5 - t1) / 4, 1e-9)
+        log(f"[grad] fwd+bwd step, {WIDTH}x{HEIGHT} depth {DEPTH}, remat_bounces={remat}: "
+            f"{dt * 1e3:.3f} ms/step (t1 {t1 * 1e3:.3f} ms, t5 {t5 * 1e3:.3f} ms) -> "
+            f"{rays / dt / 1e6:.3f} Mrays/s (fwd+bwd); peak memory {peak / 2**20:.1f} MiB, "
+            f"{(peak - held) / 2**20:.1f} MiB above the {held / 2**20:.1f} held before the "
+            f"step; card {card}")
+    del ctx, params, grads, loss
+    torch.cuda.empty_cache()
+
+    # The card against the CPU (plain versions), 24x24, depth 2.
+    small = RenderOptions(width=24, height=24, max_render_passes=4, max_ray_depth=2)
+
+    def small_grads(dev):
+        s = scene.to(dev)
+        p = params_from_arrays({"base_color": mats.base_color.cpu().numpy(),
+                                "roughness": mats.roughness.cpu().numpy(),
+                                "light.point_color": s.lights.point_color.cpu().numpy()}, dev)
+        loss_fn = make_loss_fn(s, orbit_camera(24, 24, distance=6.2, focal_length_mm=35.0),
+                               integrator.make_context(small, s, dev, static_shading=False),
+                               small, torch.zeros((24, 24, 3)))
+        loss_fn(p).backward()
+        return {k: v.grad.cpu() for k, v in p.items()}
+
+    on_card, on_cpu = small_grads(device), small_grads(torch.device("cpu"))
+    for k, want in on_cpu.items():
+        scale = float(want.abs().max())
+        err = float((on_card[k] - want).abs().max()) / max(scale, 1e-30)
+        if scale == 0.0 or not err <= 1e-3:
+            raise AssertionError(f"24x24 step gradient {k}: card against CPU {err} of the "
+                                 f"largest |g| {scale}")
+        log(f"[grad] 24x24 depth 2, {k}: card against CPU max |diff| {err:.3g} of the largest "
+            f"|g| {scale:.4g}")
+
+    # Sorted and gated against unsorted on the card (tests/test_gating.py's case,
+    # with segments fine enough that the gate cuts lanes).
+    base = RenderOptions(width=32, height=32, max_render_passes=4, max_ray_depth=3,
+                         gate_segments=16)
+    sorted_grads = {}
+    for sort in (False, True):
+        o = dataclasses.replace(base, sort_bounces=sort, gate_bounces=sort)
+        c = integrator.make_context(o, scene, device, static_shading=False)
+        if integrator._bounce_modes(c, o, 32 * 32) != (sort, sort):
+            raise AssertionError(f"sort_bounces={sort} did not give sort and gate {sort}")
+        p = params_from_arrays({"base_color": mats.base_color.cpu().numpy(),
+                                "roughness": mats.roughness.cpu().numpy()}, device)
+        loss_fn = make_loss_fn(scene, orbit_camera(32, 32, distance=6.2, focal_length_mm=35.0),
+                               c, o, torch.zeros((32, 32, 3)))
+        lanes.clear()
+        integrator._gated_lanes = count_lanes
+        try:
+            loss_fn(p).backward()
+        finally:
+            integrator._gated_lanes = gated
+        if sort and min(lanes) == 32 * 32:
+            raise AssertionError(f"the gate cut no lane: {lanes}")
+        sorted_grads[sort] = {k: v.grad.cpu().numpy() for k, v in p.items()}
+    for k, want in sorted_grads[False].items():
+        np.testing.assert_allclose(sorted_grads[True][k], want, rtol=1e-5, atol=1e-8,
+                                   err_msg=f"sorted gradient {k}")
+    log(f"[grad] 32x32 depth 3: sorted and gated gradients (gated lanes {lanes} of "
+        f"{32 * 32}) equal unsorted ones (rtol 1e-5, atol 1e-8); phase 3c took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def compare_images(label, img, ref, ref_label):
     """At most IMAGE_SHARE of the pixels of ``img`` may differ from ``ref``
     by more than IMAGE_TOL."""
@@ -1382,6 +1576,9 @@ def main() -> int:
     # --- 3. the Cornell path -------------------------------------------------
     cornell_launches, wide_img = run_path("cornell", scene, camera, ctx, opts,
                                           ("closest_wide", "any_wide"))
+
+    # --- 3c. the gradient step -------------------------------------------------
+    phase_grad(scene, camera, ctx, opts, card)
 
     # --- 4. K1/K2 against plain versions at the path's shapes ----------------
     frame = FrameGlobals.create(1, device=device)

@@ -1,16 +1,26 @@
 """heatray_tpu_torch: the PyTorch and CUDA port of heatray_tpu.
 
-A differentiable wavefront path tracer's forward render, on PyTorch tensors,
-with the traversal kernels written in CUDA for Hopper: the wide BVH
-(``csrc/wide_bvh.cu``, and ``csrc/wide_bvh_stream.cu`` for scenes past
-250,000 triangles; ``csrc/wide_bvh_t.cu`` for the transposed "vpu" leaf
-math of either), the binary BVH (``csrc/bvh2.cu``) and the flat chunks of
-the rebuild mode (``csrc/chunks.cu``); ``probes/`` holds the traversal
+A differentiable wavefront path tracer on PyTorch tensors: the forward render
+and its gradients through autograd (``diff.inverse``: the parameter
+overlays, the image loss and the optimizer loop), with the traversal
+kernels written in CUDA for Hopper: the wide BVH (``csrc/wide_bvh.cu``, and
+``csrc/wide_bvh_stream.cu`` for scenes past 250,000 triangles;
+``csrc/wide_bvh_t.cu`` for the transposed "vpu" leaf math of either), the
+binary BVH (``csrc/bvh2.cu``) and the flat chunks of the rebuild mode
+(``csrc/chunks.cu``); ``probes/`` holds the traversal
 probes and their kernels (``csrc/probes.cu``, ``csrc/variants.cu``).  It
 imports torch and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera
+from .diff.inverse import (
+    apply_camera_params,
+    apply_light_params,
+    apply_material_params,
+    apply_scene_params,
+    make_loss_fn,
+    optimize,
+)
 from .options import FrameGlobals, RenderOptions
 from .render.integrator import make_context, render, render_pass, resolve
 from .scene.builtin import cornell_box, high_poly
@@ -21,10 +31,16 @@ __all__ = [
     "CameraParams",
     "FrameGlobals",
     "RenderOptions",
+    "apply_camera_params",
+    "apply_light_params",
+    "apply_material_params",
+    "apply_scene_params",
     "cornell_box",
     "frame_scene",
     "high_poly",
     "make_context",
+    "make_loss_fn",
+    "optimize",
     "orbit_camera",
     "render",
     "render_pass",

@@ -96,3 +96,12 @@ def tables_from_arrays(
 
 def camera_from_arrays(arrays: dict, device="cuda") -> CameraParams:
     return _tensors(CameraParams, arrays, device)
+
+
+def params_from_arrays(arrays: dict, device="cuda") -> dict:
+    """Parameters for ``diff.inverse.make_loss_fn`` from a dict of arrays
+    keyed as the JAX package's ``make_loss_fn`` keys them (``"base_color"``,
+    ``"light.point_color"``, ``"camera.orbit"``, ...): float32 leaf
+    tensors on ``device`` that require gradients."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device, requires_grad=True)
+            for k, v in arrays.items()}

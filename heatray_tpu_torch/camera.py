@@ -61,6 +61,30 @@ def orbit_view_matrix(distance, phi=0.0, theta=0.0, target=(0.0, 0.0, 0.0)) -> n
     return (m @ trans).astype(np.float32)
 
 
+def orbit_view_matrix_torch(distance, phi, theta, target=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """``orbit_view_matrix`` on tensors, for camera optimization (the twin of
+    ``heatray_tpu.camera.orbit_view_matrix_jnp``): gradients flow to
+    ``distance``, ``phi``, ``theta`` and ``target``.  Returns a (4, 4)
+    float32 camera-to-world matrix on the device of ``distance``."""
+    distance = torch.as_tensor(distance, dtype=torch.float32)
+    dev = distance.device
+    phi, theta, target = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                          for v in (phi, theta, target))
+    ct, st = torch.cos(theta * 0.5), torch.sin(theta * 0.5)
+    cp, sp = torch.cos(phi * 0.5), torch.sin(phi * 0.5)
+    # q = rotTheta(x) * rotPhi(y); its inverse is the conjugate.
+    w, x, y, z = ct * cp, -(st * cp), -(ct * sp), -(st * sp)
+    rot = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
+    ])
+    trans = target + torch.tensor([0.0, 0.0, 1.0], device=dev) * distance
+    # rot @ translate: the translation column is rot @ trans.
+    top = torch.cat([rot, (rot @ trans)[:, None]], dim=1)
+    return torch.cat([top, torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=dev)])
+
+
 @dataclasses.dataclass
 class CameraParams:
     """Camera parameters of the ray generator: a (4, 4) camera-to-world

@@ -7,8 +7,10 @@ Fields that only tune the TPU kernels have no effect here and change nothing
 the port computes: ``wide_ray_tile`` and ``stream_ray_tile`` (each kernel
 fixes its own group of rays: a thread, a warp or a 256-ray block),
 ``wide_precision`` (every kernel is exact float32), ``pallas_ray_tile``,
-``tri_chunk``, ``ray_block``, ``sort_impl``, ``remat_bounces`` and
-``unroll_bounces``.  ``wide_leaf_math`` and ``stream_leaf_math`` ("mxu" or
+``tri_chunk``, ``ray_block``, ``sort_impl`` and ``unroll_bounces``.
+``remat_bounces`` changes only what a backward keeps: under autograd each
+bounce's shading is recomputed in the backward instead of kept (values and
+gradients are the same).  ``wide_leaf_math`` and ``stream_leaf_math`` ("mxu" or
 "vpu") do choose the kernels (K1/K3 or K5/K4) and, for ``"wide"``, the leaf
 size (rounded up to a multiple of 128), but every route runs the same exact
 pair test; only a different leaf size, whose leaf anchors round otherwise,

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ..vec import clip
 from .onb import ONE_OVER_PI, greater_than_zero, pow5, square
 
 
@@ -18,7 +19,7 @@ def f_fresnel(eta, cos_theta_i):
     """Exact dielectric Fresnel (``brdfs.rlsl:59-71``); 1 past the critical
     angle."""
     sin_theta_t2 = square(eta) * (1.0 - square(cos_theta_i))
-    cos_theta_t = torch.sqrt(torch.clamp(1.0 - sin_theta_t2, min=1e-12))
+    cos_theta_t = torch.sqrt(clip(1.0 - sin_theta_t2, 1e-12))
     perp = square(
         (eta * cos_theta_i - cos_theta_t)
         / greater_than_zero(eta * cos_theta_i + cos_theta_t)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..vec import Vec3
+from ..vec import Vec3, clip
 from .onb import TWO_PI, square
 
 
@@ -15,7 +15,7 @@ def cosine_weighted_sample(u1, u2):
     r = torch.sqrt(u1)
     phi = TWO_PI * u2
     x = r * torch.cos(phi)
-    y = torch.sqrt(torch.clamp(1.0 - u1, min=1e-12))
+    y = torch.sqrt(clip(1.0 - u1, 1e-12))
     z = r * torch.sin(phi)
     inv = 1.0 / torch.sqrt(x * x + y * y + z * z + 1e-12)
     return x * inv, y * inv, z * inv
@@ -46,14 +46,14 @@ def sample_visible_ggx(local_v, u1, u2, alpha):
     p2 = r * torch.sin(phi)
     s = 0.5 * (1.0 + vhz)
     p1_sq = square(p1)
-    p2 = (1.0 - s) * torch.sqrt(torch.clamp(1.0 - p1_sq, min=1e-12)) + s * p2
-    pz = torch.sqrt(torch.clamp(1.0 - p1_sq - square(p2), min=1e-12))
+    p2 = (1.0 - s) * torch.sqrt(clip(1.0 - p1_sq, 1e-12)) + s * p2
+    pz = torch.sqrt(clip(1.0 - p1_sq - square(p2), 1e-12))
 
     nhx = p1 * t1x + p2 * t2x + pz * vhx
     nhy = p1 * t1y + p2 * t2y + pz * vhy
     nhz = p1 * t1z + p2 * t2z + pz * vhz
 
-    hx, hy, hz = alpha * nhx, alpha * nhy, torch.clamp(nhz, min=0.0)
+    hx, hy, hz = alpha * nhx, alpha * nhy, clip(nhz, 0.0)
     inv = 1.0 / torch.sqrt(hx * hx + hy * hy + hz * hz + 1e-12)
     return hx * inv, hz * inv, hy * inv  # Z-up -> Y-up
 
@@ -63,5 +63,5 @@ def refract(incident: Vec3, n: Vec3, eta):
     a zero vector on total internal reflection."""
     cos_i = n.dot(incident)
     k = 1.0 - square(eta) * (1.0 - square(cos_i))
-    out = incident * eta - n * (eta * cos_i + torch.sqrt(torch.clamp(k, min=1e-12)))
+    out = incident * eta - n * (eta * cos_i + torch.sqrt(clip(k, 1e-12)))
     return Vec3.where(k >= 0.0, out, 0.0)

@@ -36,14 +36,26 @@ bounce then run only on the segments that hold live lanes.  Both are an
 exact permutation of per-lane work, undone at accumulation through each
 lane's pixel index, so the image does not change.
 
+The pass is differentiable with autograd (``diff.inverse``).  Traversal is
+not: every query gets detached rays, hit ids are discrete, and t and the
+barycentrics are evaluated again from the gathered Woop rows, as in the JAX
+package, so no backward launches a traversal kernel.  A context made with
+``static_shading=False`` bakes no shading table; each pass builds its own
+from the scene it is given, so gradients reach the materials.  Under
+autograd, ``remat_bounces`` recomputes each bounce's shading in the backward
+(``torch.utils.checkpoint``) instead of keeping its intermediates; the
+traversal results are kept.
+
 Image convention: row 0 is the BOTTOM of the image.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..camera import CameraParams
 from ..ops.bvh import BVH, build_bvh
@@ -107,10 +119,11 @@ class AccelPack:
     the backend returns, the backend and, for the wide trees, the leaf math
     their leaves were built for.  Only the backend's pair of structures is
     set: ``wide``/``wide_occl`` (``"wide"``, ``"stream"``),
-    ``bvh``/``bvh_occl`` or ``packed``/``packed_occl``."""
+    ``bvh``/``bvh_occl`` or ``packed``/``packed_occl``.  ``shade_table`` is
+    None where each pass builds its own (``static_shading=False``)."""
 
     accel: WoopAccel
-    shade_table: torch.Tensor
+    shade_table: torch.Tensor | None
     backend: str
     leaf_math: str = "mxu"
     wide: WideBVH | None = None
@@ -189,27 +202,43 @@ def rebuild_pack(scene: Scene, options: RenderOptions) -> AccelPack:
                      packed=packed, packed_occl=packed_occl)
 
 
-def build_accel(scene: Scene, options: RenderOptions) -> AccelPack:
+def build_accel(scene: Scene, options: RenderOptions, static_shading: bool = True) -> AccelPack:
     """Build the acceleration state on the scene's device (the trees
-    themselves are built on the host)."""
+    themselves are built on the host).  With ``static_shading=False`` the
+    pack holds no shading table: each pass builds one from its scene
+    (``pass_pack``), so material gradients reach it."""
     backend = _select_backend(options, scene.geometry.num_triangles)
     if backend == "pallas":
-        return rebuild_pack(scene, options)
+        pack = rebuild_pack(scene, options)
+        return pack if static_shading else dataclasses.replace(pack, shade_table=None)
     accel = build_woop(scene.geometry.positions, scene.geometry.indices)
     include = _occluder_mask(scene).cpu().numpy() if scene.has_alpha_mask else None
-    table = build_shade_table(scene, accel)
     if backend == "bvh":
         bvh = build_bvh(accel, leaf_size=options.bvh_leaf_size)
         bvh_occl = bvh if include is None else build_bvh(
             accel, leaf_size=options.bvh_leaf_size, include=include)
-        return AccelPack(accel=accel, shade_table=table, backend=backend,
+        pack = AccelPack(accel=accel, shade_table=None, backend=backend,
                          bvh=bvh, bvh_occl=bvh_occl)
-    leaf, math = _wide_leaf(options, backend)
-    wide = build_wide_bvh(accel, leaf_size=leaf)
-    wide_occl = wide if include is None else build_wide_bvh(accel, leaf_size=leaf,
-                                                            include=include)
-    return AccelPack(accel=accel, shade_table=slot_order_table(table, wide.slot_tri),
-                     backend=backend, leaf_math=math, wide=wide, wide_occl=wide_occl)
+    else:
+        leaf, math = _wide_leaf(options, backend)
+        wide = build_wide_bvh(accel, leaf_size=leaf)
+        wide_occl = wide if include is None else build_wide_bvh(accel, leaf_size=leaf,
+                                                                include=include)
+        pack = AccelPack(accel=accel, shade_table=None, backend=backend, leaf_math=math,
+                         wide=wide, wide_occl=wide_occl)
+    return pass_pack(scene, pack) if static_shading else pack
+
+
+def pass_pack(scene: Scene, pack: AccelPack) -> AccelPack:
+    """``pack`` with a shading table: its own, or one built from ``scene``
+    in the id order of its backend (slot order for the wide trees, triangle
+    order otherwise; ``heatray_tpu/render/integrator.py:752-771``)."""
+    if pack.shade_table is not None:
+        return pack
+    table = build_shade_table(scene, pack.accel)
+    if pack.backend in ("wide", "stream"):
+        table = slot_order_table(table, pack.wide.slot_tri)
+    return dataclasses.replace(pack, shade_table=table)
 
 
 def _wide_leaf(options: RenderOptions, backend: str):
@@ -229,10 +258,12 @@ def _wide_leaf(options: RenderOptions, backend: str):
     return leaf, math
 
 
-def make_context(options: RenderOptions, scene: Scene | None = None, device="cuda") -> RenderContext:
+def make_context(options: RenderOptions, scene: Scene | None = None, device="cuda",
+                 static_shading: bool = True) -> RenderContext:
     """Sample tables and, given a scene (already on ``device``), its
     acceleration state; without a scene, the rebuild mode (see the module
-    docstring)."""
+    docstring).  ``static_shading=False`` bakes no shading table, so that
+    material parameters take gradients (``build_accel``)."""
     device = _device(device)
     return RenderContext(
         tables=build_tables(
@@ -243,7 +274,8 @@ def make_context(options: RenderOptions, scene: Scene | None = None, device="cud
             bokeh_shape=options.bokeh_shape,
             device=device,
         ),
-        accel_pack=build_accel(scene, options) if scene is not None else None,
+        accel_pack=(build_accel(scene, options, static_shading=static_shading)
+                    if scene is not None else None),
         device=device,
     )
 
@@ -398,12 +430,63 @@ def _make_intersectors(pack: AccelPack):
     return closest, any_hit
 
 
+def _detach(v: Vec3) -> Vec3:
+    return v.map(torch.Tensor.detach)
+
+
+def _requires_grad(*objs) -> bool:
+    """Whether a tensor among ``objs`` (tensors, or dataclasses of them, such
+    as ``Paths``, ``Vec3`` or ``LightBank``) requires a gradient."""
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            if o.requires_grad:
+                return True
+        elif dataclasses.is_dataclass(o) and _requires_grad(
+                *(getattr(o, f.name) for f in dataclasses.fields(o))):
+            return True
+    return False
+
+
 def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
            frame: FrameGlobals, depth: int, paths: Paths, pack: AccelPack):
     """One bounce of the wavefront against ``pack``: closest hit, one row
     gather, shading, NEE occlusion, and the extension rays.  Returns the
-    next ``Paths`` and the ``ShadowRays`` traced."""
+    next ``Paths`` and the ``ShadowRays`` traced.
+
+    Both queries take detached rays.  Under autograd with
+    ``remat_bounces``, the shading between them is checkpointed: the
+    backward recomputes it from this bounce's inputs and the query results,
+    and launches no traversal kernel."""
+    pack = pass_pack(scene, pack)
     closest_fn, any_fn = _make_intersectors(pack)
+    eps = options.ray_epsilon
+
+    _, hit_id, hit = closest_fn(_detach(paths.org), _detach(paths.direction), eps)
+    hit = hit & paths.active
+
+    shade = functools.partial(_shade_bounce, scene, ctx, options, frame, depth, pack)
+    if options.remat_bounces and torch.is_grad_enabled() and _requires_grad(
+            paths, pack.shade_table, scene.lights):
+        shadow, shadow_c, nxt = checkpoint(
+            shade, paths, hit_id, hit, use_reentrant=False, preserve_rng_state=False)
+    else:
+        shadow, shadow_c, nxt = shade(paths, hit_id, hit)
+
+    blocked = any_fn(_detach(shadow.org), _detach(shadow.direction), eps,
+                     shadow.t_max.detach())
+    lit = shadow.active & ~blocked
+    nxt.contrib = nxt.contrib + Vec3.where(lit, shadow_c, 0.0)
+    return nxt, shadow
+
+
+def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
+                  frame: FrameGlobals, depth: int, pack: AccelPack, paths: Paths,
+                  hit_id: torch.Tensor, hit: torch.Tensor):
+    """The part of ``bounce`` between its two queries: the environment on
+    misses, one row gather, shading, and the shadow and extension rays.
+    Returns the ``ShadowRays``, the clamped contribution of each shadow ray
+    that reaches its light, and the next ``Paths``, whose ``contrib`` lacks
+    that contribution."""
     eps = options.ray_epsilon
     lights = scene.lights
     org, direction, weight = paths.org, paths.direction, paths.weight
@@ -411,9 +494,6 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
 
     def clamp(c: Vec3) -> Vec3:
         return c.minimum(frame.max_channel_value)
-
-    _, hit_id, hit = closest_fn(org, direction, eps)
-    hit = hit & active
 
     # Miss: the environment, for camera and glass-refraction rays.
     if lights.env_enabled:
@@ -444,9 +524,6 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
         _offset_origin(p, geo_n, res.shadow_dir, eps), res.shadow_dir, res.shadow_active
     )
     shadow = ShadowRays(s_org, s_dir, res.shadow_max_t - 2.0 * eps, res.shadow_active)
-    blocked = any_fn(s_org, s_dir, eps, shadow.t_max)
-    lit = res.shadow_active & ~blocked
-    contrib = contrib + Vec3.where(lit, clamp(res.shadow_weight * res.shadow_radiance), 0.0)
 
     # Extension rays, dead lanes parked.
     e_org, e_dir = _park_dead(
@@ -457,7 +534,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
         env_on_miss=res.ext_env_on_miss, active=res.ext_active, contrib=contrib,
         seq_id=paths.seq_id, seq_off=paths.seq_off, pix=paths.pix,
     )
-    return nxt, shadow
+    return shadow, clamp(res.shadow_weight * res.shadow_radiance), nxt
 
 
 def _part1by2(x: torch.Tensor) -> torch.Tensor:
@@ -497,15 +574,17 @@ def _wavefront_sort_key(org: Vec3, direction: Vec3, active, lo, hi) -> torch.Ten
 
 
 def _sort_bounds(pack: AccelPack):
-    """(lo, hi): the scene box the sort key quantises origins in."""
+    """(lo, hi): the scene box the sort key quantises origins in (no
+    gradient, as in the JAX package)."""
     tri = pack.accel
-    return tri.tri_min.min(dim=1).values, tri.tri_max.max(dim=1).values
+    return tri.tri_min.detach().min(dim=1).values, tri.tri_max.detach().max(dim=1).values
 
 
 def _sort_paths(paths: Paths, lo, hi) -> Paths:
     """Reorder the wavefront by ``_wavefront_sort_key`` (stable), every
-    plane with one gather."""
-    key = _wavefront_sort_key(paths.org, paths.direction, paths.active, lo, hi)
+    plane with one gather; under autograd the gathers' backward scatters
+    each gradient back to its lane."""
+    key = _wavefront_sort_key(_detach(paths.org), _detach(paths.direction), paths.active, lo, hi)
     order = torch.sort(key, stable=True).indices
     return paths.map(lambda p: p.index_select(0, order))
 
@@ -547,8 +626,10 @@ def render_pass(
     With ``with_stats=True`` returns ``(accum, {"rays": n})``, ``n`` the
     traced rays: per bounce, the live closest-hit lanes plus the shadow
     lanes (the rays/s benchmark count).  A context without a pack renders
-    in the rebuild mode."""
+    in the rebuild mode; a context made with ``static_shading=False``
+    builds the pass's shading table here, from ``scene``."""
     pack = ctx.accel_pack if ctx.accel_pack is not None else rebuild_pack(scene, options)
+    pack = pass_pack(scene, pack)
     paths = start_paths(camera, ctx, options, frame.sample_index)
     r = paths.active.shape[0]
     sort_on, gate_on = _bounce_modes(ctx, options, r)

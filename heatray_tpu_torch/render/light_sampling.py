@@ -23,7 +23,7 @@ from ..scene.lights import (
     MAX_SPOT_LIGHTS,
     LightBank,
 )
-from ..vec import Vec3
+from ..vec import Vec3, clip
 from .onb import greater_than_zero, saturate
 
 _ND = MAX_DIRECTIONAL_LIGHTS
@@ -34,7 +34,7 @@ _NS = MAX_SPOT_LIGHTS
 def glsl_smoothstep(edge0, edge1, x):
     """GLSL smoothstep, as drivers compute it even for edge0 > edge1."""
     e = edge1 - edge0
-    t = torch.clamp(
+    t = clip(
         (x - edge0) / torch.where(torch.abs(e) > 1e-12, e, 1e-12), 0.0, 1.0
     )
     return t * t * (3.0 - 2.0 * t)

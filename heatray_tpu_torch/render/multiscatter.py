@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..sampling import qmc
+from ..vec import clip
 
 LUT_SIZE = 128
 SAMPLE_COUNT = 4096
@@ -103,9 +104,9 @@ def compute_multiscattering_fit(c_spec, n_dot_i, roughness):
     """``1 + c_spec (1 - E) / E`` with E from the Chebyshev surface;
     ``c_spec`` a Vec3 or an (R,) tensor."""
     cs = fit_coeffs(n_dot_i.device)
-    x = torch.clamp(2.0 * n_dot_i - 1.0, -1.0, 1.0)
-    y = torch.clamp(2.0 * roughness - 1.0, -1.0, 1.0)
+    x = clip(2.0 * n_dot_i - 1.0, -1.0, 1.0)
+    y = clip(2.0 * roughness - 1.0, -1.0, 1.0)
     inner = cs @ _cheb_planes(x, FIT_DEGREE)  # (D+1, R): sum over NdotV degrees
     e = torch.sum(_cheb_planes(y, FIT_DEGREE) * inner, dim=0)
-    e = torch.clamp(e, 1e-3, 1.0)
+    e = clip(e, 1e-3, 1.0)
     return 1.0 + c_spec * ((1.0 - e) / e)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..vec import Vec3
+from ..vec import Vec3, clip
 
 PI = 3.14159265359
 TWO_PI = 2.0 * PI
@@ -13,7 +13,7 @@ ONE_OVER_PI = 1.0 / PI
 
 
 def saturate(x):
-    return torch.clamp(x, 0.0, 1.0)
+    return clip(x, 0.0, 1.0)
 
 
 def square(x):
@@ -27,7 +27,7 @@ def pow5(x):
 
 def greater_than_zero(x):
     """``max(1e-5, x)`` (``utility.rlsl:153-156``)."""
-    return torch.clamp(x, min=1e-5)
+    return clip(x, 1e-5)
 
 
 def get_sign(x):

@@ -13,7 +13,7 @@ import torch
 
 from ..ops.intersect import MISS_T, WoopAccel
 from ..scene.scene import Scene
-from ..vec import Vec3
+from ..vec import Vec3, clip
 
 WOOP = 0           # 12: Woop affine rows
 GEO_N = 12         # 3
@@ -87,8 +87,14 @@ class HitRows:
 
 
 def gather_rows(table: torch.Tensor, slot) -> HitRows:
-    """One row gather for a wavefront of hits (ids clamped by the caller)."""
-    return HitRows(table[slot.long()])
+    """One row gather for a wavefront of hits (ids clamped by the caller).
+
+    ``index_select``, whose backward adds each lane's row gradient into the
+    table with ``index_add_``.  The backward of ``table[slot]`` sorts the
+    lanes and sums each row's run of duplicates in one thread: a wall holds
+    hundreds of thousands of a 1080p wavefront's hits, and that sum took
+    1.25 s of a 1.9 s gradient step on the card."""
+    return HitRows(table.index_select(0, slot.long()))
 
 
 def hit_attributes_rows(rows: HitRows, origins: Vec3, directions: Vec3, hit_mask):
@@ -110,6 +116,6 @@ def hit_attributes_rows(rows: HitRows, origins: Vec3, directions: Vec3, hit_mask
     b1 = affine(0, origins, True) + t * affine(0, directions, False)
     b2 = affine(1, origins, True) + t * affine(1, directions, False)
     t = torch.where(hit_mask, t, MISS_T)
-    b1 = torch.clamp(torch.where(hit_mask, b1, 0.0), 0.0, 1.0)
-    b2 = torch.clamp(torch.where(hit_mask, b2, 0.0), 0.0, 1.0)
+    b1 = clip(torch.where(hit_mask, b1, 0.0), 0.0, 1.0)
+    b2 = clip(torch.where(hit_mask, b2, 0.0), 0.0, 1.0)
     return t, b1, b2

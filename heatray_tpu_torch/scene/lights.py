@@ -92,7 +92,9 @@ class EnvironmentLightDesc:
 
 @dataclasses.dataclass
 class LightBank:
-    """Dense light arrays; counts and environment scalars are host values."""
+    """Dense light arrays.  Counts are host values; the environment's
+    exposure compensation and rotation are host floats, or 0-d tensors
+    where they take gradients (``diff.inverse.apply_light_params``)."""
 
     num_directional: int
     dir_direction: torch.Tensor  # (5, 3) toward light
@@ -107,8 +109,8 @@ class LightBank:
     spot_cos_angles: torch.Tensor  # (5, 2) [cos(inner), cos(outer)]
     env_enabled: int
     env_map: torch.Tensor  # (3, He, We) planar linear; 1x1 for solid color
-    env_exposure_compensation: float
-    env_rotation: float
+    env_exposure_compensation: float | torch.Tensor
+    env_rotation: float | torch.Tensor
 
 
 def build_light_bank(

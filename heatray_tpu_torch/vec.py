@@ -3,8 +3,9 @@
 Every per-ray quantity of the renderer is a flat ``(R,)`` tensor or a
 ``Vec3`` of them, as in ``heatray_tpu.vec``, so that BRDF formulas written for
 scalars (Schlick, Smith) apply unchanged to colors and the public functions
-keep the JAX package's layout.  Forward math only: the port has no gradient
-path yet.
+keep the JAX package's layout.  Every operation is differentiable; ``clip``
+takes the place of ``torch.clamp`` where a gradient may reach a bound, so that
+the gradients there are the JAX package's (see ``clip``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,22 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+def clip(x: torch.Tensor, lo: float | None = None, hi: float | None = None) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``, also in its gradient: where ``x`` sits
+    exactly on a bound, ``jnp.clip`` (``jnp.maximum``/``jnp.minimum``) passes
+    half of the gradient and ``torch.clamp`` all of it.  A bound of 1.0 is
+    common (a roughness of 1, a saturated cosine), so under autograd this is
+    ``torch.minimum(torch.maximum(x, lo), hi)``, which splits ties as JAX
+    does; without autograd, the one ``torch.clamp`` of the same values."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype, device=x.device))
+    return x
 
 
 @dataclasses.dataclass
@@ -94,7 +111,7 @@ class Vec3:
         return self.dot(self)
 
     def norm(self, eps=1e-24):
-        return torch.sqrt(torch.clamp(self.length_sq(), min=eps))
+        return torch.sqrt(clip(self.length_sq(), eps))
 
     def normalized(self, eps=1e-12) -> "Vec3":
         """``rsqrt(len_sq + eps)`` scaling, the JAX package's additive

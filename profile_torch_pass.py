@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with one card:
     python3 profile_torch_pass.py [--scene cornell|high-poly] [--passes 5]
                                   [--backend auto|wide|stream|bvh|pallas|rebuild]
                                   [--leaf-math mxu|vpu] [--root DIR] [--trace FILE]
+                                  [--step]
 
 ``--root`` imports the package from another tree (for example an unpacked
 parent commit), so two versions can be compared within one machine session.
@@ -38,6 +39,20 @@ It prints, one reading per line:
   each gated bounce ran, each label's device ms, and the closest-hit and
   occlusion kernels' ms per launch.  In the rebuild mode the rebuild is a
   label of its own.
+
+With ``--step`` it prints instead, after the card line, ``bench.py``'s
+fwd+bwd step on the chosen scene at 1920x1080, depth 4 (``mean(img^2)`` of
+one pass, ``base_color`` and ``roughness`` as leaf tensors through
+``diff.inverse.apply_material_params``, a context made with
+``static_shading=False``), with ``remat_bounces`` on and off in turns:
+
+- ``[step]``: the ms of each steady step after two warm-up steps (host
+  clock, ended by ``torch.cuda.synchronize()``) and their mean;
+- ``[step prof]``: one more step under ``torch.profiler``, its forward
+  (through the loss) and its backward profiled apart: each one's wall ms,
+  kernel ms, kernel count, busy share (kernel ms over the wall) and
+  traversal-kernel launches, the step's peak device memory, and the
+  backward's largest kernels by device ms.
 
 It imports no jax.  ``--trace`` also writes the profiler's Chrome trace.
 """
@@ -124,6 +139,75 @@ def scene_and_camera(name, device):
     return scene.to(device), camera.to(device)
 
 
+def kernel_stats(prof):
+    """(kernel ms, kernel count, traversal launches, [(name, ms)] by device
+    ms) of the CUDA kernels a profile recorded."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    traversal = sum(e.count for e in kernels if any(k in e.key for k in KERNELS))
+    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in kernels), key=lambda r: -r[1])
+    return ms, sum(e.count for e in kernels), traversal, top
+
+
+def profile_step(args, opts, device) -> int:
+    """The ``--step`` readings (see the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from heatray_tpu_torch.bridge import params_from_arrays
+    from heatray_tpu_torch.diff.inverse import apply_material_params
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.render import integrator
+
+    scene, camera = scene_and_camera(args.scene, device)
+    ctx = integrator.make_context(opts, scene, device, static_shading=False)
+    params = params_from_arrays({"base_color": scene.materials.base_color.cpu().numpy(),
+                                 "roughness": scene.materials.roughness.cpu().numpy()}, device)
+    zero = torch.zeros((4, HEIGHT, WIDTH), device=device)
+
+    def forward(options, i):
+        for v in params.values():
+            v.grad = None
+        a = integrator.render_pass(apply_material_params(scene, params), camera, ctx, options,
+                                   FrameGlobals.create(i, device=device), zero)
+        img = a[:3] / torch.clamp(a[3:], min=1.0)
+        return torch.mean(img * img)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for remat in (True, False, False, True):
+        options = dataclasses.replace(opts, remat_bounces=remat)
+        for i in range(2):
+            forward(options, i).backward()
+        ms = [timed(lambda: forward(options, 2 + i).backward())[1] for i in range(args.passes)]
+        log(f"[step] {args.scene} {WIDTH}x{HEIGHT} depth {DEPTH}, remat_bounces={remat}: "
+            f"steady ms {ms!r}, mean {sum(ms) / len(ms)!r}")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof_f:
+            loss, wall_f = timed(lambda: forward(options, 2 + args.passes))
+        with profile(activities=acts) as prof_b:
+            _, wall_b = timed(loss.backward)
+        peak = torch.cuda.max_memory_allocated()
+        for part, prof, wall in (("forward", prof_f, wall_f), ("backward", prof_b, wall_b)):
+            ms_k, n, traversal, top = kernel_stats(prof)
+            log(f"[step prof] remat_bounces={remat} {part}: wall {wall!r} ms; kernel ms {ms_k!r} "
+                f"in {n} kernels, {ms_k / wall!r} of the wall; traversal launches {traversal}")
+        log(f"[step prof] remat_bounces={remat}: peak memory {peak / 2**20!r} MiB "
+            f"({(peak - held) / 2**20!r} above the {held / 2**20!r} held before the step); "
+            f"backward's largest kernels (ms) {[(k[:60], round(v, 3)) for k, v in top[:6]]}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=("cornell", "high-poly"), default="cornell",
@@ -136,6 +220,8 @@ def main() -> int:
     ap.add_argument("--passes", type=int, default=5, help="steady passes to time")
     ap.add_argument("--root", type=Path, default=REPO, help="tree to import the package from")
     ap.add_argument("--trace", type=Path, help="write the profiled pass's Chrome trace here")
+    ap.add_argument("--step", action="store_true",
+                    help="profile bench.py's fwd+bwd step instead of a pass")
     args = ap.parse_args()
 
     import numpy as np
@@ -153,9 +239,11 @@ def main() -> int:
     log(f"[root] {args.root.resolve()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda:0")
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
+    if args.step:
+        return profile_step(args, opts, device)
     golden(np, device)
 
-    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
     accum = torch.zeros((4, HEIGHT, WIDTH), device=device)
 
     def one_pass(scene, camera, ctx, options, i):

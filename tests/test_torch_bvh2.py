@@ -8,6 +8,8 @@ All inputs are made from numpy seeds and handed to both packages.  The CUDA
 kernels themselves are checked in test_torch_cuda.py.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -22,10 +24,14 @@ from heatray_tpu_torch.ops import bvh as bvh_mod
 from heatray_tpu_torch.ops import intersect, traverse_pallas, wide_bvh
 from heatray_tpu_torch.options import FrameGlobals
 from heatray_tpu_torch.render import integrator
+from heatray_tpu_torch.utils.threads import share_cores
 
 from test_bvh import make_soup
 from test_torch_chunks import assert_closest_matches, tri_t
 from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 SIZE = 16
 

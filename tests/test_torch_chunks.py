@@ -8,6 +8,7 @@ kernels themselves are checked in test_torch_cuda.py.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -29,8 +30,12 @@ from heatray_tpu_torch import RenderOptions, cornell_box, orbit_camera, resolve
 from heatray_tpu_torch.ops import intersect, intersect_pallas, wide_bvh
 from heatray_tpu_torch.options import FrameGlobals
 from heatray_tpu_torch.render import integrator
+from heatray_tpu_torch.utils.threads import share_cores
 
 from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 SIZE = 16
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic

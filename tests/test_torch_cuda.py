@@ -8,21 +8,34 @@ JAX package's conftest:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from heatray_tpu_torch import cornell_box, make_context, orbit_camera, render
+from heatray_tpu_torch import cornell_box, make_context, make_loss_fn, orbit_camera, render
+from heatray_tpu_torch.bridge import params_from_arrays
 from heatray_tpu_torch.options import RenderOptions
 from heatray_tpu_torch.ops import intersect_pallas, traverse_pallas, wide_bvh
 from heatray_tpu_torch.ops.bvh import build_bvh
 from heatray_tpu_torch.ops.intersect import MISS_T, build_woop
 from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
 from heatray_tpu_torch.render import integrator
+from heatray_tpu_torch.scene.geometry import translate
+from heatray_tpu_torch.scene.lights import DirectionalLight, EnvironmentLightDesc
+from heatray_tpu_torch.scene.materials import GlassParams, PBRParams
+from heatray_tpu_torch.scene.providers import plane_mesh, sphere_mesh
+from heatray_tpu_torch.scene.scene import SceneBuilder
+from heatray_tpu_torch.utils.threads import share_cores
 from heatray_tpu_torch.vec import Vec3
 
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
+
 pytestmark = pytest.mark.cuda
+
+GOLDEN_SIZE, GOLDEN_PASSES = 48, 4
 
 
 @pytest.fixture
@@ -526,6 +539,71 @@ def test_render_matches_cpu(cuda_device):
     on_card, _ = render(scene, camera, opts, num_passes=passes, device=cuda_device)
     on_cpu, _ = render(scene, camera, opts, num_passes=passes, device="cpu")
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("name", ["config1_sphere_plane", "config4_glass_dof"])
+def test_golden_configs_match_cpu(cuda_device, name):
+    """config1 and config4 on the card and on the CPU at the golden's
+    tolerance, as config2 above."""
+    scene, camera, opts = golden_config(name)
+    out = {}
+    for device in (cuda_device, torch.device("cpu")):
+        out[device.type], _ = render(scene, camera, opts, num_passes=GOLDEN_PASSES, device=device)
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-3, atol=5e-3)
+
+
+def step_grads(device, opts):
+    """The gradients of bench.py's fwd+bwd step (``mean(img^2)`` of one pass,
+    ``static_shading=False``) over ``base_color``, ``roughness`` and
+    ``light.point_color`` of the Cornell box."""
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(opts.width, opts.height, distance=6.2, focal_length_mm=35.0)
+    ctx = make_context(opts, scene, device=device, static_shading=False)
+    params = params_from_arrays({
+        "base_color": scene.materials.base_color.cpu().numpy(),
+        "roughness": scene.materials.roughness.cpu().numpy(),
+        "light.point_color": scene.lights.point_color.cpu().numpy()}, device=device)
+    target = torch.zeros((opts.height, opts.width, 3))
+    make_loss_fn(scene, camera, ctx, opts, target)(params).backward()
+    return {k: v.grad.cpu() for k, v in params.items()}
+
+
+def test_step_gradients_match_cpu(cuda_device):
+    """At tests/test_inverse.py's size (24x24, depth 2) the card's step
+    gradients (K1/K2, sorted and gated) equal the CPU's (plain versions,
+    unsorted) within 1e-3 of each key's largest |g| (F6: float32 rounding
+    differs by device)."""
+    opts = RenderOptions(width=24, height=24, max_render_passes=4, max_ray_depth=2)
+    card, cpu = step_grads(cuda_device, opts), step_grads(torch.device("cpu"), opts)
+    for k, want in cpu.items():
+        assert torch.isfinite(card[k]).all() and float(want.abs().max()) > 0.0, k
+        torch.testing.assert_close(card[k], want, rtol=0.0, atol=1e-3 * float(want.abs().max()))
+
+
+def golden_config(name):
+    """(scene, camera, options) of ``tests/test_goldens.py``'s config1 (a
+    directional light) or config4 (glass and hexagon-bokeh depth of field
+    under a solid environment), built with the port's own builders."""
+    size, b = GOLDEN_SIZE, SceneBuilder()
+    if name == "config1_sphere_plane":
+        b.add_mesh(sphere_mesh(24, 24, 1.0), PBRParams(base_color=(0.7, 0.7, 0.7)))
+        b.add_mesh(plane_mesh(12, 12), PBRParams(base_color=(0.8, 0.8, 0.8)),
+                   transform=translate([0, -1.0, 0]))
+        b.add_directional_light(DirectionalLight(direction=(0.4, 0.8, 0.45), illuminance=20000.0))
+        camera = orbit_camera(size, size, distance=5.0, theta=0.35)
+        opts = RenderOptions(width=size, height=size, max_render_passes=GOLDEN_PASSES,
+                             max_ray_depth=2)
+    else:
+        b.add_mesh(sphere_mesh(24, 24, 1.0),
+                   GlassParams(base_color=(0.8, 0.9, 0.8), roughness=0.1, ior=1.5, density=0.4))
+        b.add_mesh(plane_mesh(12, 12), PBRParams(base_color=(0.7, 0.7, 0.9)),
+                   transform=translate([0, -1.0, 0]))
+        b.set_environment(EnvironmentLightDesc(solid_color=(0.5, 0.5, 0.5)))
+        camera = orbit_camera(size, size, distance=5.0, theta=0.3, focus_distance=5.0,
+                              aperture_radius=0.15)
+        opts = RenderOptions(width=size, height=size, max_render_passes=GOLDEN_PASSES,
+                             max_ray_depth=4, bokeh_shape="hexagon")
+    return b.build(), camera, opts
 
 
 @pytest.mark.parametrize("backend", ["bvh", "pallas", "rebuild", "wide-vpu", "stream-vpu"])

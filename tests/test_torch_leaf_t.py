@@ -15,6 +15,7 @@ kernels themselves are checked in test_torch_cuda.py.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -33,8 +34,12 @@ from heatray_tpu_torch.ops import intersect, wide_bvh
 from heatray_tpu_torch.options import FrameGlobals
 from heatray_tpu_torch.probes.visit_stats import group_walk
 from heatray_tpu_torch.render import integrator
+from heatray_tpu_torch.utils.threads import share_cores
 
 from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 SIZE = 16
 

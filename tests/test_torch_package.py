@@ -10,6 +10,10 @@ from pathlib import Path
 import pytest
 
 from heatray_tpu_torch.options import AOV, RenderOptions
+from heatray_tpu_torch.utils.threads import share_cores
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 _REPO = Path(__file__).resolve().parents[1]
 

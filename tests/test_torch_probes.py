@@ -17,6 +17,7 @@ test_torch_cuda.py and chip_smoke.py.
 import ast
 import dataclasses
 import functools
+import os
 import types
 from pathlib import Path
 
@@ -36,7 +37,11 @@ from heatray_tpu_torch.bridge import wide_bvh_from_arrays
 from heatray_tpu_torch.ops import intersect, wide_bvh
 from heatray_tpu_torch.ops.intersect import MISS_T
 from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
+from heatray_tpu_torch.utils.threads import share_cores
 from heatray_tpu_torch.vec import Vec3
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 REPO = Path(__file__).resolve().parents[1]
 T_MIN = 1e-4

@@ -1,9 +1,12 @@
 """The port's forward render of the Cornell box against the JAX package:
 per pixel at 16x16 (one pass, depth 4; also through the transposed leaf
-math, ``wide_leaf_math="vpu"``), and against the stored golden of
-``tests/test_goldens.py``'s config2 at 48x48 (4 passes, depth 4)."""
+math, ``wide_leaf_math="vpu"``), and against the stored goldens of
+``tests/test_goldens.py``'s config2 (the Cornell box), config1 (a
+directional light) and config4 (glass and hexagon-bokeh depth of field
+under a solid environment) at 48x48, 4 passes."""
 
 import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
@@ -19,8 +22,15 @@ from heatray_tpu_torch import RenderOptions, cornell_box, orbit_camera, render, 
 from heatray_tpu_torch.bridge import camera_from_arrays, scene_from_arrays
 from heatray_tpu_torch.options import FrameGlobals
 from heatray_tpu_torch.render.integrator import make_context, render_pass
+from heatray_tpu_torch.utils.threads import share_cores
 
-GOLDEN = Path(__file__).parent / "goldens" / "config2_cornell.npy"
+from test_torch_cuda import GOLDEN_PASSES, golden_config
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
+
+GOLDENS = Path(__file__).parent / "goldens"
+GOLDEN = GOLDENS / "config2_cornell.npy"
 SMALL = 16
 
 
@@ -132,3 +142,14 @@ def test_render_pass_stats():
     debug = dataclasses.replace(opts, debug_pass_rendering=True, debug_pass_index=0)
     single, _ = render(scene, camera, debug, num_passes=3, ctx=ctx, device="cpu")
     assert torch.equal(single, plain)
+
+
+@pytest.mark.parametrize("name", ["config1_sphere_plane", "config4_glass_dof"])
+def test_golden(name):
+    """config1 and config4 at test_goldens.py's tolerance."""
+    scene, camera, opts = golden_config(name)
+    accum, _ = render(scene, camera, opts, num_passes=GOLDEN_PASSES, device="cpu")
+    img = resolve(accum).numpy()
+    assert np.isfinite(img).all() and img.max() > 0.0
+    golden = np.load(GOLDENS / f"{name}.npy").astype(np.float32)
+    np.testing.assert_allclose(img, golden, rtol=5e-3, atol=5e-3)

@@ -2,6 +2,7 @@
 chain bit for bit, and the host tables and their lookups exactly."""
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,9 @@ from heatray_tpu.sampling import qmc_fly as jax_fly
 from heatray_tpu.sampling import tables as jax_tables
 from heatray_tpu_torch.bridge import tables_from_arrays
 from heatray_tpu_torch.sampling import qmc_fly, tables
+from heatray_tpu_torch.utils.threads import share_cores
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 
 def _grid(seed=0):

@@ -8,6 +8,7 @@ not bit for bit.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +28,11 @@ from heatray_tpu_torch.ops.intersect import build_woop
 from heatray_tpu_torch.render import light_sampling, multiscatter, shade, shade_table
 from heatray_tpu_torch.sampling.tables import build_tables
 from heatray_tpu_torch.scene.builtin import cornell_box
+from heatray_tpu_torch.utils.threads import share_cores
 from heatray_tpu_torch.vec import Vec3
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 RTOL, ATOL = 1e-4, 1e-5
 R = 512

@@ -9,6 +9,7 @@ streaming CUDA kernels themselves are checked in test_torch_cuda.py.
 """
 
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,10 +39,14 @@ from heatray_tpu_torch.bridge import scene_from_arrays
 from heatray_tpu_torch.ops import intersect, wide_bvh
 from heatray_tpu_torch.options import FrameGlobals
 from heatray_tpu_torch.render import integrator
+from heatray_tpu_torch.utils.threads import share_cores
 from heatray_tpu_torch.vec import Vec3
 
 from test_bvh import v3
 from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+
 
 TRIANGLES = 5_000
 

@@ -3,6 +3,7 @@ plain closest/any-hit versions against the JAX oracles.  The CUDA kernels
 are checked against the plain versions in test_torch_cuda.py."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -16,9 +17,12 @@ from heatray_tpu.ops.wide_bvh import intersect_any_wide as jax_any_wide
 from heatray_tpu.ops.wide_bvh import intersect_closest_vpu as jax_closest_vpu
 from heatray_tpu_torch.bridge import wide_bvh_from_arrays
 from heatray_tpu_torch.ops import intersect, wide_bvh
+from heatray_tpu_torch.utils.threads import share_cores
 from heatray_tpu_torch.vec import Vec3
 
 from test_bvh import make_rays, make_soup, planar, v3
+
+share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 
 
 def _soup(t, seed):
