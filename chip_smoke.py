@@ -116,7 +116,26 @@ source, started together, and then:
    its plain version on P2_TILES seeded whole tiles (the last, partial one
    among them): hit masks equal, t within TOL, slots equal (all -1 for
    v3); and the tests per tile must show v2 and v3 walking as v0, v1 more,
-   v4 no more.
+   v4 no more;
+20. the appearance slice, through K1/K2: Scene A (``multi_material`` lit
+   by the 2k procedural studio map) and Scene B (the same layout with
+   2048x2048 base-colour, normal and metallic-roughness textures on the
+   ground, clearcoat 1.0 with a 1024x1024 clearcoat-normal map on the metal
+   sphere and a double-sided alpha-masked 1024x1024 cut-out quad before the
+   glass sphere; mips on, so the ray cones pick levels), each at 1920x1080,
+   depth 5: K1/K2 against their plain versions at the path's shapes (as in
+   5), 4 passes through ``render_pass`` (only K1/K2 may run, once per bounce
+   with live lanes) with the steady ms/pass, Mrays/s, the kernels of one
+   pass under the profiler and the peak device memory; sorted and gated
+   equal to unsorted bit for bit; the ACES display image on the card equal
+   to the same call on the CPU within POST_TOL.  Scene B must differ from A,
+   and from B with every texel's alpha at 1 (the pass-through ran).  Then
+   one 1080p pass of each of AOV_MODES on Scene B (finite; the NaN and Inf
+   detectors under the clean ceiling of ``tests/test_goldens.py``), goldens
+   config3 and config5 on the card against their goldens and the CPU's
+   render (within CPU_TOL), and one fwd+bwd step over ``env.map`` and
+   ``env.rotation`` on Scene A (remat on: gradients finite, the map's
+   nonzero; K1/K2 in the forward only), with its ms and peak memory.
 
 Each probe phase sets the probe kernels' launch counts to 0 just before
 its run and reads them just after; every kernel of the probe must have
@@ -416,10 +435,11 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=Fals
     pack = ctx.accel_pack or integrator.rebuild_pack(scene, opts)
     tree, tree_occl = pack.structures()
     frame = FrameGlobals.create(0, device=ctx.device)
-    primary = integrator.start_paths(camera, ctx, opts, 0)
+    cone = integrator.pixel_cone(scene, camera, opts)  # a textured scene's ray cones
+    primary = integrator.start_paths(camera, ctx, opts, 0, cone=cone is not None)
     check_closest(closest, tree, primary.org, primary.direction, f"{label} primary", err,
                   live_pick(primary.active, gen), eps, exact)
-    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary, pack)
+    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary, pack, cone)
     check_any(any_, tree_occl, shadow.org, shadow.direction, shadow.t_max,
               f"{label} first-bounce shadow", err, live_pick(shadow.active, gen), eps)
     paths = integrator._sort_paths(first, *integrator._sort_bounds(pack))
@@ -430,7 +450,7 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=Fals
     tag = f"{label} depth-2 sorted head ({n} of {paths.active.numel()} lanes)"
     check_closest(closest, tree, head.org, head.direction, tag, err,
                   live_pick(head.active, gen), eps, exact)
-    _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head, pack)
+    _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head, pack, cone)
     check_any(any_, tree_occl, shadow2.org, shadow2.direction, shadow2.t_max,
               f"{tag} shadow", err, live_pick(shadow2.active, gen), eps)
     return primary, shadow, head, shadow2
@@ -777,14 +797,16 @@ def compare_launches(label, kernels, mine, rivals, trees, launches, card):
     log(f"[compare] {label}, ms: {'; '.join(parts)}; card {card}")
 
 
-def run_path(label, scene, camera, ctx, opts, expect):
+def run_path(label, scene, camera, ctx, opts, expect, readings=None):
     """The render path of one scene: PASSES passes through ``render_pass``
     with the launch counts set to 0 just before and read just after.  Each
     kernel of ``expect`` must run once per bounce with live lanes: the
     first bounce of every pass, and each later one whose gated lane count
     (``_gated_lanes``, counted here) is above 0; no other kernel may run.
     In the rebuild mode the time of each pass's rebuild is taken apart.
-    Returns the launches and the resolved image."""
+    Returns the launches and the resolved image; ``readings`` (a dict), if
+    given, gets the accumulation, each pass's ms and rays, and the peak
+    device memory of the passes."""
     import torch
 
     from heatray_tpu_torch import resolve
@@ -811,8 +833,10 @@ def run_path(label, scene, camera, ctx, opts, expect):
         return pack
 
     integrator._gated_lanes, integrator.rebuild_pack = count_lanes, timed_rebuild
+    pass_rays = []
     try:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launches()
         for i in range(PASSES):
             torch.cuda.synchronize()
@@ -824,11 +848,13 @@ def run_path(label, scene, camera, ctx, opts, expect):
             torch.cuda.synchronize()
             pass_ms.append((time.perf_counter() - t0) * 1e3)
             rays += stats["rays"]
+            pass_rays.append(stats["rays"])
         launches = read_launches()
     finally:
         integrator._gated_lanes, integrator.rebuild_pack = gated, rebuild
-    if len(lanes) != PASSES * (DEPTH - 1):
-        raise AssertionError(f"{label}: {len(lanes)} gated bounces, not {PASSES * (DEPTH - 1)}")
+    depth = opts.max_ray_depth
+    if len(lanes) != PASSES * (depth - 1):
+        raise AssertionError(f"{label}: {len(lanes)} gated bounces, not {PASSES * (depth - 1)}")
     runs = PASSES + sum(n > 0 for n in lanes)
     if any(launches[name] != runs for name in expect):
         raise AssertionError(f"{label} path kernel launches {launches}, not {runs} each "
@@ -842,8 +868,11 @@ def run_path(label, scene, camera, ctx, opts, expect):
     img = resolve(accum)
     if not bool(torch.isfinite(img).all()) or float(img.max()) <= 0.0:
         raise AssertionError(f"{label} image is not finite, or black")
+    if readings is not None:
+        readings.update(accum=accum, pass_ms=pass_ms, pass_rays=pass_rays,
+                        peak_mib=torch.cuda.max_memory_allocated() / 2**20)
     total_s = sum(pass_ms) / 1e3
-    log(f"[{label}] {WIDTH}x{HEIGHT} depth {DEPTH}, {PASSES} passes: ms/pass "
+    log(f"[{label}] {WIDTH}x{HEIGHT} depth {depth}, {PASSES} passes: ms/pass "
         f"{[round(m, 3) for m in pass_ms]}, mean {sum(pass_ms) / PASSES:.3f}; "
         f"{rays} rays, {rays / total_s / 1e6:.3f} Mrays/s; launches {launches}; "
         f"gated lanes {lanes}; image mean {float(img.mean()):.4g}")
@@ -1468,6 +1497,304 @@ def phase_p2(cornell, gen, err, card):
     return entries, launches
 
 
+# The appearance slice (phase 20): config5's depth, a 2k lat/long map, the
+# texture sizes of Scene B, the NaN/Inf detectors' clean ceiling at that depth
+# (``tests/test_goldens.py:195``) and the card-against-CPU bound of F6.
+APPEARANCE_DEPTH = 5
+ENV_SIZE = (1024, 2048)
+TEX, TEX_SMALL = 2048, 1024
+CLEAN_CEILING = 0.1 * (2 * APPEARANCE_DEPTH + 1) + 1e-5
+CPU_TOL = 5.6e-5
+POST_TOL = 1e-5
+AOV_MODES = ("GEOMETRIC_NORMALS", "UVS", "BASE_COLOR", "NORMALMAP", "SHADER", "NANS", "INFS")
+
+
+def appearance_scenes(device):
+    """Scene A, ``multi_material`` lit by the 2k procedural studio map, and
+    Scene B: the same layout with seeded textures, an sRGB checker base
+    colour, a normal map and a metallic-roughness map on the ground plane
+    (TEX x TEX each), clearcoat 1.0 with a clearcoat-normal map on the metal
+    sphere, and a double-sided alpha-masked cut-out quad (TEX_SMALL) between
+    the camera and the glass sphere."""
+    import math
+
+    import numpy as np
+
+    from heatray_tpu_torch.scene.builtin import multi_material
+    from heatray_tpu_torch.scene.environments import get_environment
+    from heatray_tpu_torch.scene.geometry import rotate, translate
+    from heatray_tpu_torch.scene.lights import EnvironmentLightDesc
+    from heatray_tpu_torch.scene.materials import GlassParams, PBRParams
+    from heatray_tpu_torch.scene.providers import plane_mesh, sphere_mesh
+    from heatray_tpu_torch.scene.scene import SceneBuilder
+
+    env = EnvironmentLightDesc(image=get_environment("studio", *ENV_SIZE))
+    scene_a = multi_material(env=env)
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.meshgrid(np.arange(TEX, dtype=np.float32) / TEX,
+                         np.arange(TEX, dtype=np.float32) / TEX, indexing="ij")
+    checker = ((np.floor(xx * 16) + np.floor(yy * 16)) % 2).astype(np.float32)
+    base = np.stack([0.25 + 0.6 * checker, 0.55 - 0.3 * checker, 0.35 + 0.2 * checker], -1)
+    base += 0.06 * rng.standard_normal(base.shape, dtype=np.float32)
+    nrm = np.stack([0.35 * np.sin(2 * math.pi * 24 * xx), 0.35 * np.sin(2 * math.pi * 24 * yy),
+                    np.ones_like(xx)], -1)
+    nrm += 0.05 * rng.standard_normal(nrm.shape, dtype=np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    mr = np.stack([np.zeros_like(xx), 0.25 + 0.75 * checker, 0.5 * (1.0 - checker)], -1)
+    cc = nrm[::2, ::2].copy()
+    cc[..., :2] *= -1.0
+    ys, xs = np.meshgrid(np.arange(TEX_SMALL) / TEX_SMALL, np.arange(TEX_SMALL) / TEX_SMALL,
+                         indexing="ij")
+    cut = np.ones((TEX_SMALL, TEX_SMALL, 4), np.float32)
+    cut[..., :3] = rng.uniform(0.3, 0.9, 3).astype(np.float32)
+    cut[..., 3] = ((np.hypot((xs * 8) % 1 - 0.5, (ys * 8) % 1 - 0.5)) > 0.3).astype(np.float32)
+
+    b = SceneBuilder()
+    b.add_mesh(plane_mesh(15, 15, "Plane"), PBRParams(
+        base_color=(0.9, 0.9, 0.9), metallic=0.0, roughness=1.0, specular_f0=0.0, name="Ground",
+        base_color_tex=b.add_texture(np.clip(base, 0, 1), srgb=True),
+        normal_tex=b.add_texture(nrm * 0.5 + 0.5),
+        metallic_roughness_tex=b.add_texture(mr)), transform=translate([0.0, -1.5, 0.0]))
+    b.add_mesh(sphere_mesh(50, 50, 1.0, "Sphere"), PBRParams(
+        base_color=(0.4, 0.4, 0.4), metallic=1.0, roughness=0.1, specular_f0=0.3, name="PBR",
+        clearcoat=1.0, clearcoat_normal_tex=b.add_texture(cc * 0.5 + 0.5)),
+        transform=translate([-0.9, -0.5, -0.8]))
+    b.add_mesh(sphere_mesh(50, 50, 1.0, "Sphere"), GlassParams(
+        base_color=(0.9, 0.6, 0.6), roughness=0.1, ior=1.57, density=0.5, name="Glass"),
+        transform=translate([1.2, -0.5, 0.8]))
+    # Facing the camera (orbit distance 6, theta 0.3), 45% of the way from
+    # the glass sphere toward it.
+    b.add_mesh(plane_mesh(1.2, 1.2, "Cut-out"), PBRParams(
+        base_color_tex=b.add_texture(cut), double_sided=True, alpha_masked=True,
+        roughness=0.5, name="Cut-out"),
+        transform=translate([0.66, 0.52, 3.02]) @ rotate(math.pi / 2 - 0.3, [1, 0, 0]))
+    b.set_environment(env)
+    scene_b = b.build()
+    if not (scene_b.has_textures and scene_b.has_alpha_mask):
+        raise AssertionError("Scene B has no textures or no alpha mask")
+    return scene_a.to(device), scene_b.to(device)
+
+
+def golden_scene(name):
+    """(scene, camera, options) of ``tests/test_goldens.py``'s config3
+    (clearcoat under a 16x32 lat/long sky) or config5 (``multi_material``,
+    whose golden is the ACES display image), built with the port."""
+    import numpy as np
+
+    from heatray_tpu_torch import orbit_camera
+    from heatray_tpu_torch.options import RenderOptions
+    from heatray_tpu_torch.scene.builtin import multi_material
+    from heatray_tpu_torch.scene.lights import EnvironmentLightDesc
+    from heatray_tpu_torch.scene.materials import PBRParams
+    from heatray_tpu_torch.scene.providers import sphere_mesh
+    from heatray_tpu_torch.scene.scene import SceneBuilder
+
+    g = 48
+    if name == "config5_full_aces":
+        return (multi_material(), orbit_camera(g, g, distance=6.0, theta=0.3),
+                RenderOptions(width=g, height=g, max_render_passes=4, max_ray_depth=5))
+    b = SceneBuilder()
+    b.add_mesh(sphere_mesh(24, 24, 1.0), PBRParams(
+        base_color=(0.6, 0.1, 0.1), metallic=0.8, roughness=0.25, clearcoat=1.0,
+        clearcoat_roughness=0.1, specular_f0=0.5))
+    sky = np.linspace(3.0, 0.05, 16, dtype=np.float32)[:, None, None]
+    b.set_environment(EnvironmentLightDesc(image=np.broadcast_to(sky, (16, 32, 3)).copy()))
+    return (b.build(), orbit_camera(g, g, distance=4.0, theta=0.3),
+            RenderOptions(width=g, height=g, max_render_passes=4, max_ray_depth=3))
+
+
+def kernels_per_pass(fn):
+    """(CUDA kernels, their summed device ms) the profiler records in one
+    call of ``fn``, or None where it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    n = sum(e.count for e in kernels)
+    return (n, sum(e.self_device_time_total for e in kernels) / 1e3) if n else None
+
+
+def phase_appearance(gen, err, card):
+    """Phase 20: the appearance slice (see the module docstring).  Returns
+    K1's and K2's launches on the paths of Scenes A and B."""
+    import numpy as np
+    import torch
+
+    from heatray_tpu_torch import make_loss_fn, orbit_camera, render, resolve
+    from heatray_tpu_torch.options import AOV, FrameGlobals, RenderOptions
+    from heatray_tpu_torch.post import PostProcessingParams, apply_post_pipeline
+    from heatray_tpu_torch.render import integrator
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE)
+    names = ("closest_wide", "any_wide")
+    t0 = time.perf_counter()
+    scene_a, scene_b = appearance_scenes(device)
+    atlas = scene_b.atlas
+    log(f"[appearance] scenes in {time.perf_counter() - t0:.1f} s: a {ENV_SIZE[0]}x{ENV_SIZE[1]} "
+        f"map; Scene B's atlas {atlas.num_textures} textures, {atlas.num_levels} levels, "
+        f"{atlas.data.numel() * 4 / 2**20:.1f} MiB")
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64,
+                         max_ray_depth=APPEARANCE_DEPTH)
+    camera = orbit_camera(WIDTH, HEIGHT, distance=6.0, theta=0.3).to(device)
+    zero = torch.zeros((4, HEIGHT, WIDTH), dtype=torch.float32, device=device)
+    plain_opts = dataclasses.replace(opts, sort_bounces=False, gate_bounces=False)
+    post = PostProcessingParams(tonemapping_enabled=True)
+    out, launches = {}, {}
+    for label, scene in (("scene_a", scene_a), ("scene_b", scene_b)):
+        ctx = integrator.make_context(opts, scene, device)
+        pack = ctx.accel_pack
+        if pack.route != "wide" or pack.shade_table.shape[1] != (83 if scene.has_textures else 51):
+            raise AssertionError(f"{label}: route {pack.route!r}, table {pack.shade_table.shape}")
+        check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=True)
+        readings = {}
+        launches[label], img = run_path(label, scene, camera, ctx, opts, names, readings)
+        accum = readings["accum"]
+        steady_s = sum(readings["pass_ms"][1:]) / 1e3
+        ms = 1e3 * steady_s / (PASSES - 1)
+        mrays = sum(readings["pass_rays"][1:]) / steady_s / 1e6
+        n_kernels = kernels_per_pass(lambda: integrator.render_pass(
+            scene, camera, ctx, opts, FrameGlobals.create(PASSES, device=device), zero))
+
+        # Sorted and gated against unsorted, bit for bit.
+        frame = FrameGlobals.create(5, device=device)
+        one = {on: integrator.render_pass(scene, camera, ctx, opts if on else plain_opts, frame,
+                                          zero) for on in (True, False)}
+        if not torch.equal(one[True], one[False]):
+            d = (one[True] - one[False]).abs()
+            raise AssertionError(f"{label}: sorted+gated pass differs from unsorted: "
+                                 f"{int((d > 0).sum())} values, max {float(d.max())}")
+
+        # The ACES display image on the card against the same call on the CPU.
+        shown = apply_post_pipeline(accum, post)
+        shown_cpu = apply_post_pipeline(accum.cpu(), post)
+        d_post = float((shown.cpu() - shown_cpu).abs().max())
+        if not (bool(torch.isfinite(shown).all()) and d_post <= POST_TOL):
+            raise AssertionError(f"{label}: ACES image on the card differs from the CPU's "
+                                 f"by {d_post}")
+        prof = ("not measured" if n_kernels is None else
+                f"{n_kernels[0]} ({n_kernels[1]:.1f} kernel ms, {n_kernels[1] / ms:.0%} of the "
+                f"steady ms/pass)")
+        log(f"[appearance] {label} {WIDTH}x{HEIGHT} depth {APPEARANCE_DEPTH}: steady ms/pass "
+            f"{ms:.3f} (passes 2-{PASSES}), {mrays:.3f} Mrays/s, kernels per pass {prof}, "
+            f"peak memory "
+            f"{readings['peak_mib']:.1f} MiB; K1 {launches[label]['closest_wide']}, K2 "
+            f"{launches[label]['any_wide']} launches in {PASSES} passes; sorted+gated = "
+            f"unsorted bit for bit; ACES card against CPU max |diff| {d_post:.3g}; card {card}")
+        out[label] = (ctx, img, one[True])
+
+    # Scene B differs from A, and the pass-through ran: B with every alpha
+    # at 1 differs from B.
+    n_diff = int(((out["scene_a"][1] - out["scene_b"][1]).abs().amax(dim=2) > 0).sum())
+    opaque = dataclasses.replace(scene_b, atlas=dataclasses.replace(atlas, data=torch.cat(
+        [atlas.data[:3], torch.ones_like(atlas.data[3:])])))
+    solid = integrator.render_pass(opaque, camera, out["scene_b"][0], opts,
+                                   FrameGlobals.create(5, device=device), zero)
+    n_cut = int(((solid - out["scene_b"][2]).abs()[:3].amax(dim=0) > 0).sum())
+    if n_diff == 0 or n_cut == 0:
+        raise AssertionError(f"Scene B differs from A on {n_diff} pixels, from B with opaque "
+                             f"texels on {n_cut}")
+    log(f"[appearance] Scene B differs from A on {n_diff} pixels; B with every alpha at 1 "
+        f"differs from B on {n_cut} pixels of one pass (the pass-through)")
+    del solid, opaque
+
+    # AOVs at 1080p on Scene B, one pass each.
+    ctx_b = out["scene_b"][0]
+    for mode in AOV_MODES:
+        aov = AOV[mode]
+        reset_launches()
+        accum = integrator.render_pass(scene_b, camera, ctx_b, dataclasses.replace(opts, aov=aov),
+                                       FrameGlobals.create(0, device=device), zero)
+        img = resolve(accum)
+        hi = float(img.max())
+        k1 = read_launches()["closest_wide"]
+        if not bool(torch.isfinite(img).all()) or hi <= 0.0:
+            raise AssertionError(f"AOV {mode}: not finite, or black")
+        if aov in (AOV.NANS, AOV.INFS) and hi > CLEAN_CEILING:
+            raise AssertionError(f"AOV {mode}: detector fired, max {hi}")
+        if aov not in (AOV.NANS, AOV.INFS) and k1 != 1:
+            raise AssertionError(f"AOV {mode}: {k1} K1 launches, not 1")
+        log(f"[appearance] AOV {mode} on Scene B: finite, max {hi:.4g}, K1 launches {k1}")
+    del ctx_b
+
+    # Goldens config3 and config5 on the card, against the golden and the CPU.
+    for name in ("config3_pbr_env", "config5_full_aces"):
+        scene, cam, g_opts = golden_scene(name)
+        imgs = {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            accum, _ = render(scene, cam, g_opts, num_passes=4, device=dev)
+            accum = accum.cpu()
+            imgs[where] = (resolve(accum), apply_post_pipeline(accum, post)
+                           if name == "config5_full_aces" else resolve(accum))
+        golden = np.load(REPO / "tests" / "goldens" / f"{name}.npy").astype(np.float32)
+        np.testing.assert_allclose(imgs["card"][1].numpy(), golden, rtol=5e-3, atol=5e-3)
+        d_cpu = float((imgs["card"][0] - imgs["cpu"][0]).abs().max())
+        if not d_cpu <= CPU_TOL:
+            raise AssertionError(f"{name}: card against CPU max |diff| {d_cpu}")
+        log(f"[golden] {name} 48x48x4 on the card matches, max |diff| "
+            f"{float(np.abs(imgs['card'][1].numpy() - golden).max()):.3g}; against the CPU's "
+            f"render {d_cpu:.3g}")
+
+    # One fwd+bwd step over env.map and env.rotation on Scene A, remat on.
+    ctx_a = out["scene_a"][0]
+    params = {"env.map": scene_a.lights.env_map.clone().requires_grad_(True),
+              "env.rotation": torch.zeros((), device=device, requires_grad=True)}
+    loss_fn = make_loss_fn(scene_a, camera, ctx_a, opts, torch.zeros((HEIGHT, WIDTH, 3)))
+    lanes, gated = [], integrator._gated_lanes
+
+    def count_lanes(*args):
+        lanes.append(gated(*args))
+        return lanes[-1]
+
+    integrator._gated_lanes = count_lanes
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        loss = loss_fn(params)
+        torch.cuda.synchronize()
+        fwd = read_launches()
+        reset_launches()
+        loss.backward()
+        torch.cuda.synchronize()
+        bwd = read_launches()
+    finally:
+        integrator._gated_lanes = gated
+    runs = 1 + sum(n > 0 for n in lanes)
+    expect = {name: runs if name in names else 0 for name in fwd}
+    if fwd != expect or any(bwd.values()):
+        raise AssertionError(f"env step launches: forward {fwd}, backward {bwd}; expected "
+                             f"forward {expect} and none in the backward")
+    g_map, g_rot = params["env.map"].grad, params["env.rotation"].grad
+    if not (bool(torch.isfinite(g_map).all()) and bool(torch.isfinite(g_rot))
+            and float(g_map.abs().sum()) > 0.0):
+        raise AssertionError(f"env step gradients: map finite {bool(torch.isfinite(g_map).all())},"
+                             f" |sum| {float(g_map.abs().sum())}; rotation {float(g_rot)}")
+    for v in params.values():
+        v.grad = None
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss_fn(params, 1).backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[appearance] fwd+bwd step over env.map and env.rotation, Scene A {WIDTH}x{HEIGHT} "
+        f"depth {APPEARANCE_DEPTH}, remat_bounces=True: {step_ms:.3f} ms (the second step), "
+        f"peak memory {peak / 2**20:.1f} MiB, {(peak - held) / 2**20:.1f} MiB above the "
+        f"{held / 2**20:.1f} held before the step; K1 {fwd['closest_wide']}"
+        f", K2 {fwd['any_wide']} in the forward (gated lanes {lanes}), none in the backward; "
+        f"env.map gradient: {int((g_map != 0).sum())} of {g_map.numel()} nonzero, max "
+        f"{float(g_map.abs().max()):.4g}; env.rotation gradient {float(g_rot):.4g}; card {card}")
+    log(f"[appearance] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {label: {name: launches[label][name] for name in names} for label in launches}
+
+
 def main() -> int:
     import torch
 
@@ -1784,6 +2111,13 @@ def main() -> int:
         entry["launches"] = probe_launches[entry["name"]]
         entry["max_abs_err"] = err[entry["name"]]
         kernels.append(entry)
+
+    # --- 20. the appearance slice: Scenes A and B through K1/K2 ----------------
+    appearance = phase_appearance(gen, err, card)
+    for entry in kernels:
+        if entry["name"] in ("closest_wide", "any_wide"):
+            entry["appearance_launches"] = {k: v[entry["name"]] for k, v in appearance.items()}
+            entry["max_abs_err"] = err[entry["name"]]
 
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,7 +1,9 @@
 """heatray_tpu_torch: the PyTorch and CUDA port of heatray_tpu.
 
 A differentiable wavefront path tracer on PyTorch tensors: the forward render
-and its gradients through autograd (``diff.inverse``: the parameter
+(PBR and glass materials with their textures, punctual lights and lat/long
+environment maps, the debug AOVs), the ACES display chain (``post``) and
+its gradients through autograd (``diff.inverse``: the parameter
 overlays, the image loss and the optimizer loop), with the traversal
 kernels written in CUDA for Hopper: the wide BVH (``csrc/wide_bvh.cu``, and
 ``csrc/wide_bvh_stream.cu`` for scenes past 250,000 triangles;
@@ -21,29 +23,46 @@ from .diff.inverse import (
     make_loss_fn,
     optimize,
 )
-from .options import FrameGlobals, RenderOptions
+from .options import AOV, FrameGlobals, RenderOptions
+from .post import PostProcessingParams, apply_post_pipeline
 from .render.integrator import make_context, render, render_pass, resolve
-from .scene.builtin import cornell_box, high_poly
+from .scene.builtin import (
+    cornell_box,
+    editable_glass,
+    editable_pbr,
+    high_poly,
+    multi_material,
+    sphere_array,
+)
+from .scene.environments import get_environment
 from .scene.geometry import scene_aabb
 from .utils.framing import frame_scene
 
 __all__ = [
+    "AOV",
     "CameraParams",
     "FrameGlobals",
+    "PostProcessingParams",
     "RenderOptions",
     "apply_camera_params",
     "apply_light_params",
     "apply_material_params",
+    "apply_post_pipeline",
     "apply_scene_params",
     "cornell_box",
+    "editable_glass",
+    "editable_pbr",
     "frame_scene",
+    "get_environment",
     "high_poly",
     "make_context",
     "make_loss_fn",
+    "multi_material",
     "optimize",
     "orbit_camera",
     "render",
     "render_pass",
     "resolve",
     "scene_aabb",
+    "sphere_array",
 ]

@@ -5,8 +5,9 @@ of the JAX package's dataclasses (for example
 ``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``),
 never JAX objects, and returns the port's object on ``device`` (the card
 unless the caller names another).  Both
-packages can then compute on the same scene, tree, tables and camera.
-Fields the port does not read (UVs, tangents, texture ids) are ignored.
+packages can then compute on the same scene (with its UVs, tangents,
+texture ids, texture atlas and lat/long environment map), tree, tables and
+camera.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from .sampling.tables import SampleTables
 from .scene.geometry import Geometry
 from .scene.lights import LightBank
 from .scene.materials import MaterialTable
-from .scene.scene import Scene
+from .scene.scene import Scene, tensors_to
+from .scene.textures import AtlasBuilder, TextureAtlas
 
 
 def _tensors(cls, arrays: dict, device, scalars=()):
@@ -46,10 +48,11 @@ def scene_from_arrays(
     lights: dict,
     has_alpha_mask: bool = False,
     has_textures: bool = False,
+    atlas: dict | None = None,
     device="cuda",
 ) -> Scene:
-    """A Scene from the arrays of ``Scene.geometry``, ``Scene.materials``
-    and ``Scene.lights``."""
+    """A Scene from the arrays of ``Scene.geometry``, ``Scene.materials``,
+    ``Scene.lights`` and, for a scene with textures, ``Scene.atlas``."""
     return Scene(
         geometry=_tensors(Geometry, geometry, device),
         materials=_tensors(MaterialTable, materials, device),
@@ -60,7 +63,14 @@ def scene_from_arrays(
         ),
         has_alpha_mask=bool(has_alpha_mask),
         has_textures=bool(has_textures),
+        atlas=(atlas_from_arrays(atlas, device) if atlas is not None
+               else tensors_to(AtlasBuilder().build(), device)),
     )
+
+
+def atlas_from_arrays(arrays: dict, device="cuda") -> TextureAtlas:
+    """A TextureAtlas from the arrays of ``Scene.atlas``."""
+    return _tensors(TextureAtlas, arrays, device)
 
 
 def wide_bvh_from_arrays(

@@ -35,6 +35,8 @@ class AOV(enum.Enum):
     UVS = "uvs"
     TANGENTS = "tangents"
     BITANGENTS = "bitangents"
+    # Raw normal-map texel (``physicallyBased.rlsl:175-176``); black where
+    # the material has no normal map.
     NORMALMAP = "normalmap"
     FINAL_NORMALS = "final_normals"
     BASE_COLOR = "base_color"
@@ -43,6 +45,7 @@ class AOV(enum.Enum):
     METALLIC = "metallic"
     CLEARCOAT = "clearcoat"
     CLEARCOAT_ROUGHNESS = "clearcoat_roughness"
+    # Raw clearcoat-normal-map texel (``physicallyBased.rlsl:198-199``).
     CLEARCOAT_NORMALMAP = "clearcoat_normalmap"
     SHADER = "shader"
     NANS = "nans"
@@ -104,7 +107,6 @@ class RenderOptions:
         unported = {
             "intersect_backend": self.intersect_backend
             not in ("auto", "wide", "stream", "bvh", "pallas"),
-            "aov": self.aov != AOV.NONE,
             "interactive_block": self.interactive_block,
             "ms_impl": self.ms_impl != "fit",
             "image_height": self.image_height is not None,

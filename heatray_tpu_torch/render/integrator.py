@@ -36,6 +36,14 @@ bounce then run only on the segments that hold live lanes.  Both are an
 exact permutation of per-lane work, undone at accumulation through each
 lane's pixel index, so the image does not change.
 
+A scene with textures shades from a table with the texture tail
+(``shade_table.NUM_COLS`` columns), and with ``use_mipmaps`` each lane
+carries the distance its path has travelled (``Paths.path_len``), whose ray
+cone picks the mip levels; without textures neither exists.  A surface AOV
+(``options.aov``) stops after the primary hit and accumulates the
+attribute; the NaN and Inf AOVs replace the firefly clamp by their
+detectors (``render/aov.py``).
+
 The pass is differentiable with autograd (``diff.inverse``).  Traversal is
 not: every query gets detached rays, hit ids are discrete, and t and the
 barycentrics are evaluated again from the gathered Woop rows, as in the JAX
@@ -80,14 +88,16 @@ from ..ops.wide_bvh import (
     intersect_closest_vpu,
     intersect_closest_wide,
 )
-from ..options import FrameGlobals, RenderOptions
+from ..options import AOV, FrameGlobals, RenderOptions
 from ..sampling.tables import SampleTables, build_tables, get_aperture_sample
 from ..scene.scene import Scene
 from ..vec import Vec3
+from .aov import ACCUM_AOVS, SURFACE_AOVS, accum_visualize, compute_surface_aov
 from .envmap import env_radiance
 from .shade import make_sequence_lookup, shade_hits
 from .shade_table import (
     GEO_N,
+    NUM_COLS,
     build_shade_table,
     gather_rows,
     hit_attributes_rows,
@@ -188,6 +198,13 @@ def _occluder_accel(accel: WoopAccel, scene: Scene) -> WoopAccel:
     )
 
 
+def texture_tail(scene: Scene, options: RenderOptions) -> bool:
+    """Whether the pass shades from a table with the texture tail: a scene
+    with textures, or any AOV (the surface AOVs read UVs, tangents and
+    texture ids; ``heatray_tpu/render/integrator.py:259-262``)."""
+    return scene.has_textures or options.aov != AOV.NONE
+
+
 def rebuild_pack(scene: Scene, options: RenderOptions) -> AccelPack:
     """The ``"pallas"`` pack, which the rebuild mode makes every pass: Woop
     rows, chunk packs and a triangle-order shading table, all built on the
@@ -198,8 +215,9 @@ def rebuild_pack(scene: Scene, options: RenderOptions) -> AccelPack:
         pack_for_pallas(_occluder_accel(accel, scene), options.pallas_tri_chunk)
         if scene.has_alpha_mask else packed
     )
-    return AccelPack(accel=accel, shade_table=build_shade_table(scene, accel), backend="pallas",
-                     packed=packed, packed_occl=packed_occl)
+    return AccelPack(accel=accel, shade_table=build_shade_table(scene, accel,
+                                                                texture_tail(scene, options)),
+                     backend="pallas", packed=packed, packed_occl=packed_occl)
 
 
 def build_accel(scene: Scene, options: RenderOptions, static_shading: bool = True) -> AccelPack:
@@ -226,16 +244,19 @@ def build_accel(scene: Scene, options: RenderOptions, static_shading: bool = Tru
                                                                 include=include)
         pack = AccelPack(accel=accel, shade_table=None, backend=backend, leaf_math=math,
                          wide=wide, wide_occl=wide_occl)
-    return pass_pack(scene, pack) if static_shading else pack
+    return pass_pack(scene, pack, texture_tail(scene, options)) if static_shading else pack
 
 
-def pass_pack(scene: Scene, pack: AccelPack) -> AccelPack:
+def pass_pack(scene: Scene, pack: AccelPack, with_tail: bool = False) -> AccelPack:
     """``pack`` with a shading table: its own, or one built from ``scene``
     in the id order of its backend (slot order for the wide trees, triangle
-    order otherwise; ``heatray_tpu/render/integrator.py:752-771``)."""
-    if pack.shade_table is not None:
+    order otherwise; ``heatray_tpu/render/integrator.py:752-771``).
+    ``with_tail``: the table must carry the texture tail, so a baked table
+    without it is built again, as the reference does for a surface AOV over
+    a context made without one (``:837-851``)."""
+    if pack.shade_table is not None and (not with_tail or pack.shade_table.shape[1] == NUM_COLS):
         return pack
-    table = build_shade_table(scene, pack.accel)
+    table = build_shade_table(scene, pack.accel, with_tail)
     if pack.backend in ("wide", "stream"):
         table = slot_order_table(table, pack.wide.slot_tri)
     return dataclasses.replace(pack, shade_table=table)
@@ -364,10 +385,15 @@ class Paths:
     seq_id: torch.Tensor
     seq_off: torch.Tensor
     pix: torch.Tensor  # (R,) int64: the pixel each lane accumulates into
+    # (R,) distance travelled, whose ray cone picks mip levels; None
+    # unless the scene has textures and ``use_mipmaps`` is on.
+    path_len: torch.Tensor | None = None
 
     def map(self, fn) -> "Paths":
         """Apply ``fn`` to every (R,) plane."""
         def one(v):
+            if v is None:
+                return None
             return v.map(fn) if isinstance(v, Vec3) else fn(v)
 
         return Paths(**{f.name: one(getattr(self, f.name)) for f in dataclasses.fields(self)})
@@ -376,6 +402,8 @@ class Paths:
 def _merge(head: Paths, tail: Paths) -> Paths:
     """The lanes of ``head`` followed by those of ``tail``."""
     def cat(a, b):
+        if a is None:
+            return None
         if isinstance(a, Vec3):
             return Vec3(cat(a.x, b.x), cat(a.y, b.y), cat(a.z, b.z))
         return torch.cat([a, b])
@@ -394,9 +422,19 @@ class ShadowRays:
     active: torch.Tensor
 
 
+def pixel_cone(scene: Scene, camera: CameraParams, options: RenderOptions):
+    """The angular width of a pixel's ray cone, whose width at a hit picks
+    the texture's mip levels, or None where no cone is traced: a scene
+    without textures, or ``use_mipmaps`` off (``integrator.py:872-874``)."""
+    if not (options.use_mipmaps and scene.has_textures):
+        return None
+    return 2.0 * camera.fov_tan / float(options.height)
+
+
 def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions,
-                sample_index: int) -> Paths:
-    """Camera rays with unit weight, all live, seeing the environment."""
+                sample_index: int, cone: bool = False) -> Paths:
+    """Camera rays with unit weight, all live, seeing the environment;
+    ``cone``: with a zero ``path_len`` (see ``pixel_cone``)."""
     org, direction, seq_id, seq_off = generate_primary_rays(
         camera, ctx.tables, options, sample_index
     )
@@ -411,6 +449,7 @@ def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions
         seq_id=seq_id,
         seq_off=seq_off,
         pix=torch.arange(r, device=ctx.device),
+        path_len=torch.zeros((r,), dtype=torch.float32, device=ctx.device) if cone else None,
     )
 
 
@@ -448,23 +487,26 @@ def _requires_grad(*objs) -> bool:
 
 
 def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
-           frame: FrameGlobals, depth: int, paths: Paths, pack: AccelPack):
+           frame: FrameGlobals, depth: int, paths: Paths, pack: AccelPack, cone=None):
     """One bounce of the wavefront against ``pack``: closest hit, one row
     gather, shading, NEE occlusion, and the extension rays.  Returns the
-    next ``Paths`` and the ``ShadowRays`` traced.
+    next ``Paths`` and the ``ShadowRays`` traced.  ``cone``: the pixel cone
+    (``pixel_cone``), which paths with a ``path_len`` need.
 
     Both queries take detached rays.  Under autograd with
     ``remat_bounces``, the shading between them is checkpointed: the
     backward recomputes it from this bounce's inputs and the query results,
     and launches no traversal kernel."""
-    pack = pass_pack(scene, pack)
+    if (paths.path_len is None) != (cone is None):
+        raise ValueError("paths with a path_len need the pixel cone, and only they")
+    pack = pass_pack(scene, pack, texture_tail(scene, options))
     closest_fn, any_fn = _make_intersectors(pack)
     eps = options.ray_epsilon
 
     _, hit_id, hit = closest_fn(_detach(paths.org), _detach(paths.direction), eps)
     hit = hit & paths.active
 
-    shade = functools.partial(_shade_bounce, scene, ctx, options, frame, depth, pack)
+    shade = functools.partial(_shade_bounce, scene, ctx, options, frame, depth, pack, cone)
     if options.remat_bounces and torch.is_grad_enabled() and _requires_grad(
             paths, pack.shade_table, scene.lights):
         shadow, shadow_c, nxt = checkpoint(
@@ -480,7 +522,7 @@ def bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
 
 
 def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
-                  frame: FrameGlobals, depth: int, pack: AccelPack, paths: Paths,
+                  frame: FrameGlobals, depth: int, pack: AccelPack, cone, paths: Paths,
                   hit_id: torch.Tensor, hit: torch.Tensor):
     """The part of ``bounce`` between its two queries: the environment on
     misses, one row gather, shading, and the shadow and extension rays.
@@ -493,6 +535,10 @@ def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     active, env_on_miss, contrib = paths.active, paths.env_on_miss, paths.contrib
 
     def clamp(c: Vec3) -> Vec3:
+        if options.aov in ACCUM_AOVS:
+            # The NaN and Inf detectors replace the firefly clamp
+            # (``accumulator.rlsl:12-24``).
+            return accum_visualize(options.aov, c)
         return c.minimum(frame.max_channel_value)
 
     # Miss: the environment, for camera and glass-refraction rays.
@@ -508,6 +554,7 @@ def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     front = direction.dot(geo_n) < 0.0
     t_d, b1, b2 = hit_attributes_rows(rows, org, direction, hit)
     t_sane = torch.where(hit, t_d, 1.0)
+    path_len = None if paths.path_len is None else paths.path_len + torch.where(hit, t_sane, 0.0)
 
     res = shade_hits(
         scene, ctx.tables, frame.sample_index, depth, org, direction, weight,
@@ -515,6 +562,7 @@ def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
         max_ray_depth=options.max_ray_depth,
         rr_start_depth=options.rr_start_depth,
         sample_mode=options.sample_mode,
+        footprint_world=None if path_len is None else cone * path_len,
     )
     contrib = contrib + clamp(res.emission)
     p = org + direction * t_sane
@@ -532,7 +580,7 @@ def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
     nxt = Paths(
         org=e_org, direction=e_dir, weight=res.ext_weight,
         env_on_miss=res.ext_env_on_miss, active=res.ext_active, contrib=contrib,
-        seq_id=paths.seq_id, seq_off=paths.seq_off, pix=paths.pix,
+        seq_id=paths.seq_id, seq_off=paths.seq_off, pix=paths.pix, path_len=path_len,
     )
     return shadow, clamp(res.shadow_weight * res.shadow_radiance), nxt
 
@@ -629,9 +677,13 @@ def render_pass(
     in the rebuild mode; a context made with ``static_shading=False``
     builds the pass's shading table here, from ``scene``."""
     pack = ctx.accel_pack if ctx.accel_pack is not None else rebuild_pack(scene, options)
-    pack = pass_pack(scene, pack)
-    paths = start_paths(camera, ctx, options, frame.sample_index)
+    pack = pass_pack(scene, pack, texture_tail(scene, options))
+    cone = pixel_cone(scene, camera, options)
+    paths = start_paths(camera, ctx, options, frame.sample_index, cone=cone is not None)
     r = paths.active.shape[0]
+    if options.aov in SURFACE_AOVS:
+        accum = accum + _surface_aov(scene, options, paths, pack)
+        return (accum, {"rays": r}) if with_stats else accum
     sort_on, gate_on = _bounce_modes(ctx, options, r)
     if sort_on:
         lo, hi = _sort_bounds(pack)
@@ -647,7 +699,7 @@ def render_pass(
         if n == 0:
             continue  # no live lane: the carry passes through unchanged
         head = paths if n == r else paths.map(lambda p: p[:n])
-        nxt, shadow = bounce(scene, ctx, options, frame, depth, head, pack)
+        nxt, shadow = bounce(scene, ctx, options, frame, depth, head, pack, cone)
         if with_stats:
             ray_count += head.active.sum() + shadow.active.sum()
         # Lanes past the live prefix keep their carry unchanged.
@@ -661,6 +713,19 @@ def render_pass(
     if with_stats:
         return accum, {"rays": int(ray_count)}
     return accum
+
+
+def _surface_aov(scene: Scene, options: RenderOptions, paths: Paths, pack: AccelPack
+                 ) -> torch.Tensor:
+    """The accumulation update of a surface AOV: the attribute at each
+    camera ray's closest hit (``physicallyBased.rlsl:159-203``)."""
+    _, hit_id, hit = _make_intersectors(pack)[0](
+        _detach(paths.org), _detach(paths.direction), options.ray_epsilon)
+    rows = gather_rows(pack.shade_table, hit_id.clamp(min=0))
+    front = paths.direction.dot(rows.vec(GEO_N)) < 0.0
+    _, b1, b2 = hit_attributes_rows(rows, paths.org, paths.direction, hit)
+    value = compute_surface_aov(scene, options.aov, rows, b1, b2, front, hit)
+    return _accum_update(value, options.height, options.width)
 
 
 def render(

@@ -59,3 +59,15 @@ def frame_to_world(lx, ly, lz, x: Vec3, n: Vec3, z: Vec3) -> Vec3:
 
 def world_to_frame(w: Vec3, x: Vec3, n: Vec3, z: Vec3):
     return w.dot(x), w.dot(n), w.dot(z)
+
+
+def linear_to_srgb(linear):
+    """``utility.rlsl:168-180`` / ``displayGL.frag:48-59``."""
+    return torch.where(linear <= 0.0031308, 12.92 * linear,
+                       1.055 * torch.pow(clip(linear, 1e-10), 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(srgb):
+    """``utility.rlsl:182-194`` / ``displayGL.frag:61-72``."""
+    return torch.where(srgb <= 0.04045, srgb / 12.92,
+                       torch.pow(clip((srgb + 0.055) / 1.055, 1e-10), 2.4))

@@ -2,17 +2,20 @@
 multiscatter) and rough glass with Beer absorption, evaluated branchlessly
 per ray and selected by material kind.
 
-Port of the untextured branch of ``heatray_tpu.render.shade``, which ports
-the estimator of ``physicallyBased.rlsl``, ``glass.rlsl`` and
-``microfacet.rlsl``: one NEE shadow ray and one extension ray per hit,
-luminance-weighted lobe and light selection with the environment as the
-fall-through, Russian roulette above ``rr_start_depth``, and QMC draws from
-five consecutive sequences per bounce.
+Port of ``heatray_tpu.render.shade``, which ports the estimator of
+``physicallyBased.rlsl``, ``glass.rlsl`` and ``microfacet.rlsl``: one NEE
+shadow ray and one extension ray per hit, luminance-weighted lobe and light
+selection with the environment as the fall-through, Russian roulette above
+``rr_start_depth``, QMC draws from five consecutive sequences per bounce,
+and, for a scene with textures, the seven PBR texture slots, normal and
+clearcoat-normal maps and alpha masking (``physicallyBased.rlsl:56-157``),
+sampled from the atlas with gathers (trilinear along a ray cone).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -21,7 +24,8 @@ from ..sampling.qmc_fly import sobol_value
 from ..sampling.tables import SampleTables, get_sequence_value
 from ..scene.lights import LIGHT_TYPE_ENVIRONMENT, LIGHT_TYPE_NONE
 from ..scene.scene import Scene
-from ..vec import Vec3
+from ..scene.textures import sample_atlas
+from ..vec import Vec3, clip
 from . import brdf, shade_table as st
 from .bsdf_sampling import cosine_weighted_sample, refract, sample_visible_ggx
 from .envmap import env_radiance
@@ -84,10 +88,13 @@ def shade_hits(
     max_ray_depth: int,
     rr_start_depth: int = 3,
     sample_mode: str = "sobol",
+    footprint_world=None,
 ) -> ShadeResult:
-    """Shade one wavefront of surface hits, masked by ``active``."""
-    if scene.has_textures:
-        raise NotImplementedError("textured shading is not ported yet")
+    """Shade one wavefront of surface hits, masked by ``active``.
+
+    ``footprint_world`` (R,) is the ray cone's width at the hit (world
+    units); with it, texture fetches are trilinear mip samples
+    (``Texture.h:51``)."""
     lights = scene.lights
 
     w0 = 1.0 - b1 - b2
@@ -109,14 +116,72 @@ def shade_hits(
     density = rows.col(st.DENSITY)
     double_sided = rows.col(st.DOUBLE_SIDED) > 0.5
 
+    # --- Textures (``physicallyBased.rlsl:56-157``, ``glass.rlsl:145-175``),
+    # left out for a scene without textures.
+    alpha_texel = torch.ones_like(t)
+    if scene.has_textures:
+        uv_u, uv_v = rows.interp_uv(w0, b1, b2)
+        atlas = scene.atlas
+        # The ray cone's footprint in UV units; the 1/cos widens it at
+        # grazing incidence (an isotropic stand-in for the ellipse).
+        uv_fp = None
+        if footprint_world is not None:
+            cos_in = torch.abs(rows.vec(st.GEO_N).dot(ray_dir))
+            uv_fp = footprint_world * rows.col(st.UV_DENSITY) / clip(cos_in, 0.05)
+        sample_tx = functools.partial(sample_atlas, footprint=uv_fp)
+
+        bc_tex = rows.icol(st.BC_TEX)
+        has_bc = bc_tex >= 0
+        bcr, bcg, bcb, bca = sample_tx(atlas, bc_tex, uv_u, uv_v)
+        base_color = base_color * Vec3.where(has_bc, Vec3(bcr, bcg, bcb), 1.0)
+        alpha_texel = torch.where(has_bc, bca, 1.0)
+
+        mr_tex = rows.icol(st.MR_TEX)
+        has_mr = mr_tex >= 0
+        _, mr_g, mr_b, _ = sample_tx(atlas, mr_tex, uv_u, uv_v)
+        metallic = torch.where(has_mr, metallic * mr_b, metallic)
+        roughness = torch.where(has_mr, roughness * mr_g, roughness)
+        alpha = torch.where(has_mr, roughness * roughness, alpha)
+
+        em_tex = rows.icol(st.EM_TEX)
+        em_r, em_g, em_b, _ = sample_tx(atlas, em_tex, uv_u, uv_v)
+        # The texture replaces the emissive colour (``:154-157``).
+        emissive_c = Vec3.where(em_tex >= 0, Vec3(em_r, em_g, em_b), emissive_c)
+
+        cc_tex = rows.icol(st.CC_TEX)
+        ccr_tex = rows.icol(st.CCR_TEX)
+        cc_texel = sample_tx(atlas, cc_tex, uv_u, uv_v, num_channels=1)[0]
+        ccr_texel = sample_tx(atlas, ccr_tex, uv_u, uv_v, num_channels=1)[0]
+        clearcoat = torch.where(cc_tex >= 0, clearcoat * cc_texel, clearcoat)
+        cc_rough = torch.where(ccr_tex >= 0, cc_rough * ccr_texel, cc_rough)
+        cc_alpha = torch.where(ccr_tex >= 0, cc_rough * cc_rough, cc_alpha)
+
     v = -ray_dir
 
     # --- Face orientation: double-sided PBR and glass flip N on backface;
-    # single-sided PBR backface hits pass through unchanged.
+    # single-sided PBR backface hits, and alpha-masked PBR texels whose
+    # alpha is below 1 (``physicallyBased.rlsl:70-91``), pass the ray
+    # through unchanged.
     flip = (~front) & (double_sided | is_glass)
     n = Vec3.where(flip, -n_shading, n_shading)
-    pbr_passthrough = (~front) & (~double_sided) & (~is_glass)
+    alpha_passthrough = (rows.col(st.ALPHA_MASK) > 0.5) & (alpha_texel < 1.0) & (~is_glass)
+    pbr_passthrough = ((~front) & (~double_sided) & (~is_glass)) | alpha_passthrough
+
     cc_n = n
+    if scene.has_textures:
+        # --- Normal mapping (``physicallyBased.rlsl:110-126``); the
+        # clearcoat normal comes from the normal before the map (:111, 119-126).
+        nm_tex = rows.icol(st.NM_TEX)
+        ccn_tex = rows.icol(st.CCN_TEX)
+        tang = rows.interp_vec(st.TAN0, w0, b1, b2).normalized()
+        bitang = rows.interp_vec(st.BTN0, w0, b1, b2).normalized()
+        nm_r, nm_g, nm_b, _ = sample_tx(atlas, nm_tex, uv_u, uv_v)
+        ts = Vec3(nm_r, nm_g, nm_b) * 2.0 - 1.0
+        n_mapped = (tang * ts.x + bitang * ts.y + n * ts.z).normalized()
+        ccn_r, ccn_g, ccn_b, _ = sample_tx(atlas, ccn_tex, uv_u, uv_v)
+        cts = Vec3(ccn_r, ccn_g, ccn_b) * 2.0 - 1.0
+        cc_n = Vec3.where(ccn_tex >= 0, (tang * cts.x + bitang * cts.y + n * cts.z).normalized(), n)
+        n = Vec3.where(nm_tex >= 0, n_mapped, n)
 
     # Glass Beer's-law absorption when exiting the medium.
     beer = ((1.0 - base_color) * (-density * t)).exp()
@@ -343,7 +408,7 @@ def shade_hits(
     ext_ok = torch.where(is_glass, glass_ext_ok, pbr_ext_ok)
     ext_env = is_glass & do_refract  # refraction rays see the env on miss
 
-    # Single-sided PBR backface: pass through unchanged.
+    # Single-sided PBR backface or alpha-masked texel: pass through unchanged.
     ext_dir = Vec3.where(pbr_passthrough, ray_dir, ext_dir)
     ext_w = Vec3.where(pbr_passthrough, weight, ext_w)
     ext_ok = ext_ok | pbr_passthrough

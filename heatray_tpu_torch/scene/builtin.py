@@ -1,6 +1,8 @@
-"""Built-in scenes (port of ``heatray_tpu.scene.builtin``): the Cornell box
-(the scene of ``bench.py``'s first row and of the golden config2) and
-``high_poly`` (its large-scene row)."""
+"""Built-in scenes (port of ``heatray_tpu.scene.builtin``): the reference's
+"Editable PBR Material", "Editable Glass Material", "Multi-Material" and
+"Sphere Array" (``HeatrayRenderer.cpp:115-298``), the Cornell box (the scene
+of ``bench.py``'s first row and of the golden config2) and ``high_poly``
+(its large-scene row)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,83 @@ from .lights import DirectionalLight, EnvironmentLightDesc, PointLight, SpotLigh
 from .materials import GlassParams, PBRParams
 from .providers import plane_mesh, sphere_mesh
 from .scene import Scene, SceneBuilder
+
+
+def editable_pbr(env: EnvironmentLightDesc | None = None) -> Scene:
+    """``HeatrayRenderer.cpp:123-138``."""
+    b = SceneBuilder()
+    b.add_mesh(
+        sphere_mesh(50, 50, 1.0, "PBR Sphere"),
+        PBRParams(
+            base_color=(0.8, 0.8, 0.8), metallic=0.0, roughness=1.0,
+            specular_f0=0.0, name="PBR",
+        ),
+    )
+    b.set_environment(env or EnvironmentLightDesc())
+    return b.build()
+
+
+def editable_glass(env: EnvironmentLightDesc | None = None) -> Scene:
+    """``HeatrayRenderer.cpp:139-153``."""
+    b = SceneBuilder()
+    b.add_mesh(
+        sphere_mesh(50, 50, 1.0, "Glass Sphere"),
+        GlassParams(
+            base_color=(0.8, 0.8, 0.8), ior=1.33, roughness=0.0, density=0.8,
+            name="Glass",
+        ),
+    )
+    b.set_environment(env or EnvironmentLightDesc())
+    return b.build()
+
+
+def multi_material(env: EnvironmentLightDesc | None = None) -> Scene:
+    """``HeatrayRenderer.cpp:154-243``: ground plane + metal and glass
+    spheres."""
+    b = SceneBuilder()
+    b.add_mesh(
+        plane_mesh(15, 15, "Plane"),
+        PBRParams(base_color=(0.9, 0.9, 0.9), metallic=0.0, roughness=1.0,
+                  specular_f0=0.0, name="Ground"),
+        transform=translate([0.0, -1.5, 0.0]),
+    )
+    b.add_mesh(
+        sphere_mesh(50, 50, 1.0, "Sphere"),
+        PBRParams(base_color=(0.4, 0.4, 0.4), metallic=1.0, roughness=0.1,
+                  specular_f0=0.3, name="PBR"),
+        transform=translate([-0.9, -0.5, -0.8]),
+    )
+    b.add_mesh(
+        sphere_mesh(50, 50, 1.0, "Sphere"),
+        GlassParams(base_color=(0.9, 0.6, 0.6), roughness=0.1, ior=1.57,
+                    density=0.5, name="Glass"),
+        transform=translate([1.2, -0.5, 0.8]),
+    )
+    b.set_environment(env or EnvironmentLightDesc())
+    return b.build()
+
+
+def sphere_array(env: EnvironmentLightDesc | None = None) -> Scene:
+    """``HeatrayRenderer.cpp:244-285``: 10 dielectric + 10 metal spheres with
+    roughness ramps."""
+    b = SceneBuilder()
+    radius = 0.5
+    padding = radius * 0.2
+    sphere = sphere_mesh(50, 50, radius, "Sphere")
+    for metallic, y in ((0.0, 0.0), (1.0, 1.5)):
+        start_x = (-5.0 * (radius * 2.0 + padding)) + (radius * 2.0 + padding) * 0.5
+        for i in range(10):
+            b.add_mesh(
+                sphere,
+                PBRParams(
+                    base_color=(1.0, 1.0, 1.0), metallic=metallic,
+                    roughness=i * 0.1, specular_f0=0.0,
+                ),
+                transform=translate([start_x, y, 0.0]),
+            )
+            start_x += radius * 2.0 + padding
+    b.set_environment(env or EnvironmentLightDesc())
+    return b.build()
 
 
 def cornell_box(light: str = "point", with_spheres: bool = True) -> Scene:

@@ -2,8 +2,9 @@
 
 Meshes are assembled on the host in numpy and merged into one
 structure-of-arrays soup, Morton-ordered so that contiguous triangles are
-spatially compact.  The port keeps the attributes its untextured shading
-reads; UVs, tangents and bitangents wait for the texture path.
+spatially compact.  A mesh with UVs but no authored tangents gets a
+tangent frame from its UVs (``compute_tangents``), so normal maps work on
+it.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ class Geometry:
 
     positions: torch.Tensor  # (3, V) f32
     normals: torch.Tensor  # (3, V) f32
+    uvs: torch.Tensor  # (2, V) f32
+    tangents: torch.Tensor  # (3, V) f32
+    bitangents: torch.Tensor  # (3, V) f32
     colors: torch.Tensor  # (3, V) f32 vertex colors
     indices: torch.Tensor  # (3, T) i32
     material_ids: torch.Tensor  # (T,) i32
@@ -38,6 +42,8 @@ class MeshData:
     indices: np.ndarray  # (T, 3)
     normals: Optional[np.ndarray] = None
     uvs: Optional[np.ndarray] = None
+    tangents: Optional[np.ndarray] = None
+    bitangents: Optional[np.ndarray] = None
     colors: Optional[np.ndarray] = None
     name: str = "mesh"
 
@@ -62,6 +68,8 @@ class MeshData:
             indices=indices,
             normals=normals.astype(np.float32),
             uvs=self.uvs,
+            tangents=self.tangents @ rot.T if self.tangents is not None else None,
+            bitangents=self.bitangents @ rot.T if self.bitangents is not None else None,
             colors=self.colors,
             name=self.name,
         )
@@ -78,6 +86,56 @@ def compute_vertex_normals(positions: np.ndarray, indices: np.ndarray) -> np.nda
         np.add.at(normals, indices[:, k], fn)
     norm = np.linalg.norm(normals, axis=-1, keepdims=True)
     return (normals / np.maximum(norm, 1e-20)).astype(np.float32)
+
+
+def compute_tangents(
+    positions: np.ndarray,
+    normals: np.ndarray,
+    uvs: np.ndarray,
+    indices: np.ndarray,
+):
+    """Per-vertex tangent/bitangent frames from UV derivatives (Lengyel's
+    method): the ``aiProcess_CalcTangentSpace`` analog the reference gets
+    for free from Assimp (``AssimpMeshProvider.cpp:683``), for formats
+    that ship UVs + a normal map but no authored tangents.
+
+    Accumulates each triangle's UV-gradient tangent direction onto its
+    vertices, Gram-Schmidt-orthonormalizes against the vertex normal, and
+    takes the bitangent as ``cross(n, t)`` with the handedness of the
+    accumulated frame.  Returns (tangents (V, 3), bitangents (V, 3))."""
+    v0, v1, v2 = (positions[indices[:, k]] for k in range(3))
+    w0, w1, w2 = (uvs[indices[:, k]] for k in range(3))
+    e1, e2 = v1 - v0, v2 - v0
+    du1, dv1 = w1[:, 0] - w0[:, 0], w1[:, 1] - w0[:, 1]
+    du2, dv2 = w2[:, 0] - w0[:, 0], w2[:, 1] - w0[:, 1]
+    det = du1 * dv2 - du2 * dv1
+    inv = np.where(np.abs(det) > 1e-12, 1.0 / np.where(det == 0, 1, det), 0.0)
+    tdir = (e1 * dv2[:, None] - e2 * dv1[:, None]) * inv[:, None]
+    bdir = (e2 * du1[:, None] - e1 * du2[:, None]) * inv[:, None]
+
+    tacc = np.zeros_like(positions, dtype=np.float64)
+    bacc = np.zeros_like(positions, dtype=np.float64)
+    for k in range(3):
+        np.add.at(tacc, indices[:, k], tdir)
+        np.add.at(bacc, indices[:, k], bdir)
+
+    n = normals.astype(np.float64)
+    t = tacc - n * np.sum(n * tacc, axis=1, keepdims=True)
+    tlen = np.linalg.norm(t, axis=1, keepdims=True)
+    # Degenerate UVs: fall back to any frame orthogonal to n.
+    fallback = np.cross(n, np.where(np.abs(n[:, :1]) < 0.9,
+                                    [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]))
+    fallback /= np.maximum(
+        np.linalg.norm(fallback, axis=1, keepdims=True), 1e-20
+    )
+    t = np.where(tlen > 1e-8, t / np.maximum(tlen, 1e-20), fallback)
+    hand = np.where(
+        np.sum(np.cross(n, t) * bacc, axis=1, keepdims=True) < 0.0,
+        -1.0,
+        1.0,
+    )
+    b = np.cross(n, t) * hand
+    return t.astype(np.float32), b.astype(np.float32)
 
 
 def _morton_order(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
@@ -102,12 +160,27 @@ def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
     """Concatenate per-mesh buffers into one Morton-ordered ``Geometry``."""
     if len(meshes) != len(material_ids):
         raise ValueError("one material id per mesh")
-    pos, nrm, col, idx, mat = [], [], [], [], []
+    pos, nrm, uv, tan, bit, col, idx, mat = [], [], [], [], [], [], [], []
     offset = 0
     for mesh, mid in zip(meshes, material_ids):
         v = mesh.positions.shape[0]
         pos.append(mesh.positions)
         nrm.append(mesh.normals)
+        uv.append(mesh.uvs.astype(np.float32) if mesh.uvs is not None
+                  else np.zeros((v, 2), np.float32))
+        if mesh.tangents is not None:
+            tangents = mesh.tangents.astype(np.float32)
+            bitangents = (mesh.bitangents.astype(np.float32) if mesh.bitangents is not None
+                          else np.cross(mesh.normals, tangents).astype(np.float32))
+        elif mesh.uvs is not None:
+            # UVs without authored tangents: the frame from the UVs
+            # (``aiProcess_CalcTangentSpace``'s analog), so normal maps work.
+            tangents, bitangents = compute_tangents(
+                mesh.positions, mesh.normals, mesh.uvs.astype(np.float32), mesh.indices)
+        else:
+            tangents = bitangents = np.zeros((v, 3), np.float32)
+        tan.append(tangents)
+        bit.append(bitangents)
         col.append(
             mesh.colors.astype(np.float32)
             if mesh.colors is not None
@@ -126,6 +199,9 @@ def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
     return Geometry(
         positions=planar(all_pos),
         normals=planar(np.concatenate(nrm)),
+        uvs=planar(np.concatenate(uv)),
+        tangents=planar(np.concatenate(tan)),
+        bitangents=planar(np.concatenate(bit)),
         colors=planar(np.concatenate(col)),
         indices=planar(all_idx[order]),
         material_ids=torch.from_numpy(np.concatenate(mat)[order]),

@@ -1,6 +1,7 @@
 """Fixed-capacity light bank (port of ``heatray_tpu.scene.lights``): up to
-5 each of directional, point and spot lights plus one environment light,
-with the reference's photometric-to-radiometric conversions."""
+5 each of directional, point and spot lights plus one environment light (a
+lat/long map or a solid colour), with the reference's
+photometric-to-radiometric conversions."""
 
 from __future__ import annotations
 
@@ -80,9 +81,11 @@ class SpotLight:
 
 @dataclasses.dataclass
 class EnvironmentLightDesc:
-    """``EnvironmentLight.h``: a solid color (the port has no lat/long map
-    sampling yet)."""
+    """``EnvironmentLight.h``: a lat/long HDR map or a solid colour (0.5,
+    "so that it's obvious if there is more energy being emitted than
+    should be", ``EnvironmentLight.cpp:52-53``)."""
 
+    # (H, W, 3) float linear lat/long, top row first (row 0 = the +Y pole).
     image: Optional[np.ndarray] = None
     solid_color: Tuple[float, float, float] = (0.5, 0.5, 0.5)
     exposure: float = 0.0  # EV; compensation = 2^exposure
@@ -152,8 +155,11 @@ def build_light_bank(
 
     if environment is not None:
         if environment.image is not None:
-            raise NotImplementedError("environment maps are not ported yet")
-        env_map = np.asarray(environment.solid_color, np.float32).reshape(3, 1, 1)
+            # (H, W, 3) -> planar (3, H, W).
+            env_map = np.ascontiguousarray(
+                np.asarray(environment.image, np.float32).transpose(2, 0, 1))
+        else:
+            env_map = np.asarray(environment.solid_color, np.float32).reshape(3, 1, 1)
         env_enabled, env_comp, env_rot = 1, 2.0 ** environment.exposure, environment.rotation
     else:
         env_map = np.zeros((3, 1, 1), np.float32)

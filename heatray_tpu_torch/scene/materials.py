@@ -3,9 +3,8 @@
 
 Parameters are conditioned exactly as ``PhysicallyBasedMaterial::modify``
 and ``GlassMaterial::modify`` do, and packed into one flat table that the
-shader indexes by per-triangle material id.  Texture slots are kept on the
-parameter classes so a scene that uses them is recognised; the port's
-shading does not sample textures yet.
+shader indexes by per-triangle material id.  Texture slots hold atlas
+texture ids (``scene.textures``), -1 = unused.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ MIN_ROUGHNESS = 0.01
 MAX_SPECULAR_F0 = 0.08
 MAX_CLEARCOAT = 0.2
 
-_TEXTURE_SLOTS = (
+TEXTURE_SLOTS = (
     "base_color_tex", "metallic_roughness_tex", "emissive_tex", "normal_tex",
     "clearcoat_tex", "clearcoat_roughness_tex", "clearcoat_normal_tex",
 )
@@ -32,7 +31,10 @@ _TEXTURE_SLOTS = (
 @dataclasses.dataclass
 class PBRParams:
     """User-facing PBR parameters (``PhysicallyBasedMaterial.h:22-41``);
-    texture fields are texture ids, -1 = unused."""
+    texture fields are atlas texture ids, -1 = unused.  ``alpha_masked``
+    is the ALPHA_MASK variant: texels whose base-colour alpha is below 1
+    pass the ray through, and the geometry does not occlude shadow rays
+    (``Mesh.cpp:95-100``)."""
 
     base_color: tuple = (1.0, 1.0, 1.0)
     emissive: tuple = (0.0, 0.0, 0.0)
@@ -55,7 +57,9 @@ class PBRParams:
 
 @dataclasses.dataclass
 class GlassParams:
-    """User-facing glass parameters (``GlassMaterial.h``)."""
+    """User-facing glass parameters (``GlassMaterial.h``); glass samples
+    base-colour, metallic-roughness (g = roughness) and normal textures
+    (``glass.rlsl:145-175``)."""
 
     base_color: tuple = (1.0, 1.0, 1.0)
     roughness: float = 0.0
@@ -65,10 +69,6 @@ class GlassParams:
     metallic_roughness_tex: int = -1
     normal_tex: int = -1
     name: str = "glass"
-
-
-def uses_textures(material) -> bool:
-    return any(getattr(material, s, -1) >= 0 for s in _TEXTURE_SLOTS)
 
 
 @dataclasses.dataclass
@@ -88,6 +88,13 @@ class MaterialTable:
     ior: torch.Tensor
     density: torch.Tensor
     double_sided: torch.Tensor  # (M,) i32
+    base_color_tex: torch.Tensor  # (M,) i32 texture ids, -1 = unused
+    metallic_roughness_tex: torch.Tensor
+    emissive_tex: torch.Tensor
+    normal_tex: torch.Tensor
+    clearcoat_tex: torch.Tensor
+    clearcoat_roughness_tex: torch.Tensor
+    clearcoat_normal_tex: torch.Tensor
     alpha_mask: torch.Tensor  # (M,) i32
 
 
@@ -101,6 +108,8 @@ def build_material_table(materials: List) -> MaterialTable:
     out["ior"] = np.ones(m, np.float32)
     out["double_sided"] = np.zeros(m, np.int32)
     out["alpha_mask"] = np.zeros(m, np.int32)
+    for slot in TEXTURE_SLOTS:
+        out[slot] = np.full(m, -1, np.int32)
     for i, mat in enumerate(materials):
         if isinstance(mat, PBRParams):
             # ``PhysicallyBasedMaterial.cpp:133-145``
@@ -118,6 +127,8 @@ def build_material_table(materials: List) -> MaterialTable:
             out["clearcoat_roughness_alpha"][i] = cc_rough * cc_rough
             out["double_sided"][i] = int(bool(mat.double_sided))
             out["alpha_mask"][i] = int(bool(mat.alpha_masked))
+            for slot in TEXTURE_SLOTS:
+                out[slot][i] = int(getattr(mat, slot))
         elif isinstance(mat, GlassParams):
             # ``GlassMaterial.cpp:90-104``
             rough = max(max(min(float(mat.roughness), 1.0), 0.0), MIN_ROUGHNESS)
@@ -131,6 +142,8 @@ def build_material_table(materials: List) -> MaterialTable:
             out["ior"][i] = ior
             out["density"][i] = float(mat.density)
             out["double_sided"][i] = 1  # glass shades both faces
+            for slot in ("base_color_tex", "metallic_roughness_tex", "normal_tex"):
+                out[slot][i] = int(getattr(mat, slot))
         else:
             raise TypeError(f"unknown material type: {type(mat)}")
     out["base_color"] = np.ascontiguousarray(out["base_color"].T)

@@ -1,4 +1,4 @@
-"""Procedural mesh providers (sphere, plane); a numpy copy of
+"""Procedural mesh providers (sphere, plane, box); a numpy copy of
 ``heatray_tpu.scene.providers``, itself ported from the semantics of
 ``Source/HeatrayRenderer/Scene/SphereMeshProvider.h`` and
 ``PlaneMeshProvider.h`` (vectorized numpy instead of scalar fill loops).
@@ -70,3 +70,48 @@ def plane_mesh(width: float = 1.0, length: float = 1.0, name: str = "plane") -> 
     )
     indices = np.array([[0, 1, 3], [3, 1, 2]], dtype=np.int32)
     return MeshData(positions=pos, indices=indices, normals=nrm, uvs=uvs, name=name)
+
+
+def box_mesh(size=(1.0, 1.0, 1.0), inward: bool = False, name: str = "box") -> MeshData:
+    """Axis-aligned box with per-face normals (no reference counterpart;
+    used for Cornell-box style test scenes)."""
+    sx, sy, sz = np.asarray(size, np.float32) * 0.5
+    faces = []
+    # (normal axis, sign)
+    for axis, sign in [(0, 1), (0, -1), (1, 1), (1, -1), (2, 1), (2, -1)]:
+        n = np.zeros(3, np.float32)
+        n[axis] = sign
+        a = (axis + 1) % 3
+        b = (axis + 2) % 3
+        c = np.zeros((4, 3), np.float32)
+        ext = np.array([sx, sy, sz], np.float32)
+        for k, (ua, ub) in enumerate([(-1, -1), (1, -1), (1, 1), (-1, 1)]):
+            c[k, axis] = sign * ext[axis]
+            c[k, a] = ua * ext[a]
+            c[k, b] = ub * ext[b]
+        # Ensure CCW winding w.r.t. the outward normal.
+        e1, e2 = c[1] - c[0], c[3] - c[0]
+        if np.dot(np.cross(e1, e2), n) < 0:
+            c = c[[0, 3, 2, 1]]
+        faces.append((c, n))
+    pos = np.concatenate([c for c, _ in faces])
+    nrm = np.concatenate([np.tile(n, (4, 1)) for _, n in faces])
+    if inward:
+        nrm = -nrm
+    idx = []
+    for f in range(6):
+        o = 4 * f
+        if inward:
+            idx += [[o, o + 2, o + 1], [o, o + 3, o + 2]]
+        else:
+            idx += [[o, o + 1, o + 2], [o, o + 2, o + 3]]
+    uvs = np.tile(
+        np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32), (6, 1)
+    )
+    return MeshData(
+        positions=pos.astype(np.float32),
+        indices=np.asarray(idx, np.int32),
+        normals=nrm.astype(np.float32),
+        uvs=uvs,
+        name=name,
+    )

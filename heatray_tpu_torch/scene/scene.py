@@ -17,13 +17,8 @@ from .lights import (
     SpotLight,
     build_light_bank,
 )
-from .materials import (
-    GlassParams,
-    MaterialTable,
-    PBRParams,
-    build_material_table,
-    uses_textures,
-)
+from .materials import GlassParams, MaterialTable, PBRParams, build_material_table
+from .textures import AtlasBuilder, TextureAtlas
 
 
 def tensors_to(obj, device):
@@ -42,14 +37,16 @@ def tensors_to(obj, device):
 class Scene:
     """A renderable scene.  ``has_alpha_mask``: alpha-masked geometry does
     not block shadow rays (``Mesh.cpp:95-100``), so the renderer builds a
-    second, occluder-only tree.  ``has_textures``: some material samples a
-    texture, which the port cannot shade yet."""
+    second, occluder-only tree.  ``has_textures``: the atlas holds textures,
+    so the shading table carries the texture tail and shading samples it;
+    without textures both are left out (``atlas`` is then a 1x1 dummy)."""
 
     geometry: Geometry
     materials: MaterialTable
     lights: LightBank
     has_alpha_mask: bool = False
     has_textures: bool = False
+    atlas: TextureAtlas = dataclasses.field(default_factory=lambda: AtlasBuilder().build())
 
     def to(self, device) -> "Scene":
         return dataclasses.replace(
@@ -57,6 +54,7 @@ class Scene:
             geometry=tensors_to(self.geometry, device),
             materials=tensors_to(self.materials, device),
             lights=tensors_to(self.lights, device),
+            atlas=tensors_to(self.atlas, device),
         )
 
 
@@ -72,9 +70,13 @@ class SceneBuilder:
         self._point: List[PointLight] = []
         self._spot: List[SpotLight] = []
         self._environment: Optional[EnvironmentLightDesc] = None
+        self.textures = AtlasBuilder()
 
     def add_texture(self, image, srgb: bool = False, key=None) -> int:
-        raise NotImplementedError("textures are not ported yet")
+        """Register a texture image (``AtlasBuilder.add``); returns its
+        atlas texture id, for the texture slots of ``PBRParams`` and
+        ``GlassParams``."""
+        return self.textures.add(image, srgb=srgb, key=key)
 
     def add_material(self, material) -> int:
         if not isinstance(material, (PBRParams, GlassParams)):
@@ -124,5 +126,6 @@ class SceneBuilder:
                 environment=self._environment,
             ),
             has_alpha_mask=any(getattr(m, "alpha_masked", False) for m in materials),
-            has_textures=any(uses_textures(m) for m in materials),
+            has_textures=self.textures.num_textures > 0,
+            atlas=self.textures.build(),
         )

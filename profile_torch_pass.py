@@ -6,7 +6,7 @@ cost or save on the Cornell box.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_pass.py [--scene cornell|high-poly] [--passes 5]
+    python3 profile_torch_pass.py [--scene cornell|high-poly|scene-a|scene-b] [--passes 5]
                                   [--backend auto|wide|stream|bvh|pallas|rebuild]
                                   [--leaf-math mxu|vpu] [--root DIR] [--trace FILE]
                                   [--step]
@@ -24,9 +24,12 @@ It prints, one reading per line:
   bounce sort and segment gating on and with both off, in turns, and their
   means;
 - ``[pass]``: the chosen scene (``--scene``; ``high-poly`` is ``high_poly()``
-  framed as ``bench.py`` frames it) at 1920x1080, depth 4, through the chosen
-  backend (``--backend``: an ``intersect_backend``, ``auto`` by default, or
-  ``rebuild``, a context without a scene, whose passes rebuild their Woop
+  framed as ``bench.py`` frames it; ``scene-a`` and ``scene-b`` are
+  ``chip_smoke.py``'s phase-20 scenes, ``multi_material`` under the 2k
+  studio map and its textured variant, rendered at depth 5) at 1920x1080,
+  depth 4, through the chosen backend (``--backend``: an
+  ``intersect_backend``, ``auto`` by default, or ``rebuild``, a context
+  without a scene, whose passes rebuild their Woop
   rows, chunk packs and shading table) and, for the wide trees, the chosen
   leaf math (``--leaf-math vpu``: ``wide_leaf_math`` and ``stream_leaf_math``
   ``"vpu"``, the transposed kernels K5 and K4): the ms of each steady pass
@@ -99,7 +102,11 @@ LABELS = [
     ("shade", "sobol_value", "shading: Sobol chain"),
     ("shade", "compute_light_sample", "shading: light selection"),
     ("shade", "compute_multiscattering_fit", "shading: multiscatter fit"),
+    ("shade", "sample_atlas", "shading: texture fetches"),
+    ("shade", "env_radiance", "shading: environment lookups"),
+    ("integrator", "env_radiance", "environment on misses"),
 ]
+APPEARANCE_SCENES, APPEARANCE_DEPTH = ("scene-a", "scene-b"), 5
 
 
 def log(*args):
@@ -133,6 +140,11 @@ def scene_and_camera(name, device):
     if name == "cornell":
         scene = cornell_box(light="both", with_spheres=True)
         camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0)
+    elif name in APPEARANCE_SCENES:
+        from chip_smoke import appearance_scenes
+
+        scene = appearance_scenes(device)[APPEARANCE_SCENES.index(name)]
+        camera = orbit_camera(WIDTH, HEIGHT, distance=6.0, theta=0.3)
     else:
         scene = high_poly()
         camera = frame_scene(scene_aabb(scene.geometry), WIDTH, HEIGHT, theta=0.35)
@@ -210,7 +222,8 @@ def profile_step(args, opts, device) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scene", choices=("cornell", "high-poly"), default="cornell",
+    ap.add_argument("--scene", choices=("cornell", "high-poly", *APPEARANCE_SCENES),
+                    default="cornell",
                     help="scene of the [pass] and [prof] readings")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "wide", "stream", "bvh", "pallas", "rebuild"),
@@ -271,7 +284,9 @@ def main() -> int:
 
     rebuild = args.backend == "rebuild"
     opts = dataclasses.replace(opts, intersect_backend="pallas" if rebuild else args.backend,
-                               wide_leaf_math=args.leaf_math, stream_leaf_math=args.leaf_math)
+                               wide_leaf_math=args.leaf_math, stream_leaf_math=args.leaf_math,
+                               max_ray_depth=(APPEARANCE_DEPTH if args.scene in APPEARANCE_SCENES
+                                              else DEPTH))
     t0 = time.perf_counter()
     scene, camera = scene_and_camera(args.scene, device)
     ctx = integrator.make_context(opts, None if rebuild else scene, device)
@@ -282,7 +297,7 @@ def main() -> int:
         f"{time.perf_counter() - t0!r} s")
     warm = [one_pass(scene, camera, ctx, opts, i) for i in range(2)]
     ms = [one_pass(scene, camera, ctx, opts, 2 + i) for i in range(args.passes)]
-    log(f"[pass] {args.scene} {WIDTH}x{HEIGHT} depth {DEPTH}: warm-up ms {warm!r}; "
+    log(f"[pass] {args.scene} {WIDTH}x{HEIGHT} depth {opts.max_ray_depth}: warm-up ms {warm!r}; "
         f"steady ms {ms!r}, mean {sum(ms) / len(ms)!r}")
 
     lanes = []

@@ -22,6 +22,7 @@ from heatray_tpu_torch.ops.bvh import build_bvh
 from heatray_tpu_torch.ops.intersect import MISS_T, build_woop
 from heatray_tpu_torch.probes import kernel_probe, kernel_variants, visit_stats, vpu_leaf
 from heatray_tpu_torch.render import integrator
+from heatray_tpu_torch.scene.builtin import multi_material
 from heatray_tpu_torch.scene.geometry import translate
 from heatray_tpu_torch.scene.lights import DirectionalLight, EnvironmentLightDesc
 from heatray_tpu_torch.scene.materials import GlassParams, PBRParams
@@ -541,15 +542,33 @@ def test_render_matches_cpu(cuda_device):
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)
 
 
-@pytest.mark.parametrize("name", ["config1_sphere_plane", "config4_glass_dof"])
+@pytest.mark.parametrize("name", ["config1_sphere_plane", "config3_pbr_env",
+                                  "config4_glass_dof", "config5_full_aces"])
 def test_golden_configs_match_cpu(cuda_device, name):
-    """config1 and config4 on the card and on the CPU at the golden's
+    """config1, config3 (a lat/long sky), config4 and config5
+    (``multi_material``) on the card and on the CPU at the golden's
     tolerance, as config2 above."""
     scene, camera, opts = golden_config(name)
     out = {}
     for device in (cuda_device, torch.device("cpu")):
         out[device.type], _ = render(scene, camera, opts, num_passes=GOLDEN_PASSES, device=device)
     torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=5e-3, atol=5e-3)
+
+
+def test_textured_scene_matches_cpu(cuda_device):
+    """``chip_smoke.py``'s Scene B (2048x2048 textures with their mips, an
+    alpha-masked cut-out, a 2k lat/long map) at 64x64, 4 passes, depth 5 on
+    the card and on the CPU, at the tolerance of ``test_render_matches_cpu``."""
+    from chip_smoke import appearance_scenes
+
+    size, passes = 64, 4
+    _, scene = appearance_scenes("cpu")
+    opts = RenderOptions(width=size, height=size, max_render_passes=passes, max_ray_depth=5)
+    camera = orbit_camera(size, size, distance=6.0, theta=0.3)
+    on_card, _ = render(scene, camera, opts, num_passes=passes, device=cuda_device)
+    on_cpu, _ = render(scene, camera, opts, num_passes=passes, device="cpu")
+    assert bool(torch.isfinite(on_card).all()) and float(on_card[:3].max()) > 0.0
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-3, atol=5e-3)
 
 
 def step_grads(device, opts):
@@ -581,29 +600,45 @@ def test_step_gradients_match_cpu(cuda_device):
 
 
 def golden_config(name):
-    """(scene, camera, options) of ``tests/test_goldens.py``'s config1 (a
-    directional light) or config4 (glass and hexagon-bokeh depth of field
-    under a solid environment), built with the port's own builders."""
+    """(scene, camera, options) of a config of ``tests/test_goldens.py``,
+    built with the port's own builders: config1 (a directional light),
+    config2 (the Cornell box), config3 (clearcoat under a 16x32 lat/long
+    sky), config4 (glass and hexagon-bokeh depth of field under a solid
+    environment) or config5 (``multi_material``; its golden is the ACES
+    display image)."""
     size, b = GOLDEN_SIZE, SceneBuilder()
+    opts = RenderOptions(width=size, height=size, max_render_passes=GOLDEN_PASSES)
     if name == "config1_sphere_plane":
         b.add_mesh(sphere_mesh(24, 24, 1.0), PBRParams(base_color=(0.7, 0.7, 0.7)))
         b.add_mesh(plane_mesh(12, 12), PBRParams(base_color=(0.8, 0.8, 0.8)),
                    transform=translate([0, -1.0, 0]))
         b.add_directional_light(DirectionalLight(direction=(0.4, 0.8, 0.45), illuminance=20000.0))
         camera = orbit_camera(size, size, distance=5.0, theta=0.35)
-        opts = RenderOptions(width=size, height=size, max_render_passes=GOLDEN_PASSES,
-                             max_ray_depth=2)
-    else:
-        b.add_mesh(sphere_mesh(24, 24, 1.0),
-                   GlassParams(base_color=(0.8, 0.9, 0.8), roughness=0.1, ior=1.5, density=0.4))
-        b.add_mesh(plane_mesh(12, 12), PBRParams(base_color=(0.7, 0.7, 0.9)),
-                   transform=translate([0, -1.0, 0]))
-        b.set_environment(EnvironmentLightDesc(solid_color=(0.5, 0.5, 0.5)))
-        camera = orbit_camera(size, size, distance=5.0, theta=0.3, focus_distance=5.0,
-                              aperture_radius=0.15)
-        opts = RenderOptions(width=size, height=size, max_render_passes=GOLDEN_PASSES,
-                             max_ray_depth=4, bokeh_shape="hexagon")
-    return b.build(), camera, opts
+        return b.build(), camera, dataclasses.replace(opts, max_ray_depth=2)
+    if name == "config2_cornell":
+        camera = orbit_camera(size, size, distance=6.2, focal_length_mm=35.0)
+        return (cornell_box(light="both", with_spheres=True), camera,
+                dataclasses.replace(opts, max_ray_depth=4))
+    if name == "config3_pbr_env":
+        b.add_mesh(sphere_mesh(24, 24, 1.0), PBRParams(
+            base_color=(0.6, 0.1, 0.1), metallic=0.8, roughness=0.25, clearcoat=1.0,
+            clearcoat_roughness=0.1, specular_f0=0.5))
+        sky = np.linspace(3.0, 0.05, 16, dtype=np.float32)[:, None, None]
+        b.set_environment(EnvironmentLightDesc(image=np.broadcast_to(sky, (16, 32, 3)).copy(),
+                                               exposure=0.0))
+        camera = orbit_camera(size, size, distance=4.0, theta=0.3)
+        return b.build(), camera, dataclasses.replace(opts, max_ray_depth=3)
+    if name == "config5_full_aces":
+        camera = orbit_camera(size, size, distance=6.0, theta=0.3)
+        return multi_material(), camera, dataclasses.replace(opts, max_ray_depth=5)
+    b.add_mesh(sphere_mesh(24, 24, 1.0),
+               GlassParams(base_color=(0.8, 0.9, 0.8), roughness=0.1, ior=1.5, density=0.4))
+    b.add_mesh(plane_mesh(12, 12), PBRParams(base_color=(0.7, 0.7, 0.9)),
+               transform=translate([0, -1.0, 0]))
+    b.set_environment(EnvironmentLightDesc(solid_color=(0.5, 0.5, 0.5)))
+    camera = orbit_camera(size, size, distance=5.0, theta=0.3, focus_distance=5.0,
+                          aperture_radius=0.15)
+    return b.build(), camera, dataclasses.replace(opts, max_ray_depth=4, bokeh_shape="hexagon")
 
 
 @pytest.mark.parametrize("backend", ["bvh", "pallas", "rebuild", "wide-vpu", "stream-vpu"])

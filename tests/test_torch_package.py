@@ -50,7 +50,7 @@ def test_imports_without_jax():
     [
         ("intersect_backend", "xla"),
         ("intersect_backend", "sharded"),
-        ("aov", AOV.BASE_COLOR),
+        ("image_height", 540),
         ("interactive_block", True),
         ("ms_impl", "lut"),
     ],
@@ -58,6 +58,12 @@ def test_imports_without_jax():
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=field):
         RenderOptions(**{field: value})
+
+
+@pytest.mark.parametrize("mode", list(AOV))
+def test_every_aov_accepted(mode):
+    """Every visualizer mode is ported (``render/aov.py``)."""
+    assert RenderOptions(width=8, height=8, aov=mode).aov == mode
 
 
 def test_supported_options_accepted():
