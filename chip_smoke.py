@@ -135,7 +135,31 @@ source, started together, and then:
    config3 and config5 on the card against their goldens and the CPU's
    render (within CPU_TOL), and one fwd+bwd step over ``env.map`` and
    ``env.rotation`` on Scene A (remat on: gradients finite, the map's
-   nonzero; K1/K2 in the forward only), with its ms and peak memory.
+   nonzero; K1/K2 in the forward only), with its ms and peak memory;
+21. the ingest slice, from model files to images through ``cli``:
+   ``high_poly``'s 298,766 triangles written (``scene.export``) as a binary
+   PLY, as an OBJ with one ``usemtl`` group per material and its MTL, and as
+   a GLB with an embedded PNG texture and its sun as a
+   ``KHR_lights_punctual`` light, and the Cornell box as OBJ+MTL; each file
+   loaded through ``load_model_scene`` (host seconds per format) to the
+   built-in's triangle count and triangle set.  The PLY (K3a/K3b) and the
+   Cornell OBJ (K1/K2) are rendered at 1920x1080, depth 4, 4 passes under
+   the built-in INGEST_ENV map through ``cli.main(["render", ..., "--out",
+   "<dir>/x.exr"])`` with the launch counts set to 0 just before and read
+   just after (each kernel once per bounce with live lanes, no other);
+   their kernels are held against their plain versions at the path's
+   shapes (as in 5); the EXR read back must equal a direct ``render`` of
+   the same scene rounded to half, bit for bit; the path's steady ms/pass,
+   Mrays/s, kernels per pass and peak memory are taken as in 3; and its
+   image is compared with the built-in's geometry under the file's
+   materials and light (at most IMAGE_SHARE of the pixels off by more than
+   IMAGE_TOL).  Then a session file naming the PLY, with its Scene group's
+   yaw and scale set, is loaded and rendered (finite, non-black), and its
+   context's tree, block boxes included, must equal a fresh build over the
+   edited triangles; a render checkpointed after 2 passes
+   (``save_render_state``) and resumed for 2 more must equal the 4 straight
+   passes bit for bit; and ``render.png`` is written by ``save_ldr`` and
+   read back with PIL blocked.
 
 Each probe phase sets the probe kernels' launch counts to 0 just before
 its run and reads them just after; every kernel of the probe must have
@@ -1795,6 +1819,228 @@ def phase_appearance(gen, err, card):
     return {label: {name: launches[label][name] for name in names} for label in launches}
 
 
+# The ingest slice (phase 21): the built-in environment the loaded files are
+# lit by, the Scene group's edit of the session, and the GLB's texture size.
+INGEST_ENV = "studio"
+SESSION_YAW, SESSION_SCALE = 0.6, 1.25
+INGEST_TEX = 256
+
+
+def sorted_triangles(scene):
+    """(T, 9) corner positions of every triangle, rows sorted: a scene's
+    triangle set, whatever the order of its vertices and triangles."""
+    import numpy as np
+
+    p = scene.geometry.positions.cpu().numpy().T
+    t = p[scene.geometry.indices.cpu().numpy().T].reshape(-1, 9)
+    return t[np.lexsort(t.T[::-1])]
+
+
+def counted_cli(argv, names):
+    """``cli.main(argv)`` with the launch counts set to 0 just before and
+    read just after; each kernel of ``names`` must have run once per bounce
+    with live lanes, no other kernel at all.  Returns the launches."""
+    from heatray_tpu_torch import cli
+    from heatray_tpu_torch.render import integrator
+
+    lanes, gated = [], integrator._gated_lanes
+
+    def count_lanes(*args):
+        lanes.append(gated(*args))
+        return lanes[-1]
+
+    integrator._gated_lanes = count_lanes
+    try:
+        reset_launches()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli.main({argv}) failed")
+        launches = read_launches()
+    finally:
+        integrator._gated_lanes = gated
+    runs = PASSES + sum(n > 0 for n in lanes)
+    if any(launches[n] != runs for n in names) or any(
+            v for n, v in launches.items() if n not in names):
+        raise AssertionError(f"cli render launches {launches}, not {runs} of each of {names}")
+    return launches
+
+
+def phase_ingest(gen, err, card):
+    """Phase 21: the ingest slice (see the module docstring).  Returns K1's,
+    K2's, K3a's and K3b's launches in the two ``cli`` renders."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from heatray_tpu_torch import (
+        cli, cornell_box, high_poly, load_model_scene, render, resolve, scene_aabb,
+    )
+    from heatray_tpu_torch.io_utils import session as session_io
+    from heatray_tpu_torch.io_utils.image import load_image, save_ldr
+    from heatray_tpu_torch.io_utils.png import read_png
+    from heatray_tpu_torch.ops import wide_bvh
+    from heatray_tpu_torch.ops.intersect import build_woop
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.post import PostProcessingParams, apply_post_pipeline
+    from heatray_tpu_torch.render import integrator
+    from heatray_tpu_torch.scene import export
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE)
+    builtin = {"hp": high_poly(), "cornell": cornell_box(light="both", with_spheres=True)}
+    aabb = scene_aabb(builtin["hp"].geometry)
+    hp_orbit = [str(3.0 * 0.5 * float(np.linalg.norm(aabb[1] - aabb[0]))), "0", "0.35"]
+    (REPO / "build").mkdir(exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        tmp = Path(tmp)
+        tex = np.random.default_rng(SEED).integers(0, 256, (INGEST_TEX, INGEST_TEX, 3),
+                                                   dtype=np.int64).astype(np.uint8)
+        files = {"hp.ply": export.write_ply, "hp.obj": export.write_obj,
+                 "hp.glb": lambda p, s: export.write_glb(p, s, texture=tex),
+                 "cornell.obj": export.write_obj}
+        loaded, load_s = {}, {}
+        for name, write in files.items():
+            write(str(tmp / name), builtin[name.split(".")[0]])
+            t0 = time.perf_counter()
+            loaded[name] = load_model_scene(str(tmp / name))
+            load_s[name] = time.perf_counter() - t0
+            ref = builtin[name.split(".")[0]]
+            n, n_ref = loaded[name].geometry.num_triangles, ref.geometry.num_triangles
+            if n != n_ref or not np.array_equal(sorted_triangles(loaded[name]),
+                                                sorted_triangles(ref)):
+                raise AssertionError(f"{name}: {n} triangles, not the built-in's {n_ref}, or "
+                                     f"other positions")
+        glb = loaded["hp.glb"]
+        if not (glb.has_textures and glb.lights.num_directional == 1):
+            raise AssertionError("hp.glb lost its texture or its light")
+        log(f"[ingest] host seconds to load {', '.join(f'{k} {v:.2f}' for k, v in load_s.items())}"
+            f" ({builtin['hp'].geometry.num_triangles} and "
+            f"{builtin['cornell'].geometry.num_triangles} triangles, each set equal to the "
+            f"built-in's); card {card}")
+
+        cases = {"hp.ply": (("closest_stream", "any_stream"), "stream", hp_orbit, ()),
+                 "cornell.obj": (("closest_wide", "any_wide"), "wide", ["6.2", "0", "0"],
+                                 ("--focal-length", "35"))}
+        for name, (names, backend, orbit, extra) in cases.items():
+            label = f"ingest {name}"
+            exr = tmp / f"{name}.exr"
+            argv = ["render", "--scene", str(tmp / name), "--size", str(WIDTH), str(HEIGHT),
+                    "--depth", str(DEPTH), "--passes", str(PASSES), "--env", INGEST_ENV,
+                    "--orbit", *orbit, *extra]
+            launches = counted_cli([*argv, "--out", str(exr)], names)
+            scene, camera, opts = cli.build(cli.make_parser().parse_args(argv))
+            scene, camera = scene.to(device), camera.to(device)
+            ctx = integrator.make_context(opts, scene, device)
+            if ctx.accel_pack.backend != backend:
+                raise AssertionError(f"{label}: backend {ctx.accel_pack.backend!r}")
+            check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=True)
+
+            # The EXR is the direct render rounded to half, bit for bit.
+            accum, _ = render(scene, camera, opts, num_passes=PASSES, ctx=ctx, device=device)
+            direct = resolve(accum).cpu().numpy()
+            read = load_image(str(exr))
+            if not np.array_equal(read, direct.astype(np.float16).astype(np.float32)):
+                raise AssertionError(f"{label}: the EXR differs from the direct render in half")
+
+            readings = {}
+            _, img = run_path(label, scene, camera, ctx, opts, names, readings)
+            if not torch.equal(readings["accum"], accum):
+                raise AssertionError(f"{label}: render_pass differs from render")
+            zero = torch.zeros_like(accum)
+            n_kernels = kernels_per_pass(lambda: integrator.render_pass(
+                scene, camera, ctx, opts, FrameGlobals.create(PASSES, device=device), zero))
+            steady_s = sum(readings["pass_ms"][1:]) / 1e3
+            prof = ("not measured" if n_kernels is None else
+                    f"{n_kernels[0]} ({n_kernels[1]:.1f} kernel ms)")
+            log(f"[ingest] {name} {WIDTH}x{HEIGHT} depth {DEPTH} through cli: steady ms/pass "
+                f"{1e3 * steady_s / (PASSES - 1):.3f} (passes 2-{PASSES}), "
+                f"{sum(readings['pass_rays'][1:]) / steady_s / 1e6:.3f} Mrays/s, kernels per "
+                f"pass {prof}, peak memory {readings['peak_mib']:.1f} MiB; cli launches "
+                f"{ {n: launches[n] for n in names} }; EXR = direct render in half; card {card}")
+
+            # Against the built-in's geometry under the loaded file's materials
+            # and light: the PLY has one material, the OBJ one per built-in id.
+            geo = builtin[name.split(".")[0]].geometry
+            if name == "hp.ply":
+                geo = dataclasses.replace(geo, material_ids=torch.zeros_like(geo.material_ids))
+            ref_scene = dataclasses.replace(scene, geometry=geo).to(device)
+            ref, _ = render(ref_scene, camera, opts, num_passes=PASSES, device=device)
+            compare_images(label, img, resolve(ref), "built-in geometry")
+            out[name] = (scene, camera, opts, ctx, accum, launches)
+            del ref_scene, ref, readings, zero
+
+        # A session naming the PLY, rotated and scaled by its Scene group.
+        values = {"RenderOptions": {"Scene": str(tmp / "hp.ply"), "MaxRayDepth": DEPTH,
+                                    "MaxRenderPasses": PASSES},
+                  "Camera": {"OrbitDistance": float(hp_orbit[0]), "OrbitTheta": 0.35},
+                  "Scene": {"RotationYaw": SESSION_YAW, "Scale": SESSION_SCALE}}
+        session_io.Session(values).write(str(tmp / "s.json"))
+        t0 = time.perf_counter()
+        s_scene, s_camera, s_opts = session_io.load_session(str(tmp / "s.json"),
+                                                            override_size=(WIDTH, HEIGHT))
+        s_scene, s_camera = s_scene.to(device), s_camera.to(device)
+        t_load = time.perf_counter() - t0
+        s_accum, s_ctx = render(s_scene, s_camera, s_opts, num_passes=1, device=device)
+        s_img = resolve(s_accum)
+        if not bool(torch.isfinite(s_img).all()) or float(s_img.max()) <= 0.0:
+            raise AssertionError("the session's scene renders not finite, or black")
+        tree = s_ctx.accel_pack.wide
+        fresh = wide_bvh.build_wide_bvh(
+            build_woop(s_scene.geometry.positions, s_scene.geometry.indices), tree.leaf_size)
+        same = [f.name for f in dataclasses.fields(fresh)
+                if (torch.equal(getattr(tree, f.name), getattr(fresh, f.name))
+                    if torch.is_tensor(getattr(fresh, f.name))
+                    else getattr(tree, f.name) == getattr(fresh, f.name))]
+        if len(same) != len(dataclasses.fields(fresh)):
+            raise AssertionError(f"the edited scene's tree differs from a fresh build: "
+                                 f"only {same} equal")
+        if torch.equal(tree.blocks, out["hp.ply"][3].accel_pack.wide.blocks):
+            raise AssertionError("the edited scene kept the unedited tree's block boxes")
+        log(f"[ingest] session (yaw {SESSION_YAW}, scale {SESSION_SCALE}) loaded in "
+            f"{t_load:.2f} s; one {WIDTH}x{HEIGHT} pass finite, max {float(s_img.max()):.4g}; "
+            f"its tree and block boxes equal a fresh build over the edited triangles")
+        del s_scene, s_ctx, s_accum, s_img, tree, fresh
+
+        # Resume: 2 passes, saved and loaded, then 2 more = 4 straight passes.
+        scene, camera, opts, ctx, accum, _ = out["hp.ply"]
+        half, _ = render(scene, camera, opts, num_passes=PASSES // 2, ctx=ctx, device=device)
+        state = tmp / "state.npz"
+        session_io.save_render_state(str(state), half, PASSES // 2, session_io.Session(values))
+        saved, next_pass, _ = session_io.load_render_state(str(state))
+        resumed, _ = render(scene, camera, opts, num_passes=PASSES - next_pass, ctx=ctx,
+                            device=device, accum=torch.from_numpy(saved).to(device),
+                            start_pass=next_pass)
+        if not torch.equal(resumed, accum):
+            raise AssertionError("resumed render differs from the straight one")
+
+        # The PNG without PIL: the port's own writer and reader.
+        has_pil = importlib.util.find_spec("PIL") is not None
+        shown = apply_post_pipeline(accum, PostProcessingParams(tonemapping_enabled=True))
+        shown = shown.cpu().numpy()
+        png = tmp / "render.png"
+        blocked = {name: sys.modules.pop(name, None) for name in ("PIL", "PIL.Image")}
+        sys.modules.update(dict.fromkeys(blocked))  # None: any import of PIL fails
+        try:
+            save_ldr(str(png), shown)
+            back = read_png(str(png))
+        finally:
+            for name, module in blocked.items():
+                if module is None:
+                    del sys.modules[name]
+                else:
+                    sys.modules[name] = module
+        expect = (np.clip(shown, 0, 1) * 255 + 0.5).astype(np.uint8)[::-1]
+        if not np.array_equal(back, expect):
+            raise AssertionError("render.png does not read back")
+        log(f"[ingest] resume after {next_pass} passes = {PASSES} straight, bit for bit; "
+            f"render.png ({png.stat().st_size} bytes) written and read without PIL (PIL "
+            f"{'installed, blocked' if has_pil else 'not installed'})")
+    log(f"[ingest] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return {name: v[5] for name, v in out.items()}
+
+
 def main() -> int:
     import torch
 
@@ -2117,6 +2363,14 @@ def main() -> int:
     for entry in kernels:
         if entry["name"] in ("closest_wide", "any_wide"):
             entry["appearance_launches"] = {k: v[entry["name"]] for k, v in appearance.items()}
+            entry["max_abs_err"] = err[entry["name"]]
+
+    # --- 21. the ingest slice: model files to images through cli ---------------
+    ingest = phase_ingest(gen, err, card)
+    for entry in kernels:
+        if entry["name"] in ("closest_wide", "any_wide", "closest_stream", "any_stream"):
+            entry["ingest_launches"] = {k: v[entry["name"]] for k, v in ingest.items()
+                                        if v[entry["name"]]}
             entry["max_abs_err"] = err[entry["name"]]
 
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")

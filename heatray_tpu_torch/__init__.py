@@ -10,8 +10,12 @@ kernels written in CUDA for Hopper: the wide BVH (``csrc/wide_bvh.cu``, and
 ``csrc/wide_bvh_t.cu`` for the transposed "vpu" leaf math of either), the
 binary BVH (``csrc/bvh2.cu``) and the flat chunks of the rebuild mode
 (``csrc/chunks.cu``); ``probes/`` holds the traversal
-probes and their kernels (``csrc/probes.cu``, ``csrc/variants.cu``).  It
-imports torch and numpy, never jax.
+probes and their kernels (``csrc/probes.cu``, ``csrc/variants.cu``).
+Scenes come from the built-ins (``BUILTIN_SCENES``), from model files
+(``load_model_scene``: OBJ, PLY, STL, OFF, glTF/GLB, DAE, FBX) or from
+session files (``io_utils.session``); ``scene.edit`` edits them,
+``io_utils`` writes images (PNG, EXR, HDR) and ``cli`` drives it all from a
+command line.  It imports torch and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera
@@ -27,6 +31,7 @@ from .options import AOV, FrameGlobals, RenderOptions
 from .post import PostProcessingParams, apply_post_pipeline
 from .render.integrator import make_context, render, render_pass, resolve
 from .scene.builtin import (
+    BUILTIN_SCENES,
     cornell_box,
     editable_glass,
     editable_pbr,
@@ -36,10 +41,12 @@ from .scene.builtin import (
 )
 from .scene.environments import get_environment
 from .scene.geometry import scene_aabb
+from .scene.loaders import load_model_scene
 from .utils.framing import frame_scene
 
 __all__ = [
     "AOV",
+    "BUILTIN_SCENES",
     "CameraParams",
     "FrameGlobals",
     "PostProcessingParams",
@@ -55,6 +62,7 @@ __all__ = [
     "frame_scene",
     "get_environment",
     "high_poly",
+    "load_model_scene",
     "make_context",
     "make_loss_fn",
     "multi_material",

@@ -211,3 +211,15 @@ def high_poly(env: EnvironmentLightDesc | None = None, triangles: int = 300_000)
     )
     b.set_environment(env or EnvironmentLightDesc(solid_color=(0.4, 0.45, 0.55)))
     return b.build()
+
+
+# The built-in scenes by the names ``cli`` and session files use (the JAX
+# package's ``BUILTIN_SCENES``).
+BUILTIN_SCENES = {
+    "editable-pbr": editable_pbr,
+    "editable-glass": editable_glass,
+    "multi-material": multi_material,
+    "sphere-array": sphere_array,
+    "cornell-box": cornell_box,
+    "high-poly": high_poly,
+}

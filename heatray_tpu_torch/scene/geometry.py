@@ -28,10 +28,17 @@ class Geometry:
     colors: torch.Tensor  # (3, V) f32 vertex colors
     indices: torch.Tensor  # (3, T) i32
     material_ids: torch.Tensor  # (T,) i32
+    # (T,) i32: the index of each triangle's source mesh, the handle of
+    # ``scene.edit.remove_mesh``.
+    mesh_ids: torch.Tensor
 
     @property
     def num_triangles(self) -> int:
         return self.indices.shape[1]
+
+    @property
+    def num_vertices(self) -> int:
+        return self.positions.shape[1]
 
 
 @dataclasses.dataclass
@@ -192,6 +199,8 @@ def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
     all_pos = np.concatenate(pos)
     all_idx = np.concatenate(idx)
     order = _morton_order(all_pos, all_idx)
+    mesh_of = np.repeat(np.arange(len(meshes), dtype=np.int32),
+                        [m.indices.shape[0] for m in meshes])
 
     def planar(a):
         return torch.from_numpy(np.ascontiguousarray(a.T))
@@ -205,6 +214,7 @@ def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
         colors=planar(np.concatenate(col)),
         indices=planar(all_idx[order]),
         material_ids=torch.from_numpy(np.concatenate(mat)[order]),
+        mesh_ids=torch.from_numpy(mesh_of[order]),
     )
 
 

@@ -808,3 +808,51 @@ def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         kernel_variants.variant_walk(bvh, o, d, "v0", 2048)
     with pytest.raises(ValueError, match="batch"):
         kernel_variants.closest_v8(bvh, o, d, 512, 32)
+
+
+@pytest.mark.parametrize("fmt", ["ply", "obj"])
+def test_loaded_model_renders_as_on_cpu(cuda_device, fmt, tmp_path):
+    """A model file written by ``scene.export`` and loaded back (``high_poly``
+    at 20,000 triangles as a PLY, the Cornell box as OBJ+MTL), lit by its
+    built-in's lights, 48x48, 4 passes, depth 4, on the card and on the CPU:
+    within F6's 5.6e-5 of each other, relative above a radiance of 1 (the
+    two devices round float32 transcendentals apart, so the difference
+    grows with the radiance: 1.28e-4 at most on the OBJ's pixels, which
+    reach several units)."""
+    from heatray_tpu_torch import high_poly, load_model_scene, resolve
+    from heatray_tpu_torch.scene import export
+
+    source = high_poly(triangles=20_000) if fmt == "ply" else cornell_box(light="both")
+    path = str(tmp_path / f"m.{fmt}")
+    (export.write_ply if fmt == "ply" else export.write_obj)(path, source)
+    scene = dataclasses.replace(load_model_scene(path), lights=source.lights)
+    size = GOLDEN_SIZE
+    opts = RenderOptions(width=size, height=size, max_render_passes=4, max_ray_depth=4)
+    camera = orbit_camera(size, size, distance=6.2 if fmt == "obj" else 4.0, theta=0.2,
+                          focal_length_mm=35.0)
+    imgs = [resolve(render(scene, camera, opts, num_passes=4, device=d)[0]).cpu()
+            for d in (cuda_device, "cpu")]
+    assert float(imgs[1].max()) > 0.0
+    torch.testing.assert_close(imgs[0], imgs[1], rtol=5.6e-5, atol=5.6e-5)
+
+
+def test_png_round_trip_without_pil(cuda_device, tmp_path, monkeypatch):
+    """A card render's display image through ``save_ldr`` and ``load_image``
+    with PIL blocked, as where it is not installed."""
+    import sys
+
+    from heatray_tpu_torch import apply_post_pipeline
+    from heatray_tpu_torch.io_utils.image import load_image, save_ldr
+
+    for name in ("PIL", "PIL.Image"):  # None in sys.modules: importing it fails
+        monkeypatch.setitem(sys.modules, name, None)
+    size = 32
+    opts = RenderOptions(width=size, height=size, max_render_passes=1, max_ray_depth=2)
+    accum, _ = render(cornell_box(light="both"), orbit_camera(size, size, distance=6.2), opts,
+                      device=cuda_device)
+    shown = apply_post_pipeline(accum).cpu().numpy()
+    path = str(tmp_path / "x.png")
+    save_ldr(path, shown)
+    back = load_image(path, to_linear=False)
+    np.testing.assert_array_equal(np.round(back * 255).astype(np.uint8),
+                                  (np.clip(shown, 0, 1) * 255 + 0.5).astype(np.uint8))

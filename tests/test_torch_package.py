@@ -1,4 +1,6 @@
-"""The port's package boundary: it imports without jax or flax, options
+"""The port's package boundary: it imports without jax or flax (and
+without the imaging libraries, which only a format that needs them
+imports), options
 that select a path it does not have yet raise instead of being ignored, and
 values no path takes raise ``ValueError``."""
 
@@ -29,7 +31,8 @@ sys.meta_path.insert(0, Block())
 import heatray_tpu_torch
 for mod in pkgutil.walk_packages(heatray_tpu_torch.__path__, "heatray_tpu_torch."):
     importlib.import_module(mod.name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "heatray_tpu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "heatray_tpu", "PIL", "imageio"))
 assert not bad, bad
 print("imported", len([m for m in sys.modules if m.startswith("heatray_tpu_torch")]))
 """
