@@ -56,7 +56,8 @@ source, started together, and then:
 7. times K3a and K3b on all 2,073,600 primary rays and first-bounce shadow
    lanes (their plain versions on the 65,536-ray sample) and on phase 5's
    depth-2 sorted head and its shadow lanes; beside them, on the same four
-   launches, K4a/K4b over the same leaf-128 tree, and K1 and K2 over a
+   launches, K4a/K4b over the same leaf-128 tree (the same walk per ray as
+   K3, served by block boxes of 32), and K1 and K2 over a
    32-triangle-leaf tree of the scene;
 8. checks K7a and K7b (``chunks.cu``) in the rebuild mode (a context made
    without a scene: every pass rebuilds the Woop rows, the 512-triangle
@@ -82,13 +83,14 @@ source, started together, and then:
    bounce with live lanes, no other traversal kernel), and compares its
    image with phase 3's ``"wide"`` image of the same passes;
 14. the same for K4a and K4b (``wide_bvh_t.cu``) under Route B (``high_poly``
-   with ``stream_leaf_math="vpu"``, leaf 128): their checks at the path's
-   shapes and on the soup, the path, and its image against phase 6's
-   ``"stream"`` image;
+   with ``stream_leaf_math="vpu"``, leaf 128; the tree's stack depth is
+   logged beside the kernels' 64): their checks at the path's shapes and on
+   the soup (K4a's t and every slot bit for bit, K4b's masks equal), the
+   path, and its image against phase 6's ``"stream"`` image;
 15. times K5a and K5b on phase 4's rays, beside K1 and K2 on the same rays
-   (phase 4, over the leaf-32 tree), and K4a and K4b on phase 7's rays for
-   the kernels line (phase 7 sets them beside K3a and K3b over the same
-   tree);
+   (phase 4, over the leaf-32 tree), and K4a and K4b on phase 7's four
+   launches for the kernels line (phase 7 sets them beside K3a and K3b over
+   the same tree);
 16. runs the P3 probe (``heatray_tpu_torch.probes.visit_stats``, kernel
    ``visit_stats_kernel`` of ``probes.cu``) through its entry point: the
    Cornell box over its leaf-32 ``"wide"`` tree on the 1080p primary rays
@@ -174,8 +176,9 @@ arithmetic of the box slab tests, of every pair test's t, and of the
 barycentrics of the pairs whose t lies in range.  The chunk kernels test
 every chunk's box per ray and, in each chunk a ray enters, every block's
 box and the triangles of the blocks it enters (K7b's entry also gives the
-bound over whole chunks); K5a, in each leaf a ray reaches, every block's
-box and the triangles of the blocks it enters.
+bound over whole chunks); K5a, K4a and K4b, in each leaf a ray reaches,
+every block's box and the triangles of the blocks it enters (their entries
+also give the bound over whole leaves).
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the card's name and power limit, the per-kernel JSON record and
@@ -201,13 +204,18 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-# K7a and K5a: their t must equal the plain version's bit for bit (the same
-# float32 operations in the same order), with every id equal.
-EXACT_T = ("closest_chunks", "closest_wide_t")
+# K7a, K5a and K4a: their t must equal the plain version's bit for bit (the
+# same float32 operations in the same order), with every id equal.
+EXACT_T = ("closest_chunks", "closest_wide_t", "closest_stream_t")
 # The kernels that cull by block boxes of 32 (the pack's or the tree's), so
 # that their bounds count the blocks' work (``chunk_work(blocks=True)``,
 # ``walk_work(blocks=True)``).
-BLOCK_CULLED = ("closest_chunks", "any_chunks", "closest_wide_t")
+BLOCK_CULLED = ("closest_chunks", "any_chunks", "closest_wide_t", "closest_stream_t",
+                "any_stream_t")
+# Of those, the ones whose entries also give the bound over whole leaves
+# (or chunks): the design without block boxes.
+WHOLE_BOUND = {"any_chunks": "chunks", "closest_wide_t": "leaves",
+               "closest_stream_t": "leaves", "any_stream_t": "leaves"}
 SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes", "variants")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -757,9 +765,10 @@ def time_kernels(spec, err, launches):
         t_far = queries()["closest_" + family][0](bvh, org, d)[0]
         if t_max is not None:
             t_far = torch.minimum(t_far, t_max)
-        work = {"chunks": chunk_work, "bvh": bvh2_work}.get(family, walk_work)
+        whole_work = {"chunks": chunk_work, "bvh": bvh2_work}.get(family, walk_work)
+        work = whole_work
         if name in BLOCK_CULLED:
-            work = functools.partial(work, blocks=True)
+            work = functools.partial(whole_work, blocks=True)
         bound_ms, bound_by = bound(r, work(bvh, org, d, t_far), t_max is not None)
         log(f"[time] {name} on {r} rays: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on "
             f"{n_plain} rays, bound {bound_ms:.4f} ms ({bound_by})")
@@ -770,10 +779,29 @@ def time_kernels(spec, err, launches):
             "plain_rays": n_plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
-        if name == "any_chunks":  # the bound of the design it replaced: whole chunks
-            whole = bound(r, chunk_work(bvh, org, d, t_far), True)
-            out[-1].update(whole_chunks_bound_ms=whole[0], whole_chunks_bound_by=whole[1])
+        if name in WHOLE_BOUND:  # the bound without block boxes: whole leaves or chunks
+            whole = bound(r, whole_work(bvh, org, d, t_far), t_max is not None)
+            unit = WHOLE_BOUND[name]
+            out[-1].update({f"whole_{unit}_bound_ms": whole[0], f"whole_{unit}_bound_by": whole[1]})
     return out
+
+
+def head_entry(entry, bvh, o, dd, t_max, ms):
+    """Set a kernels-line entry's depth-2 head reading: its rays, ``ms``,
+    and the bound of what those rays need of ``bvh`` (over the blocks they
+    enter, for a kernel of BLOCK_CULLED); ``t_max`` None for closest hit."""
+    import torch
+
+    name = entry["name"]
+    occl = t_max is not None
+    t_far = queries()["closest_" + name.split("_", 1)[1]][0](bvh, o, dd)[0]
+    if occl:
+        t_far = torch.minimum(t_far, t_max)
+    b_ms, b_by = bound(o.x.numel(), walk_work(bvh, o, dd, t_far, blocks=name in BLOCK_CULLED),
+                       occl)
+    entry.update(head_rays=o.x.numel(), head_ms=ms, head_bound_ms=b_ms, head_bound_by=b_by)
+    log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
 
 
 def compare_launches(label, kernels, mine, rivals, trees, launches, card):
@@ -788,7 +816,6 @@ def compare_launches(label, kernels, mine, rivals, trees, launches, card):
     import torch
 
     entries = {k["name"]: k for k in kernels}
-    closest_name = next(name for name in mine.values() if not name.startswith("any_"))
     parts = []
     for tag, (rays, shadow) in zip(("primary", "depth-2 head"), launches):
         ms = {}
@@ -808,16 +835,9 @@ def compare_launches(label, kernels, mine, rivals, trees, launches, card):
             continue
         for who, name in mine.items():
             occl = name.startswith("any_")
-            o, dd = (shadow.org, shadow.direction) if occl else (rays.org, rays.direction)
-            bvh = trees[occl]
-            t_far = queries()[closest_name][0](bvh, o, dd)[0]
-            if occl:
-                t_far = torch.minimum(t_far, shadow.t_max)
-            b_ms, b_by = bound(o.x.numel(), walk_work(bvh, o, dd, t_far), occl)
-            entries[name].update(head_rays=o.x.numel(), head_ms=ms[who], head_bound_ms=b_ms,
-                                 head_bound_by=b_by)
-            log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms[who]:.4f} "
-                f"ms, bound {b_ms:.4f} ms ({b_by})")
+            o = shadow if occl else rays
+            head_entry(entries[name], trees[occl], o.org, o.direction,
+                       shadow.t_max if occl else None, ms[who])
     log(f"[compare] {label}, ms: {'; '.join(parts)}; card {card}")
 
 
@@ -2226,7 +2246,7 @@ def main() -> int:
             log(f"[compare] high_poly{tag} on {rays.org.x.numel()} rays: K1 on leaf 32 "
                 f"{k1:.4f} ms vs K3a on leaf 128 {k3['closest_stream'][key]:.4f} ms; K2 on "
                 f"leaf 32 {k2:.4f} ms vs K3b {k3['any_stream'][key]:.4f} ms; card {card}")
-    hp_rays = (primary, shadow)  # phase 15 times K4 on them
+    hp_rays = (primary, shadow, head, shadow2)  # phase 15 times K4 on them
     del hp, wide32, head, shadow2  # phase 16 walks hp_ctx's tree
 
     # --- 8. K7 in the rebuild mode and K6 under "bvh", against plain -----------
@@ -2304,6 +2324,8 @@ def main() -> int:
     b_names = ("closest_stream_t", "any_stream_t")
     b_opts = dataclasses.replace(opts, stream_leaf_math="vpu")
     b_ctx = vpu_context("high_poly 1080p route B", hp_scene, b_opts, "stream/vpu", device)
+    log(f"[setup] route B: the occluder tree's stack {b_ctx.accel_pack.wide_occl.max_stack}; "
+        f"K4's stack {wide_bvh._t_kernels().stream_t_stack_depth()}")
     check_path_rays(b_names, hp_scene, hp_camera, b_ctx, b_opts, gen, "high_poly vpu", err,
                     exact=True)
     check_closest("closest_stream_t", soup128, s_org, s_dir, "soup leaf 128", err, exact=True)
@@ -2318,12 +2340,20 @@ def main() -> int:
         ("closest_wide_t", a_pack.wide, prim.org, prim.direction, None, True),
         ("any_wide_t", a_pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, a_launches)
-    hp_primary, hp_shadow = hp_rays
+    hp_primary, hp_shadow, hp_head, hp_shadow2 = hp_rays
     kernels += time_kernels([
         ("closest_stream_t", b_pack.wide, hp_primary.org, hp_primary.direction, None, False),
         ("any_stream_t", b_pack.wide_occl, hp_shadow.org, hp_shadow.direction, hp_shadow.t_max,
          False),
     ], err, b_launches)
+    entries = {k["name"]: k for k in kernels}
+    for name, bvh, rays in (("closest_stream_t", b_pack.wide, hp_head),
+                            ("any_stream_t", b_pack.wide_occl, hp_shadow2)):
+        fn = queries()[name][0]
+        kw = {"t_max": rays.t_max} if name.startswith("any_") else {}
+        ms = time_ms(lambda: fn(bvh, rays.org, rays.direction, **kw), 10)
+        head_entry(entries[name], bvh, rays.org, rays.direction, kw.get("t_max"), ms)
+    del hp_rays, hp_head, hp_shadow2
     ms = {k["name"]: k["ms"] for k in kernels}
     log(f"[compare] cornell on {prim.org.x.numel()} rays: K5a {ms['closest_wide_t']:.4f} ms "
         f"vs K1 {ms['closest_wide']:.4f} ms on leaf 32; K5b {ms['any_wide_t']:.4f} ms vs K2 "

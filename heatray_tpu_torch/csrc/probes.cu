@@ -25,8 +25,8 @@
 //                       x * 0 over the same grid (`ray_tile` rays a block,
 //                       four a thread), the cost of the launch.
 //
-// visit_stats_kernel walks the tree as the TPU's streaming kernels and K4
-// do (wide_bvh_block.cuh): one block of 256 rays per tile, a child visited
+// visit_stats_kernel walks the tree as the TPU's streaming kernels do
+// (wide_bvh_block.cuh): one block of 256 rays per tile, a child visited
 // if any ray of the block enters its widened box before that ray's best t
 // as it stood at node entry, leaves near to far by the block's summed
 // direction along the node's axis, internal children pushed far to near,

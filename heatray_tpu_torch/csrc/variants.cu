@@ -35,7 +35,7 @@
 //     kNone    (v7)      unanchored rows, absolute coordinates;
 //     kChunk   (v8)      the tree's anchored rows and per-chunk anchors.
 //
-// The walk is K4's (wide_bvh_block.cuh): a block is the ray tile, the node
+// The walk is P3's (wide_bvh_block.cuh): a block is the ray tile, the node
 // and the stack in shared memory, a child visited if any ray of the block
 // enters its widened box before that ray's best t as it stood at node
 // entry, leaves near to far and internal children pushed far to near by the

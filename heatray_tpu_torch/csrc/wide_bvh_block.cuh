@@ -1,9 +1,9 @@
-// The block-wide walk of the TPU's streaming kernels, kept by K4 and the
-// visit probe (wide_bvh_t.cu, probes.cu: blocks of 256 rays) and by the walk
-// variants (variants.cu: blocks of 256-1024 threads): one block walks the
-// tree together, with the current node and the stack in shared memory so
-// that the loop is the same for every thread; a child is visited if any ray
-// of the block enters it, near to far by the block's summed direction along
+// The block-wide walk of the TPU's streaming kernels, kept by the visit
+// probe (probes.cu: blocks of 256 rays) and by the walk variants
+// (variants.cu: blocks of 256-1024 threads): one block walks the tree
+// together, with the current node and the stack in shared memory so that
+// the loop is the same for every thread; a child is visited if any ray of
+// the block enters it, near to far by the block's summed direction along
 // the node's sort axis; the live leaf chunks of a node are copied with
 // cp.async into up to 8 shared-memory slots, one commit group each, all
 // started before the first wait.

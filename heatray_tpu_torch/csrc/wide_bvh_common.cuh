@@ -498,17 +498,46 @@ __device__ __forceinline__ bool lane_serve_any(
   return hit;
 }
 
-// One leaf visit of a warp, closest hit: each ray of the warp whose own
-// widened slab enters the leaf's box before its best hit (`box`, the child
-// box in its parent's wbox row) offers the chunk `W` (global or shared
-// memory) to `warp_serve_closest`.  Rays that miss the box cost nothing.
-__device__ __forceinline__ void warp_visit_closest(
-    const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
-    const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool valid,
-    float t_min, Widen widen, float& best, int& best_slot) {
-  const bool enters = valid && slab(box, r, t_min, best, widen);
-  warp_serve_closest(enters ? chunk : -1, W, 0, tc, wanchor, n_chunks, r, t_min, best,
-                     best_slot);
+// Any hit over leaves with a box per block of 32 slots (K4b): the groups of
+// `lane_serve_blocks_closest`, and in a group's chunk `c` each block whose
+// box some lane of the group enters before its own `t_max`, while that lane
+// has no hit yet, served by `serve_cols_any` to those lanes alone, lowest
+// block first; a block no such lane enters costs each lane of the group
+// one slab test and no load.  True on each offering lane whose ray has a
+// hit in (t_min, its t_max) in the chunk it offered.  Its own copy of the
+// group loop, as `lane_serve_blocks_closest` has.  Every lane of the warp
+// calls it.
+__device__ __forceinline__ bool lane_serve_blocks_any(
+    int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
+    int n_chunks, const float* __restrict__ blocks, const Ray& r, float t_min, float t_max,
+    Widen widen) {
+  const int lane = threadIdx.x & 31;
+  const int n_blocks = (tc + 31) / 32;
+  bool hit = false;
+  const unsigned same = __match_any_sync(kFullMask, chunk);
+  for (unsigned want = __ballot_sync(kFullMask, chunk >= 0); want;) {
+    const int lead = __ffs(static_cast<int>(want)) - 1;
+    const unsigned group = __shfl_sync(kFullMask, same, lead);
+    want &= ~group;
+    const int c = __shfl_sync(kFullMask, chunk, lead);
+    const bool mine = (group >> lane) & 1u;
+    Ray a = r;
+    a.ox = r.ox - wanchor[c];
+    a.oy = r.oy - wanchor[n_chunks + c];
+    a.oz = r.oz - wanchor[2 * n_chunks + c];
+    const float* W = w + (size_t)c * 12 * tc;
+    const float* box = blocks + (size_t)c * n_blocks * 6;
+    for (int b = 0; b < n_blocks; ++b) {
+      const unsigned rays =
+          __ballot_sync(kFullMask, mine && !hit && enters(box + 6 * b, r, t_min, t_max, widen));
+      if (!rays) continue;
+      const int j0 = 32 * b;
+      TriCols cols = {};
+      if (j0 + lane < tc) cols = load_cols(W, tc, j0 + lane);
+      serve_cols_any(cols, j0 + lane < tc, rays, a, t_min, t_max, hit);
+    }
+  }
+  return hit;
 }
 
 // One leaf visit of a warp, any hit: each unblocked ray of the warp

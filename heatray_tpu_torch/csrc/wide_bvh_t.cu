@@ -11,27 +11,45 @@
 // one transposed (rays x 3 Tc) broadcast tile with the leaf's triangles
 // across the lanes (`_pair_hits_t`), which is why Tc must be a multiple of
 // 128.  On the card the transposed layout becomes a warp that tests a leaf
-// of 128 against the rays that enter it, its triangles spread over the 32
-// lanes, and a ray whose own widened slab misses the leaf is skipped by the
-// whole warp at once: unlike a block walk's leaf test, a leaf costs only the
-// rays that enter it.
+// against the rays that enter it, its triangles spread over the 32 lanes,
+// and a ray whose own widened slab misses the leaf (or one of its blocks of
+// 32) costs that leaf nothing.
 //
-// K5a: the walk per ray of K1 (wide_bvh_walk.cuh, `closest_walk`: each
-// thread walks its own ray with its own stack, pending leaves re-culled
-// against its own best) with `BlockServe`, a leaf of 128 served block of
-// 32 by block: before each block the warp takes the ballot of the offering
-// lanes whose ray enters that block's box (the tree's `blocks`, one per run
-// of 32 slots, world coordinates, widened as every box is) before its
-// current best, skips a block no lane enters, and serves the rest with K1's
-// 32-lane block service (`serve_cols_closest`: one triangle per lane in
-// registers; a ray at a time, or ray per lane for groups above kLaneRays).
-// What it replaced, and why: the walk of one warp of 32 rays with a shared
-// stack and the warp's summed direction (K5b's below), in which every leaf
-// any ray of the warp entered was served whole (128 pair tests) to each ray
-// that entered it: 1.5815 ms on the Cornell box's primary rays, NVIDIA H100
-// 80GB HBM3, 700.00 W (PERF.md section 6).  Over leaves of 32 the same walk
-// (K1) took 0.39 ms on those rays; a leaf of 128 is four blocks of 32, and
-// culling blocks is what K7a's boxes showed to pay more than any service.
+// K5a, K4a and K4b: the walk per ray of K1 (wide_bvh_walk.cuh,
+// `closest_walk` / `any_walk`: each thread walks its own ray with its own
+// stack of 64, near to far by its own direction; for closest hit its
+// pending leaves are re-culled against its own best) with `BlockServe`, a
+// leaf of 128 (or 256, 384, ...) served block of 32 by block: before each
+// block the warp takes the ballot of the offering lanes whose ray enters
+// that block's box (the tree's `blocks`, one per run of 32 slots, world
+// coordinates, widened as every box is, inverted over padding and never
+// entered) before its current best, or for any hit before its t_max while
+// it has no hit yet; it skips a block no lane enters, and serves the rest
+// with K1's 32-lane block services (`serve_cols_closest`: one triangle per
+// lane in registers, a ray at a time or ray per lane for groups above
+// kLaneRays; `serve_cols_any`, the service of K2 and K7b).  A shadow ray's
+// leaves come in the walk's own order with no re-cull (its far end does
+// not move), and a blocked ray ends its walk at its first hit.
+//
+// K4a and K5a run the same loop and service over different trees.  That is
+// right on this card: the reference's split between the `"wide"` and the
+// `"stream"` backends (leaves of 32 against 128, the 250k-triangle switch)
+// is a budget of the TPU's vector memory, not a limit of the H100, and K1
+// and K3 already share `closest_walk`.
+//
+// What K4 replaced, and why: the block walk of the TPU's streaming kernels
+// (wide_bvh_block.cuh, which the P3 and P2 probes still run): one block of
+// 256 rays walked the tree together, a node visited and each of its live
+// leaves staged by cp.async into 8 shared-memory slots (48 KB a block at
+// leaf 128, half the SM's occupancy) if any of the 256 rays entered it,
+// near to far by the block's summed direction, three barriers a node, and
+// each staged leaf tested whole (128 pair tests) on every ray of a warp
+// that entered it.  On incoherent bounce rays it visited the union of 256
+// rays' paths.  It took 0.9518 ms (K4a) and 1.1003 ms (K4b) on `high_poly`'s
+// 2,073,600 primary rays and first-bounce shadow lanes, NVIDIA H100 80GB
+// HBM3, 700.00 W (PERF.md section 6), where K3 took 0.6944 and 0.2744 over
+// the same tree; the block boxes alone cut K5a 2.7x against the same walk
+// without them on the Cornell box's leaf-128 tree.
 //
 // K5b: the group that walks the tree together is one warp of 32 rays (the
 // TPU walks a 512-ray tile).  A warp needs no block barrier: the live mask is
@@ -45,27 +63,20 @@
 // L2).  A blocked ray enters no box and tests nothing more, and the warp
 // leaves once all its rays are blocked.
 //
-// K4: the block walk of the TPU's streaming kernels (wide_bvh_block.cuh:
-// one block of 256 rays, the node and the stack in shared memory, the live
-// leaves of a node staged by cp.async into 8 shared-memory slots before the
-// first wait), with each staged leaf tested by K5's warp-transposed test,
-// per warp, only on the rays that enter it (`warp_visit_closest` /
-// `warp_visit_any`).
-//
 // Numerics: the pair test is K1's (`tri_t`, exact f32, IEEE divide, built
 // with --fmad=false); the reference's `_recip_fast` is TPU rounding.  Ties
-// in t go to the lowest slot, across leaves too, so a result equals the
-// brute force over the same slot rows bit for bit: the plain version.
+// in t go to the lowest slot, across blocks and leaves too, so a result
+// equals the brute force over the same slot rows bit for bit: the plain
+// version.
 //
 // What bounds them on an H100: latency, not bytes or operations.  Every
-// warp step (the node's 8 slab tests, a ballot, a ray's pair tests and the
-// shuffles around them) is a short chain of dependent instructions and
+// warp step (the node's 8 slab tests, a ballot, a block's pair tests and
+// the shuffles around them) is a short chain of dependent instructions and
 // loads.  No wgmma pair tests, no TMA, no persistent blocks, no ray
 // reordering within a warp.
 
 #include <cuda_runtime.h>
 
-#include "wide_bvh_block.cuh"
 #include "wide_bvh_walk.cuh"
 
 namespace {
@@ -104,8 +115,8 @@ __device__ __forceinline__ int warp_push_pop(int* stack, int& sp, const int* __r
   return node;
 }
 
-// K5a's register cap: K1's (at most 64 registers a thread, 8 blocks of 128
-// per SM).
+// K5a's and K4's register cap: K1's (at most 64 registers a thread, 8
+// blocks of 128 per SM).
 constexpr int kMinBlocks = 8;
 static_assert(kStackDepth == kWideStack, "K5a and K5b share one stack-depth entry");
 
@@ -167,117 +178,29 @@ __global__ void __launch_bounds__(kWideThreads) any_wide_t_kernel(
   if (valid) blocked_out[i] = blocked ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kTile) closest_stream_t_kernel(
+__global__ void __launch_bounds__(kWalkThreads, kMinBlocks) closest_stream_t_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
-    const float* __restrict__ wbox, const int* __restrict__ wchild,
-    const int* __restrict__ waxis, const float* __restrict__ w,
-    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
-    Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
-  __shared__ Walk s;
-  extern __shared__ float4 slot_mem[];
-  float* slots = reinterpret_cast<float*>(slot_mem);
-  const int chunk_floats = 12 * tc;
-
-  const int i = blockIdx.x * kTile + threadIdx.x;
-  const bool valid = i < n_rays;
-  Ray r = {};
-  if (valid) r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  bool sign[3];
-  block_signs(s, valid, r, sign);
-
-  float best = kMissT;
-  int best_slot = -1;
-  if (threadIdx.x == 0) {
-    s.node = 0;
-    s.sp = 0;
-  }
-  __syncthreads();
-  for (int node = s.node; node >= 0; node = s.node) {
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const unsigned mine = valid ? live_children(boxes, codes, r, t_min, best, widen) : 0u;
-    const unsigned live = block_or(s, mine);
-    const bool low_first = sign[waxis[node]];
-
-    const int n = stage_leaves(codes, live, low_first, w, chunk_floats, slots);
-    for (int k = 0, q = 0; k < kArity; ++k) {
-      const int c = low_first ? k : kArity - 1 - k;
-      const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      cp_async_wait(n - 1 - q);
-      __syncthreads();  // slot q has arrived for every thread's share
-      warp_visit_closest(boxes + 8 * c, slots + q * chunk_floats, tc, -2 - code, wanchor,
-                         n_chunks, r, valid, t_min, widen, best, best_slot);
-      ++q;
-    }
-    __syncthreads();  // every thread is done with the slots and warp_bits
-    push_and_pop(s, codes, live, low_first);
-    __syncthreads();  // the next node is visible
-  }
-  if (valid) {
-    t_out[i] = best;
-    slot_out[i] = best_slot;
-  }
+    const float* __restrict__ blocks, const float* __restrict__ wbox,
+    const int* __restrict__ wchild, const int* __restrict__ waxis,
+    const float* __restrict__ w, const float* __restrict__ wanchor, int n_chunks, int tc,
+    float t_min, Widen widen, float* __restrict__ t_out, int* __restrict__ slot_out) {
+  closest_walk<BlockServe>(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+                           n_chunks, tc, t_min, widen, t_out, slot_out, blocks, widen);
 }
 
-__global__ void __launch_bounds__(kTile) any_stream_t_kernel(
+__global__ void __launch_bounds__(kWalkThreads, kMinBlocks) any_stream_t_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_max, int n_rays,
+    const float* __restrict__ t_max, int n_rays, const float* __restrict__ blocks,
     const float* __restrict__ wbox, const int* __restrict__ wchild,
     const int* __restrict__ waxis, const float* __restrict__ w,
     const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
     Widen widen, unsigned char* __restrict__ blocked_out) {
-  __shared__ Walk s;
-  extern __shared__ float4 slot_mem[];
-  float* slots = reinterpret_cast<float*>(slot_mem);
-  const int chunk_floats = 12 * tc;
-
-  const int i = blockIdx.x * kTile + threadIdx.x;
-  const bool valid = i < n_rays;
-  Ray r = {};
-  float t_hi = 0.0f;
-  if (valid) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    t_hi = t_max[i];
-  }
-  bool sign[3];
-  block_signs(s, valid, r, sign);
-
-  bool blocked = false;
-  if (threadIdx.x == 0) {
-    s.node = 0;
-    s.sp = 0;
-  }
-  // The walk goes on while the stack has a node and some ray is unblocked.
-  bool alive = __syncthreads_or(valid);
-  for (int node = s.node; node >= 0 && alive; node = s.node) {
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const bool active = valid && !blocked;  // a blocked ray enters no box
-    const unsigned mine = active ? live_children(boxes, codes, r, t_min, t_hi, widen) : 0u;
-    const unsigned live = block_or(s, mine);
-    const bool low_first = sign[waxis[node]];
-
-    const int n = stage_leaves(codes, live, low_first, w, chunk_floats, slots);
-    for (int k = 0, q = 0; k < kArity; ++k) {
-      const int c = low_first ? k : kArity - 1 - k;
-      const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      cp_async_wait(n - 1 - q);
-      __syncthreads();  // slot q has arrived for every thread's share
-      warp_visit_any(boxes + 8 * c, slots + q * chunk_floats, tc, -2 - code, wanchor,
-                     n_chunks, r, valid && !blocked, t_min, t_hi, widen, blocked);
-      ++q;
-    }
-    __syncthreads();  // every thread is done with the slots and warp_bits
-    push_and_pop(s, codes, live, low_first);
-    alive = __syncthreads_or(valid && !blocked);  // and the next node is visible
-  }
-  if (valid) blocked_out[i] = blocked ? 1 : 0;
+  any_walk<BlockServe>(ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+                       n_chunks, tc, t_min, widen, blocked_out, blocks, widen);
 }
 
 }  // namespace
@@ -285,12 +208,12 @@ __global__ void __launch_bounds__(kTile) any_stream_t_kernel(
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  The leaf size must be a multiple of 32 (the wrappers ask for
-// 128); for K4, `w` must be 16-byte aligned; K5a's `blocks` is
-// (C, leaf_size / 32, 6), the boxes of each leaf's runs of 32 slots.
+// 128); the `blocks` of K5a and K4 is (C, leaf_size / 32, 6), the boxes of
+// each leaf's runs of 32 slots.
 
 extern "C" int wide_t_stack_depth() { return kWideStack; }
 
-extern "C" int stream_t_stack_depth() { return kBlockStack; }
+extern "C" int stream_t_stack_depth() { return kStackDepth; }
 
 extern "C" int closest_wide_t(const float* ox, const float* oy, const float* oz,
                               const float* dx, const float* dy, const float* dz,
@@ -326,18 +249,15 @@ extern "C" int any_wide_t(const float* ox, const float* oy, const float* oz,
 
 extern "C" int closest_stream_t(const float* ox, const float* oy, const float* oz,
                                 const float* dx, const float* dy, const float* dz,
-                                int n_rays, const float* wbox, const int* wchild,
-                                const int* waxis, const float* w,
+                                int n_rays, const float* blocks, const float* wbox,
+                                const int* wchild, const int* waxis, const float* w,
                                 const float* wanchor, int n_chunks, int leaf_size,
                                 float t_min, float box_pad, float far_scale,
                                 float* t_out, int* slot_out, void* stream) {
   if (n_rays > 0) {
-    size_t bytes = 0;
-    const cudaError_t err = slot_memory(closest_stream_t_kernel, leaf_size, &bytes);
-    if (err != cudaSuccess) return refused(err);
-    closest_stream_t_kernel<<<tiles_for(n_rays), kTile, bytes,
+    closest_stream_t_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor,
+        ox, oy, oz, dx, dy, dz, n_rays, blocks, wbox, wchild, waxis, w, wanchor,
         n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, t_out, slot_out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -345,18 +265,15 @@ extern "C" int closest_stream_t(const float* ox, const float* oy, const float* o
 
 extern "C" int any_stream_t(const float* ox, const float* oy, const float* oz,
                             const float* dx, const float* dy, const float* dz,
-                            const float* t_max, int n_rays, const float* wbox,
-                            const int* wchild, const int* waxis, const float* w,
-                            const float* wanchor, int n_chunks, int leaf_size,
-                            float t_min, float box_pad, float far_scale,
+                            const float* t_max, int n_rays, const float* blocks,
+                            const float* wbox, const int* wchild, const int* waxis,
+                            const float* w, const float* wanchor, int n_chunks,
+                            int leaf_size, float t_min, float box_pad, float far_scale,
                             unsigned char* blocked_out, void* stream) {
   if (n_rays > 0) {
-    size_t bytes = 0;
-    const cudaError_t err = slot_memory(any_stream_t_kernel, leaf_size, &bytes);
-    if (err != cudaSuccess) return refused(err);
-    any_stream_t_kernel<<<tiles_for(n_rays), kTile, bytes,
+    any_stream_t_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+        ox, oy, oz, dx, dy, dz, t_max, n_rays, blocks, wbox, wchild, waxis, w, wanchor,
         n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, blocked_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
 // One walk per ray over an arity-8 BVH, with the leaf tests served by the
 // warp: the loops of K1/K2 (wide_bvh.cu) and K3a/K3b (wide_bvh_stream.cu),
-// and K5a's closest hit (wide_bvh_t.cu), which differ only in the leaf
+// and K5a, K4a and K4b (wide_bvh_t.cu), which differ only in the leaf
 // service they call (`LaneServe`, `WarpServe`, `BlockServe`) and in their
 // register cap.
 //
@@ -17,7 +17,8 @@
 //   visits at most kVisits nodes until it has one; then the warp serves the
 //   offered (ray, leaf) pairs (wide_bvh_common.cuh: `warp_serve_*`, the
 //   leaf's triangles across the lanes, one ray at a time, or `lane_serve_*`,
-//   one triangle per lane in registers, for K5a culled block by block).
+//   one triangle per lane in registers, for K5a and K4 culled block by
+//   block).
 //   Only the ray's own lane keeps the result, so a leaf costs only the rays
 //   that enter it, and a ray's result does not depend on which rays share
 //   its warp.
@@ -141,10 +142,11 @@ struct LaneServe {
   }
 };
 
-// K5a's: K1's service over leaves with a box per block of 32 slots, each
-// block served only to the offering lanes whose ray enters its box before
-// their best (`lane_serve_blocks_closest`), given the tree's block boxes
-// and the slab widening after the common arguments.
+// K5a's and K4's: K1's service over leaves with a box per block of 32
+// slots, each block served only to the offering lanes whose ray enters its
+// box before their best, or for any hit before their t_max
+// (`lane_serve_blocks_closest`, `lane_serve_blocks_any`), given the tree's
+// block boxes and the slab widening after the common arguments.
 struct BlockServe {
   __device__ __forceinline__ static void closest(int chunk, const float* __restrict__ w, int tc,
                                                  const float* __restrict__ wanchor, int n_chunks,
@@ -153,6 +155,13 @@ struct BlockServe {
                                                  Widen widen) {
     lane_serve_blocks_closest(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, widen, best,
                               best_slot);
+  }
+  __device__ __forceinline__ static bool any(int chunk, const float* __restrict__ w, int tc,
+                                             const float* __restrict__ wanchor, int n_chunks,
+                                             const Ray& r, float t_min, float t_max,
+                                             const float* __restrict__ blocks, Widen widen) {
+    return lane_serve_blocks_any(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, t_max,
+                                 widen);
   }
 };
 
@@ -200,8 +209,9 @@ __device__ __forceinline__ void closest_walk(
 }
 
 // The body of an any-hit walk kernel: 1 for each ray with a hit in
-// (t_min, its t_max), else 0.
-template <class Serve>
+// (t_min, its t_max), else 0.  `Serve::any` serves the offered leaves,
+// given `extra` after its common arguments, as in `closest_walk`.
+template <class Serve, class... Extra>
 __device__ __forceinline__ void any_walk(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
@@ -210,7 +220,7 @@ __device__ __forceinline__ void any_walk(
     const float* __restrict__ wbox, const int* __restrict__ wchild,
     const int* __restrict__ waxis, const float* __restrict__ w,
     const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
-    Widen widen, unsigned char* __restrict__ blocked_out) {
+    Widen widen, unsigned char* __restrict__ blocked_out, Extra... extra) {
   const int i = blockIdx.x * kWalkThreads + threadIdx.x;
   const bool valid = i < n_rays;
   if (!__any_sync(kFullMask, valid)) return;
@@ -235,7 +245,7 @@ __device__ __forceinline__ void any_walk(
       if (walk.node < 0 || v == kVisits) break;
       visit(walk, wbox, wchild, waxis, r, t_min, t_hi, widen);
     }
-    if (Serve::any(chunk, w, tc, wanchor, n_chunks, r, t_min, t_hi)) {
+    if (Serve::any(chunk, w, tc, wanchor, n_chunks, r, t_min, t_hi, extra...)) {
       blocked = true;  // the first occluder ends this ray's walk
       walk.node = -1;
       walk.leaves = 0;

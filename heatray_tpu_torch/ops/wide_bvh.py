@@ -49,7 +49,7 @@ FAR_SCALE = 1.0 + 2.0**-20
 # triangles.
 LEAF_MATHS = ("mxu", "vpu")
 VPU_LEAF_ALIGN = 128
-BLOCK = 32  # slots under one block box (K5a, K7): a warp's width
+BLOCK = 32  # slots under one block box (K5a, K4, K7): a warp's width
 _BIG_BOX = 3.0e38  # the corners of an inverted (empty) box
 
 
@@ -67,8 +67,8 @@ class WideBVH:
     maps slots to triangle ids (-1 padding).  ``max_stack`` is the deepest
     traversal stack the tree can need (every child of every node live).
     ``blocks`` (C, ceil(Tc / BLOCK), 6) f32: the world-space AABBs of each
-    leaf's runs of BLOCK slots (``leaf_blocks``), which K5a culls by; the
-    reference has none.
+    leaf's runs of BLOCK slots (``leaf_blocks``), which K5a and K4 cull by;
+    the reference has none.
     """
 
     wbox: torch.Tensor
@@ -324,9 +324,10 @@ _ANY_ARGS = (
     [_P] * 7 + [ctypes.c_int] + [_P] * 5
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
 )
-# K5a's: the tree's block boxes after the ray count.
+# K5a's and K4's: the tree's block boxes after the ray count.
 _CLOSEST_BLOCK_ARGS = _CLOSEST_ARGS[:7] + [_P] + _CLOSEST_ARGS[7:]
-# Shared memory a block of the block-walk kernels (K4) may take for its 8
+_ANY_BLOCK_ARGS = _ANY_ARGS[:8] + [_P] + _ANY_ARGS[8:]
+# Shared memory a block of the block-walk probe (P3) may take for its 8
 # leaf slots (of the H100's 227 KB per block, less the walk's own state).
 _STREAM_SLOT_BYTES = 200 * 1024
 
@@ -360,7 +361,9 @@ def _stream_kernels() -> ctypes.CDLL:
 def _t_kernels() -> ctypes.CDLL:
     lib = _bind("wide_bvh_t", ("wide_t_stack_depth", "stream_t_stack_depth"),
                 (("closest_wide_t", "any_wide_t"), ("closest_stream_t", "any_stream_t")))
-    lib.closest_wide_t.argtypes = _CLOSEST_BLOCK_ARGS
+    for fn in (lib.closest_wide_t, lib.closest_stream_t):
+        fn.argtypes = _CLOSEST_BLOCK_ARGS
+    lib.any_stream_t.argtypes = _ANY_BLOCK_ARGS
     return lib
 
 
@@ -399,12 +402,13 @@ def _tree_args(bvh: WideBVH, depth: int) -> list:
 
 
 def _block_tree_args(bvh: WideBVH, depth: int) -> list:
-    """``_tree_args`` after the tree's block boxes (K5a), which it must
+    """``_tree_args`` after the tree's block boxes (K5a, K4), which it must
     carry."""
     tree = _tree_args(bvh, depth)
     blocks = bvh.blocks
     if blocks is None:
-        raise ValueError("K5a culls by the leaves' block boxes: the tree has no WideBVH.blocks")
+        raise ValueError("the kernel culls by the leaves' block boxes: the tree has no "
+                         "WideBVH.blocks")
     if (blocks.dtype != torch.float32 or not blocks.is_contiguous()
             or blocks.shape != (bvh.num_chunks, -(-bvh.leaf_size // BLOCK), 6)
             or blocks.device != bvh.w.device):
@@ -414,8 +418,9 @@ def _block_tree_args(bvh: WideBVH, depth: int) -> list:
 
 
 def _stream_tree_args(bvh: WideBVH, depth: int) -> list:
-    """``_tree_args`` plus what the leaf staging of a block walk (K4, P3)
-    needs: 16-byte copies and 8 chunks in shared memory."""
+    """``_tree_args`` plus what the leaf staging of the block walk of the P3
+    probe (``probes/visit_stats.py``) needs: 16-byte copies and 8 chunks in
+    shared memory."""
     tree = _tree_args(bvh, depth)
     if bvh.w.data_ptr() % 16:
         raise ValueError("WideBVH.w must be 16-byte aligned for the block-walk kernels")
@@ -610,16 +615,19 @@ def intersect_any_vpu(
 
 def intersect_closest_stream_vpu(bvh: WideBVH, origins: Vec3, directions: Vec3,
                                  t_min: float = 1e-4):
-    """``intersect_closest_stream(..., leaf_math="vpu")``: CUDA tensors launch
-    ``closest_stream_t_kernel`` (``csrc/wide_bvh_t.cu``), the streaming walk
-    of 256-ray blocks with each staged leaf tested warp by warp, only on the
-    rays that enter it."""
+    """``intersect_closest_stream(..., leaf_math="vpu")``: CPU tensors take
+    the plain version (``closest_stream_plain``); CUDA tensors launch
+    ``closest_stream_t_kernel`` (``csrc/wide_bvh_t.cu``), the kernel of
+    ``intersect_closest_vpu`` over the streaming backend's tree: a walk per
+    ray with a stack of 64, each leaf it reaches served block of 32 by
+    block, each block only to the rays that enter its box
+    (``WideBVH.blocks``: a tree without them raises) before their best."""
     _check_t_leaf(bvh)
     if on_cpu(bvh):
         return closest_stream_plain(bvh, origins, directions, t_min)
     lib = _t_kernels()
     out = launch_closest(lib.closest_stream_t,
-                         _stream_tree_args(bvh, lib.stream_t_stack_depth()),
+                         _block_tree_args(bvh, lib.stream_t_stack_depth()),
                          bvh, origins, directions, t_min)
     if origins.x.numel():
         intersect_closest_stream_vpu.launches += 1
@@ -629,13 +637,17 @@ def intersect_closest_stream_vpu(bvh: WideBVH, origins: Vec3, directions: Vec3,
 def intersect_any_stream_vpu(
     bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
 ):
-    """``intersect_any_stream(..., leaf_math="vpu")``: CUDA tensors launch
-    ``any_stream_t_kernel``."""
+    """``intersect_any_stream(..., leaf_math="vpu")``: CPU tensors take the
+    plain version (``any_stream_plain``); CUDA tensors launch
+    ``any_stream_t_kernel``: the walk of ``intersect_closest_stream_vpu``
+    with the leaves in the walk's order, each block served only to the
+    unblocked rays that enter its box before their ``t_max``, a blocked
+    ray's walk ended (``WideBVH.blocks``: a tree without them raises)."""
     _check_t_leaf(bvh)
     if on_cpu(bvh):
         return any_stream_plain(bvh, origins, directions, t_min, t_max)
     lib = _t_kernels()
-    out = launch_any(lib.any_stream_t, _stream_tree_args(bvh, lib.stream_t_stack_depth()),
+    out = launch_any(lib.any_stream_t, _block_tree_args(bvh, lib.stream_t_stack_depth()),
                      bvh, origins, directions, t_min, t_max)
     if origins.x.numel():
         intersect_any_stream_vpu.launches += 1

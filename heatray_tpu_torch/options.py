@@ -5,7 +5,7 @@ that choose a path the port does not have yet raise ``NotImplementedError``
 when set away from what it supports; they are never silently ignored.
 Fields that only tune the TPU kernels have no effect here and change nothing
 the port computes: ``wide_ray_tile`` and ``stream_ray_tile`` (each kernel
-fixes its own group of rays: a thread, a warp or a 256-ray block),
+fixes its own group of rays: a thread or a warp),
 ``wide_precision`` (every kernel is exact float32), ``pallas_ray_tile``,
 ``tri_chunk``, ``ray_block``, ``sort_impl`` and ``unroll_bounces``.
 ``remat_bounces`` changes only what a backward keeps: under autograd each

@@ -109,15 +109,15 @@ def _t_in_range(org: Vec3, d: Vec3, rows, anchor, t_min, t_max):
 
 def group_walk(bvh, org: Vec3, d: Vec3, group: int, t_max=None, t_min: float = 1e-4,
                every_ray: bool = False, seed=None):
-    """Plain-torch emulation of the block and warp walks of K3, K4, K5 and
-    P3.  Per group of ``group`` rays (a warp for K5, a block for K3, K4 and
-    P3): one shared stack; a child is visited if any ray of the group enters
+    """Plain-torch emulation of the group walks of K5b and P3.  Per group
+    of ``group`` rays (a warp for K5b, a block of 256 for P3): one shared
+    stack; a child is visited if any ray of the group enters
     its widened box before that ray's far end (its best t, or its t_max
     until it is blocked) as it stood at node entry; leaves near to far by
     the group's summed direction along the node's axis (``group_signs``),
     internal children pushed far to near.  At each visited leaf, every ray
-    of the group is tested (``every_ray``: K3, P3) or only the rays whose
-    own slab still enters it against their best t by then (K4, K5); ties in
+    of the group is tested (``every_ray``: P3) or only the rays whose own
+    slab still enters it against their best t by then (K5b); ties in
     t go to the lowest slot.  ``seed`` (a chunk (4, 3k) and its anchor
     (3,)) is tested by every ray before the walk (closest hit only; a ray's
     slot then stays -1 where the seed gave its t).

@@ -1,38 +1,43 @@
 #!/usr/bin/env python3
-"""K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a
+"""K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a and K4a/K4b
 (``csrc/wide_bvh_t.cu``) and K7a/K7b (``csrc/chunks.cu``) beside variants
-of their design, on the Cornell box's 1080p launches on an NVIDIA card.
+of their design, on the 1080p launches of the Cornell box (K1, K5, K7) and
+of ``high_poly`` (K4) on an NVIDIA card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k5,k7] [--parent DIR]
+    python3 profile_torch_wide.py [--kernels k1,k4,k5,k7] [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
-of ``VARIANTS`` (K1/K2), ``T_VARIANTS`` (K5a) or ``CHUNK_VARIANTS``
-(K7a/K7b) applied, built with the package's nvcc flags into
-``build/wide_variants/`` (one nvcc each, all started together).
+of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a) or
+``CHUNK_VARIANTS`` (K7a/K7b) applied, built with the package's nvcc flags
+into ``build/wide_variants/`` (one nvcc each, all started together).
 ``--parent DIR`` adds the ``wide_bvh.cu``, ``wide_bvh_t.cu`` and
 ``chunks.cu`` of another tree as they stand (for example an unpacked
 parent commit), as the variant ``parent``, and compares the SASS of each
-kernel of those sources and of ``wide_bvh_stream.cu`` (K3) with this
-tree's (``cuobjdump``).  The launches are those of a pass at depth 2,
-sorted and gated as on the card: the closest-hit kernels on the primary
-rays and on the sorted depth-2 head, the occlusion kernels on their shadow
-lanes; K1/K2 over the Cornell box's trees at leaf 32, 64 and 128, K5a over
-its leaf-128 tree (Route A's), K7 over the rebuild mode's chunk packs.  It
-prints, one reading per line:
+kernel of ``wide_bvh.cu``, ``wide_bvh_stream.cu`` and ``wide_bvh_t.cu``
+(and of ``chunks.cu`` with ``k7``) with this tree's (``cuobjdump``).  The
+launches are those of a pass at depth 2, sorted and gated as on the card:
+the closest-hit kernels on the primary rays and on the sorted depth-2 head,
+the occlusion kernels on their shadow lanes; K1/K2 over the Cornell box's
+trees at leaf 32, 64 and 128, K5a over its leaf-128 tree (Route A's), K7
+over the rebuild mode's chunk packs, K4a/K4b over ``high_poly``'s leaf-128
+tree (the ``"stream"`` context's, which Route B builds alike).  It prints,
+one reading per line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
 - ``[build]``: each variant's registers and spill bytes per kernel;
 - ``[check]``: each variant's results against the shipped kernel's on every
   launch it runs (t, slot or id, and blocked, bit for bit); a variant of
   this tree must equal it, the parent's count of differing lanes is
-  printed;
+  printed; for K4, each variant against the plain version too, on
+  ``chip_smoke.N_CHECK`` seeded lanes of each launch;
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
   in order and then in reverse, min/max of the two: K1/K2 for every variant
   over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
-  trees at leaf 64 and 128 too; K5a for each of its variants; K7a for each
-  of ``CHUNK_VARIANTS`` and K7b for those of ``K7B_VARIANTS``;
+  trees at leaf 64 and 128 too; K5a for each of its variants; K4a and K4b
+  for each of theirs on the four launches; K7a for each of
+  ``CHUNK_VARIANTS`` and K7b for those of ``K7B_VARIANTS``;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
   leaf service meets (one per warp, offered leaf and round; the ``count``
   variant): their number, mean rays per group, and the share of groups, and
@@ -162,10 +167,18 @@ VARIANTS = {
     ]),
 }
 
-def _k5_serve(serve: str):
-    """K5a's walk with another leaf service, which takes no block boxes."""
-    return [(_K5, "closest_walk<BlockServe>(", f"closest_walk<{serve}>("),
-            (_K5, "t_out, slot_out, blocks, widen);", "t_out, slot_out);")]
+def _in_kernel(kernel: str, text: str, new: str):
+    """An edit of the first ``text`` after the definition of ``kernel`` (K5a
+    and K4a share their body's text): (pattern, replacement)."""
+    pattern = re.compile(re.escape(f"{kernel}(") + ".*?" + re.escape(text), re.S)
+    return pattern, lambda m: m.group(0)[:-len(text)] + new
+
+
+def _k5_serve(serve: str, kernel: str = "closest_wide_t_kernel"):
+    """K5a's walk (or K4a's) with another leaf service, which takes no block
+    boxes."""
+    return [(_K5, *_in_kernel(kernel, "closest_walk<BlockServe>(", f"closest_walk<{serve}>(")),
+            (_K5, *_in_kernel(kernel, "t_out, slot_out, blocks, widen);", "t_out, slot_out);"))]
 
 
 # K5a: name -> (what it changes, [(file, text, replacement)]), as VARIANTS.
@@ -174,6 +187,19 @@ T_VARIANTS = {
     "leaves": ("no block boxes: K1's lane service over whole leaves of 128",
                _k5_serve("LaneServe")),
     "warp": ("K3's warp service over whole leaves of 128", _k5_serve("WarpServe")),
+    "uncapped": ("no register cap (__launch_bounds__ with 1 block per SM)", [
+        (_K5, "constexpr int kMinBlocks = 8;", "constexpr int kMinBlocks = 1;"),
+    ]),
+}
+
+# K4a/K4b: name -> (what it changes, [(file, text, replacement)]), as
+# VARIANTS.
+K4_VARIANTS = {
+    "shipped": ("K4a and K4b as shipped", []),
+    "leaves": ("no block boxes: K1/K2's lane service over whole leaves of 128",
+               _k5_serve("LaneServe", "closest_stream_t_kernel") + [
+                   (_K5, "any_walk<BlockServe>(", "any_walk<LaneServe>("),
+                   (_K5, "blocked_out, blocks, widen);", "blocked_out);")]),
     "uncapped": ("no register cap (__launch_bounds__ with 1 block per SM)", [
         (_K5, "constexpr int kMinBlocks = 8;", "constexpr int kMinBlocks = 1;"),
     ]),
@@ -346,7 +372,8 @@ def variant_source(name: str, edits, target: str = _K1) -> Path:
     for file, text, new in edits:
         path = src / file
         pattern = text if isinstance(text, re.Pattern) else re.compile(re.escape(text))
-        body, count = pattern.subn(new.replace("\\", "\\\\"), path.read_text())
+        repl = new if callable(new) else new.replace("\\", "\\\\")
+        body, count = pattern.subn(repl, path.read_text())
         if count != 1:
             raise ValueError(f"variant {name}: {pattern.pattern!r} occurs {count} times in {file}")
         path.write_text(body)
@@ -378,8 +405,9 @@ def takes_blocks(source: Path, entry: str) -> bool:
 def library(so: Path, source: Path) -> ctypes.CDLL:
     """A build of ``wide_bvh.cu``, ``wide_bvh_t.cu`` or ``chunks.cu`` (or a
     variant of one), its entry points declared as the package declares
-    them, less the block boxes where ``source``'s entry takes none; each
-    entry declared gets a ``blocks`` attribute that says which."""
+    them, less the block boxes where ``source``'s entry takes none (K4's
+    and K5a's before their block boxes, K7b's); each entry declared gets a
+    ``blocks`` attribute that says which."""
     from heatray_tpu_torch.ops import intersect_pallas as ip
     from heatray_tpu_torch.ops import wide_bvh as wb
 
@@ -387,6 +415,8 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
     # entry -> (its arguments with block boxes, the index of that pointer)
     entries = {"closest_wide": (wb._CLOSEST_ARGS, None), "any_wide": (wb._ANY_ARGS, None),
                "closest_wide_t": (wb._CLOSEST_BLOCK_ARGS, 7),
+               "closest_stream_t": (wb._CLOSEST_BLOCK_ARGS, 7),
+               "any_stream_t": (wb._ANY_BLOCK_ARGS, 8),
                "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8)}
     for entry, (args, at) in entries.items():
         if not hasattr(lib, entry):
@@ -395,7 +425,7 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
         fn.blocks = at is not None and takes_blocks(source, entry)
         fn.argtypes = args if at is None or fn.blocks else args[:at] + args[at + 1:]
         fn.restype = ctypes.c_int
-    for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth"):
+    for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth", "stream_t_stack_depth"):
         if hasattr(lib, depth):
             getattr(lib, depth).restype = ctypes.c_int
     return lib
@@ -464,6 +494,40 @@ def launches(device):
         f"head shadow {shadow2.org.x.numel()}; epsilon {opts.ray_epsilon}; "
         f"{chunks[0].num_chunks} chunks of {chunks[0].tri_chunk}")
     return trees, chunks, rays, opts.ray_epsilon
+
+
+def hp_launches(device):
+    """``high_poly``'s leaf-128 trees (closest hit, occlusion) of the
+    ``"stream"`` context ``"auto"`` picks, and the four launches of
+    ``chip_smoke.py`` phase 7: the primary rays, the first-bounce shadow
+    lanes, the sorted, gated depth-2 head and its shadow lanes."""
+    import torch
+
+    from heatray_tpu_torch import frame_scene, high_poly, scene_aabb
+    from heatray_tpu_torch.options import FrameGlobals, RenderOptions
+    from heatray_tpu_torch.render import integrator
+
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=4)
+    scene = high_poly().to(device)
+    camera = frame_scene(scene_aabb(scene.geometry), WIDTH, HEIGHT, theta=0.35).to(device)
+    ctx = integrator.make_context(opts, scene, device)
+    pack = ctx.accel_pack
+    if (pack.backend, pack.wide.leaf_size) != ("stream", 128):
+        raise AssertionError(f"high_poly got {pack.backend!r} at leaf {pack.wide.leaf_size}")
+    frame = FrameGlobals.create(0, device=device)
+    primary = integrator.start_paths(camera, ctx, opts, 0)
+    first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary, pack)
+    paths = integrator._sort_paths(first, *integrator._sort_bounds(pack))
+    n = integrator._gated_lanes(paths, opts.gate_segments)
+    head = paths.map(lambda p: p[:n])
+    _, shadow2 = integrator.bounce(scene, ctx, opts, frame, 2, head, pack)
+    torch.cuda.synchronize()
+    log(f"[rays] high_poly: {pack.wide.num_triangles} triangles, {pack.wide.num_chunks} leaves "
+        f"of 128, stack {pack.wide.max_stack}; primary {primary.org.x.numel()}, shadow "
+        f"{shadow.org.x.numel()}, head {n}, head shadow {shadow2.org.x.numel()}")
+    rays = {"primary": (primary, None), "shadow": (shadow, shadow.t_max),
+            "head": (head, None), "head shadow": (shadow2, shadow2.t_max)}
+    return (pack.wide, pack.wide_occl), rays, opts.ray_epsilon
 
 
 def in_turns(names, whats, run) -> dict:
@@ -569,6 +633,62 @@ def profile_k5(libs, trees, rays, eps) -> None:
     ms = in_turns(list(libs), closest, run)
     for name in libs:
         log(f"[time] K5a {name}: " + ", ".join(
+            f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
+
+
+def profile_k4(libs, trees, rays, eps) -> None:
+    """K4a's and K4b's variants (and the parent's, which takes no block
+    boxes) over ``high_poly``'s leaf-128 trees on phase 7's four launches:
+    each checked against the plain version on N_CHECK seeded lanes of each
+    launch and against the shipped kernel on every lane, then timed in
+    turns."""
+    import torch
+
+    from chip_smoke import N_CHECK, SEED, subset
+    from heatray_tpu_torch.ops import wide_bvh as wb
+
+    def run(name, what):
+        lib = libs[name]
+        ray, t_max = rays[what]
+        bvh = trees[t_max is not None]
+        fn = lib.any_stream_t if t_max is not None else lib.closest_stream_t
+        depth = lib.stream_t_stack_depth()
+        tree = wb._block_tree_args(bvh, depth) if fn.blocks else wb._tree_args(bvh, depth)
+        if t_max is None:
+            return wb.launch_closest(fn, tree, bvh, ray.org, ray.direction, eps)[:2]
+        return (wb.launch_any(fn, tree, bvh, ray.org, ray.direction, eps, t_max),)
+
+    gen = torch.Generator().manual_seed(SEED)
+    plain, picks = {}, {}
+    for what, (ray, t_max) in rays.items():
+        r = ray.org.x.numel()
+        pick = torch.randperm(r, generator=gen)[:N_CHECK].to(ray.org.x.device)
+        o, d = subset(ray.org, pick), subset(ray.direction, pick)
+        bvh = trees[t_max is not None]
+        plain[what] = (wb.closest_stream_plain(bvh, o, d, eps)[:2] if t_max is None else
+                       (wb.any_stream_plain(bvh, o, d, eps, t_max[pick]),))
+        picks[what] = pick
+    ref = {what: run("shipped", what) for what in rays}
+    for name in libs:
+        differ, off_plain = {}, {}
+        for what in rays:
+            out = run(name, what)
+            same = torch.ones_like(out[0], dtype=torch.bool)
+            for a, b in zip(out, ref[what]):
+                same &= a == b
+            differ[what] = int((~same).sum())
+            same = torch.ones_like(plain[what][0], dtype=torch.bool)
+            for a, b in zip(out, plain[what]):
+                same &= a[picks[what]] == b
+            off_plain[what] = int((~same).sum())
+        log(f"[check] K4 {name}: lanes that differ from shipped {differ}, from the plain version "
+            f"on {N_CHECK} seeded lanes of each launch {off_plain}")
+        if name != "parent" and (any(differ.values()) or any(off_plain.values())):
+            raise AssertionError(f"K4 variant {name} differs from the shipped kernel or plain")
+    torch.cuda.synchronize()
+    ms = in_turns(list(libs), list(rays), run)
+    for name in libs:
+        log(f"[time] K4 {name}: " + ", ".join(
             f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
 
 
@@ -681,16 +801,16 @@ def compare_sass(pairs) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k5,k7",
-                    help="which families to profile: any of k1 (K1/K2), k5 (K5a) and k7 "
-                         "(K7a/K7b), comma-separated (default: all three)")
+    ap.add_argument("--kernels", default="k1,k4,k5,k7",
+                    help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 (K5a) "
+                         "and k7 (K7a/K7b), comma-separated (default: all four)")
     ap.add_argument("--parent", type=Path,
                     help="another tree whose wide_bvh.cu, wide_bvh_t.cu and chunks.cu to time "
                          "too, and whose kernels' SASS to compare")
     args = ap.parse_args()
     families = set(args.kernels.split(","))
-    if not families or families - {"k1", "k5", "k7"}:
-        raise SystemExit(f"--kernels takes k1, k5 and k7, not {args.kernels!r}")
+    if not families or families - {"k1", "k4", "k5", "k7"}:
+        raise SystemExit(f"--kernels takes k1, k4, k5 and k7, not {args.kernels!r}")
 
     import torch
 
@@ -701,7 +821,8 @@ def main() -> int:
 
     card = card_line()
     log(card)
-    tables = {"k1": (VARIANTS, _K1), "k5": (T_VARIANTS, _K5), "k7": (CHUNK_VARIANTS, _K7)}
+    tables = {"k1": (VARIANTS, _K1), "k4": (K4_VARIANTS, _K5), "k5": (T_VARIANTS, _K5),
+              "k7": (CHUNK_VARIANTS, _K7)}
     sources = {}  # (family, name) -> source
     for family in sorted(families):
         variants, target = tables[family]
@@ -710,9 +831,17 @@ def main() -> int:
         if args.parent:
             sources[family, "parent"] = (args.parent.resolve() / "heatray_tpu_torch" / "csrc"
                                          / target)
-    if args.parent:  # K3's source, for its SASS alone
-        sources["k3", "shipped"] = variant_source("k3-shipped", [], _K3)
-        sources["k3", "parent"] = args.parent.resolve() / "heatray_tpu_torch" / "csrc" / _K3
+    # The sources whose every kernel's SASS is set beside the parent's: K1-K5
+    # always, K7 with its family.  A file no family builds is built alone.
+    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, **({"k7": _K7} if "k7" in families else {})}
+    shipped_of = {}  # file -> the family whose "shipped" and "parent" build it
+    for family, target in sorted(sass_files.items()) if args.parent else ():
+        have = next((f for f in sorted(families) if tables[f][1] == target), None)
+        if have is None:
+            have = f"sass-{family}"
+            sources[have, "shipped"] = variant_source(f"{have}-shipped", [], target)
+            sources[have, "parent"] = args.parent.resolve() / "heatray_tpu_torch" / "csrc" / target
+        shipped_of[target] = have
     with ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(
             lambda key: compile_lib("-".join(key), sources[key]), sources)))
@@ -727,15 +856,21 @@ def main() -> int:
             libs[family][name] = library(so, sources[family, name])
     if args.parent:
         compare_sass([(built[f, "shipped"][0], built[f, "parent"][0])
-                      for f in ("k1", "k3", "k5", "k7") if (f, "parent") in built])
+                      for f in shipped_of.values()])
 
-    trees, chunks, rays, eps = launches(torch.device("cuda:0"))
-    if libs["k1"]:
-        profile_k1(libs["k1"], trees, rays, eps)
-    if libs["k5"]:
-        profile_k5(libs["k5"], trees, rays, eps)
-    if libs["k7"]:
-        profile_k7(libs["k7"], chunks, rays, eps)
+    device = torch.device("cuda:0")
+    if libs["k1"] or libs["k5"] or libs["k7"]:
+        trees, chunks, rays, eps = launches(device)
+        if libs["k1"]:
+            profile_k1(libs["k1"], trees, rays, eps)
+        if libs["k5"]:
+            profile_k5(libs["k5"], trees, rays, eps)
+        if libs["k7"]:
+            profile_k7(libs["k7"], chunks, rays, eps)
+        del trees, chunks, rays
+    if libs["k4"]:
+        hp_trees, hp_rays, eps = hp_launches(device)
+        profile_k4(libs["k4"], hp_trees, hp_rays, eps)
     log(f"[card] {card}")
     return 0
 

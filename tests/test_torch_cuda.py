@@ -270,16 +270,53 @@ def _t_queries(route):
     return wide_bvh.intersect_closest_stream_vpu, wide_bvh.intersect_any_stream_vpu
 
 
-@pytest.mark.parametrize("route", ["wide", "stream"])
+def _masked_occluder_trees(accel, seed):
+    """Occluder trees of ``accel`` at leaf 128 with about 30% of its
+    triangles alpha-masked: the tree ``integrator.build_accel`` builds
+    (``include``), and one over the accel ``integrator._occluder_accel``
+    makes (the masked triangles' rows zeroed and their boxes emptied to
+    +-3e38), whose leaves hold masked triangles and so block boxes that are
+    inverted or bound only the unmasked ones."""
+    from heatray_tpu_torch.ops.intersect import WoopAccel
+
+    keep = torch.from_numpy(np.random.default_rng(seed).uniform(size=accel.num_triangles) > 0.3)
+    keep = keep.to(accel.w.device)[None]
+    emptied = WoopAccel(w=accel.w * keep.float(), geo_normal=accel.geo_normal,
+                        tri_min=torch.where(keep, accel.tri_min, 3.0e38),
+                        tri_max=torch.where(keep, accel.tri_max, -3.0e38))
+    with np.errstate(over="ignore"):  # the emptied boxes' extents overflow in the build
+        trees = (wide_bvh.build_wide_bvh(accel, leaf_size=128, include=keep[0].cpu().numpy()),
+                 wide_bvh.build_wide_bvh(emptied, leaf_size=128))
+    inverted = trees[1].blocks[..., 0] > trees[1].blocks[..., 3]
+    assert bool(inverted.any()) and not bool(inverted.all(dim=1).all())
+    return trees
+
+
+# "stream-256": K4 at leaf 256 (8 block boxes a leaf); "stream-occluders":
+# K4b over occluder trees with alpha-masked triangles.
+@pytest.mark.parametrize("route", ["wide", "stream", "stream-256", "stream-occluders"])
 @pytest.mark.parametrize("n_rays", [8191, 0])
 def test_transposed_kernels_match_plain(cuda_device, route, n_rays):
-    """K5a/K5b and K4a/K4b on a 50k-triangle soup at leaf 128: a ray count
-    that leaves the last warp and block part-empty, and no rays at all.
-    Ties go to the lowest slot across leaves too, so slots are equal
-    everywhere."""
-    bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=128)
+    """K5a/K5b and K4a/K4b on a 50k-triangle soup at leaf 128 (K4 at 256
+    too): a ray count that leaves the last warp and block part-empty, and no
+    rays at all.  Ties go to the lowest slot across blocks and leaves too,
+    so t and slots are equal everywhere.  K4b over the soup's occluder trees
+    with alpha-masked triangles: blocked masks equal to the plain version's
+    over the same tree."""
+    accel = _soup(50_000, 11, cuda_device)
     o, d = _rays(n_rays, 7, cuda_device)
-    closest, any_ = _t_queries(route)
+    closest, any_ = _t_queries(route.split("-")[0])
+    if route == "stream-occluders":
+        t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
+        for tree in _masked_occluder_trees(accel, 2):
+            launches = any_.launches
+            blocked = any_(tree, o, d, t_max=t_max)
+            torch.cuda.synchronize()
+            assert any_.launches == launches + (n_rays > 0)
+            assert torch.equal(blocked, wide_bvh.any_wide_plain(tree, o, d, t_max=t_max))
+            assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
+        return
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=256 if route == "stream-256" else 128)
     launches = (closest.launches, any_.launches)
     t_k, slot_k, hit_k = closest(bvh, o, d)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
@@ -288,8 +325,7 @@ def test_transposed_kernels_match_plain(cuda_device, route, n_rays):
     torch.cuda.synchronize()
     assert (closest.launches, any_.launches) == tuple(n + (n_rays > 0) for n in launches)
     assert t_k.shape == slot_k.shape == blocked.shape == (n_rays,)
-    assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p)
-    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p) and torch.equal(t_k, t_p)
     assert torch.equal(blocked, wide_bvh.any_wide_plain(bvh, o, d, t_max=t_max))
     assert n_rays == 0 or 0 < int(blocked.sum()) < n_rays
 
@@ -318,7 +354,9 @@ def test_transposed_kernels_find_hits_just_past_an_edge(cuda_device, route):
 @pytest.mark.parametrize("route", ["wide", "stream"])
 def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, route):
     """A leaf that is not a multiple of 128, a leaf pack that is not float32,
-    and a tree deeper than the kernel's stack (64 for K5, 256 for K4)."""
+    a tree deeper than the kernel's stack (64 for K5 and K4), and for the
+    kernels that cull by block boxes (K5a, K4a, K4b) a tree without them or
+    with boxes of the wrong shape, each raised before any launch."""
     accel = _soup(300, 5, cuda_device)
     bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128)
     o, d = _rays(64, 3, cuda_device)
@@ -327,23 +365,17 @@ def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, ro
         closest(wide_bvh.build_wide_bvh(accel, leaf_size=64), o, d)
     with pytest.raises(ValueError, match="float32"):
         any_(dataclasses.replace(bvh, w=bvh.w.double()), o, d)
-    depth = 65 if route == "wide" else 257
-    with pytest.raises(ValueError, match=f"stack of {depth}"):
-        closest(dataclasses.replace(bvh, max_stack=depth), o, d)
-    if route == "wide":  # K5a culls by the leaves' block boxes, and needs them
-        launches = closest.launches
+    with pytest.raises(ValueError, match="stack of 65"):
+        closest(dataclasses.replace(bvh, max_stack=65), o, d)
+    # K5a, K4a and K4b cull by the leaves' block boxes, and need them.
+    culled = (closest,) if route == "wide" else (closest, any_)
+    launches = [fn.launches for fn in culled]
+    for fn in culled:
         with pytest.raises(ValueError, match="block boxes"):
-            closest(dataclasses.replace(bvh, blocks=None), o, d)
+            fn(dataclasses.replace(bvh, blocks=None), o, d)
         with pytest.raises(ValueError, match="WideBVH.blocks"):
-            closest(dataclasses.replace(bvh, blocks=bvh.blocks[:, :2].contiguous()), o, d)
-        assert closest.launches == launches
-    if route == "stream":  # K4 stages 8 leaves by 16-byte copies
-        shifted = torch.empty(bvh.w.numel() + 1, device=cuda_device)[1:].view(bvh.w.shape)
-        with pytest.raises(ValueError, match="aligned"):
-            closest(dataclasses.replace(bvh, w=shifted), o, d)
-        huge = torch.zeros((1, 4, 3 * 2048), device=cuda_device)
-        with pytest.raises(ValueError, match="shared memory"):
-            any_(dataclasses.replace(bvh, w=huge, leaf_size=2048), o, d)
+            fn(dataclasses.replace(bvh, blocks=bvh.blocks[:, :2].contiguous()), o, d)
+    assert [fn.launches for fn in culled] == launches
 
 
 def _flat_queries(kind, accel):

@@ -2,9 +2,11 @@
 ``intersect_closest_vpu``/``intersect_any_vpu`` (K5) and the streaming pair
 with ``leaf_math="vpu"`` (K4), their plain versions against the TPU kernels
 in interpret mode and the XLA brute force; the plain-torch emulation of the
-kernels' walk (``probes.visit_stats.group_walk``: a group of rays descends
+group walks (``probes.visit_stats.group_walk``: a group of rays descends
 together, each leaf is tested only on the rays whose own widened slab
-enters it, ties go to the lowest slot);
+enters it, ties go to the lowest slot); models of the block-culled walks of
+K5a and K4 (a ray is served a block of 32 only if it enters every box above
+it) and the block boxes of Route A's and Route B's trees;
 the two routes sorted and gated against unsorted; and ``build_accel``'s
 leaf sizes.  The routes' images against the JAX render are in
 test_torch_render.py and test_torch_stream.py, beside the JAX renders those
@@ -140,9 +142,9 @@ def test_any_matches_jax_kernel(soup, route, leaf_size):
 def test_group_walk_equals_plain(group):
     """Rays aimed just past the Cornell box's triangle edges (and the one
     that grazes the floor's open front edge), over its leaf-128 tree: the
-    walk of K5 (warps of 32) and of K4 (blocks of 256), with its per-ray
-    leaf skip, gives the plain version's t and slots bit for bit, and its
-    occlusion; and the skip does skip."""
+    group walk of K5b (warps of 32) and of P3's blocks of 256, with its
+    per-ray leaf skip, gives the plain version's t and slots bit for bit,
+    and its occlusion; and the skip does skip."""
     bvh, o, d = cornell_edge_rays(767, leaf_size=128)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
@@ -156,21 +158,20 @@ def test_group_walk_equals_plain(group):
     assert bool(blocked[-1]) and stats[:, 4].sum() > 0
 
 
-@pytest.mark.parametrize("tree", ["all", "occluders"])
-def test_leaf_block_boxes_bound_their_slots(tree):
-    """The Cornell box's leaf-128 tree, and its occluder tree with the metal
-    sphere alpha-masked (``include``): each leaf's four block boxes are the
-    boxes of the triangles in its runs of 32 slots, and a run of padding
-    slots has an inverted box."""
+def _cornell_occluders():
+    """The Cornell box's accel and the ``include`` mask of its occluder tree
+    with the metal sphere (material 5) alpha-masked."""
     scene = cornell_box(light="both", with_spheres=True)
     accel = intersect.build_woop(scene.geometry.positions, scene.geometry.indices)
-    include = None
-    if tree == "occluders":
-        mask = torch.zeros_like(scene.materials.alpha_mask)
-        mask[5] = 1
-        include = (mask[scene.geometry.material_ids.long()] == 0).numpy()
-    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128, include=include)
-    assert bvh.blocks.shape == (bvh.num_chunks, 4, 6)
+    mask = torch.zeros_like(scene.materials.alpha_mask)
+    mask[5] = 1
+    return accel, (mask[scene.geometry.material_ids.long()] == 0).numpy()
+
+
+def _check_block_boxes(bvh, accel, include=None):
+    """Each leaf's block boxes are the boxes of the triangles in its runs of
+    32 slots, and a run of padding slots has an inverted box."""
+    assert bvh.blocks.shape == (bvh.num_chunks, bvh.leaf_size // wide_bvh.BLOCK, 6)
     runs = bvh.slot_tri.view(-1, wide_bvh.BLOCK)
     boxes = bvh.blocks.view(-1, 6)
     filled = runs >= 0
@@ -187,22 +188,39 @@ def test_leaf_block_boxes_bound_their_slots(tree):
         assert torch.equal(box[3:], accel.tri_max[:, tri].amax(dim=1))
 
 
-def test_block_culled_walk_reaches_every_plain_hit():
-    """K5a reaches a hit if its ray enters every box above it (the nodes',
-    the leaf's, the block's) before its running best t, which never falls
-    below the hit's t.  A model that culls by the plain hit's t itself,
-    leaves then blocks, so offers each ray fewer blocks than K5a can, must
-    still give the plain version's t and slot bit for bit, ties to the
-    lowest slot included, on rays aimed just past the Cornell box's triangle
-    edges over its leaf-128 tree; and the block boxes cull blocks of
-    entered leaves."""
-    bvh, o, d = cornell_edge_rays(767, leaf_size=128)
-    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
-    assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
-    t_min, n = 1e-4, o.x.numel()
+@pytest.mark.parametrize("tree", ["all", "occluders", "route-b-128", "route-b-256"])
+def test_leaf_block_boxes_bound_their_slots(tree):
+    """The Cornell box's leaf-128 tree, and its occluder tree with the metal
+    sphere alpha-masked (``include``); and Route B's trees (``high_poly`` at
+    5,000 triangles through ``build_accel`` with ``stream_leaf_math="vpu"``,
+    leaves of 128 and 256, its ``wide`` and ``wide_occl``): each leaf's
+    block boxes bound its runs of 32 slots (``_check_block_boxes``)."""
+    if tree.startswith("route-b"):
+        leaf = int(tree.rsplit("-", 1)[1])
+        scene = high_poly(triangles=5_000)
+        pack = integrator.build_accel(scene, RenderOptions(
+            width=8, height=8, intersect_backend="stream", stream_leaf_math="vpu",
+            stream_leaf_size=leaf), static_shading=False)
+        assert (pack.route, pack.wide.leaf_size) == ("stream/vpu", leaf)
+        for bvh in (pack.wide, pack.wide_occl):
+            _check_block_boxes(bvh, pack.accel)
+        return
+    accel, include = _cornell_occluders()
+    include = include if tree == "occluders" else None
+    _check_block_boxes(wide_bvh.build_wide_bvh(accel, leaf_size=128, include=include), accel,
+                       include)
+
+
+def _block_culled_pairs(bvh, o, d, far, t_min=1e-4):
+    """The (ray, block) pairs a block-culled walk serves, if it culls by
+    ``far`` (R,): a ray is served a block if it enters every box above it
+    (the nodes', the leaf's in its parent's row, the block's; an inverted
+    one never) before ``far``.  Returns the leaves each ray enters (R, C)
+    and the blocks it is served (R, C, NB), both bool."""
+    n = o.x.numel()
     org = [o.x[:, None], o.y[:, None], o.z[:, None]]
     rcp = [c[:, None] for c in wide_bvh.reciprocals(d)]
-    far = t_p[:, None]
+    far = far[:, None]
 
     def enter(box):  # (R, K) rays against K boxes (K, 6), inverted ones never
         return wide_bvh.widened_slab(box.T[:3], box.T[3:], org, rcp, far, t_min) & (
@@ -219,18 +237,41 @@ def test_block_culled_walk_reaches_every_plain_hit():
                 reach[code] = ok[:, k]
             elif code <= -2:
                 leaf_in[:, -2 - code] |= ok[:, k]
+    blocks = torch.stack([enter(bvh.blocks[c]) for c in range(bvh.num_chunks)], dim=1)
+    return leaf_in, blocks & leaf_in[:, :, None]
+
+
+def _block_t(bvh, o, d, c, b, rays, t_min=1e-4):
+    """t of each ray ``rays`` against each slot of block ``b`` of leaf ``c``:
+    (t (len(rays), 32), the block's slots)."""
     rows, anchor = wide_bvh.slot_rows(bvh)
+    cols = slice(c * bvh.leaf_size + b * wide_bvh.BLOCK,
+                 c * bvh.leaf_size + (b + 1) * wide_bvh.BLOCK)
+    t = intersect.pair_t(o.map(lambda x: x[rays]), d.map(lambda x: x[rays]), rows[:, cols],
+                         t_min, intersect.MISS_T, anchor[:, cols])
+    return t, cols
+
+
+def test_block_culled_walk_reaches_every_plain_hit():
+    """K5a reaches a hit if its ray enters every box above it (the nodes',
+    the leaf's, the block's) before its running best t, which never falls
+    below the hit's t.  A model that culls by the plain hit's t itself,
+    leaves then blocks, so offers each ray fewer blocks than K5a can, must
+    still give the plain version's t and slot bit for bit, ties to the
+    lowest slot included, on rays aimed just past the Cornell box's triangle
+    edges over its leaf-128 tree; and the block boxes cull blocks of
+    entered leaves."""
+    bvh, o, d = cornell_edge_rays(767, leaf_size=128)
+    t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
+    n = o.x.numel()
+    leaf_in, served_blocks = _block_culled_pairs(bvh, o, d, t_p)
     best = torch.full((n,), intersect.MISS_T)
     slot = torch.full((n,), -1, dtype=torch.int32)
-    served = 0
     for c in range(bvh.num_chunks):
-        blocks = enter(bvh.blocks[c]) & leaf_in[:, c:c + 1]
-        served += int(blocks.sum())
-        for b in range(blocks.shape[1]):
-            e = blocks[:, b].nonzero()[:, 0]
-            cols = slice(c * bvh.leaf_size + b * 32, c * bvh.leaf_size + (b + 1) * 32)
-            t = intersect.pair_t(o.map(lambda x: x[e]), d.map(lambda x: x[e]), rows[:, cols],
-                                 t_min, intersect.MISS_T, anchor[:, cols])
+        for b in range(served_blocks.shape[2]):
+            e = served_blocks[:, c, b].nonzero()[:, 0]
+            t, cols = _block_t(bvh, o, d, c, b, e)
             cand, arg = torch.min(t, dim=1)
             cand_slot = (arg + cols.start).int()
             better = (cand < best[e]) | ((cand == best[e]) & (cand < intersect.MISS_T)
@@ -238,7 +279,40 @@ def test_block_culled_walk_reaches_every_plain_hit():
             best[e] = torch.where(better, cand, best[e])
             slot[e] = torch.where(better, cand_slot, slot[e])
     assert torch.equal(best, t_p) and torch.equal(slot, slot_p)
-    assert 0 < served < 4 * int(leaf_in.sum())
+    assert 0 < int(served_blocks.sum()) < 4 * int(leaf_in.sum())
+
+
+@pytest.mark.parametrize("tree", ["all", "occluders"])
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_block_culled_any_walk_blocks_as_plain(tree, side):
+    """A model of K4b's walk: a ray is served a block only if it enters
+    every box above it (the nodes', the leaf's, the block's) before its
+    t_max, and is blocked by a hit in (t_min, t_max) in a block it is
+    served.  On rays aimed just past the Cornell box's triangle edges, over
+    its leaf-128 tree and its occluder tree with the metal sphere
+    alpha-masked, each ray's t_max just at (``below``: that hit is out of
+    range) or one ulp above (``above``) its plain closest hit over that
+    tree, the model's blocked mask equals ``any_stream_plain``'s; and the
+    block boxes cull blocks of entered leaves."""
+    bvh, o, d = cornell_edge_rays(767, leaf_size=128)
+    if tree == "occluders":
+        accel, include = _cornell_occluders()
+        bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128, include=include)
+    t_p, _, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
+    assert int(hit_p.sum()) > 600
+    t_hit = t_p if side == "below" else torch.nextafter(t_p, torch.tensor(float("inf")))
+    t_max = torch.where(hit_p, t_hit, 5.0)
+    want = wide_bvh.any_stream_plain(bvh, o, d, t_max=t_max)
+    assert torch.equal(want, hit_p) if side == "above" else not bool(want.any())
+    leaf_in, served_blocks = _block_culled_pairs(bvh, o, d, t_max)
+    blocked = torch.zeros_like(want)
+    for c in range(bvh.num_chunks):
+        for b in range(served_blocks.shape[2]):
+            e = served_blocks[:, c, b].nonzero()[:, 0]
+            t, _ = _block_t(bvh, o, d, c, b, e)
+            blocked[e] |= (t < t_max[e, None]).any(dim=1)
+    assert torch.equal(blocked, want)
+    assert 0 < int(served_blocks.sum()) < 4 * int(leaf_in.sum())
 
 
 def _route(name):
