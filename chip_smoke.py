@@ -64,8 +64,8 @@ source, started together, and then:
    chunk packs and the shading table) and K6a and K6b (``bvh2.cu``) under
    ``intersect_backend="bvh"`` against their plain versions, each launched
    at the shapes the 1080p Cornell path gives it (as in 5), and on the
-   50,000-triangle soup; K7a to every t and every id equal, bit for bit,
-   K7b to equal masks;
+   50,000-triangle soup; K7a and K6a to every t and every id equal, bit
+   for bit, K7b and K6b to equal masks;
 9. renders config2 through the rebuild mode, ``"pallas"`` and ``"bvh"`` and
    compares each with the golden;
 10. renders the Cornell path (as in 3) in the rebuild mode and under
@@ -73,12 +73,16 @@ source, started together, and then:
    lanes, no K1-K3) and timing the rebuild within each pass, and compares
    each image with phase 3's ``"wide"`` image of the same passes;
 11. times K7a, K7b, K6a and K6b on phase 4's rays, and their plain
-   versions on all of them;
+   versions on all of them; one ``[compare]`` line sets K6a and K6b beside
+   K1 and K2 over phase 4's leaf-32 trees on phase 4's four launches (the
+   primary rays, the first-bounce shadow lanes, the sorted depth-2 head and
+   its shadow lanes), and gives K6's entries their head readings;
 12. checks K5a and K5b (``wide_bvh_t.cu``) under Route A (the Cornell box
    with ``wide_leaf_math="vpu"``: "auto" keeps "wide" and rounds the leaf of
    32 up to 128) against their plain versions, at the shapes the 1080p path
    gives them (as in 5), and on the 50,000-triangle soup at leaf 128: hit
-   masks equal, K5a's t and every slot bit for bit, K5b's masks equal;
+   masks equal, K5a's t and every slot bit for bit, K5b's masks equal (K5a
+   and K5b walk per ray, culled by the tree's block boxes, as K4 does);
 13. renders Route A (as in 3), counting launches (K5a and K5b once per
    bounce with live lanes, no other traversal kernel), and compares its
    image with phase 3's ``"wide"`` image of the same passes;
@@ -87,10 +91,11 @@ source, started together, and then:
    logged beside the kernels' 64): their checks at the path's shapes and on
    the soup (K4a's t and every slot bit for bit, K4b's masks equal), the
    path, and its image against phase 6's ``"stream"`` image;
-15. times K5a and K5b on phase 4's rays, beside K1 and K2 on the same rays
-   (phase 4, over the leaf-32 tree), and K4a and K4b on phase 7's four
-   launches for the kernels line (phase 7 sets them beside K3a and K3b over
-   the same tree);
+15. times K5a and K5b on phase 4's rays; one ``[compare]`` line sets them
+   beside K1 and K2 over the leaf-32 trees and K4b over Route A's own
+   occluder tree on phase 4's four launches, and gives K5's entries their
+   head readings; and times K4a and K4b on phase 7's four launches for the
+   kernels line (phase 7 sets them beside K3a and K3b over the same tree);
 16. runs the P3 probe (``heatray_tpu_torch.probes.visit_stats``, kernel
    ``visit_stats_kernel`` of ``probes.cu``) through its entry point: the
    Cornell box over its leaf-32 ``"wide"`` tree on the 1080p primary rays
@@ -176,9 +181,9 @@ arithmetic of the box slab tests, of every pair test's t, and of the
 barycentrics of the pairs whose t lies in range.  The chunk kernels test
 every chunk's box per ray and, in each chunk a ray enters, every block's
 box and the triangles of the blocks it enters (K7b's entry also gives the
-bound over whole chunks); K5a, K4a and K4b, in each leaf a ray reaches,
-every block's box and the triangles of the blocks it enters (their entries
-also give the bound over whole leaves).
+bound over whole chunks); K5a, K5b, K4a, K4b and K6a, in each leaf a ray
+reaches, every block's box and the triangles of the blocks it enters (their
+entries also give the bound over whole leaves).
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the card's name and power limit, the per-kernel JSON record and
@@ -204,18 +209,18 @@ N_CHECK = 65_536
 SOUP_TRIANGLES = 50_000
 WIDTH, HEIGHT, DEPTH, PASSES = 1920, 1080, 4, 4
 TOL = 1e-5  # rtol = atol on t: both sides are exact float32 arithmetic
-# K7a, K5a and K4a: their t must equal the plain version's bit for bit (the
-# same float32 operations in the same order), with every id equal.
-EXACT_T = ("closest_chunks", "closest_wide_t", "closest_stream_t")
+# K7a, K5a, K4a and K6a: their t must equal the plain version's bit for bit
+# (the same float32 operations in the same order), with every id equal.
+EXACT_T = ("closest_chunks", "closest_wide_t", "closest_stream_t", "closest_bvh")
 # The kernels that cull by block boxes of 32 (the pack's or the tree's), so
 # that their bounds count the blocks' work (``chunk_work(blocks=True)``,
-# ``walk_work(blocks=True)``).
-BLOCK_CULLED = ("closest_chunks", "any_chunks", "closest_wide_t", "closest_stream_t",
-                "any_stream_t")
+# ``walk_work(blocks=True)``, ``bvh2_work(blocks=True)``).
+BLOCK_CULLED = ("closest_chunks", "any_chunks", "closest_wide_t", "any_wide_t",
+                "closest_stream_t", "any_stream_t", "closest_bvh")
 # Of those, the ones whose entries also give the bound over whole leaves
 # (or chunks): the design without block boxes.
-WHOLE_BOUND = {"any_chunks": "chunks", "closest_wide_t": "leaves",
-               "closest_stream_t": "leaves", "any_stream_t": "leaves"}
+WHOLE_BOUND = {"any_chunks": "chunks", "closest_wide_t": "leaves", "any_wide_t": "leaves",
+               "closest_stream_t": "leaves", "any_stream_t": "leaves", "closest_bvh": "leaves"}
 SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes", "variants")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -577,14 +582,8 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True, blo
             unit = -2 - c[node, k]
             if blocks:  # the blocks of each leaf reached
                 boxes += ray.numel() * n_blocks
-                ray = ray[:, None].expand(-1, n_blocks).reshape(-1)
-                unit = (unit[:, None] * n_blocks
-                        + torch.arange(n_blocks, device=device)).reshape(-1)
-                bb = block_box[:, unit]
-                ok_b = widened_slab(bb[:3], bb[3:], [oc[i][ray] for i in range(3)],
-                                    [inv[i][ray, 0, 0] for i in range(3)], tfc[ray], t_min)
-                ok_b &= bb[0] <= bb[3]
-                ray, unit = ray[ok_b], unit[ok_b]
+                ray, unit = _blocks_entered(ray, unit, n_blocks, block_box, oc,
+                                            [x[:, 0, 0] for x in inv], tfc, t_min)
             leaf_seen[unit] = True
             fill = filled_slot[unit]
             pairs += int(fill.sum())
@@ -607,6 +606,24 @@ def walk_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, with_leaves=True, blo
                            + tris * TRI_BYTES),
             "reached": f"{nodes} nodes, {leaves} leaves"
                        + (f", {units} blocks" if blocks else "") + f" ({tris} triangles)"}
+
+
+def _blocks_entered(ray, unit, n_blocks, block_box, oc, inv, tf, t_min):
+    """The (ray, block) pairs of the (ray, leaf or chunk) pairs ``ray``,
+    ``unit`` whose block box (``block_box`` (6, units * n_blocks); an
+    inverted one never) the ray enters, widened, before its far end
+    ``tf``: (rays, block indices).  ``oc``, ``inv``: the rays' origins and
+    reciprocal directions, three (r,) tensors each."""
+    import torch
+
+    from heatray_tpu_torch.ops.wide_bvh import widened_slab
+
+    ray = ray[:, None].expand(-1, n_blocks).reshape(-1)
+    unit = (unit[:, None] * n_blocks + torch.arange(n_blocks, device=unit.device)).reshape(-1)
+    box = block_box[:, unit]
+    ok = widened_slab(box[:3], box[3:], [x[ray] for x in oc], [x[ray] for x in inv], tf[ray],
+                      t_min) & (box[0] <= box[3])
+    return ray[ok], unit[ok]
 
 
 def _ray_chunks(org, d, t_far, chunk):
@@ -659,12 +676,7 @@ def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192, blocks=False):
         ray, c = ok.nonzero(as_tuple=True)
         entries += ray.numel()
         if blocks:  # the blocks of each entered chunk
-            ray = ray[:, None].expand(-1, n_blocks).reshape(-1)
-            c = (c[:, None] * n_blocks + torch.arange(n_blocks, device=c.device)).reshape(-1)
-            box = bb[:, c]
-            ok = widened_slab(box[:3], box[3:], [x[ray] for x in oc], [x[ray] for x in inv],
-                              tf[ray], t_min) & (box[0] <= box[3])
-            ray, c = ray[ok], c[ok]
+            ray, c = _blocks_entered(ray, c, n_blocks, bb, oc, inv, tf, t_min)
             block_entries += ray.numel()
         seen[c] = True
         fill = filled[c]
@@ -680,21 +692,31 @@ def chunk_work(packed, org, d, t_far, t_min=1e-4, chunk=8192, blocks=False):
                        f"{'blocks' if blocks else 'chunks'} ({n_tris} triangles)"}
 
 
-def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
+def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, blocks=False):
     """``walk_work`` for the binary-BVH kernels: each ray tests the box of
     the root and of both children of every internal node whose widened box
-    it enters before ``t_far``, and every triangle of each leaf it enters."""
+    it enters before ``t_far``, and every triangle of each leaf it enters;
+    with ``blocks`` (K6a), in each such leaf every block box
+    (``BVH.blocks``), and only the triangles of the blocks it enters."""
     import torch
 
+    from heatray_tpu_torch.ops.bvh import BLOCK
     from heatray_tpu_torch.ops.intersect import chunk_rows
     from heatray_tpu_torch.ops.wide_bvh import widened_slab
 
     rows, tc = chunk_rows(bvh.w), bvh.leaf_size
     nbox, meta = bvh.nbox.view(-1, 6), bvh.meta.view(-1, 2).long()
     right = meta[:, 1].roll(-1)  # right child of node i: skip of node i + 1
+    # Slots of each leaf (C, Tc), or of each block (C * NB, BLOCK; -1 past the leaf).
     slots = torch.arange(bvh.num_chunks * tc, device=rows.device).view(-1, tc)
-    filled_slot = bvh.slot_tri.view(-1, tc) >= 0
+    if blocks:
+        n_blocks = bvh.blocks.shape[1]
+        slots = torch.nn.functional.pad(slots, (0, n_blocks * BLOCK - tc), value=-1)
+        slots = slots.view(-1, BLOCK)
+        block_box = bvh.blocks.view(-1, 6).T  # (6, C * NB)
+    filled_slot = (slots >= 0) & (bvh.slot_tri[slots.clamp(min=0)] >= 0)
     node_seen = torch.zeros(nbox.shape[0], dtype=torch.bool, device=rows.device)
+    unit_seen = torch.zeros(slots.shape[0], dtype=torch.bool, device=rows.device)
     boxes = pairs = in_range = 0
     for oc, inv, dc, tf in _ray_chunks(org, d, t_far, chunk):
         level = torch.zeros(1, dtype=torch.long, device=rows.device)
@@ -706,21 +728,29 @@ def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384):
             ok = reach & widened_slab(b[:3], b[3:], [c[:, None] for c in oc],
                                  [c[:, None] for c in inv], tf[:, None], t_min)
             code = meta[level, 0]
+            # Every (ray, leaf) pair entered, or (ray, block) pair: the t of each triangle.
             ray, k = (ok & (code >= 0)[None]).nonzero(as_tuple=True)
-            fill = filled_slot[code[k]]
+            unit = code[k]
+            if blocks:  # the blocks of each leaf entered
+                boxes += ray.numel() * n_blocks
+                ray, unit = _blocks_entered(ray, unit, n_blocks, block_box, oc, inv, tf, t_min)
+            unit_seen[unit] = True
+            fill = filled_slot[unit]
             pairs += int(fill.sum())
-            t = _pair_t(rows, oc, dc, ray, slots[code[k]])
+            t = _pair_t(rows, oc, dc, ray, slots[unit].clamp(min=0))
             in_range += int((fill & (t > t_min) & (t <= tf[ray][:, None])).sum())
             inner = (code < 0) & ok.any(0)
             parents = level[inner]
             level = torch.cat([parents + 1, right[parents]])
             reach = ok[:, inner].repeat(1, 2)
-    leaf = meta[:, 0] >= 0
-    leaves = meta[node_seen & leaf, 0]
-    nodes, tris = int(node_seen.sum()), int(filled_slot[leaves].sum())
+    nodes, units, tris = (int(node_seen.sum()), int(unit_seen.sum()),
+                          int(filled_slot[unit_seen].sum()))
+    leaves = units if not blocks else int(unit_seen.view(bvh.num_chunks, -1).any(1).sum())
+    box_bytes = leaves * n_blocks * BOX_BYTES if blocks else 0
     return {"boxes": boxes, "pairs": pairs, "in_range": in_range,
-            "tree_bytes": nodes * NODE2_BYTES + tris * TRI_BYTES,
-            "reached": f"{nodes} nodes, {leaves.numel()} leaves ({tris} triangles)"}
+            "tree_bytes": nodes * NODE2_BYTES + box_bytes + tris * TRI_BYTES,
+            "reached": f"{nodes} nodes, {leaves} leaves"
+                       + (f", {units} blocks" if blocks else "") + f" ({tris} triangles)"}
 
 
 def bound(r, work, occlusion):
@@ -788,55 +818,55 @@ def time_kernels(spec, err, launches):
 
 def head_entry(entry, bvh, o, dd, t_max, ms):
     """Set a kernels-line entry's depth-2 head reading: its rays, ``ms``,
-    and the bound of what those rays need of ``bvh`` (over the blocks they
-    enter, for a kernel of BLOCK_CULLED); ``t_max`` None for closest hit."""
+    and the bound of what those rays need of ``bvh`` (a wide or a binary
+    tree; over the blocks they enter, for a kernel of BLOCK_CULLED);
+    ``t_max`` None for closest hit."""
     import torch
 
     name = entry["name"]
+    family = name.split("_", 1)[1]
     occl = t_max is not None
-    t_far = queries()["closest_" + name.split("_", 1)[1]][0](bvh, o, dd)[0]
+    t_far = queries()["closest_" + family][0](bvh, o, dd)[0]
     if occl:
         t_far = torch.minimum(t_far, t_max)
-    b_ms, b_by = bound(o.x.numel(), walk_work(bvh, o, dd, t_far, blocks=name in BLOCK_CULLED),
-                       occl)
+    work = bvh2_work if family == "bvh" else walk_work
+    b_ms, b_by = bound(o.x.numel(), work(bvh, o, dd, t_far, blocks=name in BLOCK_CULLED), occl)
     entry.update(head_rays=o.x.numel(), head_ms=ms, head_bound_ms=b_ms, head_bound_by=b_by)
     log(f"[time] {name} on the {o.x.numel()} depth-2 head rays: kernel {ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by})")
 
 
-def compare_launches(label, kernels, mine, rivals, trees, launches, card):
+def compare_launches(label, kernels, mine, rivals, launches, card):
     """One [compare] line: the kernels ``mine`` beside ``rivals`` (each a dict
-    label -> query name, closest hit then occlusion) over the same ``trees``
-    (closest hit, occlusion), on the primary rays and first-bounce shadow
-    lanes and on the depth-2 sorted head and its shadow lanes (``launches``:
-    two (rays, shadow rays) pairs).  Each is timed over 10 launches, except
-    ``mine`` on the primary and shadow rays, which ``time_kernels`` has just
-    timed: their kernels-line entries give those times, and get the head's
-    rays, time and bound."""
-    import torch
-
+    label -> (query name, the tree it walks)), on the primary rays and
+    first-bounce shadow lanes and on the depth-2 sorted head and its shadow
+    lanes (``launches``: two (rays, shadow rays) pairs).  Each is timed over
+    10 launches, except ``mine`` on the primary and shadow rays, which
+    ``time_kernels`` has just timed: their kernels-line entries give those
+    times, and get the head's rays, time and bound."""
     entries = {k["name"]: k for k in kernels}
+    mine_names = {name for name, _ in mine.values()}
     parts = []
     for tag, (rays, shadow) in zip(("primary", "depth-2 head"), launches):
         ms = {}
-        for who, name in {**mine, **rivals}.items():
-            if tag == "primary" and name in mine.values():
+        for who, (name, tree) in {**mine, **rivals}.items():
+            if tag == "primary" and name in mine_names:
                 ms[who] = entries[name]["ms"]
                 continue
             fn = queries()[name][0]
             if name.startswith("any_"):
-                ms[who] = time_ms(lambda: fn(trees[1], shadow.org, shadow.direction,
+                ms[who] = time_ms(lambda: fn(tree, shadow.org, shadow.direction,
                                              t_max=shadow.t_max), 10)
             else:
-                ms[who] = time_ms(lambda: fn(trees[0], rays.org, rays.direction), 10)
+                ms[who] = time_ms(lambda: fn(tree, rays.org, rays.direction), 10)
         parts.append(f"{tag} ({rays.org.x.numel()} rays, {shadow.org.x.numel()} shadow lanes): "
                      + ", ".join(f"{who} {t:.4f}" for who, t in ms.items()))
         if tag == "primary":
             continue
-        for who, name in mine.items():
+        for who, (name, tree) in mine.items():
             occl = name.startswith("any_")
             o = shadow if occl else rays
-            head_entry(entries[name], trees[occl], o.org, o.direction,
+            head_entry(entries[name], tree, o.org, o.direction,
                        shadow.t_max if occl else None, ms[who])
     log(f"[compare] {label}, ms: {'; '.join(parts)}; card {card}")
 
@@ -2185,10 +2215,13 @@ def main() -> int:
         ("closest_wide", pack.wide, prim.org, prim.direction, None, True),
         ("any_wide", pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, cornell_launches)
-    compare_launches("cornell, one leaf-32 tree", kernels, {"K1": "closest_wide", "K2": "any_wide"},
-                     {"K3a": "closest_stream", "K3b": "any_stream"}, (pack.wide, pack.wide_occl),
-                     ((prim, shadow), (c_head, c_shadow2)), card)
-    cornell_rays = (prim, shadow)  # phase 11 times K6 and K7 on them
+    cornell_rays = ((prim, shadow), (c_head, c_shadow2))
+    compare_launches("cornell, one leaf-32 tree", kernels,
+                     {"K1": ("closest_wide", pack.wide), "K2": ("any_wide", pack.wide_occl)},
+                     {"K3a": ("closest_stream", pack.wide), "K3b": ("any_stream", pack.wide_occl)},
+                     cornell_rays, card)
+    # Phases 11 and 15 time K6 and K5 on the same launches, beside K1/K2 over these trees.
+    k1_trees = {"K1": ("closest_wide", pack.wide), "K2": ("any_wide", pack.wide_occl)}
     del ctx, pack, c_head, c_shadow2
 
     # --- 5. high_poly on the card: streaming kernels against plain ------------
@@ -2225,8 +2258,8 @@ def main() -> int:
         ("any_stream", hp.wide_occl, shadow.org, shadow.direction, shadow.t_max, False),
     ], err, hp_launches)
     compare_launches("high_poly, one leaf-128 tree", kernels,
-                     {"K3a": "closest_stream", "K3b": "any_stream"},
-                     {"K4a": "closest_stream_t", "K4b": "any_stream_t"}, (hp.wide, hp.wide_occl),
+                     {"K3a": ("closest_stream", hp.wide), "K3b": ("any_stream", hp.wide_occl)},
+                     {"K4a": ("closest_stream_t", hp.wide), "K4b": ("any_stream_t", hp.wide_occl)},
                      ((primary, shadow), (head, shadow2)), card)
     t0 = time.perf_counter()
     wide32 = wide_bvh.build_wide_bvh(hp.accel, leaf_size=32)
@@ -2262,7 +2295,7 @@ def main() -> int:
         torch.cuda.synchronize()
         log(f"[setup] Cornell 1080p {route} context in {time.perf_counter() - t0:.2f} s")
         check_path_rays(names, scene, camera, ctxs[route], r_opts, gen, f"cornell {route}", err,
-                        exact=route == "rebuild")
+                        exact=True)
     soup_accel = build_woop(pos, idx)
     t0 = time.perf_counter()
     soup_trees = {"chunks": pack_for_pallas(soup_accel, opts.pallas_tri_chunk),
@@ -2271,8 +2304,7 @@ def main() -> int:
         f"binary tree of {soup_trees['bvh'].num_nodes} nodes, stack "
         f"{soup_trees['bvh'].max_stack}, in {time.perf_counter() - t0:.1f} s")
     for family, tree in soup_trees.items():
-        check_closest(f"closest_{family}", tree, s_org, s_dir, "soup", err,
-                      exact=family == "chunks")
+        check_closest(f"closest_{family}", tree, s_org, s_dir, "soup", err, exact=True)
         check_any(f"any_{family}", tree, s_org, s_dir, t_max, "soup", err)
     del soup_trees, soup_accel
 
@@ -2296,8 +2328,8 @@ def main() -> int:
             kernels_launches[name] = launches[name]
         compare_images(f"cornell {route}", img, wide_img, "wide")
 
-    # --- 11. K7 and K6 times on phase 4's rays -----------------------------------
-    prim, shadow = cornell_rays
+    # --- 11. K7 and K6 times on phase 4's rays, K6 beside K1/K2 -----------------
+    (prim, shadow), _ = cornell_rays
     chunk_pack = integrator.rebuild_pack(scene, opts)
     bvh_pack = ctxs["bvh"].accel_pack
     kernels += time_kernels([
@@ -2306,6 +2338,10 @@ def main() -> int:
         ("closest_bvh", bvh_pack.bvh, prim.org, prim.direction, None, True),
         ("any_bvh", bvh_pack.bvh_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, kernels_launches)
+    compare_launches(f"cornell, binary tree of leaf {bvh_pack.bvh.leaf_size} beside leaf 32",
+                     kernels, {"K6a": ("closest_bvh", bvh_pack.bvh),
+                               "K6b": ("any_bvh", bvh_pack.bvh_occl)},
+                     k1_trees, cornell_rays, card)
     del ctxs, chunk_pack, bvh_pack
 
     # --- 12. K5 under Route A against its plain versions ------------------------
@@ -2334,12 +2370,18 @@ def main() -> int:
     compare_images("high_poly vpu", img, hp_img, "stream")
     del img, hp_img, wide_img, soup128
 
-    # --- 15. K5 times beside K1/K2 on the same rays, and K4 times ------------------
+    # --- 15. K5 times beside K1/K2 and K4b on the same rays, and K4 times ---------
     a_pack, b_pack = a_ctx.accel_pack, b_ctx.accel_pack
     kernels += time_kernels([
         ("closest_wide_t", a_pack.wide, prim.org, prim.direction, None, True),
         ("any_wide_t", a_pack.wide_occl, shadow.org, shadow.direction, shadow.t_max, True),
     ], err, a_launches)
+    compare_launches("cornell, route A's leaf-128 trees beside leaf 32", kernels,
+                     {"K5a": ("closest_wide_t", a_pack.wide),
+                      "K5b": ("any_wide_t", a_pack.wide_occl)},
+                     {**k1_trees, "K4b": ("any_stream_t", a_pack.wide_occl)},
+                     cornell_rays, card)
+    del cornell_rays, k1_trees
     hp_primary, hp_shadow, hp_head, hp_shadow2 = hp_rays
     kernels += time_kernels([
         ("closest_stream_t", b_pack.wide, hp_primary.org, hp_primary.direction, None, False),
@@ -2354,10 +2396,6 @@ def main() -> int:
         ms = time_ms(lambda: fn(bvh, rays.org, rays.direction, **kw), 10)
         head_entry(entries[name], bvh, rays.org, rays.direction, kw.get("t_max"), ms)
     del hp_rays, hp_head, hp_shadow2
-    ms = {k["name"]: k["ms"] for k in kernels}
-    log(f"[compare] cornell on {prim.org.x.numel()} rays: K5a {ms['closest_wide_t']:.4f} ms "
-        f"vs K1 {ms['closest_wide']:.4f} ms on leaf 32; K5b {ms['any_wide_t']:.4f} ms vs K2 "
-        f"{ms['any_wide']:.4f} ms on leaf 32; card {card}")
 
     del a_ctx, b_ctx, a_pack, b_pack
 

@@ -1,7 +1,7 @@
-// Arity-8 BVH pieces shared by the traversal kernels (wide_bvh.cu,
-// wide_bvh_stream.cu, wide_bvh_t.cu): the ray, the widened slab test of a
-// node's children, the exact-f32 Woop pair test of one triangle of a leaf
-// chunk, and the warp's leaf services: that test spread across the lanes of
+// BVH pieces shared by the traversal kernels (wide_bvh.cu,
+// wide_bvh_stream.cu, wide_bvh_t.cu, bvh2.cu): the ray, the widened slab
+// test of a node's children, the exact-f32 Woop pair test of one triangle
+// of a leaf chunk, and the warp's leaf services: that test spread across the lanes of
 // a warp, one ray at a time, or one triangle per lane held in registers for
 // every ray of the warp that offers the leaf.
 //
@@ -424,8 +424,8 @@ __device__ __forceinline__ void lane_serve_closest(
   });
 }
 
-// Closest hit over leaves with a box per block of 32 slots (K5a): the
-// groups of `lane_serve` (the lanes that offer one chunk, lowest offering
+// Closest hit over leaves with a box per block of 32 slots (K5a, K4a,
+// K6a): the groups of `lane_serve` (the lanes that offer one chunk, lowest offering
 // lane first), and in a group's chunk `c` each block whose box (`blocks`,
 // (C, ceil(Tc / 32), 6), world coordinates, inverted over padding) some
 // lane of the group enters before its own best, served by
@@ -498,15 +498,15 @@ __device__ __forceinline__ bool lane_serve_any(
   return hit;
 }
 
-// Any hit over leaves with a box per block of 32 slots (K4b): the groups of
-// `lane_serve_blocks_closest`, and in a group's chunk `c` each block whose
-// box some lane of the group enters before its own `t_max`, while that lane
-// has no hit yet, served by `serve_cols_any` to those lanes alone, lowest
-// block first; a block no such lane enters costs each lane of the group
-// one slab test and no load.  True on each offering lane whose ray has a
-// hit in (t_min, its t_max) in the chunk it offered.  Its own copy of the
-// group loop, as `lane_serve_blocks_closest` has.  Every lane of the warp
-// calls it.
+// Any hit over leaves with a box per block of 32 slots (K5b, K4b): the
+// groups of `lane_serve_blocks_closest`, and in a group's chunk `c` each
+// block whose box some lane of the group enters before its own `t_max`,
+// while that lane has no hit yet, served by `serve_cols_any` to those lanes
+// alone, lowest block first; a block no such lane enters costs each lane of
+// the group one slab test and no load.  True on each offering lane whose
+// ray has a hit in (t_min, its t_max) in the chunk it offered.  Its own copy
+// of the group loop, as `lane_serve_blocks_closest` has.  Every lane of the
+// warp calls it.
 __device__ __forceinline__ bool lane_serve_blocks_any(
     int chunk, const float* __restrict__ w, int tc, const float* __restrict__ wanchor,
     int n_chunks, const float* __restrict__ blocks, const Ray& r, float t_min, float t_max,
@@ -538,19 +538,6 @@ __device__ __forceinline__ bool lane_serve_blocks_any(
     }
   }
   return hit;
-}
-
-// One leaf visit of a warp, any hit: each unblocked ray of the warp
-// (`active`) whose own widened slab enters the box before its `t_max`
-// offers the chunk; its lane becomes blocked on a hit.
-__device__ __forceinline__ void warp_visit_any(
-    const float* __restrict__ box, const float* __restrict__ W, int tc, int chunk,
-    const float* __restrict__ wanchor, int n_chunks, const Ray& r, bool active,
-    float t_min, float t_max, Widen widen, bool& blocked) {
-  const bool enters = active && slab(box, r, t_min, t_max, widen);
-  if (warp_serve_any(enters ? chunk : -1, W, 0, tc, wanchor, n_chunks, r, t_min, t_max)) {
-    blocked = true;
-  }
 }
 
 }  // namespace wide_bvh

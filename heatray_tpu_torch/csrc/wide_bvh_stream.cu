@@ -13,7 +13,7 @@
 // wide_bvh_walk.cuh, which K1/K2 run too): the warp takes the offered (ray,
 // leaf) pairs one by one and tests each with the leaf's triangles spread
 // over its 32 lanes (`WarpServe`: `warp_serve_closest` / `warp_serve_any`
-// of wide_bvh_common.cuh; K5b visits leaves with the same service).
+// of wide_bvh_common.cuh).
 //
 // The leaf rows are read from device memory: the whole `w` of a
 // 300k-triangle scene (about 21 MB) stays in the 50 MB L2.

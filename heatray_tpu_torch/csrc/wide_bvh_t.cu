@@ -15,27 +15,28 @@
 // and a ray whose own widened slab misses the leaf (or one of its blocks of
 // 32) costs that leaf nothing.
 //
-// K5a, K4a and K4b: the walk per ray of K1 (wide_bvh_walk.cuh,
-// `closest_walk` / `any_walk`: each thread walks its own ray with its own
-// stack of 64, near to far by its own direction; for closest hit its
-// pending leaves are re-culled against its own best) with `BlockServe`, a
-// leaf of 128 (or 256, 384, ...) served block of 32 by block: before each
-// block the warp takes the ballot of the offering lanes whose ray enters
-// that block's box (the tree's `blocks`, one per run of 32 slots, world
-// coordinates, widened as every box is, inverted over padding and never
-// entered) before its current best, or for any hit before its t_max while
-// it has no hit yet; it skips a block no lane enters, and serves the rest
-// with K1's 32-lane block services (`serve_cols_closest`: one triangle per
-// lane in registers, a ray at a time or ray per lane for groups above
-// kLaneRays; `serve_cols_any`, the service of K2 and K7b).  A shadow ray's
-// leaves come in the walk's own order with no re-cull (its far end does
-// not move), and a blocked ray ends its walk at its first hit.
+// All four run the walk per ray of K1 (wide_bvh_walk.cuh, `closest_walk` /
+// `any_walk`: each thread walks its own ray with its own stack of 64, near
+// to far by its own direction; for closest hit its pending leaves are
+// re-culled against its own best) with `BlockServe`, a leaf of 128 (or 256,
+// 384, ...) served block of 32 by block: before each block the warp takes
+// the ballot of the offering lanes whose ray enters that block's box (the
+// tree's `blocks`, one per run of 32 slots, world coordinates, widened as
+// every box is, inverted over padding and over emptied alpha-masked
+// triangles, and never entered) before its current best, or for any hit
+// before its t_max while it has no hit yet; it skips a block no lane
+// enters, and serves the rest with K1's 32-lane block services
+// (`serve_cols_closest`: one triangle per lane in registers, a ray at a time
+// or ray per lane for groups above kLaneRays; `serve_cols_any`, the service
+// of K2 and K7b).  A shadow ray's leaves come in the walk's own order with
+// no re-cull (its far end does not move), and a blocked ray ends its walk at
+// its first hit.
 //
-// K4a and K5a run the same loop and service over different trees.  That is
-// right on this card: the reference's split between the `"wide"` and the
-// `"stream"` backends (leaves of 32 against 128, the 250k-triangle switch)
-// is a budget of the TPU's vector memory, not a limit of the H100, and K1
-// and K3 already share `closest_walk`.
+// K5a and K4a run the same loop and service over different trees, and so do
+// K5b and K4b.  That is right on this card: the reference's split between
+// the `"wide"` and the `"stream"` backends (leaves of 32 against 128, the
+// 250k-triangle switch) is a budget of the TPU's vector memory, not a limit
+// of the H100, and K1 and K3 already share `closest_walk`.
 //
 // What K4 replaced, and why: the block walk of the TPU's streaming kernels
 // (wide_bvh_block.cuh, which the P3 and P2 probes still run): one block of
@@ -51,17 +52,13 @@
 // the same tree; the block boxes alone cut K5a 2.7x against the same walk
 // without them on the Cornell box's leaf-128 tree.
 //
-// K5b: the group that walks the tree together is one warp of 32 rays (the
-// TPU walks a 512-ray tile).  A warp needs no block barrier: the live mask is
-// a `__reduce_or_sync` of the lanes' slab tests, the node order comes from
-// the warp's summed direction, and the warp's stack lives in shared memory.
-// A child is visited if any ray of the warp enters it; leaves near to far
-// along the node's sort axis by that summed direction, internal children
-// pushed far to near.  Each leaf is tested one ray at a time across the
-// warp's lanes (wide_bvh_common.cuh, `warp_visit_any`), read straight from
-// device memory (Cornell's leaf-128 `w`, about 400 KB, lives in the 50 MB
-// L2).  A blocked ray enters no box and tests nothing more, and the warp
-// leaves once all its rays are blocked.
+// What K5b replaced: the same group walk at a warp's width (the TPU walks a
+// 512-ray tile), its stack in shared memory, the node order from the warp's
+// summed direction, a child visited if any of its 32 rays entered it, and
+// every live leaf tested whole, one ray at a time across the lanes, on every
+// unblocked ray of the warp that entered its box.  It took 0.7591 ms on the
+// Cornell box's 1080p first-bounce shadow lanes (PERF.md section 6), three
+// times K2 over leaves of 32 on the same rays.
 //
 // Numerics: the pair test is K1's (`tri_t`, exact f32, IEEE divide, built
 // with --fmad=false); the reference's `_recip_fast` is TPU rounding.  Ties
@@ -83,42 +80,9 @@ namespace {
 
 using namespace wide_bvh;
 
-constexpr int kWideThreads = 128;  // 4 independent warps per block
-constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kWideStack = 64;     // K1's depth
-
-// Bit a of the result: the warp travels predominantly +axis a (low child
-// near).  The same on every lane (xor-butterfly sums).
-__device__ __forceinline__ unsigned warp_signs(const Ray& r, bool valid) {
-  const float sx = warp_sum(valid ? r.dx : 0.0f);
-  const float sy = warp_sum(valid ? r.dy : 0.0f);
-  const float sz = warp_sum(valid ? r.dz : 0.0f);
-  return (sx >= 0.0f ? 1u : 0u) | (sy >= 0.0f ? 2u : 0u) | (sz >= 0.0f ? 4u : 0u);
-}
-
-// Pushes the live internal children far to near on the warp's stack (lane 0
-// writes, every lane keeps the same `sp`) and pops the next node; -1 ends
-// the walk.
-__device__ __forceinline__ int warp_push_pop(int* stack, int& sp, const int* __restrict__ codes,
-                                             unsigned live, bool low_first) {
-  for (int k = 0; k < kArity; ++k) {
-    const int c = low_first ? kArity - 1 - k : k;
-    const int code = codes[c];
-    if (((live >> c) & 1u) && code >= 0) {
-      if ((threadIdx.x & 31) == 0) stack[sp] = code;
-      ++sp;
-    }
-  }
-  __syncwarp();
-  const int node = sp > 0 ? stack[--sp] : -1;
-  __syncwarp();  // every lane has read the top before it is written again
-  return node;
-}
-
-// K5a's and K4's register cap: K1's (at most 64 registers a thread, 8
+// K5's and K4's register cap: K1's (at most 64 registers a thread, 8
 // blocks of 128 per SM).
 constexpr int kMinBlocks = 8;
-static_assert(kStackDepth == kWideStack, "K5a and K5b share one stack-depth entry");
 
 __global__ void __launch_bounds__(kWalkThreads, kMinBlocks) closest_wide_t_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -132,50 +96,17 @@ __global__ void __launch_bounds__(kWalkThreads, kMinBlocks) closest_wide_t_kerne
                            n_chunks, tc, t_min, widen, t_out, slot_out, blocks, widen);
 }
 
-__global__ void __launch_bounds__(kWideThreads) any_wide_t_kernel(
+__global__ void __launch_bounds__(kWalkThreads, kMinBlocks) any_wide_t_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_max, int n_rays,
+    const float* __restrict__ t_max, int n_rays, const float* __restrict__ blocks,
     const float* __restrict__ wbox, const int* __restrict__ wchild,
     const int* __restrict__ waxis, const float* __restrict__ w,
     const float* __restrict__ wanchor, int n_chunks, int tc, float t_min,
     Widen widen, unsigned char* __restrict__ blocked_out) {
-  __shared__ int stacks[kWideWarps][kWideStack];
-  const int i = blockIdx.x * kWideThreads + threadIdx.x;
-  const bool valid = i < n_rays;
-  if (!__any_sync(kFullMask, valid)) return;
-  int* stack = stacks[threadIdx.x >> 5];
-  Ray r = {};
-  float t_hi = 0.0f;
-  if (valid) {
-    r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    t_hi = t_max[i];
-  }
-  const unsigned signs = warp_signs(r, valid);
-  const int chunk_floats = 12 * tc;
-
-  bool blocked = false;
-  int sp = 0;
-  for (int node = 0; node >= 0;) {
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const bool active = valid && !blocked;  // a blocked ray enters no box
-    const unsigned mine = active ? live_children(boxes, codes, r, t_min, t_hi, widen) : 0u;
-    const unsigned live = __reduce_or_sync(kFullMask, mine);
-    const bool low_first = (signs >> waxis[node]) & 1u;
-    for (int k = 0; k < kArity; ++k) {
-      const int c = low_first ? k : kArity - 1 - k;
-      const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      const int chunk = -2 - code;
-      warp_visit_any(boxes + 8 * c, w + (size_t)chunk * chunk_floats, tc, chunk, wanchor,
-                     n_chunks, r, valid && !blocked, t_min, t_hi, widen, blocked);
-    }
-    node = warp_push_pop(stack, sp, codes, live, low_first);
-    if (!__any_sync(kFullMask, valid && !blocked)) break;  // every ray is blocked
-  }
-  if (valid) blocked_out[i] = blocked ? 1 : 0;
+  any_walk<BlockServe>(ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+                       n_chunks, tc, t_min, widen, blocked_out, blocks, widen);
 }
 
 __global__ void __launch_bounds__(kWalkThreads, kMinBlocks) closest_stream_t_kernel(
@@ -208,10 +139,10 @@ __global__ void __launch_bounds__(kWalkThreads, kMinBlocks) any_stream_t_kernel(
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  The leaf size must be a multiple of 32 (the wrappers ask for
-// 128); the `blocks` of K5a and K4 is (C, leaf_size / 32, 6), the boxes of
-// each leaf's runs of 32 slots.
+// 128); `blocks` is (C, leaf_size / 32, 6), the boxes of each leaf's runs
+// of 32 slots.
 
-extern "C" int wide_t_stack_depth() { return kWideStack; }
+extern "C" int wide_t_stack_depth() { return kStackDepth; }
 
 extern "C" int stream_t_stack_depth() { return kStackDepth; }
 
@@ -233,15 +164,15 @@ extern "C" int closest_wide_t(const float* ox, const float* oy, const float* oz,
 
 extern "C" int any_wide_t(const float* ox, const float* oy, const float* oz,
                           const float* dx, const float* dy, const float* dz,
-                          const float* t_max, int n_rays, const float* wbox,
-                          const int* wchild, const int* waxis, const float* w,
-                          const float* wanchor, int n_chunks, int leaf_size,
-                          float t_min, float box_pad, float far_scale,
+                          const float* t_max, int n_rays, const float* blocks,
+                          const float* wbox, const int* wchild, const int* waxis,
+                          const float* w, const float* wanchor, int n_chunks,
+                          int leaf_size, float t_min, float box_pad, float far_scale,
                           unsigned char* blocked_out, void* stream) {
   if (n_rays > 0) {
-    any_wide_t_kernel<<<(n_rays + kWideThreads - 1) / kWideThreads, kWideThreads, 0,
+    any_wide_t_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, t_max, n_rays, wbox, wchild, waxis, w, wanchor,
+        ox, oy, oz, dx, dy, dz, t_max, n_rays, blocks, wbox, wchild, waxis, w, wanchor,
         n_chunks, leaf_size, t_min, Widen{box_pad, far_scale}, blocked_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
 // One walk per ray over an arity-8 BVH, with the leaf tests served by the
 // warp: the loops of K1/K2 (wide_bvh.cu) and K3a/K3b (wide_bvh_stream.cu),
-// and K5a, K4a and K4b (wide_bvh_t.cu), which differ only in the leaf
+// and K5a/K5b and K4a/K4b (wide_bvh_t.cu), which differ only in the leaf
 // service they call (`LaneServe`, `WarpServe`, `BlockServe`) and in their
 // register cap.
 //
@@ -17,7 +17,7 @@
 //   visits at most kVisits nodes until it has one; then the warp serves the
 //   offered (ray, leaf) pairs (wide_bvh_common.cuh: `warp_serve_*`, the
 //   leaf's triangles across the lanes, one ray at a time, or `lane_serve_*`,
-//   one triangle per lane in registers, for K5a and K4 culled block by
+//   one triangle per lane in registers, for K5 and K4 culled block by
 //   block).
 //   Only the ray's own lane keeps the result, so a leaf costs only the rays
 //   that enter it, and a ray's result does not depend on which rays share
@@ -142,7 +142,7 @@ struct LaneServe {
   }
 };
 
-// K5a's and K4's: K1's service over leaves with a box per block of 32
+// K5's and K4's: K1's service over leaves with a box per block of 32
 // slots, each block served only to the offering lanes whose ray enters its
 // box before their best, or for any hit before their t_max
 // (`lane_serve_blocks_closest`, `lane_serve_blocks_any`), given the tree's

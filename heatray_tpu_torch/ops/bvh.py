@@ -5,6 +5,9 @@ pointers; leaves are fixed-size triangle chunks (``leaf_size`` slots, padded
 with -1).  ``wide_bvh.py`` collapses it into arity-8 nodes; ``pack_bvh``
 packs it as it is for the binary-BVH kernels (``traverse_pallas.py``), and
 ``traverse_closest_numpy`` walks it one ray at a time as a test oracle.
+``leaf_blocks`` gives any of these trees (and the chunk packs) the boxes of
+each leaf's runs of BLOCK slots, which the block-culled kernels cull by;
+the reference has none.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from .intersect import WoopAccel
 # Past this depth the builder forces median splits, which bounds the tree
 # depth (and the traversal stack) by MAX_SAH_DEPTH + log2(T).
 MAX_SAH_DEPTH = 48
+BLOCK = 32  # slots under one block box (K4, K5, K6a, K7): a warp's width
+_BIG_BOX = 3.0e38  # the corners of an inverted (empty) box
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +161,32 @@ def build_topology(
     )
 
 
+def slot_boxes(slot_tri: torch.Tensor, tri_min: torch.Tensor, tri_max: torch.Tensor):
+    """The triangle boxes ``tri_min``/``tri_max`` (3, T) in slot order, (3, S)
+    each, inverted on padding slots (``slot_tri`` -1)."""
+    filled = slot_tri >= 0
+    tri = slot_tri.clamp(min=0).long()
+    return (torch.where(filled, tri_min[:, tri], _BIG_BOX),
+            torch.where(filled, tri_max[:, tri], -_BIG_BOX))
+
+
+def leaf_blocks(lo: torch.Tensor, hi: torch.Tensor, leaf_size: int) -> torch.Tensor:
+    """(C, ceil(leaf_size / BLOCK), 6) AABBs [min xyz, max xyz] of each
+    leaf's runs of BLOCK slots, from the slots' boxes ``lo``/``hi`` (3,
+    C * leaf_size; inverted where a slot is empty): a run of empty slots,
+    or past the leaf's end, gets an inverted box, which no ray enters."""
+    c = lo.shape[1] // leaf_size
+    nb = -(-leaf_size // BLOCK)
+
+    def runs(x, fill, reduce):
+        x = torch.nn.functional.pad(x.reshape(3, c, leaf_size), (0, nb * BLOCK - leaf_size),
+                                    value=fill)
+        return reduce(x.reshape(3, c, nb, BLOCK), dim=3)
+
+    lo, hi = runs(lo, _BIG_BOX, torch.amin), runs(hi, -_BIG_BOX, torch.amax)
+    return torch.cat([lo, hi]).permute(1, 2, 0).contiguous()
+
+
 @dataclasses.dataclass
 class BVH:
     """The binary BVH as the traversal kernels read it.
@@ -167,6 +198,11 @@ class BVH:
     anchor; padding slots all zero, so never hit); ``slot_tri`` (C * Tc,)
     i32 maps slots to triangle ids (-1 padding).  ``max_stack`` is the
     deepest stack a near-first walk can need: the tree's depth.
+    ``blocks`` (C, ceil(Tc / BLOCK), 6) f32: the world-space AABBs of each
+    leaf's runs of BLOCK slots (``leaf_blocks``), which K6a culls by (it
+    raises on a tree without them); ``wanchor`` (3, C) f32 zeros: the leaf
+    anchors of K6a's leaf service, which re-centres each ray on its leaf's
+    anchor (the rows are raw, so the anchor is 0 and t that of the raw rows).
     """
 
     nbox: torch.Tensor
@@ -176,6 +212,8 @@ class BVH:
     leaf_size: int
     num_triangles: int
     max_stack: int
+    blocks: torch.Tensor | None
+    wanchor: torch.Tensor
 
     @property
     def num_nodes(self) -> int:
@@ -207,7 +245,8 @@ def tree_depth(topo: BVHTopology) -> int:
 
 def pack_bvh(accel: WoopAccel, topo: BVHTopology) -> BVH:
     """Gather the accel's Woop rows into the topology's chunk slots, on the
-    host, and place the result on ``accel``'s device."""
+    host, and place the result on ``accel``'s device, with the block boxes
+    of the accel's triangle boxes (emptied ones, +-3e38, count as padding)."""
     tc, c = topo.leaf_size, topo.num_chunks
     valid = (topo.slot_tri >= 0).astype(np.float32)
     safe = np.maximum(topo.slot_tri, 0)
@@ -216,14 +255,17 @@ def pack_bvh(accel: WoopAccel, topo: BVHTopology) -> BVH:
     w = w.reshape(c, 3, 4, tc).transpose(0, 2, 1, 3).reshape(c, 4, 3 * tc)
     meta = np.stack([topo.leaf_chunk, topo.skip], axis=1).reshape(-1)
     dev = accel.w.device
+    slot_tri = torch.from_numpy(topo.slot_tri).to(dev)
     return BVH(
         nbox=torch.from_numpy(topo.nbox.reshape(-1).copy()).to(dev),
         meta=torch.from_numpy(meta.astype(np.int32)).to(dev),
         w=torch.from_numpy(np.ascontiguousarray(w)).to(dev),
-        slot_tri=torch.from_numpy(topo.slot_tri).to(dev),
+        slot_tri=slot_tri,
         leaf_size=tc,
         num_triangles=accel.num_triangles,
         max_stack=tree_depth(topo),
+        blocks=leaf_blocks(*slot_boxes(slot_tri, accel.tri_min, accel.tri_max), tc),
+        wanchor=torch.zeros((3, c), dtype=torch.float32, device=dev),
     )
 
 

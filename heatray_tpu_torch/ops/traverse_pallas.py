@@ -10,6 +10,8 @@ maps it through ``slot_tri``, so the ids index a triangle-ordered table.
 On a CUDA tensor a wrapper launches its kernel (built at first use) and
 counts the launch in its ``launches`` attribute; on a CPU tensor it runs the
 plain PyTorch version, a brute force over the tree's leaf rows with no walk.
+The closest-hit kernel culls by the tree's block boxes (``BVH.blocks``) and
+raises on a tree without them; the occlusion kernel takes none.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from ..vec import Vec3
 from . import cuda_build
-from .bvh import BVH
+from .bvh import BLOCK, BVH
 from .intersect import any_rows, chunk_rows, closest_rows
 from .wide_bvh import launch_any, launch_closest, on_cpu
 
@@ -50,6 +52,8 @@ def any_bvh_plain(bvh: BVH, origins: Vec3, directions: Vec3, t_min=1e-4, t_max=3
 
 _P = ctypes.c_void_p
 _TREE = [_P, _P, _P, ctypes.c_int]  # nbox, meta, w, leaf size
+# K6a's: blocks, nbox, meta, w, wanchor, chunks, leaf size.
+_BLOCK_TREE = [_P] * 5 + [ctypes.c_int] * 2
 _TAIL = [ctypes.c_float] * 3
 
 
@@ -58,7 +62,7 @@ def _kernels() -> ctypes.CDLL:
     lib = cuda_build.load("bvh2")
     lib.bvh2_stack_depth.argtypes = []
     lib.bvh2_stack_depth.restype = ctypes.c_int
-    lib.closest_bvh.argtypes = [_P] * 6 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P, _P]
+    lib.closest_bvh.argtypes = [_P] * 6 + [ctypes.c_int] + _BLOCK_TREE + _TAIL + [_P, _P, _P]
     lib.any_bvh.argtypes = [_P] * 7 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P]
     lib.closest_bvh.restype = lib.any_bvh.restype = ctypes.c_int
     return lib
@@ -75,16 +79,38 @@ def _tree_args(bvh: BVH, lib) -> list:
     return [bvh.nbox.data_ptr(), bvh.meta.data_ptr(), bvh.w.data_ptr(), bvh.leaf_size]
 
 
+def _block_tree_args(bvh: BVH, lib) -> list:
+    """K6a's arguments: the tree's block boxes, which it must carry, and
+    ``_tree_args`` with the zero anchors and the chunk count."""
+    nbox, meta, w, leaf_size = _tree_args(bvh, lib)
+    blocks, anchor = bvh.blocks, bvh.wanchor
+    if blocks is None:
+        raise ValueError("the kernel culls by the leaves' block boxes: the tree has no "
+                         "BVH.blocks")
+    c = bvh.num_chunks
+    for name, a, shape in (("blocks", blocks, (c, -(-leaf_size // BLOCK), 6)),
+                           ("wanchor", anchor, (3, c))):
+        if (a.dtype != torch.float32 or not a.is_contiguous() or a.shape != shape
+                or a.device != bvh.w.device):
+            raise ValueError(f"BVH.{name} must be a contiguous float32 {shape} tensor on the "
+                             "tree's device")
+    return [blocks.data_ptr(), nbox, meta, w, anchor.data_ptr(), c, leaf_size]
+
+
 def intersect_closest_bvh(bvh: BVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
     """Closest hit of each ray (Vec3 of (R,)): ``(t, triangle id, hit)``,
     ``(MISS_T, -1)`` on a miss.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``closest_bvh_kernel`` on the tree's device and its current stream."""
+    ``closest_bvh_kernel`` on the tree's device and its current stream: a
+    walk per ray, each leaf it reaches served by the warp block of 32 by
+    block, each block only to the rays that enter its box (``BVH.blocks``:
+    a tree without them raises) before their best, one triangle per lane."""
     if on_cpu(bvh):
         return closest_bvh_plain(bvh, origins, directions, t_min)
     lib = _kernels()
-    out = launch_closest(lib.closest_bvh, _tree_args(bvh, lib), bvh, origins, directions, t_min)
+    out = launch_closest(lib.closest_bvh, _block_tree_args(bvh, lib), bvh, origins, directions,
+                         t_min)
     if origins.x.numel():
         intersect_closest_bvh.launches += 1
     return _to_triangles(bvh, *out)

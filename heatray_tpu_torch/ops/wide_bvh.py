@@ -30,7 +30,7 @@ import torch
 
 from ..vec import Vec3
 from . import cuda_build
-from .bvh import BVHTopology, build_topology
+from .bvh import BLOCK, BVHTopology, build_topology, leaf_blocks, slot_boxes
 from .intersect import BARY_EPS, MISS_T, WoopAccel, any_rows, chunk_rows, closest_rows
 
 ARITY = 8
@@ -49,8 +49,6 @@ FAR_SCALE = 1.0 + 2.0**-20
 # triangles.
 LEAF_MATHS = ("mxu", "vpu")
 VPU_LEAF_ALIGN = 128
-BLOCK = 32  # slots under one block box (K5a, K4, K7): a warp's width
-_BIG_BOX = 3.0e38  # the corners of an inverted (empty) box
 
 
 @dataclasses.dataclass
@@ -67,7 +65,7 @@ class WideBVH:
     maps slots to triangle ids (-1 padding).  ``max_stack`` is the deepest
     traversal stack the tree can need (every child of every node live).
     ``blocks`` (C, ceil(Tc / BLOCK), 6) f32: the world-space AABBs of each
-    leaf's runs of BLOCK slots (``leaf_blocks``), which K5a and K4 cull by;
+    leaf's runs of BLOCK slots (``leaf_blocks``), which K5 and K4 cull by;
     the reference has none.
     """
 
@@ -178,32 +176,6 @@ def max_stack_depth(wchild: np.ndarray) -> int:
         deepest = max(deepest, peak)
         work.extend((int(k), peak - 1) for k in kids)
     return deepest
-
-
-def slot_boxes(slot_tri: torch.Tensor, tri_min: torch.Tensor, tri_max: torch.Tensor):
-    """The triangle boxes ``tri_min``/``tri_max`` (3, T) in slot order, (3, S)
-    each, inverted on padding slots (``slot_tri`` -1)."""
-    filled = slot_tri >= 0
-    tri = slot_tri.clamp(min=0).long()
-    return (torch.where(filled, tri_min[:, tri], _BIG_BOX),
-            torch.where(filled, tri_max[:, tri], -_BIG_BOX))
-
-
-def leaf_blocks(lo: torch.Tensor, hi: torch.Tensor, leaf_size: int) -> torch.Tensor:
-    """(C, ceil(leaf_size / BLOCK), 6) AABBs [min xyz, max xyz] of each
-    leaf's runs of BLOCK slots, from the slots' boxes ``lo``/``hi`` (3,
-    C * leaf_size; inverted where a slot is empty): a run of empty slots,
-    or past the leaf's end, gets an inverted box, which no ray enters."""
-    c = lo.shape[1] // leaf_size
-    nb = -(-leaf_size // BLOCK)
-
-    def runs(x, fill, reduce):
-        x = torch.nn.functional.pad(x.reshape(3, c, leaf_size), (0, nb * BLOCK - leaf_size),
-                                    value=fill)
-        return reduce(x.reshape(3, c, nb, BLOCK), dim=3)
-
-    lo, hi = runs(lo, _BIG_BOX, torch.amin), runs(hi, -_BIG_BOX, torch.amax)
-    return torch.cat([lo, hi]).permute(1, 2, 0).contiguous()
 
 
 def build_wide_bvh(
@@ -324,7 +296,7 @@ _ANY_ARGS = (
     [_P] * 7 + [ctypes.c_int] + [_P] * 5
     + [ctypes.c_int, ctypes.c_int] + [ctypes.c_float] * 3 + [_P, _P]
 )
-# K5a's and K4's: the tree's block boxes after the ray count.
+# K5's and K4's: the tree's block boxes after the ray count.
 _CLOSEST_BLOCK_ARGS = _CLOSEST_ARGS[:7] + [_P] + _CLOSEST_ARGS[7:]
 _ANY_BLOCK_ARGS = _ANY_ARGS[:8] + [_P] + _ANY_ARGS[8:]
 # Shared memory a block of the block-walk probe (P3) may take for its 8
@@ -363,7 +335,8 @@ def _t_kernels() -> ctypes.CDLL:
                 (("closest_wide_t", "any_wide_t"), ("closest_stream_t", "any_stream_t")))
     for fn in (lib.closest_wide_t, lib.closest_stream_t):
         fn.argtypes = _CLOSEST_BLOCK_ARGS
-    lib.any_stream_t.argtypes = _ANY_BLOCK_ARGS
+    for fn in (lib.any_wide_t, lib.any_stream_t):
+        fn.argtypes = _ANY_BLOCK_ARGS
     return lib
 
 
@@ -402,7 +375,7 @@ def _tree_args(bvh: WideBVH, depth: int) -> list:
 
 
 def _block_tree_args(bvh: WideBVH, depth: int) -> list:
-    """``_tree_args`` after the tree's block boxes (K5a, K4), which it must
+    """``_tree_args`` after the tree's block boxes (K5, K4), which it must
     carry."""
     tree = _tree_args(bvh, depth)
     blocks = bvh.blocks
@@ -601,12 +574,17 @@ def intersect_any_vpu(
     bvh: WideBVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4, t_max=3.0e37
 ):
     """Occlusion with the transposed leaf math, the contract of
-    ``intersect_any_wide``; CUDA tensors launch ``any_wide_t_kernel``."""
+    ``intersect_any_wide``; CUDA tensors launch ``any_wide_t_kernel``
+    (``csrc/wide_bvh_t.cu``), the kernel of ``intersect_any_stream_vpu``
+    over Route A's tree: a walk per ray, each leaf it reaches served block
+    of 32 by block, each block only to the unblocked rays that enter its box
+    (``WideBVH.blocks``: a tree without them raises) before their
+    ``t_max``, a blocked ray's walk ended."""
     _check_t_leaf(bvh)
     if on_cpu(bvh):
         return any_wide_plain(bvh, origins, directions, t_min, t_max)
     lib = _t_kernels()
-    out = launch_any(lib.any_wide_t, _tree_args(bvh, lib.wide_t_stack_depth()),
+    out = launch_any(lib.any_wide_t, _block_tree_args(bvh, lib.wide_t_stack_depth()),
                      bvh, origins, directions, t_min, t_max)
     if origins.x.numel():
         intersect_any_vpu.launches += 1

@@ -80,9 +80,10 @@ def seed_chunk(scene, accel, k: int = SEED_K):
 
 
 def group_signs(directions: Vec3) -> list:
-    """Per axis, does a group of rays travel predominantly +axis?  The
-    kernels' own sums (``block_signs``, ``warp_signs``): a butterfly sum
-    within each warp of 32, then the warps' sums in order, in float32."""
+    """Per axis, does a group of rays travel predominantly +axis?  The block
+    walk's own sum (``block_signs``, ``csrc/wide_bvh_block.cuh``): a
+    butterfly sum within each warp of 32, then the warps' sums in order, in
+    float32."""
     out = []
     for c in (directions.x, directions.y, directions.z):
         n = c.shape[0]
@@ -109,15 +110,15 @@ def _t_in_range(org: Vec3, d: Vec3, rows, anchor, t_min, t_max):
 
 def group_walk(bvh, org: Vec3, d: Vec3, group: int, t_max=None, t_min: float = 1e-4,
                every_ray: bool = False, seed=None):
-    """Plain-torch emulation of the group walks of K5b and P3.  Per group
-    of ``group`` rays (a warp for K5b, a block of 256 for P3): one shared
-    stack; a child is visited if any ray of the group enters
-    its widened box before that ray's far end (its best t, or its t_max
+    """Plain-torch emulation of the group walks of the TPU's kernels and P3.
+    Per group of ``group`` rays (a warp of 32, or P3's block of 256): one
+    shared stack; a child is visited if any ray of the group enters its
+    widened box before that ray's far end (its best t, or its t_max
     until it is blocked) as it stood at node entry; leaves near to far by
     the group's summed direction along the node's axis (``group_signs``),
     internal children pushed far to near.  At each visited leaf, every ray
     of the group is tested (``every_ray``: P3) or only the rays whose own
-    slab still enters it against their best t by then (K5b); ties in
+    slab still enters it against their best t by then; ties in
     t go to the lowest slot.  ``seed`` (a chunk (4, 3k) and its anchor
     (3,)) is tested by every ray before the walk (closest hit only; a ray's
     slot then stays -1 where the seed gave its t).

@@ -1,43 +1,47 @@
 #!/usr/bin/env python3
-"""K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a and K4a/K4b
-(``csrc/wide_bvh_t.cu``) and K7a/K7b (``csrc/chunks.cu``) beside variants
-of their design, on the 1080p launches of the Cornell box (K1, K5, K7) and
-of ``high_poly`` (K4) on an NVIDIA card.
+"""K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a/K5b and K4a/K4b
+(``csrc/wide_bvh_t.cu``), K6a (``csrc/bvh2.cu``) and K7a/K7b
+(``csrc/chunks.cu``) beside variants of their design, on the 1080p launches
+of the Cornell box (K1, K5, K6, K7) and of ``high_poly`` (K4) on an NVIDIA
+card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k4,k5,k7] [--parent DIR]
+    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7] [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
-of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a) or
-``CHUNK_VARIANTS`` (K7a/K7b) applied, built with the package's nvcc flags
-into ``build/wide_variants/`` (one nvcc each, all started together).
-``--parent DIR`` adds the ``wide_bvh.cu``, ``wide_bvh_t.cu`` and
-``chunks.cu`` of another tree as they stand (for example an unpacked
-parent commit), as the variant ``parent``, and compares the SASS of each
-kernel of ``wide_bvh.cu``, ``wide_bvh_stream.cu`` and ``wide_bvh_t.cu``
-(and of ``chunks.cu`` with ``k7``) with this tree's (``cuobjdump``).  The
-launches are those of a pass at depth 2, sorted and gated as on the card:
-the closest-hit kernels on the primary rays and on the sorted depth-2 head,
-the occlusion kernels on their shadow lanes; K1/K2 over the Cornell box's
-trees at leaf 32, 64 and 128, K5a over its leaf-128 tree (Route A's), K7
-over the rebuild mode's chunk packs, K4a/K4b over ``high_poly``'s leaf-128
-tree (the ``"stream"`` context's, which Route B builds alike).  It prints,
-one reading per line:
+of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a and
+K5b), ``K6_VARIANTS`` (K6a) or ``CHUNK_VARIANTS`` (K7a/K7b) applied, built
+with the package's nvcc flags into ``build/wide_variants/`` (one nvcc each,
+all started together).  ``--parent DIR`` adds the ``wide_bvh.cu``,
+``wide_bvh_t.cu``, ``bvh2.cu`` and ``chunks.cu`` of another tree as they
+stand (for example an unpacked parent commit), as the variant ``parent``,
+and compares the SASS of each kernel of ``wide_bvh.cu``,
+``wide_bvh_stream.cu``, ``wide_bvh_t.cu`` and ``bvh2.cu`` (and of
+``chunks.cu`` with ``k7``) with this tree's (``cuobjdump``).  The launches
+are those of a pass at depth 2, sorted and gated as on the card: the
+closest-hit kernels on the primary rays and on the sorted depth-2 head, the
+occlusion kernels on their shadow lanes; K1/K2 over the Cornell box's trees
+at leaf 32, 64 and 128, K5 over its leaf-128 trees (Route A's), K6a over
+its ``"bvh"`` context's binary tree (leaf 64), K7 over the rebuild mode's
+chunk packs, K4a/K4b over ``high_poly``'s leaf-128 tree (the ``"stream"``
+context's, which Route B builds alike).  It prints, one reading per line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
 - ``[build]``: each variant's registers and spill bytes per kernel;
 - ``[check]``: each variant's results against the shipped kernel's on every
   launch it runs (t, slot or id, and blocked, bit for bit); a variant of
   this tree must equal it, the parent's count of differing lanes is
-  printed; for K4, each variant against the plain version too, on
-  ``chip_smoke.N_CHECK`` seeded lanes of each launch;
+  printed; for K4, K5b and K6a, each variant against the plain version
+  too, on ``chip_smoke.N_CHECK`` seeded lanes of each launch;
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
   in order and then in reverse, min/max of the two: K1/K2 for every variant
   over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
-  trees at leaf 64 and 128 too; K5a for each of its variants; K4a and K4b
-  for each of theirs on the four launches; K7a for each of
-  ``CHUNK_VARIANTS`` and K7b for those of ``K7B_VARIANTS``;
+  trees at leaf 64 and 128 too; K5a for each of its variants, K5b for the
+  shipped kernel, ``leaves``, ``uncapped`` and the parent; K6a for each of
+  its variants on its two launches; K4a and K4b for each of theirs on the
+  four launches; K7a for each of ``CHUNK_VARIANTS`` and K7b for those of
+  ``K7B_VARIANTS``;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
   leaf service meets (one per warp, offered leaf and round; the ``count``
   variant): their number, mean rays per group, and the share of groups, and
@@ -79,6 +83,7 @@ _COMMON = "wide_bvh_common.cuh"
 _K1 = "wide_bvh.cu"
 _K3 = "wide_bvh_stream.cu"
 _K5 = "wide_bvh_t.cu"
+_K6 = "bvh2.cu"
 _K7 = "chunks.cu"
 # A ray-per-lane branch for large groups in the any-hit block service of K2
 # and K7b (`serve_cols_any`), as K1's closest-hit service has.
@@ -181,12 +186,17 @@ def _k5_serve(serve: str, kernel: str = "closest_wide_t_kernel"):
             (_K5, *_in_kernel(kernel, "t_out, slot_out, blocks, widen);", "t_out, slot_out);"))]
 
 
-# K5a: name -> (what it changes, [(file, text, replacement)]), as VARIANTS.
+# K5a and K5b: name -> (what it changes, [(file, text, replacement)]), as
+# VARIANTS; K5b runs in "shipped", "leaves", "uncapped" and the parent.
 T_VARIANTS = {
-    "shipped": ("K5a as shipped", []),
-    "leaves": ("no block boxes: K1's lane service over whole leaves of 128",
-               _k5_serve("LaneServe")),
-    "warp": ("K3's warp service over whole leaves of 128", _k5_serve("WarpServe")),
+    "shipped": ("K5a and K5b as shipped", []),
+    "leaves": ("no block boxes: K1/K2's lane service over whole leaves of 128",
+               _k5_serve("LaneServe") + [
+                   (_K5, *_in_kernel("any_wide_t_kernel", "any_walk<BlockServe>(",
+                                     "any_walk<LaneServe>(")),
+                   (_K5, *_in_kernel("any_wide_t_kernel", "blocked_out, blocks, widen);",
+                                     "blocked_out);"))]),
+    "warp": ("K5a: K3's warp service over whole leaves of 128", _k5_serve("WarpServe")),
     "uncapped": ("no register cap (__launch_bounds__ with 1 block per SM)", [
         (_K5, "constexpr int kMinBlocks = 8;", "constexpr int kMinBlocks = 1;"),
     ]),
@@ -198,11 +208,26 @@ K4_VARIANTS = {
     "shipped": ("K4a and K4b as shipped", []),
     "leaves": ("no block boxes: K1/K2's lane service over whole leaves of 128",
                _k5_serve("LaneServe", "closest_stream_t_kernel") + [
-                   (_K5, "any_walk<BlockServe>(", "any_walk<LaneServe>("),
-                   (_K5, "blocked_out, blocks, widen);", "blocked_out);")]),
+                   (_K5, *_in_kernel("any_stream_t_kernel", "any_walk<BlockServe>(",
+                                     "any_walk<LaneServe>(")),
+                   (_K5, *_in_kernel("any_stream_t_kernel", "blocked_out, blocks, widen);",
+                                     "blocked_out);"))]),
     "uncapped": ("no register cap (__launch_bounds__ with 1 block per SM)", [
         (_K5, "constexpr int kMinBlocks = 8;", "constexpr int kMinBlocks = 1;"),
     ]),
+}
+
+# K6a: name -> (what it changes, [(file, text, replacement)]), as VARIANTS.
+K6_VARIANTS = {
+    "shipped": ("K6a as shipped", []),
+    "leaves": ("no block boxes: K1's lane service over whole leaves", [
+        (_K6, "    lane_serve_blocks_closest(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, "
+              "widen, best,\n                              best_slot);",
+         "    lane_serve_closest(chunk, w, tc, wanchor, n_chunks, r, t_min, best, best_slot);"),
+    ]),
+    **{f"visits-{n}": (f"{n} node visits a round for a lane with no leaf to offer", [
+        (_K6, "constexpr int kVisits = 1;", f"constexpr int kVisits = {n};"),
+    ]) for n in (2, 4)},
 }
 
 # K7a's ray-per-lane branch reading 4 columns' rows at once (16-byte reads
@@ -397,26 +422,32 @@ def compile_lib(name: str, source: Path):
 
 def takes_blocks(source: Path, entry: str) -> bool:
     """Whether the C entry point ``entry`` of ``source`` takes block boxes
-    (a parent tree's may not: K7b's before this design, K5a's)."""
+    (a parent tree's may not: K7b's, K5's and K6a's before their block
+    boxes)."""
     m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", source.read_text())
     return m is not None and "blocks" in m.group(1)
 
 
 def library(so: Path, source: Path) -> ctypes.CDLL:
-    """A build of ``wide_bvh.cu``, ``wide_bvh_t.cu`` or ``chunks.cu`` (or a
-    variant of one), its entry points declared as the package declares
-    them, less the block boxes where ``source``'s entry takes none (K4's
-    and K5a's before their block boxes, K7b's); each entry declared gets a
-    ``blocks`` attribute that says which."""
+    """A build of ``wide_bvh.cu``, ``wide_bvh_t.cu``, ``bvh2.cu`` or
+    ``chunks.cu`` (or a variant of one), its entry points declared as the
+    package declares them, less the block boxes where ``source``'s entry
+    takes none (K4's and K5's before their block boxes, K7b's; K6a's
+    before its block boxes took no anchors either); each entry declared
+    gets a ``blocks`` attribute that says which."""
     from heatray_tpu_torch.ops import intersect_pallas as ip
+    from heatray_tpu_torch.ops import traverse_pallas as tp
     from heatray_tpu_torch.ops import wide_bvh as wb
 
     lib = ctypes.CDLL(str(so))
+    k6a = [ctypes.c_void_p] * 6 + [ctypes.c_int] + tp._BLOCK_TREE + tp._TAIL + [ctypes.c_void_p] * 3
     # entry -> (its arguments with block boxes, the index of that pointer)
     entries = {"closest_wide": (wb._CLOSEST_ARGS, None), "any_wide": (wb._ANY_ARGS, None),
                "closest_wide_t": (wb._CLOSEST_BLOCK_ARGS, 7),
+               "any_wide_t": (wb._ANY_BLOCK_ARGS, 8),
                "closest_stream_t": (wb._CLOSEST_BLOCK_ARGS, 7),
                "any_stream_t": (wb._ANY_BLOCK_ARGS, 8),
+               "closest_bvh": (k6a, 7),
                "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8)}
     for entry, (args, at) in entries.items():
         if not hasattr(lib, entry):
@@ -424,8 +455,11 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.blocks = at is not None and takes_blocks(source, entry)
         fn.argtypes = args if at is None or fn.blocks else args[:at] + args[at + 1:]
+        if entry == "closest_bvh" and not fn.blocks:  # nor the anchors and chunk count
+            fn.argtypes = args[:7] + tp._TREE + args[7 + len(tp._BLOCK_TREE):]
         fn.restype = ctypes.c_int
-    for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth", "stream_t_stack_depth"):
+    for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth", "stream_t_stack_depth",
+                  "bvh2_stack_depth"):
         if hasattr(lib, depth):
             getattr(lib, depth).restype = ctypes.c_int
     return lib
@@ -433,8 +467,8 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
 
 _KERNEL_LABELS = {"closest_wide_t": "K5a", "any_wide_t": "K5b", "closest_stream_t": "K4a",
                   "any_stream_t": "K4b", "closest_stream": "K3a", "any_stream": "K3b",
-                  "closest_wide": "K1", "any_wide": "K2", "closest_chunks": "K7a",
-                  "any_chunks": "K7b"}
+                  "closest_wide": "K1", "any_wide": "K2", "closest_bvh": "K6a",
+                  "any_bvh": "K6b", "closest_chunks": "K7a", "any_chunks": "K7b"}
 
 
 def kernel_label(name: str):
@@ -461,7 +495,8 @@ def resources(report: str) -> str:
 
 def launches(device):
     """The Cornell box's trees at each of LEAVES, the rebuild mode's chunk
-    packs (closest hit, occlusion) and its four launches."""
+    packs (closest hit, occlusion), its ``"bvh"`` context's binary tree and
+    its four launches."""
     import torch
 
     from heatray_tpu_torch import cornell_box, orbit_camera
@@ -478,6 +513,8 @@ def launches(device):
         trees[leaf] = (pack.wide, pack.wide_occl)
     chunk_pack = integrator.rebuild_pack(scene, opts)
     chunks = (chunk_pack.packed, chunk_pack.packed_occl)
+    binary = integrator.make_context(dataclasses.replace(opts, intersect_backend="bvh"), scene,
+                                     device).accel_pack.bvh
     ctx = integrator.make_context(opts, scene, device)
     pack = ctx.accel_pack
     frame = FrameGlobals.create(0, device=device)
@@ -492,8 +529,10 @@ def launches(device):
             "head": (head, None), "head shadow": (shadow2, shadow2.t_max)}
     log(f"[rays] primary {primary.org.x.numel()}, shadow {shadow.org.x.numel()}, head {n}, "
         f"head shadow {shadow2.org.x.numel()}; epsilon {opts.ray_epsilon}; "
-        f"{chunks[0].num_chunks} chunks of {chunks[0].tri_chunk}")
-    return trees, chunks, rays, opts.ray_epsilon
+        f"{chunks[0].num_chunks} chunks of {chunks[0].tri_chunk}; binary tree of "
+        f"{binary.num_nodes} nodes, {binary.num_chunks} leaves of {binary.leaf_size}, "
+        f"stack {binary.max_stack}")
+    return trees, chunks, binary, rays, opts.ray_epsilon
 
 
 def hp_launches(device):
@@ -601,38 +640,109 @@ def profile_k1(libs, trees, rays, eps) -> None:
                     f"{pairs / max(groups, 1):.3f} rays a group; " + "; ".join(shares))
 
 
-def profile_k5(libs, trees, rays, eps) -> None:
-    """K5a's variants over the Cornell box's leaf-128 tree (Route A's):
-    checked bit for bit against the shipped kernel on the primary rays and
-    the head, and timed in turns."""
+def plain_picks(rays, plain):
+    """The plain version on ``chip_smoke.N_CHECK`` seeded lanes of each
+    launch: what -> (lanes, ``plain(what, origins, directions, t_max or
+    None)``'s outputs)."""
     import torch
 
+    from chip_smoke import N_CHECK, SEED, subset
+
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    for what, (ray, t_max) in rays.items():
+        pick = torch.randperm(ray.org.x.numel(), generator=gen)[:N_CHECK].to(ray.org.x.device)
+        o, d = subset(ray.org, pick), subset(ray.direction, pick)
+        out[what] = (pick, plain(what, o, d, None if t_max is None else t_max[pick]))
+    return out
+
+
+def check_variants(label, libs, whats, run, plain=None) -> None:
+    """Each variant of ``libs`` on each launch of ``whats`` against the
+    shipped kernel (every lane, every output) and, with ``plain`` (from
+    ``plain_picks``), against the plain version on its lanes; a variant of
+    this tree must equal both, the parent's differing lanes are printed."""
+    import torch
+
+    from chip_smoke import N_CHECK
+
+    def differ(out, want, pick=None):
+        same = torch.ones_like(want[0], dtype=torch.bool)
+        for a, b in zip(out, want):
+            same &= (a if pick is None else a[pick]) == b
+        return int((~same).sum())
+
+    ref = {what: run("shipped", what) for what in whats}
+    for name in libs:
+        outs = {what: run(name, what) for what in whats}
+        off = {what: differ(outs[what], ref[what]) for what in whats}
+        off_plain = {what: differ(outs[what], plain[what][1], plain[what][0])
+                     for what in whats} if plain else {}
+        log(f"[check] {label} {name}: lanes that differ from shipped {off}"
+            + (f", from the plain version on {N_CHECK} seeded lanes of each launch {off_plain}"
+               if plain else ""))
+        if name != "parent" and (any(off.values()) or any(off_plain.values())):
+            raise AssertionError(f"{label} variant {name} differs from the shipped kernel or "
+                                 "the plain version")
+    torch.cuda.synchronize()
+
+
+def profile_k5(libs, trees, rays, eps) -> None:
+    """K5a's and K5b's variants over the Cornell box's leaf-128 trees (Route
+    A's): K5a on the primary rays and the head, K5b on their shadow lanes,
+    each checked bit for bit against the shipped kernel and K5b against the
+    plain version on N_CHECK seeded lanes of each launch, then timed in
+    turns."""
     from heatray_tpu_torch.ops import wide_bvh as wb
 
-    bvh = trees[128][0]
+    def run(name, what):
+        lib = libs[name]
+        ray, t_max = rays[what]
+        bvh = trees[128][t_max is not None]
+        fn = lib.closest_wide_t if t_max is None else lib.any_wide_t
+        depth = lib.wide_t_stack_depth()
+        tree = wb._block_tree_args(bvh, depth) if fn.blocks else wb._tree_args(bvh, depth)
+        if t_max is None:
+            return wb.launch_closest(fn, tree, bvh, ray.org, ray.direction, eps)[:2]
+        return (wb.launch_any(fn, tree, bvh, ray.org, ray.direction, eps, t_max),)
+
+    closest = ["primary", "head"]
+    check_variants("K5a", libs, closest, run)
+    k5b = [n for n in ("shipped", "leaves", "uncapped", "parent") if n in libs]
+    shadows = {what: rays[what] for what in ("shadow", "head shadow")}
+    plain = plain_picks(shadows, lambda what, o, d, t_max: (
+        wb.any_wide_plain(trees[128][1], o, d, eps, t_max),))
+    check_variants("K5b", {n: libs[n] for n in k5b}, list(shadows), run, plain)
+    for label, names, whats in (("K5a", list(libs), closest), ("K5b", k5b, list(shadows))):
+        ms = in_turns(names, whats, run)
+        for name in names:
+            log(f"[time] {label} {name}: " + ", ".join(
+                f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
+
+
+def profile_k6(libs, binary, rays, eps) -> None:
+    """K6a's variants over the Cornell box's binary tree (the ``"bvh"``
+    context's, leaf 64) on the primary rays and the head: each checked bit
+    for bit (t and slot) against the shipped kernel and against the plain
+    version on N_CHECK seeded lanes of each launch, then timed in turns."""
+    from heatray_tpu_torch.ops import intersect
+    from heatray_tpu_torch.ops import traverse_pallas as tp
+    from heatray_tpu_torch.ops import wide_bvh as wb
 
     def run(name, what):
         lib = libs[name]
         ray, _ = rays[what]
-        fn = lib.closest_wide_t
-        depth = lib.wide_t_stack_depth()
-        tree = wb._block_tree_args(bvh, depth) if fn.blocks else wb._tree_args(bvh, depth)
-        return wb.launch_closest(fn, tree, bvh, ray.org, ray.direction, eps)[:2]
+        fn = lib.closest_bvh
+        tree = tp._block_tree_args(binary, lib) if fn.blocks else tp._tree_args(binary, lib)
+        return wb.launch_closest(fn, tree, binary, ray.org, ray.direction, eps)[:2]
 
-    closest = ["primary", "head"]
-    ref = {what: run("shipped", what) for what in closest}
+    closest = {what: rays[what] for what in ("primary", "head")}
+    rows = intersect.chunk_rows(binary.w)
+    plain = plain_picks(closest, lambda what, o, d, _: intersect.closest_rows(o, d, rows, eps)[:2])
+    check_variants("K6a", libs, list(closest), run, plain)
+    ms = in_turns(list(libs), list(closest), run)
     for name in libs:
-        differ = {}
-        for what in closest:
-            (t, slot), (t_ref, slot_ref) = run(name, what), ref[what]
-            differ[what] = int(((t != t_ref) | (slot != slot_ref)).sum())
-        log(f"[check] K5a {name}: lanes whose t or slot differ from shipped: {differ}")
-        if name != "parent" and any(differ.values()):
-            raise AssertionError(f"K5a variant {name} differs from the shipped kernel")
-    torch.cuda.synchronize()
-    ms = in_turns(list(libs), closest, run)
-    for name in libs:
-        log(f"[time] K5a {name}: " + ", ".join(
+        log(f"[time] K6a {name}: " + ", ".join(
             f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
 
 
@@ -642,9 +752,6 @@ def profile_k4(libs, trees, rays, eps) -> None:
     each checked against the plain version on N_CHECK seeded lanes of each
     launch and against the shipped kernel on every lane, then timed in
     turns."""
-    import torch
-
-    from chip_smoke import N_CHECK, SEED, subset
     from heatray_tpu_torch.ops import wide_bvh as wb
 
     def run(name, what):
@@ -658,34 +765,10 @@ def profile_k4(libs, trees, rays, eps) -> None:
             return wb.launch_closest(fn, tree, bvh, ray.org, ray.direction, eps)[:2]
         return (wb.launch_any(fn, tree, bvh, ray.org, ray.direction, eps, t_max),)
 
-    gen = torch.Generator().manual_seed(SEED)
-    plain, picks = {}, {}
-    for what, (ray, t_max) in rays.items():
-        r = ray.org.x.numel()
-        pick = torch.randperm(r, generator=gen)[:N_CHECK].to(ray.org.x.device)
-        o, d = subset(ray.org, pick), subset(ray.direction, pick)
-        bvh = trees[t_max is not None]
-        plain[what] = (wb.closest_stream_plain(bvh, o, d, eps)[:2] if t_max is None else
-                       (wb.any_stream_plain(bvh, o, d, eps, t_max[pick]),))
-        picks[what] = pick
-    ref = {what: run("shipped", what) for what in rays}
-    for name in libs:
-        differ, off_plain = {}, {}
-        for what in rays:
-            out = run(name, what)
-            same = torch.ones_like(out[0], dtype=torch.bool)
-            for a, b in zip(out, ref[what]):
-                same &= a == b
-            differ[what] = int((~same).sum())
-            same = torch.ones_like(plain[what][0], dtype=torch.bool)
-            for a, b in zip(out, plain[what]):
-                same &= a[picks[what]] == b
-            off_plain[what] = int((~same).sum())
-        log(f"[check] K4 {name}: lanes that differ from shipped {differ}, from the plain version "
-            f"on {N_CHECK} seeded lanes of each launch {off_plain}")
-        if name != "parent" and (any(differ.values()) or any(off_plain.values())):
-            raise AssertionError(f"K4 variant {name} differs from the shipped kernel or plain")
-    torch.cuda.synchronize()
+    plain = plain_picks(rays, lambda what, o, d, t_max: (
+        wb.closest_stream_plain(trees[0], o, d, eps)[:2] if t_max is None else
+        (wb.any_stream_plain(trees[1], o, d, eps, t_max),)))
+    check_variants("K4", libs, list(rays), run, plain)
     ms = in_turns(list(libs), list(rays), run)
     for name in libs:
         log(f"[time] K4 {name}: " + ", ".join(
@@ -801,16 +884,17 @@ def compare_sass(pairs) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k4,k5,k7",
-                    help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 (K5a) "
-                         "and k7 (K7a/K7b), comma-separated (default: all four)")
+    ap.add_argument("--kernels", default="k1,k4,k5,k6,k7",
+                    help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 "
+                         "(K5a/K5b), k6 (K6a) and k7 (K7a/K7b), comma-separated (default: all "
+                         "five)")
     ap.add_argument("--parent", type=Path,
-                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu and chunks.cu to time "
-                         "too, and whose kernels' SASS to compare")
+                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu and chunks.cu "
+                         "to time too, and whose kernels' SASS to compare")
     args = ap.parse_args()
     families = set(args.kernels.split(","))
-    if not families or families - {"k1", "k4", "k5", "k7"}:
-        raise SystemExit(f"--kernels takes k1, k4, k5 and k7, not {args.kernels!r}")
+    if not families or families - {"k1", "k4", "k5", "k6", "k7"}:
+        raise SystemExit(f"--kernels takes k1, k4, k5, k6 and k7, not {args.kernels!r}")
 
     import torch
 
@@ -822,7 +906,7 @@ def main() -> int:
     card = card_line()
     log(card)
     tables = {"k1": (VARIANTS, _K1), "k4": (K4_VARIANTS, _K5), "k5": (T_VARIANTS, _K5),
-              "k7": (CHUNK_VARIANTS, _K7)}
+              "k6": (K6_VARIANTS, _K6), "k7": (CHUNK_VARIANTS, _K7)}
     sources = {}  # (family, name) -> source
     for family in sorted(families):
         variants, target = tables[family]
@@ -831,9 +915,10 @@ def main() -> int:
         if args.parent:
             sources[family, "parent"] = (args.parent.resolve() / "heatray_tpu_torch" / "csrc"
                                          / target)
-    # The sources whose every kernel's SASS is set beside the parent's: K1-K5
+    # The sources whose every kernel's SASS is set beside the parent's: K1-K6
     # always, K7 with its family.  A file no family builds is built alone.
-    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, **({"k7": _K7} if "k7" in families else {})}
+    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, "k6": _K6,
+                  **({"k7": _K7} if "k7" in families else {})}
     shipped_of = {}  # file -> the family whose "shipped" and "parent" build it
     for family, target in sorted(sass_files.items()) if args.parent else ():
         have = next((f for f in sorted(families) if tables[f][1] == target), None)
@@ -859,15 +944,17 @@ def main() -> int:
                       for f in shipped_of.values()])
 
     device = torch.device("cuda:0")
-    if libs["k1"] or libs["k5"] or libs["k7"]:
-        trees, chunks, rays, eps = launches(device)
+    if libs["k1"] or libs["k5"] or libs["k6"] or libs["k7"]:
+        trees, chunks, binary, rays, eps = launches(device)
         if libs["k1"]:
             profile_k1(libs["k1"], trees, rays, eps)
         if libs["k5"]:
             profile_k5(libs["k5"], trees, rays, eps)
+        if libs["k6"]:
+            profile_k6(libs["k6"], binary, rays, eps)
         if libs["k7"]:
             profile_k7(libs["k7"], chunks, rays, eps)
-        del trees, chunks, rays
+        del trees, chunks, binary, rays
     if libs["k4"]:
         hp_trees, hp_rays, eps = hp_launches(device)
         profile_k4(libs["k4"], hp_trees, hp_rays, eps)

@@ -2,12 +2,14 @@
 JAX package: the packed tree bit for bit, the plain closest/any-hit
 versions against the XLA brute force and against the TPU kernels in
 interpret mode, the numpy walk, an emulation of the kernels' widened
-per-ray walk, and renders.
+per-ray walk, the tree's block boxes and a model of K6a's block-culled
+walk over them, and renders.
 
 All inputs are made from numpy seeds and handed to both packages.  The CUDA
 kernels themselves are checked in test_torch_cuda.py.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -28,6 +30,7 @@ from heatray_tpu_torch.utils.threads import share_cores
 
 from test_bvh import make_soup
 from test_torch_chunks import assert_closest_matches, tri_t
+from test_torch_leaf_t import _cornell_occluders
 from test_torch_wide_bvh import _rays, _soup, cornell_edge_rays
 
 share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
@@ -191,6 +194,123 @@ def test_widened_walk_reaches_every_plain_hit(leaf_size):
     if leaf_size == 4:
         exact = _reached_leaves(bvh, o, d, t_far, 0.0, 1.0)
         assert int((~exact[rays, leaf]).sum()) > 1
+
+
+@pytest.mark.parametrize("tree", ["all", "occluders"])
+@pytest.mark.parametrize("leaf_size", [4, 16, 64])
+def test_block_boxes_bound_their_slots(leaf_size, tree):
+    """The Cornell box's binary tree, and its occluder tree with the metal
+    sphere alpha-masked (``include``): each leaf's block boxes
+    (``BVH.blocks``, one per run of 32 slots, the last run padded past the
+    leaf's end where the leaf size is not a multiple of 32) are the boxes of
+    the triangles in the run, a run without one (padding, past the leaf's
+    end) has an inverted box, the anchors are zero, and ``BVH.to`` carries
+    both."""
+    accel, include = _cornell_occluders()
+    include = include if tree == "occluders" else None
+    bvh = bvh_mod.build_bvh(accel, leaf_size=leaf_size, include=include).to(torch.device("cpu"))
+    nb = -(-leaf_size // bvh_mod.BLOCK)
+    assert bvh.blocks.shape == (bvh.num_chunks, nb, 6) and bvh.blocks.dtype == torch.float32
+    assert torch.equal(bvh.wanchor, torch.zeros((3, bvh.num_chunks)))
+    runs = torch.nn.functional.pad(bvh.slot_tri.view(-1, leaf_size),
+                                   (0, nb * bvh_mod.BLOCK - leaf_size), value=-1)
+    runs = runs.view(-1, bvh_mod.BLOCK)
+    filled = runs >= 0
+    if include is not None:
+        assert not bool(np.isin(runs[filled].numpy(), np.flatnonzero(~include)).any())
+    tri = runs.clamp(min=0).long()
+    inf = torch.tensor(float("inf"))
+    lo = torch.where(filled, accel.tri_min[:, tri], inf).amin(dim=2).T
+    hi = torch.where(filled, accel.tri_max[:, tri], -inf).amax(dim=2).T
+    boxes = bvh.blocks.view(-1, 6)
+    some = filled.any(dim=1)
+    assert torch.equal(boxes[some, :3], lo[some]) and torch.equal(boxes[some, 3:], hi[some])
+    assert bool((boxes[~some, :3] > boxes[~some, 3:]).all())
+    if leaf_size == 64:  # leaves of 32 or fewer triangles: their second run is padding
+        assert bool((~some).any())
+
+
+class _Kernels:
+    """The one entry of the built library that K6a's argument check reads."""
+
+    @staticmethod
+    def bvh2_stack_depth():
+        return 96
+
+
+@pytest.mark.parametrize("fault", [None, "missing", "shape", "dtype", "anchor"])
+def test_block_tree_args_check_the_block_boxes(fault):
+    """K6a's arguments (``traverse_pallas._block_tree_args``, made before
+    any launch): the tree's block boxes, its nodes and leaves, its zero
+    anchors, the chunk count and the leaf size, in the C entry's order; or
+    a ValueError for a tree without block boxes, or with block boxes or
+    anchors of the wrong shape or type."""
+    bvh = bvh_mod.build_bvh(_port_soup(300, 5), leaf_size=16)
+    if fault is None:
+        assert traverse_pallas._block_tree_args(bvh, _Kernels) == [
+            bvh.blocks.data_ptr(), bvh.nbox.data_ptr(), bvh.meta.data_ptr(), bvh.w.data_ptr(),
+            bvh.wanchor.data_ptr(), bvh.num_chunks, 16]
+        return
+    bad, match = {
+        "missing": ({"blocks": None}, "block boxes"),
+        "shape": ({"blocks": bvh.blocks[:-1].contiguous()}, "BVH.blocks"),
+        "dtype": ({"blocks": bvh.blocks.double()}, "BVH.blocks"),
+        "anchor": ({"wanchor": bvh.wanchor[:, :-1].contiguous()}, "BVH.wanchor"),
+    }[fault]
+    with pytest.raises(ValueError, match=match):
+        traverse_pallas._block_tree_args(dataclasses.replace(bvh, **bad), _Kernels)
+
+
+def _reached_blocks(bvh, o, d, t_far, t_min=1e-4):
+    """(R, C, NB): the (ray, leaf, block) triples a block-culled walk serves
+    if it culls by ``t_far``: the ray reaches the leaf (``_reached_leaves``,
+    widened) and enters the block's widened box (an inverted one never)
+    before ``t_far``; and the (R, C) leaves it reaches."""
+    leaves = _reached_leaves(bvh, o, d, t_far, wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE, t_min)
+    org = [o.x[:, None], o.y[:, None], o.z[:, None]]
+    rcp = [c[:, None] for c in wide_bvh.reciprocals(d)]
+    box = bvh.blocks.view(-1, 6)
+    enter = wide_bvh.widened_slab(box.T[:3], box.T[3:], org, rcp, t_far[:, None], t_min) & (
+        box[:, 0] <= box[:, 3])
+    return leaves[:, :, None] & enter.view(-1, bvh.num_chunks, bvh.blocks.shape[1]), leaves
+
+
+@pytest.mark.parametrize("leaf_size", [16, 64])
+def test_block_culled_binary_walk_reaches_every_plain_hit(leaf_size):
+    """A model of K6a: a ray is served a block of 32 slots if it reaches
+    the block's leaf (every node box on the way, widened, before its
+    running best) and enters the block's box before its best.  Its best
+    never falls below the plain hit's t, so a model that culls by that t
+    itself offers each ray fewer blocks than K6a can, and must still give
+    the plain version's t and slot bit for bit, ties to the lowest slot
+    included, on rays aimed just past the Cornell box's triangle edges; and
+    at leaf 64 the block boxes cull blocks of reached leaves."""
+    _, o, d = cornell_edge_rays(2047, leaf_size=32)
+    scene = cornell_box(light="both", with_spheres=True)
+    accel = intersect.build_woop(scene.geometry.positions, scene.geometry.indices)
+    bvh = bvh_mod.build_bvh(accel, leaf_size=leaf_size)
+    rows = intersect.chunk_rows(bvh.w)
+    t_p, slot_p, hit_p = intersect.closest_rows(o, d, rows, 1e-4)
+    assert bool(hit_p[-1]) and int(hit_p.sum()) > 1900
+    served, leaves = _reached_blocks(bvh, o, d, t_p)
+    best = torch.full_like(t_p, intersect.MISS_T)
+    slot = torch.full_like(slot_p, -1)
+    for c in range(bvh.num_chunks):
+        for b in range(served.shape[2]):
+            e = served[:, c, b].nonzero()[:, 0]
+            lo = c * leaf_size + b * bvh_mod.BLOCK
+            cols = slice(lo, min(lo + bvh_mod.BLOCK, (c + 1) * leaf_size))
+            t = intersect.pair_t(o.map(lambda x: x[e]), d.map(lambda x: x[e]), rows[:, cols],
+                                 1e-4, intersect.MISS_T)
+            cand, arg = torch.min(t, dim=1)
+            cand_slot = (arg + lo).int()
+            better = (cand < best[e]) | ((cand == best[e]) & (cand < intersect.MISS_T)
+                                         & (cand_slot < slot[e]))
+            best[e] = torch.where(better, cand, best[e])
+            slot[e] = torch.where(better, cand_slot, slot[e])
+    assert torch.equal(best, t_p) and torch.equal(slot, slot_p)
+    whole = served.shape[2] * int(leaves.sum())
+    assert 0 < int(served.sum()) < whole if leaf_size == 64 else int(served.sum()) == whole
 
 
 def _camera():

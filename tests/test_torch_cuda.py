@@ -154,14 +154,15 @@ def _walk_queries(route):
 
 @pytest.mark.parametrize("route, leaf_size",
                          [("stream", 128), ("wide", 32), ("wide", 64), ("vpu", 128),
-                          ("chunks", 64)])
+                          ("chunks", 64), ("bvh2", 64)])
 def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device, route,
                                                                      leaf_size):
     """300 copies of one triangle, away from a random soup, fill several
-    leaves (of 128 for K3a and K5a, of 32 and 64 for K1: at 64 the ties also
-    span two blocks of columns, and for K5a two block boxes of one leaf), so
-    a ray through it ties in t on every copy; the kernel must keep the
-    lowest slot of all, as the plain version does.  K7a (``"chunks"``,
+    leaves (of 128 for K3a and K5a, of 32 and 64 for K1, of 64 for K6a
+    (``"bvh2"``): at 64 the ties also span two blocks of columns, and for
+    K5a and K6a two block boxes of one leaf), so a ray through it ties in t
+    on every copy; the kernel must keep the lowest slot of all, as the
+    plain version does (K6a: the triangle of that slot).  K7a (``"chunks"``,
     chunks of 64): the copies come first, so they
     fill five chunks, and the soup's first triangle lies beside the rays,
     nearer their origin than the copies, so the last chunk of copies is
@@ -202,23 +203,30 @@ def test_stream_kernels_break_ties_across_leaves_to_the_lowest_slot(cuda_device,
         assert bool(hit_p.all()) and bool((id_p == 0).all())
         assert torch.equal(hit_k, hit_p) and torch.equal(id_k, id_p) and torch.equal(t_k, t_p)
         return
-    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=leaf_size)
+    bvh = (build_bvh if route == "bvh2" else wide_bvh.build_wide_bvh)(accel, leaf_size=leaf_size)
     copy_slots = (bvh.slot_tri >= n_soup).nonzero()[:, 0]
     assert (copy_slots // leaf_size).unique().numel() >= 2
-    if route == "vpu":  # some leaf holds copies in two of its blocks of 32
+    if route in ("vpu", "bvh2"):  # some leaf holds copies in two of its blocks of 32
         leaf, block = copy_slots // leaf_size, copy_slots // 32
         assert any((block[leaf == c]).unique().numel() >= 2 for c in leaf.unique().tolist())
+    if route == "bvh2":
+        t_k, id_k, hit_k = traverse_pallas.intersect_closest_bvh(bvh, o, d)
+        t_p, id_p, hit_p = traverse_pallas.closest_bvh_plain(bvh, o, d)
+        assert bool(hit_p.all()) and bool((id_p == bvh.slot_tri[copy_slots.min()]).all())
+        assert torch.equal(hit_k, hit_p) and torch.equal(id_k, id_p) and torch.equal(t_k, t_p)
+        return
     t_k, slot_k, hit_k = _walk_queries(route)[0](bvh, o, d)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p.all()) and bool((slot_p == copy_slots.min()).all())
     assert torch.equal(hit_k, hit_p) and torch.equal(slot_k, slot_p) and torch.equal(t_k, t_p)
 
 
-@pytest.mark.parametrize("route, leaf_size", [("stream", 128), ("wide", 32), ("wide", 64)])
+@pytest.mark.parametrize("route, leaf_size",
+                         [("stream", 128), ("wide", 32), ("wide", 64), ("vpu", 128)])
 def test_stream_occlusion_ends_before_every_hit(cuda_device, route, leaf_size):
-    """K3b (leaf 128) and K2 (leaf 32 and 64) with each ray's t_max short of its
-    closest hit: nothing is blocked, although every leaf the ray enters is
-    tested."""
+    """K3b (leaf 128), K2 (leaf 32 and 64) and K5b (leaf 128) with each
+    ray's t_max short of its closest hit: nothing is blocked, although every
+    leaf (or block) the ray enters is tested."""
     bvh = wide_bvh.build_wide_bvh(_soup(50_000, 11, cuda_device), leaf_size=leaf_size)
     o, d = _rays(8191, 7, cuda_device)
     t_hit, _, hit = wide_bvh.closest_wide_plain(bvh, o, d)
@@ -292,21 +300,23 @@ def _masked_occluder_trees(accel, seed):
     return trees
 
 
-# "stream-256": K4 at leaf 256 (8 block boxes a leaf); "stream-occluders":
-# K4b over occluder trees with alpha-masked triangles.
-@pytest.mark.parametrize("route", ["wide", "stream", "stream-256", "stream-occluders"])
+# "stream-256": K4 at leaf 256 (8 block boxes a leaf); "-occluders": K5b
+# (Route A's) or K4b over occluder trees with alpha-masked triangles.
+@pytest.mark.parametrize("route", ["wide", "stream", "stream-256", "wide-occluders",
+                                   "stream-occluders"])
 @pytest.mark.parametrize("n_rays", [8191, 0])
 def test_transposed_kernels_match_plain(cuda_device, route, n_rays):
     """K5a/K5b and K4a/K4b on a 50k-triangle soup at leaf 128 (K4 at 256
     too): a ray count that leaves the last warp and block part-empty, and no
     rays at all.  Ties go to the lowest slot across blocks and leaves too,
-    so t and slots are equal everywhere.  K4b over the soup's occluder trees
-    with alpha-masked triangles: blocked masks equal to the plain version's
-    over the same tree."""
+    so t and slots are equal everywhere.  K5b and K4b over the soup's
+    occluder trees with alpha-masked triangles (the ``include`` tree and
+    the one over ``_occluder_accel``'s emptied boxes, with inverted block
+    boxes): blocked masks equal to the plain version's over the same tree."""
     accel = _soup(50_000, 11, cuda_device)
     o, d = _rays(n_rays, 7, cuda_device)
     closest, any_ = _t_queries(route.split("-")[0])
-    if route == "stream-occluders":
+    if route.endswith("-occluders"):
         t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
         for tree in _masked_occluder_trees(accel, 2):
             launches = any_.launches
@@ -354,9 +364,9 @@ def test_transposed_kernels_find_hits_just_past_an_edge(cuda_device, route):
 @pytest.mark.parametrize("route", ["wide", "stream"])
 def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, route):
     """A leaf that is not a multiple of 128, a leaf pack that is not float32,
-    a tree deeper than the kernel's stack (64 for K5 and K4), and for the
-    kernels that cull by block boxes (K5a, K4a, K4b) a tree without them or
-    with boxes of the wrong shape, each raised before any launch."""
+    a tree deeper than the kernel's stack (64 for K5 and K4), and a tree
+    without block boxes, or with boxes of the wrong shape (all four kernels
+    cull by them), each raised before any launch."""
     accel = _soup(300, 5, cuda_device)
     bvh = wide_bvh.build_wide_bvh(accel, leaf_size=128)
     o, d = _rays(64, 3, cuda_device)
@@ -367,8 +377,8 @@ def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, ro
         any_(dataclasses.replace(bvh, w=bvh.w.double()), o, d)
     with pytest.raises(ValueError, match="stack of 65"):
         closest(dataclasses.replace(bvh, max_stack=65), o, d)
-    # K5a, K4a and K4b cull by the leaves' block boxes, and need them.
-    culled = (closest,) if route == "wide" else (closest, any_)
+    # K5a, K5b, K4a and K4b cull by the leaves' block boxes, and need them.
+    culled = (closest, any_)
     launches = [fn.launches for fn in culled]
     for fn in culled:
         with pytest.raises(ValueError, match="block boxes"):
@@ -380,23 +390,24 @@ def test_transposed_wrappers_reject_what_the_kernels_do_not_take(cuda_device, ro
 
 def _flat_queries(kind, accel):
     """(structure, closest kernel, closest plain, any kernel, any plain) of
-    the chunk kernels (K7) or the binary-BVH kernels (K6)."""
+    the chunk kernels (K7) or the binary-BVH kernels (K6; ``"bvh2-16"``:
+    leaves of 16, else 64)."""
     if kind == "chunks":
         m = intersect_pallas
         return (m.pack_for_pallas(accel, 512), m.intersect_closest_pallas, m.closest_chunks_plain,
                 m.intersect_any_pallas, m.any_chunks_plain)
     m = traverse_pallas
-    return (build_bvh(accel, leaf_size=64), m.intersect_closest_bvh, m.closest_bvh_plain,
-            m.intersect_any_bvh, m.any_bvh_plain)
+    return (build_bvh(accel, leaf_size=16 if kind == "bvh2-16" else 64), m.intersect_closest_bvh,
+            m.closest_bvh_plain, m.intersect_any_bvh, m.any_bvh_plain)
 
 
-@pytest.mark.parametrize("kind", ["chunks", "bvh2"])
+@pytest.mark.parametrize("kind", ["chunks", "bvh2", "bvh2-16"])
 @pytest.mark.parametrize("n_rays", [8191, 0])
 def test_flat_and_binary_kernels_match_plain(cuda_device, kind, n_rays):
-    """K7 and K6 on a 5,000-triangle soup: a ray count that leaves the last
-    block part-empty, and no rays at all.  K7a's t and every id equal the
-    plain version's bit for bit; K6's ids equal except where two triangles
-    tie in t."""
+    """K7 and K6 on a 5,000-triangle soup (K6 at leaf 64 and 16): a ray
+    count that leaves the last block part-empty, and no rays at all.  K7a's
+    and K6a's t and every id equal the plain version's bit for bit; K7b's
+    and K6b's masks equal."""
     accel = _soup(5000, 11, cuda_device)
     tree, closest, closest_plain, any_, any_plain = _flat_queries(kind, accel)
     o, d = _rays(n_rays, 7, cuda_device)
@@ -406,11 +417,7 @@ def test_flat_and_binary_kernels_match_plain(cuda_device, kind, n_rays):
     torch.cuda.synchronize()
     assert closest.launches == launches + (n_rays > 0)
     assert t_k.shape == id_k.shape == (n_rays,)
-    assert torch.equal(hit_k, hit_p)
-    torch.testing.assert_close(t_k, t_p, rtol=1e-5, atol=1e-5)
-    if kind == "chunks":
-        assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
-    assert n_rays == 0 or (id_k == id_p).float().mean() > 0.999
+    assert torch.equal(hit_k, hit_p) and torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
 
     t_max = torch.linspace(0.5, 12.0, n_rays, device=cuda_device)
     launches = any_.launches
@@ -540,15 +547,26 @@ def test_flat_and_binary_kernels_find_hits_just_past_an_edge(cuda_device, kind):
 
 
 def test_flat_and_binary_wrappers_raise(cuda_device):
-    """A tree deeper than K6's stack, rays that are not float32, and a
-    misaligned pack."""
+    """A tree deeper than K6's stack, rays that are not float32, a binary
+    tree without block boxes, or with block boxes or anchors of the wrong
+    shape (K6a culls by them), and a misaligned pack: each raised before
+    any launch."""
     accel = _soup(300, 5, cuda_device)
     o, d = _rays(64, 3, cuda_device)
     bvh = build_bvh(accel, leaf_size=16)
+    closest = traverse_pallas.intersect_closest_bvh
+    launches = closest.launches
     with pytest.raises(ValueError, match="stack of 97"):
-        traverse_pallas.intersect_closest_bvh(dataclasses.replace(bvh, max_stack=97), o, d)
+        closest(dataclasses.replace(bvh, max_stack=97), o, d)
     with pytest.raises(ValueError, match="float32"):
         traverse_pallas.intersect_any_bvh(bvh, o.map(lambda c: c.double()), d)
+    with pytest.raises(ValueError, match="block boxes"):
+        closest(dataclasses.replace(bvh, blocks=None), o, d)
+    with pytest.raises(ValueError, match="BVH.blocks"):
+        closest(dataclasses.replace(bvh, blocks=bvh.blocks[:-1].contiguous()), o, d)
+    with pytest.raises(ValueError, match="BVH.wanchor"):
+        closest(dataclasses.replace(bvh, wanchor=bvh.wanchor[:, :-1].contiguous()), o, d)
+    assert closest.launches == launches
     packed = intersect_pallas.pack_for_pallas(accel, 64)
     shifted = torch.empty(packed.w.numel() + 1, device=cuda_device)[1:].view(packed.w.shape)
     launches = intersect_pallas.intersect_any_pallas.launches

@@ -5,7 +5,7 @@ in interpret mode and the XLA brute force; the plain-torch emulation of the
 group walks (``probes.visit_stats.group_walk``: a group of rays descends
 together, each leaf is tested only on the rays whose own widened slab
 enters it, ties go to the lowest slot); models of the block-culled walks of
-K5a and K4 (a ray is served a block of 32 only if it enters every box above
+K5 and K4 (a ray is served a block of 32 only if it enters every box above
 it) and the block boxes of Route A's and Route B's trees;
 the two routes sorted and gated against unsorted; and ``build_accel``'s
 leaf sizes.  The routes' images against the JAX render are in
@@ -142,9 +142,9 @@ def test_any_matches_jax_kernel(soup, route, leaf_size):
 def test_group_walk_equals_plain(group):
     """Rays aimed just past the Cornell box's triangle edges (and the one
     that grazes the floor's open front edge), over its leaf-128 tree: the
-    group walk of K5b (warps of 32) and of P3's blocks of 256, with its
-    per-ray leaf skip, gives the plain version's t and slots bit for bit,
-    and its occlusion; and the skip does skip."""
+    group walk of the TPU's tiles (at a warp's 32) and of P3's blocks of
+    256, with its per-ray leaf skip, gives the plain version's t and slots
+    bit for bit, and its occlusion; and the skip does skip."""
     bvh, o, d = cornell_edge_rays(767, leaf_size=128)
     t_p, slot_p, hit_p = wide_bvh.closest_wide_plain(bvh, o, d)
     assert bool(hit_p[-1]) and int(hit_p.sum()) > 700
@@ -285,12 +285,12 @@ def test_block_culled_walk_reaches_every_plain_hit():
 @pytest.mark.parametrize("tree", ["all", "occluders"])
 @pytest.mark.parametrize("side", ["below", "above"])
 def test_block_culled_any_walk_blocks_as_plain(tree, side):
-    """A model of K4b's walk: a ray is served a block only if it enters
-    every box above it (the nodes', the leaf's, the block's) before its
-    t_max, and is blocked by a hit in (t_min, t_max) in a block it is
-    served.  On rays aimed just past the Cornell box's triangle edges, over
-    its leaf-128 tree and its occluder tree with the metal sphere
-    alpha-masked, each ray's t_max just at (``below``: that hit is out of
+    """A model of K5b's and K4b's walk (one loop): a ray is served a block
+    only if it enters every box above it (the nodes', the leaf's, the
+    block's) before its t_max, and is blocked by a hit in (t_min, t_max) in
+    a block it is served.  On rays aimed just past the Cornell box's
+    triangle edges, over its leaf-128 tree and its occluder tree with the
+    metal sphere alpha-masked (Route A's trees, which K5b walks), each ray's t_max just at (``below``: that hit is out of
     range) or one ulp above (``above``) its plain closest hit over that
     tree, the model's blocked mask equals ``any_stream_plain``'s; and the
     block boxes cull blocks of entered leaves."""
