@@ -142,7 +142,11 @@ source, started together, and then:
    config3 and config5 on the card against their goldens and the CPU's
    render (within CPU_TOL), and one fwd+bwd step over ``env.map`` and
    ``env.rotation`` on Scene A (remat on: gradients finite, the map's
-   nonzero; K1/K2 in the forward only), with its ms and peak memory;
+   nonzero; K1/K2 in the forward only), with its ms and peak memory.  K6a
+   and K6b under ``intersect_backend="bvh"`` on Scene B, against their
+   plain versions at the path's shapes (as in 5): K6b walks the occluder
+   tree built without the cut-out quad (``build_bvh(include=...)``), whose
+   block boxes bound the included triangles alone;
 21. the ingest slice, from model files to images through ``cli``:
    ``high_poly``'s 298,766 triangles written (``scene.export``) as a binary
    PLY, as an OBJ with one ``usemtl`` group per material and its MTL, and as
@@ -216,11 +220,12 @@ EXACT_T = ("closest_chunks", "closest_wide_t", "closest_stream_t", "closest_bvh"
 # that their bounds count the blocks' work (``chunk_work(blocks=True)``,
 # ``walk_work(blocks=True)``, ``bvh2_work(blocks=True)``).
 BLOCK_CULLED = ("closest_chunks", "any_chunks", "closest_wide_t", "any_wide_t",
-                "closest_stream_t", "any_stream_t", "closest_bvh")
+                "closest_stream_t", "any_stream_t", "closest_bvh", "any_bvh")
 # Of those, the ones whose entries also give the bound over whole leaves
 # (or chunks): the design without block boxes.
 WHOLE_BOUND = {"any_chunks": "chunks", "closest_wide_t": "leaves", "any_wide_t": "leaves",
-               "closest_stream_t": "leaves", "any_stream_t": "leaves", "closest_bvh": "leaves"}
+               "closest_stream_t": "leaves", "any_stream_t": "leaves", "closest_bvh": "leaves",
+               "any_bvh": "leaves"}
 SOURCES = ("wide_bvh", "wide_bvh_stream", "chunks", "bvh2", "wide_bvh_t", "probes", "variants")
 # name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
@@ -696,7 +701,7 @@ def bvh2_work(bvh, org, d, t_far, t_min=1e-4, chunk=16384, blocks=False):
     """``walk_work`` for the binary-BVH kernels: each ray tests the box of
     the root and of both children of every internal node whose widened box
     it enters before ``t_far``, and every triangle of each leaf it enters;
-    with ``blocks`` (K6a), in each such leaf every block box
+    with ``blocks`` (K6a, K6b), in each such leaf every block box
     (``BVH.blocks``), and only the triangles of the blocks it enters."""
     import torch
 
@@ -1776,6 +1781,20 @@ def phase_appearance(gen, err, card):
     log(f"[appearance] Scene B differs from A on {n_diff} pixels; B with every alpha at 1 "
         f"differs from B on {n_cut} pixels of one pass (the pass-through)")
     del solid, opaque
+
+    # K6a and K6b on Scene B under "bvh": K6b over the occluder tree built
+    # without the cut-out quad, whose block boxes bound only what it holds.
+    bvh_b_opts = dataclasses.replace(opts, intersect_backend="bvh")
+    bvh_b = integrator.make_context(bvh_b_opts, scene_b, device)
+    tree, occl = bvh_b.accel_pack.bvh, bvh_b.accel_pack.bvh_occl
+    held, kept = int((tree.slot_tri >= 0).sum()), int((occl.slot_tri >= 0).sum())
+    if occl is tree or not 0 < kept < held:
+        raise AssertionError(f"Scene B's occluder tree holds {kept} of {held} triangles")
+    check_path_rays(("closest_bvh", "any_bvh"), scene_b, camera, bvh_b, bvh_b_opts, gen,
+                    "scene_b bvh", err, exact=True)
+    log(f"[appearance] Scene B under 'bvh': K6b over the occluder tree of {kept} of {held} "
+        f"triangles ({occl.num_chunks} leaves) equals its plain version at the path's shapes")
+    del bvh_b, tree, occl
 
     # AOVs at 1080p on Scene B, one pass each.
     ctx_b = out["scene_b"][0]

@@ -21,8 +21,8 @@ import time
 
 # The ROADMAP items that port what this CLI does not have yet.
 _NOT_PORTED = {
-    "--preview": "ROADMAP Queue 1 item 7 (viewer.py)",
-    "--edit": "ROADMAP Queue 1 item 7 (interactive.py)",
+    "--preview": "ROADMAP Queue 1 item 2 (viewer.py)",
+    "--edit": "ROADMAP Queue 1 item 2 (interactive.py)",
     "benchmark": "ROADMAP Queue 1 item 1 (bench_gpu.py; the root bench.py imports JAX)",
 }
 SAMPLE_MODES = ["sobol", "halton", "hammersley", "bluenoise", "random"]

@@ -39,16 +39,22 @@
 // the service re-centres each ray on its leaf's anchor, which the tree
 // gives as zeros (x - 0.0f == x exactly, so t is that of the raw rows).
 //
-// K6b keeps the thread-serial loop: every thread tests all the triangles
-// of each leaf it enters, 12 scalar loads each, until its first hit.
+// K6b walks in the same loop with `any_walk`'s any-hit rules
+// (wide_bvh_walk.cuh): each node is slab-tested against the ray's own
+// t_max, which never shrinks, so a popped node needs no re-cull; the
+// offered leaves are served with K5b's `lane_serve_blocks_any` over the same
+// block boxes and zero anchors, each block only to the lanes whose ray
+// enters its box before its t_max and has no hit yet; and a lane whose ray
+// is blocked ends its walk.  The warp loops while some lane has a node
+// left.
 //
 // Layouts (heatray_tpu_torch/ops/bvh.py, `BVH`):
 //   nbox    (N * 6,) f32 [min xyz, max xyz] per node, preorder
 //   meta    (N * 2,) i32 per node: leaf chunk (>= 0) or -1 - split axis; skip
 //   w       (C, 4, 3 Tc) f32 leaf chunks, raw Woop rows (no anchor)
 //   blocks  (C, ceil(Tc / 32), 6) f32 the boxes of each leaf's runs of 32
-//           slots (K6a)
-//   wanchor (3, C) f32 zeros (K6a)
+//           slots
+//   wanchor (3, C) f32 zeros
 
 #include <cuda_runtime.h>
 
@@ -60,8 +66,8 @@ using namespace wide_bvh;
 
 constexpr int kStackDepth = 96;
 constexpr int kThreads = 128;
-// K6a's register cap: K1's (at most 64 registers a thread, 8 blocks of 128
-// per SM); the stack lives in local memory.
+// K6a's and K6b's register cap: K1's (at most 64 registers a thread, 8
+// blocks of 128 per SM); the stack lives in local memory.
 constexpr int kMinBlocks = 8;
 // Nodes a lane may visit in one round of its warp's loop while it has no
 // leaf to offer.
@@ -123,39 +129,47 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) closest_bvh_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) any_bvh_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) any_bvh_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_max, int n_rays, const float* __restrict__ nbox,
-    const int* __restrict__ meta, const float* __restrict__ w, int tc,
-    float t_min, Widen widen, unsigned char* __restrict__ blocked_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const float t_far = t_max[i];
+    const float* __restrict__ t_max, int n_rays, const float* __restrict__ blocks,
+    const float* __restrict__ nbox, const int* __restrict__ meta, const float* __restrict__ w,
+    const float* __restrict__ wanchor, int n_chunks, int tc, float t_min, Widen widen,
+    unsigned char* __restrict__ blocked_out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = i < n_rays;
+  if (!__any_sync(kFullMask, valid)) return;  // the whole warp is past the end
+  Ray r = {};
+  float t_hi = 0.0f;
+  if (valid) {
+    r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    t_hi = t_max[i];
+  }
 
+  bool blocked = false;
   int stack[kStackDepth];
   int sp = 0;
-  int node = 0;
-  while (node >= 0) {
-    int next = -1;
-    if (slab(nbox + 6 * node, r, t_min, t_far, widen)) {
-      next = descend(meta, node, r, stack, sp);
-      if (next < 0) {
-        const float* W = w + (size_t)meta[2 * node] * 12 * tc;
-        for (int j = 0; j < tc; ++j) {
-          if (tri_t(W, tc, j, r.ox, r.oy, r.oz, r, t_min, t_far) < kMissT) {
-            blocked_out[i] = 1;  // the first occluder ends the walk
-            return;
-          }
-        }
+  int node = valid ? 0 : -1;
+  for (;;) {
+    // This lane's next leaf that its ray enters before its t_max.
+    int chunk = -1;
+    for (int v = 0; v < kVisits && node >= 0 && chunk < 0; ++v) {
+      int next = -1;
+      if (slab(nbox + 6 * node, r, t_min, t_hi, widen)) {
+        next = descend(meta, node, r, stack, sp);
+        if (next < 0) chunk = meta[2 * node];
       }
+      if (next < 0) next = sp > 0 ? stack[--sp] : -1;
+      node = next;
     }
-    if (next < 0) next = sp > 0 ? stack[--sp] : -1;
-    node = next;
+    if (lane_serve_blocks_any(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, t_hi, widen)) {
+      blocked = true;  // the first occluder ends this ray's walk
+      node = -1;
+    }
+    if (!__any_sync(kFullMask, node >= 0)) break;
   }
-  blocked_out[i] = 0;
+  if (valid) blocked_out[i] = blocked ? 1 : 0;
 }
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -164,8 +178,8 @@ inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // Plain C entry points for ctypes.  Each launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() (0 = the launch was accepted).
-// The stack depth bounds both walks; K6a also takes the tree's block boxes
-// and its (zero) anchors.
+// The stack depth bounds both walks; both take the tree's block boxes and
+// its (zero) anchors.
 
 extern "C" int bvh2_stack_depth() { return kStackDepth; }
 
@@ -186,15 +200,15 @@ extern "C" int closest_bvh(const float* ox, const float* oy, const float* oz,
 
 extern "C" int any_bvh(const float* ox, const float* oy, const float* oz,
                        const float* dx, const float* dy, const float* dz,
-                       const float* t_max, int n_rays, const float* nbox,
-                       const int* meta, const float* w, int leaf_size,
-                       float t_min, float box_pad, float far_scale,
+                       const float* t_max, int n_rays, const float* blocks, const float* nbox,
+                       const int* meta, const float* w, const float* wanchor, int n_chunks,
+                       int leaf_size, float t_min, float box_pad, float far_scale,
                        unsigned char* blocked_out, void* stream) {
   if (n_rays > 0) {
     any_bvh_kernel<<<blocks_for(n_rays), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, t_max, n_rays, nbox, meta, w, leaf_size,
-        t_min, Widen{box_pad, far_scale}, blocked_out);
+        ox, oy, oz, dx, dy, dz, t_max, n_rays, blocks, nbox, meta, w, wanchor, n_chunks,
+        leaf_size, t_min, Widen{box_pad, far_scale}, blocked_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

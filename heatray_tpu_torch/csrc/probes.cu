@@ -11,11 +11,13 @@
 //                       walk without its leaf tests;
 //   rows_brute_kernel   tpu_kernel_probe.py `_leaves_kernel` (P1 "leaves") and
 //                       tpu_vpu_leaf.py `_mxu_kernel` (P4): closest t of every
-//                       ray over every column of every leaf chunk, one thread
-//                       per ray (the row layout).  Both TPU kernels compute
-//                       this one function (a loop over chunks of `_pair_hits`,
-//                       then a min); on this card exact float32 needs no
-//                       precision schedule, so one kernel stands for both;
+//                       ray over every column of every leaf chunk, each ray
+//                       re-centred on the chunk's anchor (the row layout: a
+//                       thread holds its rays, the columns come to it).  Both
+//                       TPU kernels compute this one function (a loop over
+//                       chunks of `_pair_hits`, then a min); on this card
+//                       exact float32 needs no precision schedule, so one
+//                       kernel stands for both;
 //   warp_brute_kernel   tpu_vpu_leaf.py `_vpu_kernel` (P4): the same closest t
 //                       in the transposed layout: a warp takes its 32 rays one
 //                       at a time, lane j tests columns j, j + 32, ... of each
@@ -59,8 +61,45 @@
 // warp reads the same Woop column in the row layout, and 32 consecutive
 // columns in the transposed one.  The node walk and visit_stats_kernel are
 // bound by the latency of their divergent or block-serial walks, far above
-// the bytes they move; empty_kernel by the launch itself.  They are probes:
-// nothing here is tuned.
+// the bytes they move; empty_kernel by the launch itself.
+//
+// rows_brute_kernel is tiled so that the float32 pipe, not the load pipe,
+// sets its pace.  A block takes `ray_tile` rays and each of its ray_tile / 4
+// threads holds kRowRays = 4 of them in registers (origin, direction, the
+// origin re-centred on the current chunk's anchor, the best t).  The
+// chunks' columns, in the flat slot order (chunk c's column j is slot
+// c Tc + j), are staged kStageCols at a time into shared memory by 4-byte
+// cp.async, double-buffered (the next tile's copy is in flight while this
+// one is tested), and transposed on the way: column k's 12 Woop values sit
+// at 16-byte-aligned [12 k, 12 k + 12) as b1, b2, s, each (x, y, z, 1).  So
+// every thread of a block reads the same column, as a broadcast, and one
+// 16-byte read of its s block serves the t of all its rays.  Each column's
+// `woop_t` is split in two: the t of all of a thread's rays, then, behind
+// one branch, the b1 and b2 reads and the barycentrics of each ray whose t
+// lies in range (on the Cornell box about three quarters of the filled
+// columns a ray meets before its hit).  Where the thread-per-ray
+// kernel it replaces issued 12 global loads per pair (the load pipe set its
+// pace), this one issues a quarter of a shared load per pair.  A tile may
+// span chunks: each run of one chunk's columns re-centres the rays on that
+// chunk's anchor once.  The anchor is subtracted once per ray per chunk and
+// each ray's best t is its t_max, as before, which culls nothing the
+// minimum would keep; each pair's arithmetic is `woop_t`'s, and the
+// minimum does not depend on the order, so t is the thread-per-ray
+// kernel's on every ray.
+//
+// What bounds it now: instruction issue, on the float32 pipe.  With
+// --fmad=false every multiply and add is an instruction of its own: a
+// pair's t is 11, the IEEE division about 8 more (a reciprocal on the
+// special-function unit, its Newton steps and a range check, where the
+// bound counts one operation) and its range test 2; its barycentrics, where
+// t lies in range, about 30.  The bound counts operations at the card's
+// fused multiply-add rate, two a lane and cycle, which unfused code cannot
+// reach.  Four independent rays a thread keep several divisions in flight
+// and share each column's reads; a thread whose rays all miss a column's
+// range skips its barycentrics.  No tensor cores: the Woop contraction has
+// depth 4 (x, y, z, 1), below any mma or wgmma depth, and TF32 would break
+// the exact float32 contract the pair test shares with the plain version.
+// They are probes: nothing else here is tuned.
 //
 // Numerics, layouts, the slab and pair tests: wide_bvh_common.cuh.
 
@@ -248,26 +287,139 @@ __global__ void __launch_bounds__(1024) nodes_kernel(
   visits_out[i] = visits;
 }
 
-__global__ void __launch_bounds__(1024) rows_brute_kernel(
+constexpr int kRowRays = 4;       // rays a thread of rows_brute_kernel holds
+constexpr int kStageCols = 128;   // columns staged in shared memory a tile
+constexpr int kColFloats = 12;    // Woop values of one column
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Start the copy of `n` columns from slot `s0` of the flat slot order of
+// chunks `w` into `dst`, column-major (column k's value of feature row f,
+// column block g at dst[12 k + 4 g + f]), as one commit group of this
+// thread.  Consecutive threads copy consecutive slots.
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ w, int tc,
+                                           int s0, int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int c = (s0 + k) / tc;
+    const float* src = w + (size_t)c * kColFloats * tc + (s0 + k - c * tc);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        cp_async4(dst + kColFloats * k + 4 * g + f, src + f * 3 * tc + g * tc);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// `woop_t`'s t of one ray against a staged column's s block, in its order.
+__device__ __forceinline__ float plane_t(const float4& s, float ax, float ay, float az,
+                                         const Ray& r) {
+  const float pos = ax * s.x + ay * s.y + az * s.z + s.w;
+  const float pds = r.dx * s.x + r.dy * s.y + r.dz * s.z;
+  return -pos / pds;
+}
+
+// `woop_t`'s barycentric test of that t against the column's b1 and b2
+// blocks, in its order: t where the ray meets the triangle, else kMissT.
+__device__ __forceinline__ float inside_t(const float4& u, const float4& v, float t, float ax,
+                                          float ay, float az, const Ray& r) {
+  const float b1 =
+      (ax * u.x + ay * u.y + az * u.z + u.w) + t * (r.dx * u.x + r.dy * u.y + r.dz * u.z);
+  const float b2 =
+      (ax * v.x + ay * v.y + az * v.z + v.w) + t * (r.dx * v.x + r.dy * v.y + r.dz * v.z);
+  const bool inside = (b1 >= -kBaryEps) & (b2 >= -kBaryEps) & (b1 + b2 <= 1.0f + kBaryEps);
+  return inside ? t : kMissT;
+}
+
+// `ray_tile` rays a block, kRowRays a thread (ray q of thread k is the
+// block's ray q * blockDim.x + k), blockDim.x = ray_tile / kRowRays.
+__global__ void __launch_bounds__(1024 / kRowRays) rows_brute_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
     const float* __restrict__ w, const float* __restrict__ wanchor, int n_chunks,
-    int tc, float t_min, float* __restrict__ t_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  float best = kMissT;
-  for (int c = 0; c < n_chunks; ++c) {
-    const float ax = r.ox - wanchor[c];
-    const float ay = r.oy - wanchor[n_chunks + c];
-    const float az = r.oz - wanchor[2 * n_chunks + c];
-    const float* W = w + (size_t)c * 12 * tc;
-    for (int j = 0; j < tc; ++j) {
-      best = fminf(best, tri_t(W, tc, j, ax, ay, az, r, t_min, best));
+    int tc, int ray_tile, float t_min, float* __restrict__ t_out) {
+  __shared__ float4 staged[2][kStageCols * 3];
+  const int first = blockIdx.x * ray_tile + threadIdx.x;
+  Ray r[kRowRays];
+  float best[kRowRays];
+#pragma unroll
+  for (int q = 0; q < kRowRays; ++q) {
+    const int i = first + q * blockDim.x;
+    r[q] = Ray{};  // a ray past the end: direction 0, so t is never in range
+    if (i < n_rays) {
+      r[q].ox = ox[i];
+      r[q].oy = oy[i];
+      r[q].oz = oz[i];
+      r[q].dx = dx[i];
+      r[q].dy = dy[i];
+      r[q].dz = dz[i];
     }
+    best[q] = kMissT;
   }
-  t_out[i] = best;
+
+  const int slots = n_chunks * tc;
+  const int tiles = (slots + kStageCols - 1) / kStageCols;
+  stage_cols(reinterpret_cast<float*>(staged[0]), w, tc, 0, min(kStageCols, slots));
+  for (int k = 0; k < tiles; ++k) {
+    const int s0 = k * kStageCols;
+    const int n = min(kStageCols, slots - s0);
+    if (k + 1 < tiles) {  // the next tile's copy, into the other buffer
+      stage_cols(reinterpret_cast<float*>(staged[(k + 1) & 1]), w, tc, s0 + kStageCols,
+                 min(kStageCols, slots - s0 - kStageCols));
+      cp_async_wait(1);
+    } else {
+      cp_async_wait(0);
+    }
+    __syncthreads();  // tile k has arrived for every thread's share
+    const float4* cols = staged[k & 1];
+    for (int lo = 0; lo < n;) {  // one run of a chunk's columns
+      const int c = (s0 + lo) / tc;
+      const int hi = min(n, (c + 1) * tc - s0);
+      const float cx = wanchor[c], cy = wanchor[n_chunks + c], cz = wanchor[2 * n_chunks + c];
+      float ax[kRowRays], ay[kRowRays], az[kRowRays];
+#pragma unroll
+      for (int q = 0; q < kRowRays; ++q) {
+        ax[q] = r[q].ox - cx;
+        ay[q] = r[q].oy - cy;
+        az[q] = r[q].oz - cz;
+      }
+      for (int j = lo; j < hi; ++j) {
+        // `woop_t` against each ray's best, split in two: every ray's t,
+        // then the barycentrics where some ray's t lies in range.
+        const float4* col = cols + 3 * j;
+        const float4 s = col[2];
+        float t[kRowRays];
+        bool in[kRowRays];
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < kRowRays; ++q) {
+          t[q] = plane_t(s, ax[q], ay[q], az[q], r[q]);
+          in[q] = (t[q] > t_min) & (t[q] < best[q]);
+          any |= in[q];
+        }
+        if (!any) continue;
+        const float4 u = col[0], v = col[1];
+#pragma unroll
+        for (int q = 0; q < kRowRays; ++q) {
+          const float hit = inside_t(u, v, t[q], ax[q], ay[q], az[q], r[q]);
+          if (in[q]) best[q] = fminf(best[q], hit);
+        }
+      }
+      lo = hi;
+    }
+    __syncthreads();  // every thread is done with tile k before its buffer is refilled
+  }
+#pragma unroll
+  for (int q = 0; q < kRowRays; ++q) {
+    const int i = first + q * blockDim.x;
+    if (i < n_rays) t_out[i] = best[q];
+  }
 }
 
 __global__ void __launch_bounds__(1024) warp_brute_kernel(
@@ -327,7 +479,7 @@ inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; 
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  `ray_tile` is the rays of a block of the per-ray kernels (a
 // multiple of 32, at most 1024; a thread each, but four a thread in
-// empty_kernel); visit_stats_kernel's tile is 256.
+// rows_brute_kernel and empty_kernel); visit_stats_kernel's tile is 256.
 
 extern "C" int probe_block_stack_depth() { return kBlockStack; }
 extern "C" int probe_stack_depth() { return kStackDepth; }
@@ -375,9 +527,10 @@ extern "C" int probe_rows(const float* ox, const float* oy, const float* oz,
                           int leaf_size, int ray_tile, float t_min, float* t_out,
                           void* stream) {
   if (n_rays > 0) {
-    rows_brute_kernel<<<blocks_for(n_rays, ray_tile), ray_tile, 0,
+    rows_brute_kernel<<<blocks_for(n_rays, ray_tile), ray_tile / kRowRays, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, n_rays, w, wanchor, n_chunks, leaf_size, t_min, t_out);
+        ox, oy, oz, dx, dy, dz, n_rays, w, wanchor, n_chunks, leaf_size, ray_tile, t_min,
+        t_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,8 @@ maps it through ``slot_tri``, so the ids index a triangle-ordered table.
 On a CUDA tensor a wrapper launches its kernel (built at first use) and
 counts the launch in its ``launches`` attribute; on a CPU tensor it runs the
 plain PyTorch version, a brute force over the tree's leaf rows with no walk.
-The closest-hit kernel culls by the tree's block boxes (``BVH.blocks``) and
-raises on a tree without them; the occlusion kernel takes none.
+Both kernels cull by the tree's block boxes (``BVH.blocks``) and raise on a
+tree without them.
 """
 
 from __future__ import annotations
@@ -51,8 +51,7 @@ def any_bvh_plain(bvh: BVH, origins: Vec3, directions: Vec3, t_min=1e-4, t_max=3
 # --- kernel wrappers ---------------------------------------------------------
 
 _P = ctypes.c_void_p
-_TREE = [_P, _P, _P, ctypes.c_int]  # nbox, meta, w, leaf size
-# K6a's: blocks, nbox, meta, w, wanchor, chunks, leaf size.
+# blocks, nbox, meta, w, wanchor, chunks, leaf size.
 _BLOCK_TREE = [_P] * 5 + [ctypes.c_int] * 2
 _TAIL = [ctypes.c_float] * 3
 
@@ -63,12 +62,16 @@ def _kernels() -> ctypes.CDLL:
     lib.bvh2_stack_depth.argtypes = []
     lib.bvh2_stack_depth.restype = ctypes.c_int
     lib.closest_bvh.argtypes = [_P] * 6 + [ctypes.c_int] + _BLOCK_TREE + _TAIL + [_P, _P, _P]
-    lib.any_bvh.argtypes = [_P] * 7 + [ctypes.c_int] + _TREE + _TAIL + [_P, _P]
+    lib.any_bvh.argtypes = [_P] * 7 + [ctypes.c_int] + _BLOCK_TREE + _TAIL + [_P, _P]
     lib.closest_bvh.restype = lib.any_bvh.restype = ctypes.c_int
     return lib
 
 
-def _tree_args(bvh: BVH, lib) -> list:
+def _block_tree_args(bvh: BVH, lib) -> list:
+    """K6a's and K6b's arguments: the tree's block boxes, which it must
+    carry, its nodes and leaves, its zero anchors, the chunk count and the
+    leaf size; a ValueError for a tree deeper than the kernels' stack or
+    with arrays they cannot take."""
     depth = lib.bvh2_stack_depth()
     if bvh.max_stack > depth:
         raise ValueError(f"tree needs a traversal stack of {bvh.max_stack}, the kernel has {depth}")
@@ -76,14 +79,7 @@ def _tree_args(bvh: BVH, lib) -> list:
         a = getattr(bvh, name)
         if a.dtype != dtype or not a.is_contiguous():
             raise ValueError(f"BVH.{name} must be a contiguous {dtype} tensor")
-    return [bvh.nbox.data_ptr(), bvh.meta.data_ptr(), bvh.w.data_ptr(), bvh.leaf_size]
-
-
-def _block_tree_args(bvh: BVH, lib) -> list:
-    """K6a's arguments: the tree's block boxes, which it must carry, and
-    ``_tree_args`` with the zero anchors and the chunk count."""
-    nbox, meta, w, leaf_size = _tree_args(bvh, lib)
-    blocks, anchor = bvh.blocks, bvh.wanchor
+    blocks, anchor, leaf_size = bvh.blocks, bvh.wanchor, bvh.leaf_size
     if blocks is None:
         raise ValueError("the kernel culls by the leaves' block boxes: the tree has no "
                          "BVH.blocks")
@@ -94,7 +90,8 @@ def _block_tree_args(bvh: BVH, lib) -> list:
                 or a.device != bvh.w.device):
             raise ValueError(f"BVH.{name} must be a contiguous float32 {shape} tensor on the "
                              "tree's device")
-    return [blocks.data_ptr(), nbox, meta, w, anchor.data_ptr(), c, leaf_size]
+    return [blocks.data_ptr(), bvh.nbox.data_ptr(), bvh.meta.data_ptr(), bvh.w.data_ptr(),
+            anchor.data_ptr(), c, leaf_size]
 
 
 def intersect_closest_bvh(bvh: BVH, origins: Vec3, directions: Vec3, t_min: float = 1e-4):
@@ -122,11 +119,15 @@ def intersect_any_bvh(bvh: BVH, origins: Vec3, directions: Vec3, t_min: float = 
     or an (R,) tensor.  Returns an (R,) bool mask.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``any_bvh_kernel``."""
+    ``any_bvh_kernel``: the walk of ``intersect_closest_bvh`` against each
+    ray's own ``t_max``, each block of a leaf it reaches served only to the
+    rays that enter its box before their ``t_max`` and have no hit yet, a
+    blocked ray's walk ended (``BVH.blocks``: a tree without them raises)."""
     if on_cpu(bvh):
         return any_bvh_plain(bvh, origins, directions, t_min, t_max)
     lib = _kernels()
-    out = launch_any(lib.any_bvh, _tree_args(bvh, lib), bvh, origins, directions, t_min, t_max)
+    out = launch_any(lib.any_bvh, _block_tree_args(bvh, lib), bvh, origins, directions, t_min,
+                     t_max)
     if origins.x.numel():
         intersect_any_bvh.launches += 1
     return out

@@ -5,11 +5,12 @@ Port of ``tpu_vpu_leaf.py``.  Every ray is tested against every triangle of
 the Cornell box, packed into leaf chunks of ``tc`` triangles without anchors
 (``pack_chunks``), two ways:
 
-- ``rows_closest``: one thread per ray walks every column of every chunk
-  (the TPU's ``_mxu_kernel``, a K=4 contraction per chunk on its matrix
-  unit).  On this card the pair test is exact float32 and needs no
-  precision schedule, so the reference's "MXU HIGHEST" and "MXU bf16x3"
-  rows are this one kernel;
+- ``rows_closest``: each thread holds four rays and tests them against
+  every column of every chunk, the columns staged through shared memory
+  128 at a time (the TPU's ``_mxu_kernel``, a K=4 contraction per chunk on
+  its matrix unit).  On this card the pair test is exact float32 and needs
+  no precision schedule, so the reference's "MXU HIGHEST" and "MXU
+  bf16x3" rows are this one kernel;
 - ``warp_closest``: a warp takes its 32 rays one at a time, lane j tests
   columns j, j + 32, ... of each chunk and a shuffle reduction gives the
   ray's t (the TPU's ``_vpu_kernel``, rays on sublanes and triangles on
@@ -82,10 +83,11 @@ def rows_closest(w: torch.Tensor, origins: Vec3, directions: Vec3, wanchor=None,
                  ray_tile: int = 256, t_min: float = 1e-4) -> torch.Tensor:
     """Closest t of each ray over every column of the chunks ``w`` (C, 4,
     3 tc), each re-centred on its anchor ``wanchor`` (3, C) if given: the
-    row layout, one thread per ray.
+    row layout, four rays a thread.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``rows_brute_kernel`` (``csrc/probes.cu``) in blocks of ``ray_tile``."""
+    ``rows_brute_kernel`` (``csrc/probes.cu``) in blocks of ``ray_tile``
+    rays."""
     if on_cpu(w):
         check_ray_tile(ray_tile)
         return closest_brute_plain(w, origins, directions, wanchor, t_min)

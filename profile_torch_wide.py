@@ -1,47 +1,57 @@
 #!/usr/bin/env python3
 """K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a/K5b and K4a/K4b
-(``csrc/wide_bvh_t.cu``), K6a (``csrc/bvh2.cu``) and K7a/K7b
-(``csrc/chunks.cu``) beside variants of their design, on the 1080p launches
-of the Cornell box (K1, K5, K6, K7) and of ``high_poly`` (K4) on an NVIDIA
-card.
+(``csrc/wide_bvh_t.cu``), K6a/K6b (``csrc/bvh2.cu``), K7a/K7b
+(``csrc/chunks.cu``) and the brute-force probe kernels
+(``csrc/probes.cu``) beside variants of their design, on the 1080p launches
+of the Cornell box (K1, K5, K6, K7, the probes) and of ``high_poly`` (K4)
+on an NVIDIA card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7] [--parent DIR]
+    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7,brute] [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
 of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a and
-K5b), ``K6_VARIANTS`` (K6a) or ``CHUNK_VARIANTS`` (K7a/K7b) applied, built
-with the package's nvcc flags into ``build/wide_variants/`` (one nvcc each,
-all started together).  ``--parent DIR`` adds the ``wide_bvh.cu``,
-``wide_bvh_t.cu``, ``bvh2.cu`` and ``chunks.cu`` of another tree as they
-stand (for example an unpacked parent commit), as the variant ``parent``,
-and compares the SASS of each kernel of ``wide_bvh.cu``,
-``wide_bvh_stream.cu``, ``wide_bvh_t.cu`` and ``bvh2.cu`` (and of
-``chunks.cu`` with ``k7``) with this tree's (``cuobjdump``).  The launches
+K5b), ``K6_VARIANTS`` (K6a/K6b), ``CHUNK_VARIANTS`` (K7a/K7b) or
+``BRUTE_VARIANTS`` (``rows_brute_kernel``) applied, built with the
+package's nvcc flags into ``build/wide_variants/`` (one nvcc each, all
+started together).  ``--parent DIR`` adds the ``wide_bvh.cu``,
+``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu`` and ``probes.cu`` of another
+tree as they stand (for example an unpacked parent commit), as the variant
+``parent``, and compares the SASS of each kernel of ``wide_bvh.cu``,
+``wide_bvh_stream.cu``, ``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu`` and
+``probes.cu`` with this tree's (``cuobjdump``).  The launches
 are those of a pass at depth 2, sorted and gated as on the card: the
 closest-hit kernels on the primary rays and on the sorted depth-2 head, the
 occlusion kernels on their shadow lanes; K1/K2 over the Cornell box's trees
-at leaf 32, 64 and 128, K5 over its leaf-128 trees (Route A's), K6a over
-its ``"bvh"`` context's binary tree (leaf 64), K7 over the rebuild mode's
+at leaf 32, 64 and 128, K5 over its leaf-128 trees (Route A's), K6 over
+its ``"bvh"`` context's binary trees (leaf 64), K7 over the rebuild mode's
 chunk packs, K4a/K4b over ``high_poly``'s leaf-128 tree (the ``"stream"``
-context's, which Route B builds alike).  It prints, one reading per line:
+context's, which Route B builds alike); the brute force (P1 ``leaves``, P4
+row, beside P4 warp) on the Cornell box's primary rays of
+``chip_smoke.py`` phase 17, over the leaf-32 and leaf-128 trees' anchored
+chunks (P1) and the packs of 128 and 512 (P4).  It prints, one reading per
+line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
 - ``[build]``: each variant's registers and spill bytes per kernel;
 - ``[check]``: each variant's results against the shipped kernel's on every
   launch it runs (t, slot or id, and blocked, bit for bit); a variant of
   this tree must equal it, the parent's count of differing lanes is
-  printed; for K4, K5b and K6a, each variant against the plain version
-  too, on ``chip_smoke.N_CHECK`` seeded lanes of each launch;
+  printed (the brute force's parent must equal it too); for K4, K5b, K6
+  and the brute force, each variant against the plain version too, on
+  ``chip_smoke.N_CHECK`` seeded lanes of each launch (the brute force
+  within ``chip_smoke.TOL``);
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
   in order and then in reverse, min/max of the two: K1/K2 for every variant
   over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
   trees at leaf 64 and 128 too; K5a for each of its variants, K5b for the
-  shipped kernel, ``leaves``, ``uncapped`` and the parent; K6a for each of
-  its variants on its two launches; K4a and K4b for each of theirs on the
-  four launches; K7a for each of ``CHUNK_VARIANTS`` and K7b for those of
-  ``K7B_VARIANTS``;
+  shipped kernel, ``leaves``, ``uncapped`` and the parent; K6a and K6b for
+  each of their variants on their two launches each; K4a and K4b for each
+  of theirs on the four launches; K7a for each of ``CHUNK_VARIANTS`` and
+  K7b for those of ``K7B_VARIANTS``; ``rows_brute_kernel`` for each of
+  ``BRUTE_VARIANTS`` and the parent at each brute-force setting, with
+  ``warp_brute_kernel`` beside it and its share of the operation bound;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
   leaf service meets (one per warp, offered leaf and round; the ``count``
   variant): their number, mean rays per group, and the share of groups, and
@@ -54,7 +64,8 @@ context's, which Route B builds alike).  It prints, one reading per line:
   groups served ray per lane and one ray at a time;
 - ``[sass]``: with ``--parent``, for each kernel, whether its SASS equals
   the parent's instruction for instruction, or how many of its
-  instructions differ.
+  instructions differ; and the SASS length of each brute-force variant's
+  ``rows_brute_kernel``.
 
 It imports no jax.
 """
@@ -85,6 +96,7 @@ _K3 = "wide_bvh_stream.cu"
 _K5 = "wide_bvh_t.cu"
 _K6 = "bvh2.cu"
 _K7 = "chunks.cu"
+_PROBES = "probes.cu"
 # A ray-per-lane branch for large groups in the any-hit block service of K2
 # and K7b (`serve_cols_any`), as K1's closest-hit service has.
 _ANY_LANES = """  if (__popc(rays) > kLaneRays) {
@@ -217,13 +229,17 @@ K4_VARIANTS = {
     ]),
 }
 
-# K6a: name -> (what it changes, [(file, text, replacement)]), as VARIANTS.
+# K6a and K6b: name -> (what it changes, [(file, text, replacement)]), as
+# VARIANTS.
 K6_VARIANTS = {
-    "shipped": ("K6a as shipped", []),
-    "leaves": ("no block boxes: K1's lane service over whole leaves", [
+    "shipped": ("K6a and K6b as shipped", []),
+    "leaves": ("no block boxes: K1's and K2's lane services over whole leaves", [
         (_K6, "    lane_serve_blocks_closest(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, "
               "widen, best,\n                              best_slot);",
          "    lane_serve_closest(chunk, w, tc, wanchor, n_chunks, r, t_min, best, best_slot);"),
+        (_K6, "if (lane_serve_blocks_any(chunk, w, tc, wanchor, n_chunks, blocks, r, t_min, t_hi, "
+              "widen)) {",
+         "if (lane_serve_any(chunk, w, tc, wanchor, n_chunks, r, t_min, t_hi)) {"),
     ]),
     **{f"visits-{n}": (f"{n} node visits a round for a lane with no leaf to offer", [
         (_K6, "constexpr int kVisits = 1;", f"constexpr int kVisits = {n};"),
@@ -384,6 +400,72 @@ CHUNK_VARIANTS = {
     ]),
 }
 
+# rows_brute_kernel's barycentrics behind one branch a column, and
+# without it.
+_SKIP = "        if (!any) continue;\n"
+# rows_brute_kernel's column loop, and the same with the whole of woop_t
+# for each ray, its range test as its early return (the kernel's first
+# form).
+_COLUMN_LOOP = """        const float4 s = col[2];
+        float t[kRowRays];
+        bool in[kRowRays];
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < kRowRays; ++q) {
+          t[q] = plane_t(s, ax[q], ay[q], az[q], r[q]);
+          in[q] = (t[q] > t_min) & (t[q] < best[q]);
+          any |= in[q];
+        }
+        if (!any) continue;
+        const float4 u = col[0], v = col[1];
+#pragma unroll
+        for (int q = 0; q < kRowRays; ++q) {
+          const float hit = inside_t(u, v, t[q], ax[q], ay[q], az[q], r[q]);
+          if (in[q]) best[q] = fminf(best[q], hit);
+        }"""
+_COLUMN_WOOP = """#pragma unroll
+        for (int q = 0; q < kRowRays; ++q) {
+          best[q] = fminf(best[q], woop_t([&](int f, int g) {
+            const float4 c = col[g];
+            return f == 0 ? c.x : (f == 1 ? c.y : (f == 2 ? c.z : c.w));
+          }, ax[q], ay[q], az[q], r[q], t_min, best[q]));
+        }"""
+_MIN_2 = (_PROBES, "__launch_bounds__(1024 / kRowRays)", "__launch_bounds__(1024 / kRowRays, 2)")
+# rows_brute_kernel's re-centring of its rays on a chunk's anchor, and the
+# same from origins read again from device memory (a ray past the end takes
+# the last ray's origin: its direction is 0, so its t is never in range).
+_CENTRE = """        ax[q] = r[q].ox - cx;
+        ay[q] = r[q].oy - cy;
+        az[q] = r[q].oz - cz;"""
+_RELOAD = """        const int i = min(first + q * static_cast<int>(blockDim.x), n_rays - 1);
+        ax[q] = ox[i] - cx;
+        ay[q] = oy[i] - cy;
+        az[q] = oz[i] - cz;"""
+
+# rows_brute_kernel (P1 "leaves", P4 row): name -> (what it changes, [(file,
+# text, replacement)]), as VARIANTS.
+BRUTE_VARIANTS = {
+    "shipped": ("rows_brute_kernel as shipped: 4 rays a thread, 128 columns a tile, every ray's "
+                "t of a column, then its barycentrics behind one branch", []),
+    "woop": ("woop_t whole for each ray, its range test an early return", [
+        (_PROBES, _COLUMN_LOOP, _COLUMN_WOOP)]),
+    "flat": ("every ray's barycentrics for every column: no branch but the division's", [
+        (_PROBES, _SKIP, "")]),
+    **{f"rays-{n}": (f"{n} rays a thread", [
+        (_PROBES, "constexpr int kRowRays = 4;", f"constexpr int kRowRays = {n};"),
+    ]) for n in (2, 8)},
+    **{f"cols-{n}": (f"{n} columns staged a tile", [
+        (_PROBES, "constexpr int kStageCols = 128;", f"constexpr int kStageCols = {n};"),
+    ]) for n in (64, 256)},
+    "min-2": ("__launch_bounds__ with 2 blocks an SM: up to 128 registers", [_MIN_2]),
+    "reload": ("each run of a chunk's columns re-reads the origins from device memory, so "
+               "that only the re-centred ones stay in registers", [(_PROBES, _CENTRE, _RELOAD)]),
+}
+# The brute-force settings timed: (probe, chunk size, ray tile); P1 over a
+# Cornell tree's anchored leaves, P4 over a pack of the triangles.
+BRUTE_CASES = (("P1", 32, 256), ("P1", 128, 1024), ("P4", 128, 256), ("P4", 512, 512))
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -428,35 +510,54 @@ def takes_blocks(source: Path, entry: str) -> bool:
     return m is not None and "blocks" in m.group(1)
 
 
+# A binary tree's arguments to a K6 entry without block boxes (the earlier
+# designs of K6a and K6b): nbox, meta, w, leaf size.
+_BVH_TREE = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+
+
+def bvh_tree_args(lib_fn, binary, lib) -> list:
+    """The arguments of a K6 entry: ``traverse_pallas._block_tree_args``,
+    less the block boxes, anchors and chunk count where the entry takes
+    none."""
+    from heatray_tpu_torch.ops import traverse_pallas as tp
+
+    args = tp._block_tree_args(binary, lib)
+    return args if lib_fn.blocks else args[1:4] + args[6:]
+
+
 def library(so: Path, source: Path) -> ctypes.CDLL:
-    """A build of ``wide_bvh.cu``, ``wide_bvh_t.cu``, ``bvh2.cu`` or
-    ``chunks.cu`` (or a variant of one), its entry points declared as the
-    package declares them, less the block boxes where ``source``'s entry
-    takes none (K4's and K5's before their block boxes, K7b's; K6a's
-    before its block boxes took no anchors either); each entry declared
-    gets a ``blocks`` attribute that says which."""
+    """A build of ``wide_bvh.cu``, ``wide_bvh_t.cu``, ``bvh2.cu``,
+    ``chunks.cu`` or ``probes.cu`` (or a variant of one), its entry points
+    declared as the package declares them, less the block boxes where
+    ``source``'s entry takes none (K4's and K5's before their block boxes,
+    K7b's; K6's before their block boxes took no anchors either); each
+    entry declared gets a ``blocks`` attribute that says which."""
     from heatray_tpu_torch.ops import intersect_pallas as ip
     from heatray_tpu_torch.ops import traverse_pallas as tp
     from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.probes import _SIGNATURES
 
     lib = ctypes.CDLL(str(so))
-    k6a = [ctypes.c_void_p] * 6 + [ctypes.c_int] + tp._BLOCK_TREE + tp._TAIL + [ctypes.c_void_p] * 3
+    p, i = ctypes.c_void_p, ctypes.c_int
+    k6a = [p] * 6 + [i] + tp._BLOCK_TREE + tp._TAIL + [p] * 3
+    k6b = [p] * 7 + [i] + tp._BLOCK_TREE + tp._TAIL + [p] * 2
     # entry -> (its arguments with block boxes, the index of that pointer)
     entries = {"closest_wide": (wb._CLOSEST_ARGS, None), "any_wide": (wb._ANY_ARGS, None),
                "closest_wide_t": (wb._CLOSEST_BLOCK_ARGS, 7),
                "any_wide_t": (wb._ANY_BLOCK_ARGS, 8),
                "closest_stream_t": (wb._CLOSEST_BLOCK_ARGS, 7),
                "any_stream_t": (wb._ANY_BLOCK_ARGS, 8),
-               "closest_bvh": (k6a, 7),
-               "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8)}
+               "closest_bvh": (k6a, 7), "any_bvh": (k6b, 8),
+               "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8),
+               **{name: (_SIGNATURES[name], None) for name in ("probe_rows", "probe_warp")}}
     for entry, (args, at) in entries.items():
         if not hasattr(lib, entry):
             continue
         fn = getattr(lib, entry)
         fn.blocks = at is not None and takes_blocks(source, entry)
         fn.argtypes = args if at is None or fn.blocks else args[:at] + args[at + 1:]
-        if entry == "closest_bvh" and not fn.blocks:  # nor the anchors and chunk count
-            fn.argtypes = args[:7] + tp._TREE + args[7 + len(tp._BLOCK_TREE):]
+        if entry.endswith("_bvh") and not fn.blocks:  # nor the anchors and chunk count
+            fn.argtypes = args[:at] + _BVH_TREE + args[at + len(tp._BLOCK_TREE):]
         fn.restype = ctypes.c_int
     for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth", "stream_t_stack_depth",
                   "bvh2_stack_depth"):
@@ -468,11 +569,14 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
 _KERNEL_LABELS = {"closest_wide_t": "K5a", "any_wide_t": "K5b", "closest_stream_t": "K4a",
                   "any_stream_t": "K4b", "closest_stream": "K3a", "any_stream": "K3b",
                   "closest_wide": "K1", "any_wide": "K2", "closest_bvh": "K6a",
-                  "any_bvh": "K6b", "closest_chunks": "K7a", "any_chunks": "K7b"}
+                  "any_bvh": "K6b", "closest_chunks": "K7a", "any_chunks": "K7b",
+                  "visit_stats": "P3 visit_stats", "nodes": "P1 nodes",
+                  "rows_brute": "P1/P4 rows_brute", "warp_brute": "P4 warp_brute",
+                  "empty": "P1 empty"}
 
 
 def kernel_label(name: str):
-    """The K label of a kernel's (mangled) name, or None."""
+    """The label of a kernel's (mangled) name, or None."""
     return next((k for n, k in _KERNEL_LABELS.items() if f"{n}_kernel" in name), None)
 
 
@@ -495,8 +599,8 @@ def resources(report: str) -> str:
 
 def launches(device):
     """The Cornell box's trees at each of LEAVES, the rebuild mode's chunk
-    packs (closest hit, occlusion), its ``"bvh"`` context's binary tree and
-    its four launches."""
+    packs (closest hit, occlusion), its ``"bvh"`` context's binary trees
+    (closest hit, occlusion) and its four launches."""
     import torch
 
     from heatray_tpu_torch import cornell_box, orbit_camera
@@ -513,8 +617,9 @@ def launches(device):
         trees[leaf] = (pack.wide, pack.wide_occl)
     chunk_pack = integrator.rebuild_pack(scene, opts)
     chunks = (chunk_pack.packed, chunk_pack.packed_occl)
-    binary = integrator.make_context(dataclasses.replace(opts, intersect_backend="bvh"), scene,
-                                     device).accel_pack.bvh
+    bvh_pack = integrator.make_context(dataclasses.replace(opts, intersect_backend="bvh"), scene,
+                                       device).accel_pack
+    binary = bvh_pack.bvh
     ctx = integrator.make_context(opts, scene, device)
     pack = ctx.accel_pack
     frame = FrameGlobals.create(0, device=device)
@@ -532,7 +637,7 @@ def launches(device):
         f"{chunks[0].num_chunks} chunks of {chunks[0].tri_chunk}; binary tree of "
         f"{binary.num_nodes} nodes, {binary.num_chunks} leaves of {binary.leaf_size}, "
         f"stack {binary.max_stack}")
-    return trees, chunks, binary, rays, opts.ray_epsilon
+    return trees, chunks, (binary, bvh_pack.bvh_occl), rays, opts.ray_epsilon
 
 
 def hp_launches(device):
@@ -720,30 +825,113 @@ def profile_k5(libs, trees, rays, eps) -> None:
                 f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
 
 
-def profile_k6(libs, binary, rays, eps) -> None:
-    """K6a's variants over the Cornell box's binary tree (the ``"bvh"``
-    context's, leaf 64) on the primary rays and the head: each checked bit
-    for bit (t and slot) against the shipped kernel and against the plain
-    version on N_CHECK seeded lanes of each launch, then timed in turns."""
+def profile_k6(libs, binaries, rays, eps) -> None:
+    """K6a's and K6b's variants over the Cornell box's binary trees (the
+    ``"bvh"`` context's, leaf 64): K6a on the primary rays and the head,
+    K6b on their shadow lanes over the occluder tree, each checked bit for
+    bit (t and slot, masks) against the shipped kernel and against the
+    plain version on N_CHECK seeded lanes of each launch, then timed in
+    turns."""
     from heatray_tpu_torch.ops import intersect
     from heatray_tpu_torch.ops import traverse_pallas as tp
     from heatray_tpu_torch.ops import wide_bvh as wb
 
     def run(name, what):
         lib = libs[name]
-        ray, _ = rays[what]
-        fn = lib.closest_bvh
-        tree = tp._block_tree_args(binary, lib) if fn.blocks else tp._tree_args(binary, lib)
-        return wb.launch_closest(fn, tree, binary, ray.org, ray.direction, eps)[:2]
+        ray, t_max = rays[what]
+        binary = binaries[t_max is not None]
+        if t_max is None:
+            fn = lib.closest_bvh
+            tree = bvh_tree_args(fn, binary, lib)
+            return wb.launch_closest(fn, tree, binary, ray.org, ray.direction, eps)[:2]
+        fn = lib.any_bvh
+        tree = bvh_tree_args(fn, binary, lib)
+        return (wb.launch_any(fn, tree, binary, ray.org, ray.direction, eps, t_max),)
 
     closest = {what: rays[what] for what in ("primary", "head")}
-    rows = intersect.chunk_rows(binary.w)
+    rows = intersect.chunk_rows(binaries[0].w)
     plain = plain_picks(closest, lambda what, o, d, _: intersect.closest_rows(o, d, rows, eps)[:2])
     check_variants("K6a", libs, list(closest), run, plain)
-    ms = in_turns(list(libs), list(closest), run)
-    for name in libs:
-        log(f"[time] K6a {name}: " + ", ".join(
-            f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
+    shadows = {what: rays[what] for what in ("shadow", "head shadow")}
+    plain = plain_picks(shadows, lambda what, o, d, t_max: (
+        tp.any_bvh_plain(binaries[1], o, d, eps, t_max),))
+    check_variants("K6b", libs, list(shadows), run, plain)
+    for label, whats in (("K6a", list(closest)), ("K6b", list(shadows))):
+        ms = in_turns(list(libs), whats, run)
+        for name in libs:
+            log(f"[time] {label} {name}: " + ", ".join(
+                f"{what} {min(v):.4f}/{max(v):.4f}" for what, v in ms[name].items()))
+
+
+def profile_brute(libs, t_min: float = 1e-4) -> None:
+    """``rows_brute_kernel``'s variants and the parent on the Cornell box's
+    1080p primary rays (``chip_smoke.py`` phase 17's) at each of
+    BRUTE_CASES: each checked bit for bit against the shipped kernel on
+    every ray (the parent too: the minimum does not depend on the order of
+    the columns) and within ``chip_smoke.TOL`` against the plain version on
+    N_CHECK seeded rays, then timed in turns, with ``warp_brute_kernel``
+    (as shipped) beside them, and set beside the operation bound of the
+    brute force over the scene's triangles (``chip_smoke.brute_in_range``,
+    the bound of phase 17's kernels line)."""
+    import torch
+
+    from chip_smoke import (BARY_FLOPS, N_CHECK, PAIR_T_FLOPS, PEAK_FLOPS, SEED, TOL,
+                            brute_in_range, subset)
+    from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.ops.intersect import MISS_T
+    from heatray_tpu_torch.probes import cornell, vpu_leaf
+    from heatray_tpu_torch.render import integrator
+
+    device = torch.device("cuda:0")
+    _, camera, opts, ctx = cornell(WIDTH, HEIGHT, 4, device)
+    prim = integrator.start_paths(camera, ctx, opts, 0)
+    accel = ctx.accel_pack.accel
+    o, d = prim.org, prim.direction
+    r = o.x.numel()
+    chunks = {}
+    for probe, tc, _ in BRUTE_CASES:
+        if probe == "P1":
+            bvh = wb.build_wide_bvh(accel, leaf_size=tc)
+            chunks[probe, tc] = (bvh.w, bvh.wanchor)
+        else:
+            chunks[probe, tc] = (vpu_leaf.pack_chunks(accel, tc), None)
+    torch.cuda.synchronize()
+
+    def run(name, case):
+        probe, tc, rt = case
+        w, anchor = chunks[probe, tc]
+        fn = libs[name].probe_warp if name == "warp" else libs[name].probe_rows
+        return (vpu_leaf._brute(fn, w, o, d, anchor, rt, t_min),)
+
+    names = [*libs, "warp"]
+    libs = {**libs, "warp": libs["shipped"]}
+    pick = torch.randperm(r, generator=torch.Generator().manual_seed(SEED))[:N_CHECK].to(device)
+    s_o, s_d = subset(o, pick), subset(d, pick)
+    for case in BRUTE_CASES:
+        probe, tc, rt = case
+        w, anchor = chunks[probe, tc]
+        want = run("shipped", case)[0]
+        t_p = vpu_leaf.closest_brute_plain(w, s_o, s_d, anchor, t_min)
+        hit = t_p < MISS_T
+        for name in names:
+            t = run(name, case)[0]
+            off = int((t != want).sum())
+            near = ((t[pick] - t_p).abs() <= TOL + TOL * t_p.abs()) & ((t[pick] < MISS_T) == hit)
+            log(f"[check] brute {probe} tc {tc} rt {rt} {name}: rays whose t differs from "
+                f"shipped {off}, seeded rays off the plain version {int((~near).sum())}")
+            if (name != "warp" and off) or not bool(near.all()):
+                raise AssertionError(f"brute {name} at {case} differs from the shipped kernel or "
+                                     "the plain version")
+    t_hit = run("shipped", BRUTE_CASES[0])[0]
+    flops = r * accel.num_triangles * PAIR_T_FLOPS + brute_in_range(accel, o, d, t_hit) * BARY_FLOPS
+    bound = flops / PEAK_FLOPS * 1e3
+    log(f"[bound] brute force on {r} rays, {accel.num_triangles} triangles: "
+        f"{flops / 1e9:.1f} GFLOP -> {bound:.4f} ms (operations)")
+    ms = in_turns(names, list(BRUTE_CASES), run)
+    for name in names:
+        log(f"[time] brute {'warp_brute' if name == 'warp' else 'rows_brute ' + name}: " + ", ".join(
+            f"{p} tc {tc} rt {rt} {min(v):.4f}/{max(v):.4f} ({bound / min(v):.1%} of the bound)"
+            for (p, tc, rt), v in ms[name].items()))
 
 
 def profile_k4(libs, trees, rays, eps) -> None:
@@ -884,17 +1072,17 @@ def compare_sass(pairs) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k4,k5,k6,k7",
+    ap.add_argument("--kernels", default="k1,k4,k5,k6,k7,brute",
                     help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 "
-                         "(K5a/K5b), k6 (K6a) and k7 (K7a/K7b), comma-separated (default: all "
-                         "five)")
+                         "(K5a/K5b), k6 (K6a/K6b), k7 (K7a/K7b) and brute (rows_brute_kernel), "
+                         "comma-separated (default: all six)")
     ap.add_argument("--parent", type=Path,
-                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu and chunks.cu "
-                         "to time too, and whose kernels' SASS to compare")
+                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu, chunks.cu and "
+                         "probes.cu to time too, and whose kernels' SASS to compare")
     args = ap.parse_args()
     families = set(args.kernels.split(","))
-    if not families or families - {"k1", "k4", "k5", "k6", "k7"}:
-        raise SystemExit(f"--kernels takes k1, k4, k5, k6 and k7, not {args.kernels!r}")
+    if not families or families - {"k1", "k4", "k5", "k6", "k7", "brute"}:
+        raise SystemExit(f"--kernels takes k1, k4, k5, k6, k7 and brute, not {args.kernels!r}")
 
     import torch
 
@@ -906,7 +1094,8 @@ def main() -> int:
     card = card_line()
     log(card)
     tables = {"k1": (VARIANTS, _K1), "k4": (K4_VARIANTS, _K5), "k5": (T_VARIANTS, _K5),
-              "k6": (K6_VARIANTS, _K6), "k7": (CHUNK_VARIANTS, _K7)}
+              "k6": (K6_VARIANTS, _K6), "k7": (CHUNK_VARIANTS, _K7),
+              "brute": (BRUTE_VARIANTS, _PROBES)}
     sources = {}  # (family, name) -> source
     for family in sorted(families):
         variants, target = tables[family]
@@ -915,10 +1104,9 @@ def main() -> int:
         if args.parent:
             sources[family, "parent"] = (args.parent.resolve() / "heatray_tpu_torch" / "csrc"
                                          / target)
-    # The sources whose every kernel's SASS is set beside the parent's: K1-K6
-    # always, K7 with its family.  A file no family builds is built alone.
-    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, "k6": _K6,
-                  **({"k7": _K7} if "k7" in families else {})}
+    # The sources whose every kernel's SASS is set beside the parent's.  A
+    # file no family builds is built alone.
+    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, "k6": _K6, "k7": _K7, "brute": _PROBES}
     shipped_of = {}  # file -> the family whose "shipped" and "parent" build it
     for family, target in sorted(sass_files.items()) if args.parent else ():
         have = next((f for f in sorted(families) if tables[f][1] == target), None)
@@ -942,19 +1130,25 @@ def main() -> int:
     if args.parent:
         compare_sass([(built[f, "shipped"][0], built[f, "parent"][0])
                       for f in shipped_of.values()])
+    for (family, name), (so, _) in built.items():
+        if family == "brute":
+            log(f"[sass] brute {name}: rows_brute_kernel "
+                f"{len(sass(so)['P1/P4 rows_brute'])} instructions")
 
     device = torch.device("cuda:0")
     if libs["k1"] or libs["k5"] or libs["k6"] or libs["k7"]:
-        trees, chunks, binary, rays, eps = launches(device)
+        trees, chunks, binaries, rays, eps = launches(device)
         if libs["k1"]:
             profile_k1(libs["k1"], trees, rays, eps)
         if libs["k5"]:
             profile_k5(libs["k5"], trees, rays, eps)
         if libs["k6"]:
-            profile_k6(libs["k6"], binary, rays, eps)
+            profile_k6(libs["k6"], binaries, rays, eps)
         if libs["k7"]:
             profile_k7(libs["k7"], chunks, rays, eps)
-        del trees, chunks, binary, rays
+        del trees, chunks, binaries, rays
+    if libs["brute"]:
+        profile_brute(libs["brute"])
     if libs["k4"]:
         hp_trees, hp_rays, eps = hp_launches(device)
         profile_k4(libs["k4"], hp_trees, hp_rays, eps)

@@ -2,8 +2,8 @@
 JAX package: the packed tree bit for bit, the plain closest/any-hit
 versions against the XLA brute force and against the TPU kernels in
 interpret mode, the numpy walk, an emulation of the kernels' widened
-per-ray walk, the tree's block boxes and a model of K6a's block-culled
-walk over them, and renders.
+per-ray walk, the tree's block boxes and models of K6a's and K6b's
+block-culled walks over them, and renders.
 
 All inputs are made from numpy seeds and handed to both packages.  The CUDA
 kernels themselves are checked in test_torch_cuda.py.
@@ -231,7 +231,7 @@ def test_block_boxes_bound_their_slots(leaf_size, tree):
 
 
 class _Kernels:
-    """The one entry of the built library that K6a's argument check reads."""
+    """The one entry of the built library that K6's argument check reads."""
 
     @staticmethod
     def bvh2_stack_depth():
@@ -240,9 +240,10 @@ class _Kernels:
 
 @pytest.mark.parametrize("fault", [None, "missing", "shape", "dtype", "anchor"])
 def test_block_tree_args_check_the_block_boxes(fault):
-    """K6a's arguments (``traverse_pallas._block_tree_args``, made before
+    """The arguments of both K6 entries, ``closest_bvh`` (K6a) and
+    ``any_bvh`` (K6b) (``traverse_pallas._block_tree_args``, made before
     any launch): the tree's block boxes, its nodes and leaves, its zero
-    anchors, the chunk count and the leaf size, in the C entry's order; or
+    anchors, the chunk count and the leaf size, in the C entries' order; or
     a ValueError for a tree without block boxes, or with block boxes or
     anchors of the wrong shape or type."""
     bvh = bvh_mod.build_bvh(_port_soup(300, 5), leaf_size=16)
@@ -309,6 +310,46 @@ def test_block_culled_binary_walk_reaches_every_plain_hit(leaf_size):
             best[e] = torch.where(better, cand, best[e])
             slot[e] = torch.where(better, cand_slot, slot[e])
     assert torch.equal(best, t_p) and torch.equal(slot, slot_p)
+    whole = served.shape[2] * int(leaves.sum())
+    assert 0 < int(served.sum()) < whole if leaf_size == 64 else int(served.sum()) == whole
+
+
+@pytest.mark.parametrize("tree", ["all", "occluders"])
+@pytest.mark.parametrize("leaf_size", [16, 64])
+def test_block_culled_binary_any_walk_reaches_every_plain_occluder(leaf_size, tree):
+    """A model of K6b over the Cornell box's binary tree, and over its
+    occluder tree with the metal sphere alpha-masked (``include``): a ray
+    is served a block of 32 slots if it reaches the block's leaf (every
+    node box on the way, widened, before its ``t_max``) and enters the
+    block's box before its ``t_max``; it is blocked if a served block holds
+    a pair hit in (t_min, t_max).  K6b culls by the same ``t_max``, which
+    never shrinks, and may only stop earlier, at its first occluder.  On
+    rays aimed just past the triangle edges, with ``t_max`` at the plain
+    closest t (not blocked) or just past it (blocked), the model's mask
+    equals ``any_bvh_plain``'s; and at leaf 64 the block boxes cull blocks
+    of reached leaves."""
+    _, o, d = cornell_edge_rays(2047, leaf_size=32)
+    accel, include = _cornell_occluders()
+    bvh = bvh_mod.build_bvh(accel, leaf_size=leaf_size,
+                            include=include if tree == "occluders" else None)
+    rows = intersect.chunk_rows(bvh.w)
+    t_p, _, hit_p = intersect.closest_rows(o, d, rows, 1e-4)
+    assert int(hit_p.sum()) > 1500
+    past = torch.nextafter(t_p, torch.tensor(float("inf")))
+    t_max = torch.where(hit_p, torch.where(torch.arange(t_p.numel()) % 2 == 1, past, t_p), 12.0)
+    want = traverse_pallas.any_bvh_plain(bvh, o, d, t_max=t_max)
+    assert 0 < int(want.sum()) < int(hit_p.sum())
+    served, leaves = _reached_blocks(bvh, o, d, t_max)
+    blocked = torch.zeros_like(want)
+    for c in range(bvh.num_chunks):
+        for b in range(served.shape[2]):
+            e = served[:, c, b].nonzero()[:, 0]
+            lo = c * leaf_size + b * bvh_mod.BLOCK
+            cols = slice(lo, min(lo + bvh_mod.BLOCK, (c + 1) * leaf_size))
+            t = intersect.pair_t(o.map(lambda x: x[e]), d.map(lambda x: x[e]), rows[:, cols],
+                                 1e-4, t_max[e])
+            blocked[e] |= (t < intersect.MISS_T).any(dim=1)
+    assert torch.equal(blocked, want)
     whole = served.shape[2] * int(leaves.sum())
     assert 0 < int(served.sum()) < whole if leaf_size == 64 else int(served.sum()) == whole
 

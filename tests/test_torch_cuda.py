@@ -528,6 +528,39 @@ def test_any_chunk_kernel_on_the_occluder_pack(cuda_device, n_rays):
         assert 0 < int(blocked.sum()) < int(full.sum())
 
 
+@pytest.mark.parametrize("n_rays", [0, 4095])
+def test_any_binary_kernel_on_the_occluder_tree(cuda_device, n_rays):
+    """K6b over the ``"bvh"`` context's occluder tree of the Cornell box
+    with the metal sphere alpha-masked (``build_bvh(include=...)``), whose
+    block boxes bound the included triangles alone: no rays at all, and a
+    ray count that leaves the last warp part-empty (the Cornell rays of
+    ``_cornell_rays``, t_max just beyond each ray's closest hit in the full
+    tree).  Its masks equal the plain version's, and it blocks fewer rays
+    than the full tree, whose sphere blocks some."""
+    scene, o, d = _cornell_rays(cuda_device)
+    mask = torch.zeros_like(scene.materials.alpha_mask)
+    mask[5] = 1
+    scene = dataclasses.replace(scene, has_alpha_mask=True, materials=dataclasses.replace(
+        scene.materials, alpha_mask=mask))
+    opts = RenderOptions(width=8, height=8, max_render_passes=4, max_ray_depth=4,
+                         intersect_backend="bvh")
+    pack = make_context(opts, scene, cuda_device).accel_pack
+    bvh, occl = pack.bvh, pack.bvh_occl
+    assert occl is not bvh and occl.num_nodes < bvh.num_nodes
+    o, d = o.map(lambda c: c[:n_rays].contiguous()), d.map(lambda c: c[:n_rays].contiguous())
+    t, _, hit = traverse_pallas.closest_bvh_plain(bvh, o, d)
+    t_max = torch.where(hit, t * 1.001, 5.0)
+    launches = traverse_pallas.intersect_any_bvh.launches
+    blocked = traverse_pallas.intersect_any_bvh(occl, o, d, t_max=t_max)
+    want = traverse_pallas.any_bvh_plain(occl, o, d, t_max=t_max)
+    torch.cuda.synchronize()
+    assert traverse_pallas.intersect_any_bvh.launches == launches + (n_rays > 0)
+    assert blocked.shape == (n_rays,) and torch.equal(blocked, want)
+    if n_rays:
+        full = traverse_pallas.any_bvh_plain(bvh, o, d, t_max=t_max)
+        assert 0 < int(blocked.sum()) < int(full.sum())
+
+
 @pytest.mark.parametrize("kind", ["chunks", "bvh2"])
 def test_flat_and_binary_kernels_find_hits_just_past_an_edge(cuda_device, kind):
     """The ray of ``test_kernel_finds_hits_just_past_an_edge`` through K7's
@@ -784,6 +817,37 @@ def test_brute_kernels_match_plain(cuda_device, layout, anchored, ray_tile):
     assert torch.equal(t < MISS_T, t_p < MISS_T)
     torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
     assert 0 < int((t < MISS_T).sum()) < 8191
+
+
+@pytest.mark.parametrize("n_rays", [8191, 1000, 33])
+@pytest.mark.parametrize("source, tc", [("tree", 32), ("tree", 64), ("tree", 128), ("pack", 128),
+                                        ("pack", 256), ("pack", 512), ("pack", 100)])
+def test_rows_brute_kernel_matches_plain_at_every_probe_setting(cuda_device, source, tc,
+                                                                 n_rays):
+    """``rows_brute_kernel`` (four rays a thread, columns staged in shared
+    memory 128 at a time) at every chunk size P1 (a tree's anchored leaves
+    of 32, 64 and 128) and P4 (packs of 128, 256 and 512) sweep, and at 100
+    (tiles that span chunks at uneven places), with every ray tile they
+    sweep: ray counts that leave the last block part-empty and a thread's
+    rays part-valid.  t equals the plain version's within 1e-5, and is the
+    same on every ray at every tile (the minimum does not depend on the
+    order of the columns)."""
+    _, accel, bvh = _cornell_tree(cuda_device, tc if source == "tree" else 32)
+    w, anchor = (bvh.w, bvh.wanchor) if source == "tree" else (vpu_leaf.pack_chunks(accel, tc),
+                                                              None)
+    o, d = _rays(n_rays, 13, cuda_device)
+    t_p = vpu_leaf.closest_brute_plain(w, o, d, anchor)
+    launches = vpu_leaf.rows_closest.launches
+    first = None
+    for ray_tile in (256, 512, 1024, 32):
+        t = vpu_leaf.rows_closest(w, o, d, anchor, ray_tile)
+        torch.cuda.synchronize()
+        assert torch.equal(t < MISS_T, t_p < MISS_T)
+        torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
+        first = t if first is None else first
+        assert torch.equal(t, first)
+    assert vpu_leaf.rows_closest.launches == launches + 4
+    assert int((t_p < MISS_T).sum()) > n_rays // 2
 
 
 # --- the walk variants (csrc/variants.cu) ---------------------------------------
