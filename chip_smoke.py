@@ -114,7 +114,9 @@ source, started together, and then:
 18. runs the P4 probe (``probes.vpu_leaf``: the row and warp-transposed
    brute force) at tc {128, 256, 512} x tile {256, 512}, each layout
    against the plain brute force on N_CHECK seeded lanes and against the
-   other on all rays;
+   other on all rays (agreement, and t equal bit for bit); one
+   ``[compare]`` line sets ``warp_brute_kernel``'s ms at tc 128, tile 256
+   beside its share of the bound and beside ``rows_brute_kernel``'s;
 19. runs the P2 probe (``probes.kernel_variants``, kernels of
    ``variants.cu``) on the 1080p Cornell box's sorted depth-2 wavefront
    over the leaf-32 tree: ``v0``-``v4`` at tiles 512 and 1024 (v4 at group
@@ -123,7 +125,10 @@ source, started together, and then:
    its plain version on P2_TILES seeded whole tiles (the last, partial one
    among them): hit masks equal, t within TOL, slots equal (all -1 for
    v3); and the tests per tile must show v2 and v3 walking as v0, v1 more,
-   v4 no more;
+   v4 no more, and v0 equal to K1 bit for bit; a ``[compare]`` line sets
+   ``variant_walk_kernel``'s v0 at tile 512 beside its share of K1's bound
+   and of its own work bound (its ray-chunk tests x the chunk's columns x
+   a pair's t) and beside K1 on the same rays;
 20. the appearance slice, through K1/K2: Scene A (``multi_material`` lit
    by the 2k procedural studio map) and Scene B (the same layout with
    2048x2048 base-colour, normal and metallic-roughness textures on the
@@ -1472,8 +1477,13 @@ def phase_p4(accel, prim, gen, err, brute):
         if rec["agree"] != 1.0 or rec["max_dt"] > TOL:
             raise AssertionError(f"P4 tc {tc} rt {rec['rt']}: layouts agree on {rec['agree']}, "
                                  f"max |dt| {rec['max_dt']}")
+        # The minimum does not depend on the order of the columns: the two
+        # layouts' t are equal bit for bit.
+        if not torch.equal(rec["row_t"], rec["warp_t"]):
+            raise AssertionError(f"P4 tc {tc} rt {rec['rt']}: warp differs from row on "
+                                 f"{int((rec['row_t'] != rec['warp_t']).sum())} rays")
         log(f"[check] P4 tc {tc} rt {rec['rt']}: row and warp equal the plain brute force on "
-            f"{lanes.numel()} lanes, agree on all {r} rays (max |dt| {rec['max_dt']:.3g})")
+            f"{lanes.numel()} lanes, and each other bit for bit on all {r} rays")
     rec = recs[0]  # tc 128, tile 256
     bound = probe_bound(f"P4 on {r} rays", *brute)
     entry = probe_entry("warp_brute", rec["warp_ms"], r, (plain[rec["tc"]][0], N_CHECK), bound,
@@ -1553,6 +1563,10 @@ def phase_p2(cornell, gen, err, card):
     log(f"[check] P2: v2 and v3 ran v0's tests, v1 more, v4 no more; v0 equals K1 on all {r} "
         f"lanes")
     bound_ms, bound_by = bound(r, walk_work(tree, org, d, k1["t"]), False)
+    # Each case's own work bound: its ray-chunk tests times the chunk's
+    # columns, each pair's t at least (PAIR_T_FLOPS).
+    work_ms = {key: float(rec["tests"].double().sum()) * tree.leaf_size * PAIR_T_FLOPS
+               / PEAK_FLOPS * 1e3 for key, rec in by_case.items()}
     entries = []
     for name, (replaces, case_name, rt) in P2_KERNELS.items():
         rec = by_case[case_name, rt]
@@ -1567,12 +1581,20 @@ def phase_p2(cornell, gen, err, card):
             "bound_by": bound_by, "library_ms": None, "case": case_name, "ray_tile": rt,
             "settings": {f"{n}@{t}": by_case[n, t]["ms"] for n, t in mine},
             "tests_per_tile": {f"{n}@{t}": by_case[n, t]["tests_per_tile"] for n, t in mine},
+            "work_bound_ms": work_ms[case_name, rt],
+            "work_bound_ms_settings": {f"{n}@{t}": work_ms[n, t] for n, t in mine},
             "k1_ms": k1["ms"],
         })
     log(f"[compare] P2 on {r} lanes of the sorted depth-2 wavefront: "
         + ", ".join(f"{n}@{t} {rec['ms']:.4f} ms ({rec['tests_per_tile']:.1f} tests/tile)"
                     for (n, t), rec in by_case.items())
         + f"; K1 {k1['ms']:.4f} ms; card {card}")
+    v0 = by_case["v0", 512]
+    log(f"[compare] P2a variant_walk v0, tile 512: {v0['ms']:.4f} ms, "
+        f"{bound_ms / v0['ms']:.2%} of K1's {bound_ms:.4f} ms bound ({bound_by}) and "
+        f"{work_ms['v0', 512] / v0['ms']:.2%} of its own {work_ms['v0', 512]:.4f} ms "
+        f"({v0['tests_per_tile']:.3f} leaf tests a ray x {tree.leaf_size} columns x "
+        f"{PAIR_T_FLOPS} FLOP); K1 on the same rays {k1['ms']:.4f} ms; card {card}")
     return entries, launches
 
 
@@ -2431,8 +2453,11 @@ def main() -> int:
     p_accel = p_ctx.accel_pack.accel
     p1_entries, p1_launches, brute = phase_p1(p_accel, p_prim, gen, err)
     p4_entry, p4_launches, p4_row_ms = phase_p4(p_accel, p_prim, gen, err, brute)
-    log(f"[compare] P4 on {p_prim.org.x.numel()} rays, tc 128, tile 256: row "
-        f"{p4_row_ms:.4f} ms, warp {p4_entry['ms']:.4f} ms; card {card}")
+    p4_bound = p4_entry["bound_ms"]
+    log(f"[compare] P4 on {p_prim.org.x.numel()} rays, tc 128, tile 256: warp "
+        f"{p4_entry['ms']:.4f} ms ({p4_bound / p4_entry['ms']:.1%} of the {p4_bound:.4f} ms "
+        f"bound), row (rows_brute_kernel) {p4_row_ms:.4f} ms ({p4_bound / p4_row_ms:.1%}); "
+        f"card {card}")
     del p_prim
 
     # --- 19. P2: the walk variants on the sorted depth-2 wavefront --------------

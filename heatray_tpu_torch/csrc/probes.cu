@@ -19,10 +19,11 @@
 //                       exact float32 needs no precision schedule, so one
 //                       kernel stands for both;
 //   warp_brute_kernel   tpu_vpu_leaf.py `_vpu_kernel` (P4): the same closest t
-//                       in the transposed layout: a warp takes its 32 rays one
-//                       at a time, lane j tests columns j, j + 32, ... of each
-//                       chunk, and a shuffle reduction gives the ray's t (K5's
-//                       leaf test, wide_bvh_common.cuh, without the tree);
+//                       in the transposed layout: the columns across the lanes
+//                       of a warp, held in registers, and the rays broadcast
+//                       to them one at a time from shared memory, a warp
+//                       reduction giving each ray's minimum over the warp's
+//                       columns;
 //   empty_kernel        tpu_kernel_probe.py `_empty_kernel` (P1 "grid"):
 //                       x * 0 over the same grid (`ray_tile` rays a block,
 //                       four a thread), the cost of the launch.
@@ -57,11 +58,12 @@
 //
 // What bounds them on an H100: the brute-force kernels are bound by
 // operations (15 float32 operations per pair for t, 30 more for the
-// barycentrics where t lies in range, against 67 TFLOP/s); every lane of a
-// warp reads the same Woop column in the row layout, and 32 consecutive
-// columns in the transposed one.  The node walk and visit_stats_kernel are
-// bound by the latency of their divergent or block-serial walks, far above
-// the bytes they move; empty_kernel by the launch itself.
+// barycentrics where t lies in range, against 67 TFLOP/s); every thread of
+// a block reads the same Woop column in the row layout, and every lane of a
+// warp the same ray in the transposed one.  The node walk and
+// visit_stats_kernel are bound by the latency of their divergent or
+// block-serial walks, far above the bytes they move; empty_kernel by the
+// launch itself.
 //
 // rows_brute_kernel is tiled so that the float32 pipe, not the load pipe,
 // sets its pace.  A block takes `ray_tile` rays and each of its ray_tile / 4
@@ -99,6 +101,46 @@
 // range skips its barycentrics.  No tensor cores: the Woop contraction has
 // depth 4 (x, y, z, 1), below any mma or wgmma depth, and TF32 would break
 // the exact float32 contract the pair test shares with the plain version.
+//
+// warp_brute_kernel keeps that layout, which is what sets it apart from
+// rows_brute_kernel, and the same per-pair arithmetic.  A block takes
+// `ray_tile` rays and copies them once, by 4-byte cp.async, into shared
+// memory (origin and direction as two 16-byte records, at most 32 KB): the
+// whole tile fits, and every column slice reads all of it, so it is staged
+// once and not streamed.  The columns stay still: a slice is kSliceCols =
+// 128 consecutive columns of one chunk, and lane j holds columns j, j + 32,
+// j + 64, j + 96 of it in registers (kWarpCols = 4 of them, 12 floats
+// each), loaded once per run of units (the first while the rays' copy is in
+// flight).  The work is the block's (slice, 32 rays) units, slice-major;
+// each of the block's 4 warps takes an equal run of them, so a warp reloads
+// its registers only where its run crosses into the next slice, and the
+// warps stay within one unit of each other whatever the chunk count.  With
+// 95 registers a thread, blocks of 128 threads let 5 blocks share an SM
+// (20 warps), where blocks of 256 left 16 warps and took 14% more time, and
+// blocks of 64 (118 registers) 20% more (profile_torch_wide.py, family
+// `brute`, on an H100); 2 columns a lane (60 registers, more warps, half the
+// divisions in flight) took 9% more, 8 columns (158 registers) 3x, and two
+// rays an iteration (a variant since dropped) 2% more.  Each ray is read
+// from shared memory as a broadcast and re-centred on the slice's chunk
+// anchor once for its four pairs on every lane; the four t are independent,
+// so four divisions are in flight; the barycentrics sit behind one branch a lane
+// (`woop_t` split as in rows_brute_kernel, its expressions as they are; a
+// warp runs the branch where any lane's t lies in range, which on this
+// scene is almost every ray).  Each ray's best t so far lives in shared
+// memory as an order key (wide_bvh_common.cuh `order_key`): every lane culls
+// by it, as the TPU kernel's `best` carried through its chunk loop, and one
+// `redux.sync` minimum over the warp's 128 pairs, then one shared-memory
+// `atomicMin` where it found a hit, lowers it.  (Where a warp takes the
+// barycentric branch for nearly every ray, the branch saves nothing: with
+// every lane's barycentrics computed for every ray, the kernel took 4% less
+// time at P4's tc 128 and 1% less at tc 512.  It stays, so that the two
+// layouts run one schedule of the pair's arithmetic.)  The bound only ever
+// holds hits, so it is never below the final minimum and drops nothing the
+// minimum keeps: t is the same on every ray whatever the order the warps run
+// in.  The parent design (a warp's 32 rays one after the other, each lane
+// reading its columns' 12 values from device memory for every ray and
+// culling by its own running minimum) read each column once per ray; this
+// one reads it once per block.
 // They are probes: nothing else here is tuned.
 //
 // Numerics, layouts, the slab and pair tests: wide_bvh_common.cuh.
@@ -289,52 +331,6 @@ __global__ void __launch_bounds__(1024) nodes_kernel(
 
 constexpr int kRowRays = 4;       // rays a thread of rows_brute_kernel holds
 constexpr int kStageCols = 128;   // columns staged in shared memory a tile
-constexpr int kColFloats = 12;    // Woop values of one column
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// Start the copy of `n` columns from slot `s0` of the flat slot order of
-// chunks `w` into `dst`, column-major (column k's value of feature row f,
-// column block g at dst[12 k + 4 g + f]), as one commit group of this
-// thread.  Consecutive threads copy consecutive slots.
-__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ w, int tc,
-                                           int s0, int n) {
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    const int c = (s0 + k) / tc;
-    const float* src = w + (size_t)c * kColFloats * tc + (s0 + k - c * tc);
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        cp_async4(dst + kColFloats * k + 4 * g + f, src + f * 3 * tc + g * tc);
-      }
-    }
-  }
-  cp_async_commit();
-}
-
-// `woop_t`'s t of one ray against a staged column's s block, in its order.
-__device__ __forceinline__ float plane_t(const float4& s, float ax, float ay, float az,
-                                         const Ray& r) {
-  const float pos = ax * s.x + ay * s.y + az * s.z + s.w;
-  const float pds = r.dx * s.x + r.dy * s.y + r.dz * s.z;
-  return -pos / pds;
-}
-
-// `woop_t`'s barycentric test of that t against the column's b1 and b2
-// blocks, in its order: t where the ray meets the triangle, else kMissT.
-__device__ __forceinline__ float inside_t(const float4& u, const float4& v, float t, float ax,
-                                          float ay, float az, const Ray& r) {
-  const float b1 =
-      (ax * u.x + ay * u.y + az * u.z + u.w) + t * (r.dx * u.x + r.dy * u.y + r.dz * u.z);
-  const float b2 =
-      (ax * v.x + ay * v.y + az * v.z + v.w) + t * (r.dx * v.x + r.dy * v.y + r.dz * v.z);
-  const bool inside = (b1 >= -kBaryEps) & (b2 >= -kBaryEps) & (b1 + b2 <= 1.0f + kBaryEps);
-  return inside ? t : kMissT;
-}
 
 // `ray_tile` rays a block, kRowRays a thread (ray q of thread k is the
 // block's ray q * blockDim.x + k), blockDim.x = ray_tile / kRowRays.
@@ -422,38 +418,129 @@ __global__ void __launch_bounds__(1024 / kRowRays) rows_brute_kernel(
   }
 }
 
-__global__ void __launch_bounds__(1024) warp_brute_kernel(
+constexpr int kWarpCols = 4;                 // columns a lane of warp_brute_kernel holds
+constexpr int kSliceCols = 32 * kWarpCols;   // columns a warp holds: a slice of one chunk
+constexpr int kWarpThreads = 128;            // threads of a block of warp_brute_kernel
+constexpr int kPartRays = 32;                // rays of one unit of a warp's work
+constexpr int kMaxRayTile = 1024;
+
+// Slice `slice` of the chunks `w` (chunk slice / per_chunk, its columns
+// j0 .. j0 + kSliceCols - 1) in registers: this lane's column j0 + lane +
+// 32 q as its b1, b2 and s blocks (x, y, z, 1), zero past the chunk's last
+// column (t = -0 / 0 is NaN there, in no range), and the chunk's anchor.
+__device__ __forceinline__ void load_slice(const float* __restrict__ w,
+                                           const float* __restrict__ wanchor, int n_chunks,
+                                           int tc, int per_chunk, int slice,
+                                           float4 (&u)[kWarpCols], float4 (&v)[kWarpCols],
+                                           float4 (&s)[kWarpCols], float& cx, float& cy,
+                                           float& cz) {
+  const int c = slice / per_chunk;
+  const int j0 = (slice - c * per_chunk) * kSliceCols + (threadIdx.x & 31);
+  const float* W = w + (size_t)c * kColFloats * tc;
+#pragma unroll
+  for (int q = 0; q < kWarpCols; ++q) {
+    const int j = j0 + 32 * q;
+    u[q] = v[q] = s[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (j < tc) {
+      u[q] = make_float4(W[j], W[3 * tc + j], W[6 * tc + j], W[9 * tc + j]);
+      v[q] = make_float4(W[tc + j], W[4 * tc + j], W[7 * tc + j], W[10 * tc + j]);
+      s[q] = make_float4(W[2 * tc + j], W[5 * tc + j], W[8 * tc + j], W[11 * tc + j]);
+    }
+  }
+  cx = wanchor[c];
+  cy = wanchor[n_chunks + c];
+  cz = wanchor[2 * n_chunks + c];
+}
+
+// `ray_tile` rays a block of kWarpThreads threads.  The block's rays sit in
+// shared memory, each with the order key of its best t so far; the work is
+// (slice, part of kPartRays rays) units, slice-major, and warp k takes the
+// k-th of kWarpThreads / 32 equal runs of them.
+__global__ void __launch_bounds__(kWarpThreads) warp_brute_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
     const float* __restrict__ w, const float* __restrict__ wanchor, int n_chunks,
-    int tc, float t_min, float* __restrict__ t_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int first = i & ~31;  // the warp's first ray
-  if (first >= n_rays) return;  // the whole warp leaves together
-  const bool valid = i < n_rays;
-  const int lane = threadIdx.x & 31;
-  Ray r = {};
-  if (valid) r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const int n_warp = min(32, n_rays - first);
-  float mine = kMissT;
-  for (int src = 0; src < n_warp; ++src) {
-    const Ray q = shfl_ray(r, src);
-    float t = kMissT;  // this lane's columns
-    for (int c = 0; c < n_chunks; ++c) {
-      const float ax = q.ox - wanchor[c];
-      const float ay = q.oy - wanchor[n_chunks + c];
-      const float az = q.oz - wanchor[2 * n_chunks + c];
-      const float* W = w + (size_t)c * 12 * tc;
-      for (int j = lane; j < tc; j += 32) {
-        t = fminf(t, tri_t(W, tc, j, ax, ay, az, q, t_min, t));
+    int tc, int ray_tile, float t_min, float* __restrict__ t_out) {
+  // Ray k of the tile: its origin, with the order key of its best t in .w,
+  // and its direction.
+  __shared__ float4 org[kMaxRayTile], dir[kMaxRayTile];
+  const int base = blockIdx.x * ray_tile;
+  const int n = min(ray_tile, n_rays - base);
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    cp_async4(&org[k].x, ox + base + k);
+    cp_async4(&org[k].y, oy + base + k);
+    cp_async4(&org[k].z, oz + base + k);
+    cp_async4(&dir[k].x, dx + base + k);
+    cp_async4(&dir[k].y, dy + base + k);
+    cp_async4(&dir[k].z, dz + base + k);
+    org[k].w = __uint_as_float(order_key(kMissT));
+  }
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int parts = (n + kPartRays - 1) / kPartRays;
+  const int per_chunk = (tc + kSliceCols - 1) / kSliceCols;
+  const int units = n_chunks * per_chunk * parts;
+  const int u1 = static_cast<int>(static_cast<long long>(warp + 1) * units / warps);
+  int u = static_cast<int>(static_cast<long long>(warp) * units / warps);
+  float4 cu[kWarpCols], cv[kWarpCols], cs[kWarpCols];
+  float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+  int held = u / parts;  // the slice in registers, loaded while the rays arrive
+  if (u < u1) load_slice(w, wanchor, n_chunks, tc, per_chunk, held, cu, cv, cs, cx, cy, cz);
+  cp_async_wait(0);
+  __syncthreads();  // the rays have arrived for every thread's share
+
+  for (; u < u1; ++u) {
+    const int slice = u / parts;
+    if (slice != held) {
+      held = slice;
+      load_slice(w, wanchor, n_chunks, tc, per_chunk, held, cu, cv, cs, cx, cy, cz);
+    }
+    const int k0 = (u - slice * parts) * kPartRays;
+    const int k1 = min(n, k0 + kPartRays);
+    for (int k = k0; k < k1; ++k) {
+      // The ray, broadcast to every lane, its origin re-centred on the
+      // slice's chunk anchor once; its best t as it stands, which every
+      // warp lowers, is the cull: a bound no smaller than the final
+      // minimum drops no value that the minimum keeps.
+      const float4 o = org[k], d = dir[k];
+      Ray r = {};
+      r.dx = d.x;
+      r.dy = d.y;
+      r.dz = d.z;
+      const float bound = key_float(__float_as_uint(o.w));
+      const float ax = o.x - cx, ay = o.y - cy, az = o.z - cz;
+      // `woop_t` against the bound, split in two: the t of each of the
+      // lane's columns, then the barycentrics where some t lies in range.
+      float t[kWarpCols];
+      bool in[kWarpCols];
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < kWarpCols; ++q) {
+        t[q] = plane_t(cs[q], ax, ay, az, r);
+        in[q] = (t[q] > t_min) & (t[q] < bound);
+        any |= in[q];
+      }
+      float hit = kMissT;
+      if (any) {
+#pragma unroll
+        for (int q = 0; q < kWarpCols; ++q) {
+          const float h = inside_t(cu[q], cv[q], t[q], ax, ay, az, r);
+          if (in[q]) hit = fminf(hit, h);
+        }
+      }
+      // One reduction for the warp's kSliceCols pairs of this ray.
+      const unsigned low = __reduce_min_sync(kFullMask, order_key(hit));
+      if (lane == 0 && low < order_key(kMissT)) {
+        atomicMin(reinterpret_cast<unsigned*>(&org[k].w), low);
       }
     }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) t = fminf(t, __shfl_xor_sync(kFullMask, t, o));
-    if (lane == src) mine = t;
   }
-  if (valid) t_out[i] = mine;
+  __syncthreads();  // every warp's minimum has been taken
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    t_out[base + k] = key_float(__float_as_uint(org[k].w));
+  }
 }
 
 // `ray_tile` rays a block, four a thread: 16-byte reads and writes where
@@ -479,7 +566,8 @@ inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; 
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  `ray_tile` is the rays of a block of the per-ray kernels (a
 // multiple of 32, at most 1024; a thread each, but four a thread in
-// rows_brute_kernel and empty_kernel); visit_stats_kernel's tile is 256.
+// rows_brute_kernel and empty_kernel, and kWarpThreads threads for the
+// whole tile in warp_brute_kernel); visit_stats_kernel's tile is 256.
 
 extern "C" int probe_block_stack_depth() { return kBlockStack; }
 extern "C" int probe_stack_depth() { return kStackDepth; }
@@ -541,9 +629,10 @@ extern "C" int probe_warp(const float* ox, const float* oy, const float* oz,
                           int leaf_size, int ray_tile, float t_min, float* t_out,
                           void* stream) {
   if (n_rays > 0) {
-    warp_brute_kernel<<<blocks_for(n_rays, ray_tile), ray_tile, 0,
+    warp_brute_kernel<<<blocks_for(n_rays, ray_tile), kWarpThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        ox, oy, oz, dx, dy, dz, n_rays, w, wanchor, n_chunks, leaf_size, t_min, t_out);
+        ox, oy, oz, dx, dy, dz, n_rays, w, wanchor, n_chunks, leaf_size, ray_tile, t_min,
+        t_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

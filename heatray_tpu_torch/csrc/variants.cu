@@ -41,13 +41,14 @@
 // entry, leaves near to far and internal children pushed far to near by the
 // block's summed direction.  The blocks are 256, 512 or 1024 threads; the
 // queue kernel also runs tiles of 2,048 rays as 1,024 threads with two rays
-// each (ray j of thread t is ray j * 1024 + t of the tile).  Lanes past the
-// last ray are absent: they enter no box, test nothing and add nothing to a
-// sum (the TPU kernels pad the last tile with rays of origin 0).  Leaf rows
-// are read from global memory (the Cornell box's leaf-32 `w`, 263 KB, stays
-// in L2), except v6's re-centred ones.  Each kernel also writes, per tile,
-// the ray-chunk tests it ran (a chunk tested by the whole tile counts its
-// rays), which says what each variant's work was.
+// each (ray j of thread t is ray j * 1024 + t of the tile); the variant
+// walk holds one ray a thread.  Lanes past the last ray are absent: they
+// enter no box, test nothing and add nothing to a sum (the TPU kernels pad
+// the last tile with rays of origin 0).  The queue kernel reads the leaf
+// rows from global memory (the Cornell box's leaf-32 `w`, 263 KB, stays in
+// L2), except v6's re-centred ones.  Each kernel also writes, per tile, the
+// ray-chunk tests it ran (a chunk tested by the whole tile counts its rays),
+// which says what each variant's work was.
 //
 // Every barrier sits on a condition that is the same for the whole block
 // (the node, its OR-ed child bits, the queue count); v4's group test is the
@@ -59,8 +60,32 @@
 //
 // What bounds them on an H100: like K3, the pair tests of rays that do not
 // enter the leaf they test, and the block-serial walk; the tree stays in
-// L2, so device memory is not the limit.  They are probes: nothing here is
-// tuned.
+// L2, so device memory is not the limit.
+//
+// variant_walk_kernel's leaf service.  After the block's OR of its child
+// bits, the chunks the node's leaf step tests are the same for every thread
+// (the live leaves, or v1's every child slot), so they are copied once into
+// shared memory, by 4-byte cp.async into 48-byte column records
+// (wide_bvh_block.cuh `stage_cols`, one commit group a chunk), at most 8
+// chunks of 12 tc floats (12 KB at tc 32).  The copies are issued before
+// thread 0 writes v2's queue and pushes and pops the walk's stack, which
+// needs no barrier of its own: every thread has read the node before
+// the first barrier, and the next is read after the last.  Each thread then
+// tests its ray against the staged columns, which every thread of the block
+// reads as a broadcast: first the ray's t, then, behind one branch, the
+// barycentrics where t lies in range and below its t so far in the chunk
+// (`woop_t` split as in rows_brute_kernel, its expressions as they are).
+// v4 skips, as a branch the same on the whole group, every leaf that none
+// of its group's rays entered, so its threads test only the leaves their
+// group counts.  The earlier design read each pair's 12 Woop values from
+// device memory, one ray a thread, in every warp of the block.  Two rays a
+// thread (half the threads) took 8% more time on v0 at tile 512 and 11-12%
+// more at 1024 (profile_torch_wide.py, family `walk`, on an H100), so a
+// thread holds one.  Its loop over a chunk's staged columns is unrolled 4
+// times: the loop as written took 12% more time on v0 at tile 512, unrolled
+// 2 times 5% more, 8 times the same.  A ray's leaves, its bound at each and
+// the order of its tests are the earlier design's, so t, slot and the tests
+// per tile are too.  They are probes: nothing else here is tuned.
 //
 // Numerics, layouts, the slab and pair tests: wide_bvh_common.cuh.
 
@@ -159,13 +184,40 @@ __device__ __forceinline__ void write_tests(int* total, int mine, int* out) {
   if (threadIdx.x == 0) out[blockIdx.x] = *total;
 }
 
+// One leaf test of a thread's ray against the chunk staged at `cols`
+// (column-major, kColFloats floats a column): `woop_t` of each column split
+// in two, the ray's t, then, behind one branch, the barycentrics where t
+// lies in (t_min, lim) and below its t so far.  t and col are the ray's
+// closest hit over the chunk and its lowest column on ties ((kMissT, -1)
+// without one): `chunk_closest` with t_max `lim`, or v3's running minimum
+// with `lim` its best.
+__device__ __forceinline__ void staged_closest(const float4* cols, int tc, const Ray& r,
+                                               float ax, float ay, float az, float lim,
+                                               float t_min, float& t, int& col) {
+  t = kMissT;
+  col = -1;
+#pragma unroll 4
+  for (int j = 0; j < tc; ++j) {
+    const float4* c = cols + 3 * j;
+    const float tj = plane_t(c[2], ax, ay, az, r);
+    if (!((tj > t_min) & (tj < lim) & (tj < t))) continue;
+    if (inside_t(c[0], c[1], tj, ax, ay, az, r) < kMissT) {
+      t = tj;
+      col = j;
+    }
+  }
+}
+
+// A block of `Threads` threads, one ray each.  The node's tested chunks are
+// staged in the dynamic shared memory, kArity slots of kColFloats tc floats.
 template <Variant V, int Threads>
 __global__ void __launch_bounds__(Threads) variant_walk_kernel(WalkArgs a) {
   __shared__ BlockWalk<Threads> s;
   __shared__ float part[Threads / 32][3];
   __shared__ int queue[kArity];
-  __shared__ int n_queue;
   __shared__ int tile_tests;
+  extern __shared__ float4 slot_mem[];
+  const int tc = a.tc;
 
   const int i = blockIdx.x * Threads + threadIdx.x;
   const bool valid = i < a.n_rays;
@@ -183,28 +235,6 @@ __global__ void __launch_bounds__(Threads) variant_walk_kernel(WalkArgs a) {
   int tests = 0;
   const int warps_per_group = a.param;
 
-  // One leaf test of this thread's ray, against its best t or, masked,
-  // against a bound no t passes.
-  auto visit = [&](int chunk, bool masked) {
-    const float ax = r.ox - a.wanchor[chunk];
-    const float ay = r.oy - a.wanchor[a.n_chunks + chunk];
-    const float az = r.oz - a.wanchor[2 * a.n_chunks + chunk];
-    const float* W = a.w + (size_t)chunk * 12 * a.tc;
-    ++tests;
-    if constexpr (V == Variant::kNoSlot) {
-      float t = kMissT;
-      for (int j = 0; j < a.tc; ++j) {
-        t = fminf(t, tri_t(W, a.tc, j, ax, ay, az, r, a.t_min, best));
-      }
-      best = fminf(best, t);
-    } else {
-      float t;
-      int col;
-      chunk_closest(W, a.tc, ax, ay, az, r, a.t_min, masked ? -1.0f : best, t, col);
-      take(t, chunk * a.tc + col, best, best_slot);
-    }
-  };
-
   if (threadIdx.x == 0) {
     s.node = 0;
     s.sp = 0;
@@ -216,47 +246,65 @@ __global__ void __launch_bounds__(Threads) variant_walk_kernel(WalkArgs a) {
     const int* codes = a.wchild + (size_t)node * kArity;
     const unsigned mine =
         valid ? live_children(boxes, codes, r, a.t_min, best, a.widen) : 0u;
-    const unsigned live = block_or(s, mine);
+    const unsigned live = block_or(s, mine);  // every thread has read s.node
     const bool low_first = sign[a.waxis[node]];
+    unsigned group_live = live;
+    if constexpr (V == Variant::kGroup) {
+      const int first = (threadIdx.x >> 5) / warps_per_group * warps_per_group;
+      group_live = 0;
+      for (int k = 0; k < warps_per_group; ++k) group_live |= s.warp_bits[first + k];
+    }
 
-    if constexpr (V == Variant::kQueue) {
-      if (threadIdx.x == 0) {
-        int n = 0;
-        for (int k = 0; k < kArity; ++k) {
-          const int c = low_first ? k : kArity - 1 - k;
-          if (((live >> c) & 1u) && codes[c] <= -2) queue[n++] = -2 - codes[c];
+    // The chunks the leaf step tests, near to far, into slots 0, 1, ...:
+    // the live leaves, or (v1) every child slot's.  Their copies are in
+    // flight while thread 0 writes v2's queue and moves the walk on.
+    int n = 0;
+    for (int k = 0; k < kArity; ++k) {
+      const int c = low_first ? k : kArity - 1 - k;
+      const int code = codes[c];
+      const bool leaf = ((live >> c) & 1u) && code <= -2;
+      if (V != Variant::kMasked && !leaf) continue;
+      const int chunk = max(-2 - code, 0);
+      stage_cols(reinterpret_cast<float*>(slot_mem + n * 3 * tc), a.w, tc, chunk * tc, tc);
+      if (V == Variant::kQueue && threadIdx.x == 0) queue[n] = chunk;
+      ++n;
+    }
+    push_and_pop(s, codes, live, low_first);  // s.node is next read after the barriers below
+
+    if (n > 0) {  // the same on the whole block
+      cp_async_wait(0);
+      __syncthreads();  // the slots (and v2's queue) are visible to every thread
+      // The thread's ray tests a slot's chunk against its best t, with ties
+      // kept (nextafterf) for a lower slot; v1's child slots that are not
+      // live leaves against a bound no t passes; v3 against its best,
+      // strictly.  v4 skips a leaf none of its group's rays entered.
+      for (int k = 0, q = 0; k < kArity; ++k) {
+        const int c = low_first ? k : kArity - 1 - k;
+        const int code = codes[c];
+        const bool leaf = ((live >> c) & 1u) && code <= -2;
+        if (V != Variant::kMasked && !leaf) continue;
+        const int slot = q++;
+        if (V == Variant::kGroup && !((group_live >> c) & 1u)) continue;  // the same on the group
+        if (!valid) continue;
+        const int chunk = V == Variant::kQueue ? queue[slot] : max(-2 - code, 0);
+        const float ax = r.ox - a.wanchor[chunk];
+        const float ay = r.oy - a.wanchor[a.n_chunks + chunk];
+        const float az = r.oz - a.wanchor[2 * a.n_chunks + chunk];
+        const float lim = V == Variant::kNoSlot
+                              ? best
+                              : nextafterf(leaf ? best : -1.0f, __int_as_float(0x7f800000));
+        float t;
+        int col;
+        staged_closest(slot_mem + slot * 3 * tc, tc, r, ax, ay, az, lim, a.t_min, t, col);
+        ++tests;
+        if constexpr (V == Variant::kNoSlot) {
+          best = fminf(best, t);
+        } else {
+          take(t, chunk * tc + col, best, best_slot);
         }
-        n_queue = n;
-      }
-      __syncthreads();  // the queue is written
-      for (int q = 0; q < n_queue; ++q) {
-        if (valid) visit(queue[q], false);
-      }
-    } else if constexpr (V == Variant::kMasked) {
-      for (int k = 0; k < kArity; ++k) {
-        const int c = low_first ? k : kArity - 1 - k;
-        const int code = codes[c];
-        const bool on = ((live >> c) & 1u) && code <= -2;
-        if (valid) visit(max(-2 - code, 0), !on);
-      }
-    } else {
-      unsigned group_live = live;
-      if constexpr (V == Variant::kGroup) {
-        const int first = (threadIdx.x >> 5) / warps_per_group * warps_per_group;
-        group_live = 0;
-        for (int k = 0; k < warps_per_group; ++k) group_live |= s.warp_bits[first + k];
-      }
-      for (int k = 0; k < kArity; ++k) {
-        const int c = low_first ? k : kArity - 1 - k;
-        const int code = codes[c];
-        if (!((live >> c) & 1u) || code > -2) continue;  // the same on the whole block
-        if (!((group_live >> c) & 1u)) continue;         // the same on the whole group
-        if (valid) visit(-2 - code, false);
       }
     }
-    __syncthreads();  // every thread is done with warp_bits and the queue
-    push_and_pop(s, codes, live, low_first);
-    __syncthreads();  // the next node is visible
+    __syncthreads();  // every thread is done with the slots and the bits; s.node is visible
   }
   if (valid) {
     a.t_out[i] = best;
@@ -413,8 +461,12 @@ __global__ void __launch_bounds__(Threads) queue_walk_kernel(WalkArgs a) {
 
 template <Variant V, int Threads>
 int launch_variant(const WalkArgs& a, cudaStream_t stream) {
+  auto kernel = variant_walk_kernel<V, Threads>;
+  size_t bytes = 0;
+  const cudaError_t err = slot_memory(kernel, a.tc, &bytes);
+  if (err != cudaSuccess) return refused(err);
   const int tiles = (a.n_rays + Threads - 1) / Threads;
-  variant_walk_kernel<V, Threads><<<tiles, Threads, 0, stream>>>(a);
+  kernel<<<tiles, Threads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,12 +1,15 @@
 // The block-wide walk of the TPU's streaming kernels, kept by the visit
 // probe (probes.cu: blocks of 256 rays) and by the walk variants
-// (variants.cu: blocks of 256-1024 threads): one block walks the tree
+// (variants.cu: blocks of 128-1024 threads): one block walks the tree
 // together, with the current node and the stack in shared memory so that
 // the loop is the same for every thread; a child is visited if any ray of
 // the block enters it, near to far by the block's summed direction along
 // the node's sort axis; the live leaf chunks of a node are copied with
 // cp.async into up to 8 shared-memory slots, one commit group each, all
-// started before the first wait.
+// started before the first wait.  Also the staged-column pair test of the
+// brute-force probes and the walk variants: columns copied by 4-byte
+// cp.async into 48-byte column records, and `woop_t` split into its t and,
+// behind a branch, its barycentrics, with its expressions as they are.
 
 #pragma once
 
@@ -55,6 +58,56 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
     default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
+}
+
+// --- columns staged in shared memory (probes.cu, variants.cu) -----------------
+
+constexpr int kColFloats = 12;  // Woop values of one column
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Start the copy of `n` columns from slot `s0` of the flat slot order of
+// chunks `w` into `dst`, column-major (column k's value of feature row f,
+// column block g at dst[12 k + 4 g + f]), as one commit group of this
+// thread.  Consecutive threads copy consecutive slots.
+__device__ __forceinline__ void stage_cols(float* dst, const float* __restrict__ w, int tc,
+                                           int s0, int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int c = (s0 + k) / tc;
+    const float* src = w + (size_t)c * kColFloats * tc + (s0 + k - c * tc);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        cp_async4(dst + kColFloats * k + 4 * g + f, src + f * 3 * tc + g * tc);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// `woop_t`'s t of one ray against a column's s block (x, y, z, 1), in its
+// order.
+__device__ __forceinline__ float plane_t(const float4& s, float ax, float ay, float az,
+                                         const Ray& r) {
+  const float pos = ax * s.x + ay * s.y + az * s.z + s.w;
+  const float pds = r.dx * s.x + r.dy * s.y + r.dz * s.z;
+  return -pos / pds;
+}
+
+// `woop_t`'s barycentric test of that t against the column's b1 and b2
+// blocks, in its order: t where the ray meets the triangle, else kMissT.
+__device__ __forceinline__ float inside_t(const float4& u, const float4& v, float t, float ax,
+                                          float ay, float az, const Ray& r) {
+  const float b1 =
+      (ax * u.x + ay * u.y + az * u.z + u.w) + t * (r.dx * u.x + r.dy * u.y + r.dz * u.z);
+  const float b2 =
+      (ax * v.x + ay * v.y + az * v.z + v.w) + t * (r.dx * v.x + r.dy * v.y + r.dz * v.z);
+  const bool inside = (b1 >= -kBaryEps) & (b2 >= -kBaryEps) & (b1 + b2 <= 1.0f + kBaryEps);
+  return inside ? t : kMissT;
 }
 
 // Per axis: does the block travel predominantly +axis (low child near)?

@@ -221,11 +221,11 @@ def case_plain(case: Case, bvh: WideBVH, rows, origins: Vec3, directions: Vec3,
 
 
 def _launch(entry, code, w, bvh: WideBVH, origins: Vec3, directions: Vec3, ray_tile, param,
-            t_min):
+            t_min, lib=None):
     """Launch ``variant_walk`` or ``queue_walk`` of ``csrc/variants.cu``
-    over the tree ``bvh`` with leaf rows ``w``: (t, slot, ray-chunk tests per
-    tile) on the tree's device."""
-    lib = variant_kernels()
+    (or of ``lib``, another build of it) over the tree ``bvh`` with leaf
+    rows ``w``: (t, slot, ray-chunk tests per tile) on the tree's device."""
+    lib = lib or variant_kernels()
     tree = wide_bvh._tree_args(bvh, lib.variants_stack_depth())
     device = bvh.w.device
     if (w.dtype != torch.float32 or not w.is_contiguous() or w.shape != bvh.w.shape
@@ -249,9 +249,9 @@ def variant_walk(bvh: WideBVH, origins: Vec3, directions: Vec3, variant: str = "
     (t, slot, ray-chunk tests per tile).
 
     CPU tensors take the plain version (no tests: None); CUDA tensors launch
-    ``variant_walk_kernel`` (``csrc/variants.cu``) in blocks of ``ray_tile``
-    (256, 512 or 1024) rays, ``group`` (32, 64 or 128, dividing the tile)
-    for v4/v5."""
+    ``variant_walk_kernel`` (``csrc/variants.cu``, each node's tested chunks
+    staged in shared memory) in blocks of ``ray_tile`` (256, 512 or 1024)
+    rays, ``group`` (32, 64 or 128, dividing the tile) for v4/v5."""
     if variant not in _WALK_CODES:
         raise ValueError(f"variant must be one of {tuple(_WALK_CODES)}, not {variant!r}")
     if ray_tile not in WALK_TILES or group not in GROUPS or ray_tile % group:

@@ -11,10 +11,12 @@ the Cornell box, packed into leaf chunks of ``tc`` triangles without anchors
   its matrix unit).  On this card the pair test is exact float32 and needs
   no precision schedule, so the reference's "MXU HIGHEST" and "MXU
   bf16x3" rows are this one kernel;
-- ``warp_closest``: a warp takes its 32 rays one at a time, lane j tests
-  columns j, j + 32, ... of each chunk and a shuffle reduction gives the
-  ray's t (the TPU's ``_vpu_kernel``, rays on sublanes and triangles on
-  lanes; K5's leaf test without the tree).
+- ``warp_closest``: the columns across the lanes of a warp, lane j holding
+  columns j, j + 32, j + 64, j + 96 of a 128-column slice of a chunk in
+  registers, and the block's rays, staged in shared memory, broadcast to
+  them one at a time, each ray's minimum over the warp's columns taken by
+  one warp reduction (the TPU's ``_vpu_kernel``, rays on sublanes and
+  triangles on lanes).
 
 Both return the closest t of each ray (``MISS_T`` on a miss); the plain
 version of both is the brute force ``closest_rows`` over the same rows.
@@ -100,7 +102,8 @@ def rows_closest(w: torch.Tensor, origins: Vec3, directions: Vec3, wanchor=None,
 def warp_closest(w: torch.Tensor, origins: Vec3, directions: Vec3, wanchor=None,
                  ray_tile: int = 256, t_min: float = 1e-4) -> torch.Tensor:
     """As ``rows_closest``, in the warp-transposed layout: CUDA tensors
-    launch ``warp_brute_kernel``."""
+    launch ``warp_brute_kernel``, ``ray_tile`` rays a block of 128
+    threads."""
     if on_cpu(w):
         check_ray_tile(ray_tile)
         return closest_brute_plain(w, origins, directions, wanchor, t_min)

@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
 """K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a/K5b and K4a/K4b
 (``csrc/wide_bvh_t.cu``), K6a/K6b (``csrc/bvh2.cu``), K7a/K7b
-(``csrc/chunks.cu``) and the brute-force probe kernels
-(``csrc/probes.cu``) beside variants of their design, on the 1080p launches
-of the Cornell box (K1, K5, K6, K7, the probes) and of ``high_poly`` (K4)
-on an NVIDIA card.
+(``csrc/chunks.cu``), the brute-force probe kernels (``csrc/probes.cu``)
+and P2's walk (``csrc/variants.cu`` ``variant_walk_kernel``) beside
+variants of their design, on the 1080p launches of the Cornell box (K1, K5,
+K6, K7, the probes) and of ``high_poly`` (K4) on an NVIDIA card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7,brute] [--parent DIR]
+    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7,brute,walk] [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
 of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a and
-K5b), ``K6_VARIANTS`` (K6a/K6b), ``CHUNK_VARIANTS`` (K7a/K7b) or
-``BRUTE_VARIANTS`` (``rows_brute_kernel``) applied, built with the
+K5b), ``K6_VARIANTS`` (K6a/K6b), ``CHUNK_VARIANTS`` (K7a/K7b),
+``BRUTE_VARIANTS`` (``rows_brute_kernel``) and ``WARP_VARIANTS``
+(``warp_brute_kernel``; both family ``brute``) or ``WALK_VARIANTS``
+(``variant_walk_kernel``, family ``walk``) applied, built with the
 package's nvcc flags into ``build/wide_variants/`` (one nvcc each, all
 started together).  ``--parent DIR`` adds the ``wide_bvh.cu``,
-``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu`` and ``probes.cu`` of another
-tree as they stand (for example an unpacked parent commit), as the variant
-``parent``, and compares the SASS of each kernel of ``wide_bvh.cu``,
-``wide_bvh_stream.cu``, ``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu`` and
-``probes.cu`` with this tree's (``cuobjdump``).  The launches
+``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu``, ``probes.cu`` and
+``variants.cu`` of another tree as they stand (for example an unpacked
+parent commit), as the variant ``parent``, and compares the SASS of each
+kernel of ``wide_bvh.cu``, ``wide_bvh_stream.cu``, ``wide_bvh_t.cu``,
+``bvh2.cu``, ``chunks.cu``, ``probes.cu`` and ``variants.cu`` with this
+tree's (``cuobjdump``; P2's kernels one per template instance).  The launches
 are those of a pass at depth 2, sorted and gated as on the card: the
 closest-hit kernels on the primary rays and on the sorted depth-2 head, the
 occlusion kernels on their shadow lanes; K1/K2 over the Cornell box's trees
@@ -28,20 +31,24 @@ at leaf 32, 64 and 128, K5 over its leaf-128 trees (Route A's), K6 over
 its ``"bvh"`` context's binary trees (leaf 64), K7 over the rebuild mode's
 chunk packs, K4a/K4b over ``high_poly``'s leaf-128 tree (the ``"stream"``
 context's, which Route B builds alike); the brute force (P1 ``leaves``, P4
-row, beside P4 warp) on the Cornell box's primary rays of
-``chip_smoke.py`` phase 17, over the leaf-32 and leaf-128 trees' anchored
-chunks (P1) and the packs of 128 and 512 (P4).  It prints, one reading per
-line:
+row, P4 warp) on the Cornell box's primary rays of ``chip_smoke.py``
+phase 17, over the leaf-32 and leaf-128 trees' anchored chunks (P1) and
+the packs of 128 and 512 (P4); P2a's cases (v0-v3, v4 at groups 32 and
+128, tiles 512 and 1024) on phase 19's sorted depth-2 wavefront over the
+leaf-32 tree.  It prints, one reading per line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
 - ``[build]``: each variant's registers and spill bytes per kernel;
 - ``[check]``: each variant's results against the shipped kernel's on every
   launch it runs (t, slot or id, and blocked, bit for bit); a variant of
   this tree must equal it, the parent's count of differing lanes is
-  printed (the brute force's parent must equal it too); for K4, K5b, K6
-  and the brute force, each variant against the plain version too, on
-  ``chip_smoke.N_CHECK`` seeded lanes of each launch (the brute force
-  within ``chip_smoke.TOL``);
+  printed (the brute force's parent ``rows_brute_kernel`` must equal it
+  too; both layouts of every build are held to the shipped
+  ``rows_brute_kernel``); for K4, K5b, K6 and the brute force, each
+  variant against the plain version too, on ``chip_smoke.N_CHECK`` seeded
+  lanes of each launch (the brute force within ``chip_smoke.TOL``); P2a's
+  t, slot and tests per tile of every build against the parent's (or,
+  without one, the shipped kernel's), all of which must be equal;
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
   in order and then in reverse, min/max of the two: K1/K2 for every variant
   over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
@@ -50,8 +57,11 @@ line:
   each of their variants on their two launches each; K4a and K4b for each
   of theirs on the four launches; K7a for each of ``CHUNK_VARIANTS`` and
   K7b for those of ``K7B_VARIANTS``; ``rows_brute_kernel`` for each of
-  ``BRUTE_VARIANTS`` and the parent at each brute-force setting, with
-  ``warp_brute_kernel`` beside it and its share of the operation bound;
+  ``BRUTE_VARIANTS`` and the parent at each brute-force setting and
+  ``warp_brute_kernel`` for each of ``WARP_VARIANTS``, the shipped build
+  and the parent at P4's, each beside its share of the operation bound;
+  ``variant_walk_kernel`` for each of ``WALK_VARIANTS`` and the parent at
+  each case, with K1 on the same rays;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
   leaf service meets (one per warp, offered leaf and round; the ``count``
   variant): their number, mean rays per group, and the share of groups, and
@@ -65,7 +75,8 @@ line:
 - ``[sass]``: with ``--parent``, for each kernel, whether its SASS equals
   the parent's instruction for instruction, or how many of its
   instructions differ; and the SASS length of each brute-force variant's
-  ``rows_brute_kernel``.
+  ``rows_brute_kernel`` and ``warp_brute_kernel``, and of each walk
+  variant's ``variant_walk_kernel`` instances.
 
 It imports no jax.
 """
@@ -97,6 +108,7 @@ _K5 = "wide_bvh_t.cu"
 _K6 = "bvh2.cu"
 _K7 = "chunks.cu"
 _PROBES = "probes.cu"
+_WALK = "variants.cu"
 # A ray-per-lane branch for large groups in the any-hit block service of K2
 # and K7b (`serve_cols_any`), as K1's closest-hit service has.
 _ANY_LANES = """  if (__popc(rays) > kLaneRays) {
@@ -461,9 +473,48 @@ BRUTE_VARIANTS = {
     "reload": ("each run of a chunk's columns re-reads the origins from device memory, so "
                "that only the re-centred ones stay in registers", [(_PROBES, _CENTRE, _RELOAD)]),
 }
+# warp_brute_kernel (P4 warp): the same table, names with a "warp-" prefix.
+# Its barycentrics behind one branch a lane, and without it.
+_WARP_SKIP = "      if (any) {\n"
+WARP_VARIANTS = {
+    **{f"warp-cols-{n}": (f"warp_brute_kernel with {n} columns a lane ({32 * n}-column slices)", [
+        (_PROBES, "constexpr int kWarpCols = 4;", f"constexpr int kWarpCols = {n};"),
+    ]) for n in (2, 8)},
+    **{f"warp-threads-{n}": (f"warp_brute_kernel in blocks of {n} threads", [
+        (_PROBES, "constexpr int kWarpThreads = 128;", f"constexpr int kWarpThreads = {n};"),
+    ]) for n in (64, 256)},
+    "warp-min-6": ("warp_brute_kernel with __launch_bounds__ of 6 blocks an SM: up to 80 "
+                   "registers", [
+        (_PROBES, "__launch_bounds__(kWarpThreads)", "__launch_bounds__(kWarpThreads, 6)"),
+    ]),
+    "warp-part-64": ("warp_brute_kernel's units of 64 rays", [
+        (_PROBES, "constexpr int kPartRays = 32;", "constexpr int kPartRays = 64;"),
+    ]),
+    "warp-flat": ("warp_brute_kernel with every lane's barycentrics for every ray: no branch", [
+        (_PROBES, _WARP_SKIP, "      {\n"),
+    ]),
+}
 # The brute-force settings timed: (probe, chunk size, ray tile); P1 over a
 # Cornell tree's anchored leaves, P4 over a pack of the triangles.
+# rows_brute_kernel runs them all, warp_brute_kernel P4's (it is checked at
+# all four).
 BRUTE_CASES = (("P1", 32, 256), ("P1", 128, 1024), ("P4", 128, 256), ("P4", 512, 512))
+
+# variant_walk_kernel (P2a), family "walk": name -> (what it changes, [(file,
+# text, replacement)]).
+WALK_VARIANTS = {
+    "shipped": ("variant_walk_kernel as shipped: the node's tested chunks staged in shared memory, "
+                "one ray a thread, t first, barycentrics behind one branch, the columns' loop "
+                "unrolled 4 times", []),
+    **{f"unroll-{n}": (f"the staged columns' loop unrolled {n} times", [
+        (_WALK, "#pragma unroll 4\n  for (int j = 0; j < tc; ++j) {",
+         f"#pragma unroll {n}\n  for (int j = 0; j < tc; ++j) {{"),
+    ]) for n in (1, 2, 8)},
+}
+# P2a's cases timed: (variant, group) at each of WALK_TILES, on phase 19's
+# sorted depth-2 wavefront.
+WALK_CASES = (("v0", 128), ("v1", 128), ("v2", 128), ("v3", 128), ("v4", 32), ("v4", 128))
+WALK_TILES = (512, 1024)
 
 
 def log(*args):
@@ -535,7 +586,7 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
     from heatray_tpu_torch.ops import intersect_pallas as ip
     from heatray_tpu_torch.ops import traverse_pallas as tp
     from heatray_tpu_torch.ops import wide_bvh as wb
-    from heatray_tpu_torch.probes import _SIGNATURES
+    from heatray_tpu_torch.probes import _SIGNATURES, _VARIANT_SIGNATURES
 
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -549,7 +600,9 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
                "any_stream_t": (wb._ANY_BLOCK_ARGS, 8),
                "closest_bvh": (k6a, 7), "any_bvh": (k6b, 8),
                "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8),
-               **{name: (_SIGNATURES[name], None) for name in ("probe_rows", "probe_warp")}}
+               **{name: (_SIGNATURES[name], None) for name in ("probe_rows", "probe_warp")},
+               **{name: (_VARIANT_SIGNATURES[name], None) for name in ("variant_walk",
+                                                                       "queue_walk")}}
     for entry, (args, at) in entries.items():
         if not hasattr(lib, entry):
             continue
@@ -560,7 +613,7 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
             fn.argtypes = args[:at] + _BVH_TREE + args[at + len(tp._BLOCK_TREE):]
         fn.restype = ctypes.c_int
     for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth", "stream_t_stack_depth",
-                  "bvh2_stack_depth"):
+                  "bvh2_stack_depth", "variants_stack_depth"):
         if hasattr(lib, depth):
             getattr(lib, depth).restype = ctypes.c_int
     return lib
@@ -576,7 +629,12 @@ _KERNEL_LABELS = {"closest_wide_t": "K5a", "any_wide_t": "K5b", "closest_stream_
 
 
 def kernel_label(name: str):
-    """The label of a kernel's (mangled) name, or None."""
+    """The label of a kernel's (mangled) name, or None; P2's templates with
+    their arguments (variant or anchor, threads[, rays])."""
+    m = re.search(r"(variant_walk|queue_walk)_kernelI(.*?)EEv", name)
+    if m:
+        args = ",".join(re.findall(r"(?:E|Li)(\d+)", m.group(2)))
+        return f"P2 {m.group(1)}<{args}>"
     return next((k for n, k in _KERNEL_LABELS.items() if f"{n}_kernel" in name), None)
 
 
@@ -864,15 +922,18 @@ def profile_k6(libs, binaries, rays, eps) -> None:
 
 
 def profile_brute(libs, t_min: float = 1e-4) -> None:
-    """``rows_brute_kernel``'s variants and the parent on the Cornell box's
-    1080p primary rays (``chip_smoke.py`` phase 17's) at each of
-    BRUTE_CASES: each checked bit for bit against the shipped kernel on
-    every ray (the parent too: the minimum does not depend on the order of
-    the columns) and within ``chip_smoke.TOL`` against the plain version on
-    N_CHECK seeded rays, then timed in turns, with ``warp_brute_kernel``
-    (as shipped) beside them, and set beside the operation bound of the
-    brute force over the scene's triangles (``chip_smoke.brute_in_range``,
-    the bound of phase 17's kernels line)."""
+    """``rows_brute_kernel``'s and ``warp_brute_kernel``'s variants and the
+    parent on the Cornell box's 1080p primary rays (``chip_smoke.py`` phase
+    17's) at each of BRUTE_CASES: each kernel of each build checked bit for
+    bit against the shipped ``rows_brute_kernel`` on every ray (the minimum
+    does not depend on the order of the columns; a parent's differing rays
+    are printed) and within ``chip_smoke.TOL`` against the plain version on
+    N_CHECK seeded rays, then timed in turns (``rows_brute_kernel`` of the
+    shipped build, the parent and each variant that edits it at every case,
+    ``warp_brute_kernel`` of the shipped build, the parent and each ``warp-``
+    variant at P4's), and set beside the operation bound of the brute force
+    over the scene's triangles (``chip_smoke.brute_in_range``, the bound of
+    phase 17's kernels line)."""
     import torch
 
     from chip_smoke import (BARY_FLOPS, N_CHECK, PAIR_T_FLOPS, PEAK_FLOPS, SEED, TOL,
@@ -897,41 +958,95 @@ def profile_brute(libs, t_min: float = 1e-4) -> None:
             chunks[probe, tc] = (vpu_leaf.pack_chunks(accel, tc), None)
     torch.cuda.synchronize()
 
-    def run(name, case):
+    def run(key, case):  # key: (build, "rows" or "warp")
+        name, layout = key
         probe, tc, rt = case
         w, anchor = chunks[probe, tc]
-        fn = libs[name].probe_warp if name == "warp" else libs[name].probe_rows
+        fn = libs[name].probe_warp if layout == "warp" else libs[name].probe_rows
         return (vpu_leaf._brute(fn, w, o, d, anchor, rt, t_min),)
 
-    names = [*libs, "warp"]
-    libs = {**libs, "warp": libs["shipped"]}
+    keys = [(name, layout) for name in libs for layout in ("rows", "warp")]
+    rows_keys = [(n, "rows") for n in libs if not n.startswith("warp-")]
+    warp_keys = [(n, "warp") for n in libs if n in ("shipped", "parent") or n.startswith("warp-")]
     pick = torch.randperm(r, generator=torch.Generator().manual_seed(SEED))[:N_CHECK].to(device)
     s_o, s_d = subset(o, pick), subset(d, pick)
     for case in BRUTE_CASES:
         probe, tc, rt = case
         w, anchor = chunks[probe, tc]
-        want = run("shipped", case)[0]
+        want = run(("shipped", "rows"), case)[0]
         t_p = vpu_leaf.closest_brute_plain(w, s_o, s_d, anchor, t_min)
         hit = t_p < MISS_T
-        for name in names:
-            t = run(name, case)[0]
+        for key in keys:
+            t = run(key, case)[0]
             off = int((t != want).sum())
             near = ((t[pick] - t_p).abs() <= TOL + TOL * t_p.abs()) & ((t[pick] < MISS_T) == hit)
-            log(f"[check] brute {probe} tc {tc} rt {rt} {name}: rays whose t differs from "
-                f"shipped {off}, seeded rays off the plain version {int((~near).sum())}")
-            if (name != "warp" and off) or not bool(near.all()):
-                raise AssertionError(f"brute {name} at {case} differs from the shipped kernel or "
+            log(f"[check] brute {probe} tc {tc} rt {rt} {key[0]} {key[1]}_brute_kernel: rays "
+                f"whose t differs from the shipped rows_brute_kernel {off}, seeded rays off the "
+                f"plain version {int((~near).sum())}")
+            if (off and key != ("parent", "warp")) or not bool(near.all()):
+                raise AssertionError(f"brute {key} at {case} differs from the shipped kernel or "
                                      "the plain version")
-    t_hit = run("shipped", BRUTE_CASES[0])[0]
+    t_hit = run(("shipped", "rows"), BRUTE_CASES[0])[0]
     flops = r * accel.num_triangles * PAIR_T_FLOPS + brute_in_range(accel, o, d, t_hit) * BARY_FLOPS
     bound = flops / PEAK_FLOPS * 1e3
     log(f"[bound] brute force on {r} rays, {accel.num_triangles} triangles: "
         f"{flops / 1e9:.1f} GFLOP -> {bound:.4f} ms (operations)")
-    ms = in_turns(names, list(BRUTE_CASES), run)
-    for name in names:
-        log(f"[time] brute {'warp_brute' if name == 'warp' else 'rows_brute ' + name}: " + ", ".join(
-            f"{p} tc {tc} rt {rt} {min(v):.4f}/{max(v):.4f} ({bound / min(v):.1%} of the bound)"
-            for (p, tc, rt), v in ms[name].items()))
+    p4 = [case for case in BRUTE_CASES if case[0] == "P4"]
+    for layout, names, cases in (("rows", rows_keys, list(BRUTE_CASES)), ("warp", warp_keys, p4)):
+        ms = in_turns(names, cases, run)
+        for key in names:
+            log(f"[time] brute {layout}_brute {key[0]}: " + ", ".join(
+                f"{p} tc {tc} rt {rt} {min(v):.4f}/{max(v):.4f} ({bound / min(v):.1%} of the bound)"
+                for (p, tc, rt), v in ms[key].items()))
+
+
+def profile_walk(libs) -> None:
+    """``variant_walk_kernel``'s variants and the parent on ``chip_smoke.py``
+    phase 19's rays (the Cornell box's sorted depth-2 wavefront at 1080p,
+    over its leaf-32 ``"wide"`` tree): each of WALK_CASES at each of
+    WALK_TILES, t, slot and the tests per tile checked bit for bit against
+    the parent's (when given) and the shipped kernel's, then timed in turns,
+    with K1 on the same rays."""
+    import torch
+
+    from chip_smoke import time_ms
+    from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.probes import cornell
+    from heatray_tpu_torch.probes import kernel_variants as kv
+
+    device = torch.device("cuda:0")
+    scene, camera, opts, ctx = cornell(WIDTH, HEIGHT, 4, device)
+    paths = kv.wavefront(scene, camera, ctx, opts)
+    bvh = ctx.accel_pack.wide
+    o, d = paths.org, paths.direction
+    torch.cuda.synchronize()
+    cases = [(v, g, rt) for rt in WALK_TILES for v, g in WALK_CASES]
+
+    def run(name, case):
+        variant, group, rt = case
+        return kv._launch("variant_walk", kv._WALK_CODES[variant], bvh.w, bvh, o, d, rt, group,
+                          kv.T_MIN, lib=libs[name])
+
+    ref = "parent" if "parent" in libs else "shipped"
+    log(f"[rays] walk: {o.x.numel()} lanes of the sorted depth-2 wavefront, "
+        f"{int(paths.active.sum())} live; {bvh.num_chunks} leaves of {bvh.leaf_size}")
+    for case in cases:
+        want = run(ref, case)
+        for name in libs:
+            got = run(name, case)
+            off = [int((a != b).sum()) for a, b in zip(got, want)]
+            log(f"[check] walk {case[0]} g {case[1]} rt {case[2]} {name}: lanes whose t, slot "
+                f"differ and tiles whose tests differ from the {ref}'s {off}; "
+                f"{float(got[2].double().mean()) / case[2]:.3f} leaf tests per ray of a tile")
+            if any(off):
+                raise AssertionError(f"walk {name} at {case} differs from the {ref}'s")
+    ms = in_turns(list(libs), cases, run)
+    for name in libs:
+        log(f"[time] walk {name}: " + ", ".join(
+            f"{v}{f'g{g}' if v == 'v4' else ''}@{rt} {min(x):.4f}/{max(x):.4f}"
+            for (v, g, rt), x in ms[name].items()))
+    k1 = time_ms(lambda: wb.intersect_closest_wide(bvh, o, d), 10)
+    log(f"[time] walk: K1 (closest_wide) on the same rays {k1:.4f}")
 
 
 def profile_k4(libs, trees, rays, eps) -> None:
@@ -1072,17 +1187,20 @@ def compare_sass(pairs) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k4,k5,k6,k7,brute",
+    ap.add_argument("--kernels", default="k1,k4,k5,k6,k7,brute,walk",
                     help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 "
-                         "(K5a/K5b), k6 (K6a/K6b), k7 (K7a/K7b) and brute (rows_brute_kernel), "
-                         "comma-separated (default: all six)")
+                         "(K5a/K5b), k6 (K6a/K6b), k7 (K7a/K7b), brute (rows_brute_kernel and "
+                         "warp_brute_kernel) and walk (variant_walk_kernel), comma-separated "
+                         "(default: all seven)")
     ap.add_argument("--parent", type=Path,
-                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu, chunks.cu and "
-                         "probes.cu to time too, and whose kernels' SASS to compare")
+                    help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu, chunks.cu, "
+                         "probes.cu and variants.cu to time too, and whose kernels' SASS to "
+                         "compare")
     args = ap.parse_args()
     families = set(args.kernels.split(","))
-    if not families or families - {"k1", "k4", "k5", "k6", "k7", "brute"}:
-        raise SystemExit(f"--kernels takes k1, k4, k5, k6, k7 and brute, not {args.kernels!r}")
+    if not families or families - {"k1", "k4", "k5", "k6", "k7", "brute", "walk"}:
+        raise SystemExit(f"--kernels takes k1, k4, k5, k6, k7, brute and walk, not "
+                         f"{args.kernels!r}")
 
     import torch
 
@@ -1095,7 +1213,8 @@ def main() -> int:
     log(card)
     tables = {"k1": (VARIANTS, _K1), "k4": (K4_VARIANTS, _K5), "k5": (T_VARIANTS, _K5),
               "k6": (K6_VARIANTS, _K6), "k7": (CHUNK_VARIANTS, _K7),
-              "brute": (BRUTE_VARIANTS, _PROBES)}
+              "brute": ({**BRUTE_VARIANTS, **WARP_VARIANTS}, _PROBES),
+              "walk": (WALK_VARIANTS, _WALK)}
     sources = {}  # (family, name) -> source
     for family in sorted(families):
         variants, target = tables[family]
@@ -1106,7 +1225,8 @@ def main() -> int:
                                          / target)
     # The sources whose every kernel's SASS is set beside the parent's.  A
     # file no family builds is built alone.
-    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, "k6": _K6, "k7": _K7, "brute": _PROBES}
+    sass_files = {"k1": _K1, "k3": _K3, "k5": _K5, "k6": _K6, "k7": _K7, "brute": _PROBES,
+                  "walk": _WALK}
     shipped_of = {}  # file -> the family whose "shipped" and "parent" build it
     for family, target in sorted(sass_files.items()) if args.parent else ():
         have = next((f for f in sorted(families) if tables[f][1] == target), None)
@@ -1132,8 +1252,14 @@ def main() -> int:
                       for f in shipped_of.values()])
     for (family, name), (so, _) in built.items():
         if family == "brute":
-            log(f"[sass] brute {name}: rows_brute_kernel "
-                f"{len(sass(so)['P1/P4 rows_brute'])} instructions")
+            code = sass(so)
+            log(f"[sass] brute {name}: rows_brute_kernel {len(code['P1/P4 rows_brute'])}, "
+                f"warp_brute_kernel {len(code['P4 warp_brute'])} instructions")
+        elif family == "walk":
+            code = {k: v for k, v in sass(so).items() if k.startswith("P2 variant_walk")}
+            log(f"[sass] walk {name}: variant_walk_kernel " + ", ".join(
+                f"{k[len('P2 variant_walk'):]} {len(v)}" for k, v in sorted(code.items()))
+                + " instructions")
 
     device = torch.device("cuda:0")
     if libs["k1"] or libs["k5"] or libs["k6"] or libs["k7"]:
@@ -1149,6 +1275,8 @@ def main() -> int:
         del trees, chunks, binaries, rays
     if libs["brute"]:
         profile_brute(libs["brute"])
+    if libs["walk"]:
+        profile_walk(libs["walk"])
     if libs["k4"]:
         hp_trees, hp_rays, eps = hp_launches(device)
         profile_k4(libs["k4"], hp_trees, hp_rays, eps)

@@ -850,6 +850,36 @@ def test_rows_brute_kernel_matches_plain_at_every_probe_setting(cuda_device, sou
     assert int((t_p < MISS_T).sum()) > n_rays // 2
 
 
+@pytest.mark.parametrize("n_rays", [8191, 1000, 33])
+@pytest.mark.parametrize("source, tc", [("tree", 32), ("tree", 64), ("tree", 128), ("pack", 128),
+                                        ("pack", 256), ("pack", 512), ("pack", 100)])
+def test_warp_brute_kernel_matches_plain_at_every_probe_setting(cuda_device, source, tc,
+                                                                 n_rays):
+    """``warp_brute_kernel`` (columns held in registers, 128-column slices of
+    one chunk, the block's rays staged in shared memory) at every chunk size
+    P1 and P4 sweep and at 100 (slices part-empty past each chunk's last
+    column), with every ray tile they sweep: ray counts that leave the last
+    block part-empty.  t equals the plain version's within 1e-5, is the same
+    on every ray at every tile, and equals ``rows_brute_kernel``'s bit for
+    bit (the minimum does not depend on the order of the columns or on the
+    bound the pairs were culled by)."""
+    _, accel, bvh = _cornell_tree(cuda_device, tc if source == "tree" else 32)
+    w, anchor = (bvh.w, bvh.wanchor) if source == "tree" else (vpu_leaf.pack_chunks(accel, tc),
+                                                              None)
+    o, d = _rays(n_rays, 13, cuda_device)
+    t_p = vpu_leaf.closest_brute_plain(w, o, d, anchor)
+    rows = vpu_leaf.rows_closest(w, o, d, anchor)
+    launches = vpu_leaf.warp_closest.launches
+    for ray_tile in (256, 512, 1024, 32):
+        t = vpu_leaf.warp_closest(w, o, d, anchor, ray_tile)
+        torch.cuda.synchronize()
+        assert torch.equal(t < MISS_T, t_p < MISS_T)
+        torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
+        assert torch.equal(t, rows)
+    assert vpu_leaf.warp_closest.launches == launches + 4
+    assert int((t_p < MISS_T).sum()) > n_rays // 2
+
+
 # --- the walk variants (csrc/variants.cu) ---------------------------------------
 
 
@@ -866,12 +896,16 @@ def _assert_equal_to_plain(case, out, want):
 def test_walk_variant_kernels_match_plain(cuda_device, ray_tile):
     """P2a: every variant of ``variant_walk_kernel`` (v4 at groups 32, 64 and
     128) equals its plain version on whole tiles with a partial last one (t
-    within 1e-5, slots equal, all -1 for v3).  The tests per tile say what
-    each variant did: v2 and v3 walk and test as v0; v1 tests every child of
-    every visited node; v4 no more than v0."""
+    within 1e-5, slots equal, all -1 for v3).  v0-v2 and v4 compute K1's
+    function: their t and slots equal K1's bit for bit, and so those of v0
+    at tile 256, at every tile; v3's t equals them too.  The tests per tile
+    say what each variant did: v2 and v3 walk and test as v0; v1 tests every
+    child of every visited node; v4 no more than v0."""
     _, _, bvh = _cornell_tree(cuda_device, 32)
     o, d = _rays(3 * ray_tile + 100, 21, cuda_device)
     kv = kernel_variants
+    t_k1, slot_k1, _ = wide_bvh.intersect_closest_wide(bvh, o, d)
+    t_256, slot_256, _ = kv.variant_walk(bvh, o, d, "v0", 256)
     tests = {}
     for variant, group in [("v0", 128), ("v1", 128), ("v2", 128), ("v3", 128),
                            ("v4", 32), ("v4", 64), ("v4", 128)]:
@@ -881,6 +915,10 @@ def test_walk_variant_kernels_match_plain(cuda_device, ray_tile):
         torch.cuda.synchronize()
         assert kv.variant_walk.launches == launches + 1
         tests[case.name] = _assert_equal_to_plain(case, out, kv.case_plain(case, bvh, None, o, d))
+        for want in (t_k1, t_256):
+            assert torch.equal(out[0], want), case
+        if variant != "v3":
+            assert torch.equal(out[1], slot_k1) and torch.equal(out[1], slot_256), case
     assert tests["v0"].shape == (4,) and int(tests["v0"].min()) > 0
     assert torch.equal(tests["v2"], tests["v0"]) and torch.equal(tests["v3"], tests["v0"])
     assert bool((tests["v1"] > tests["v0"]).all())

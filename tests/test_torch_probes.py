@@ -18,6 +18,7 @@ import ast
 import dataclasses
 import functools
 import os
+import re
 import types
 from pathlib import Path
 
@@ -435,6 +436,75 @@ def test_brute_layouts_match_reference(cornell, rays512, layout):
     np.testing.assert_array_equal(t < MISS_T, hit)
     np.testing.assert_allclose(t[hit], ref[hit], rtol=1e-4 if layout == "row" else 1e-6)
     assert 100 < hit.sum() < 512
+
+
+def _cu_constant(source, name):
+    """A ``constexpr int`` of a CUDA source of the port."""
+    text = (REPO / "heatray_tpu_torch" / "csrc" / source).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def _warp_schedule_t(w, o, d, anchor, ray_tile, t_min=T_MIN):
+    """A model of ``warp_brute_kernel``'s schedule (``csrc/probes.cu``, its
+    constants read from the source): per tile of ``ray_tile`` rays (the
+    last one partial), the (slice of one chunk, part of the rays) units,
+    slice-major, in equal runs over the block's warps, the warps taking one
+    unit each in turn; each unit's pairs culled by each ray's best t as the
+    units before it left it.  Returns (t, the units that culled by a bound
+    below MISS_T)."""
+    lane_cols, threads, part = (_cu_constant("probes.cu", n)
+                                for n in ("kWarpCols", "kWarpThreads", "kPartRays"))
+    warps, slice_cols = threads // 32, 32 * lane_cols
+    n_chunks, tc = w.shape[0], w.shape[2] // 3
+    rows = intersect.chunk_rows(w)
+    anchor = torch.zeros((3, n_chunks)) if anchor is None else anchor
+    per_chunk = -(-tc // slice_cols)
+    out, culled = [], 0
+    for base in range(0, o.x.numel(), ray_tile):
+        n = min(ray_tile, o.x.numel() - base)
+        parts = -(-n // part)
+        units = n_chunks * per_chunk * parts
+        runs = [range(k * units // warps, (k + 1) * units // warps) for k in range(warps)]
+        best = torch.full((n,), MISS_T)
+        for step in range(max(len(run) for run in runs)):
+            for run in runs:
+                if step >= len(run):
+                    continue
+                piece, part_no = divmod(run[step], parts)
+                chunk, k = divmod(piece, per_chunk)
+                lo, hi = k * slice_cols, min(tc, (k + 1) * slice_cols)
+                cols = slice(chunk * tc + lo, chunk * tc + hi)
+                rays = slice(part_no * part, min(n, (part_no + 1) * part))
+                sub = [v.map(lambda c: c[base:base + n][rays]) for v in (o, d)]
+                bound = best[rays]
+                culled += bool((bound < MISS_T).any())
+                t = intersect.pair_t(*sub, rows[:, cols], t_min, bound,
+                                     anchor[:, chunk, None].expand(3, hi - lo))
+                best[rays] = torch.minimum(bound, t.min(dim=1).values)
+        out.append(best)
+    return torch.cat(out), culled
+
+
+@pytest.mark.parametrize("source", ["pack", "tree"])
+@pytest.mark.parametrize("tc", [100, 128])
+def test_warp_schedule_gives_the_plain_brute_force(cornell, rays512, source, tc):
+    """``warp_brute_kernel``'s schedule, modelled in PyTorch, gives
+    ``closest_brute_plain``'s t bit for bit on the Cornell rays, over the
+    pack (P4) and over a tree's anchored leaves, at tc 128 and at tc 100
+    (slices part-empty past each chunk's last column), with tiles of 192
+    rays (the last of 128): the best t carried from unit to unit culls
+    pairs and drops no value the minimum keeps."""
+    _, _, accel = cornell
+    _, (o, d) = rays512
+    if source == "pack":
+        w, anchor = vpu_leaf.pack_chunks(accel, tc), None
+    else:
+        bvh = wide_bvh.build_wide_bvh(accel, leaf_size=tc)
+        w, anchor = bvh.w, bvh.wanchor
+    t, culled = _warp_schedule_t(w, o, d, anchor, 192)
+    want = vpu_leaf.closest_brute_plain(w, o, d, anchor)
+    assert torch.equal(t, want)
+    assert culled > 0 and 100 < int((want < MISS_T).sum()) < 512
 
 
 # --- P2 ------------------------------------------------------------------------
