@@ -110,7 +110,8 @@ source, started together, and then:
    visit counts equal; ``leaves``: hit masks equal, t within TOL, and
    equal to the tree's brute force ``closest_wide_plain``); ``grid`` is
    also timed a call beside ``torch.mul(x, 0.0)``, with the device time of
-   each alone (a CUDA-graph replay) and its host path taken apart;
+   each alone (a CUDA-graph replay, on one input and over GRID_COPIES
+   inputs in turn, past the L2) and its host path taken apart;
 18. runs the P4 probe (``probes.vpu_leaf``: the row and warp-transposed
    brute force) at tc {128, 256, 512} x tile {256, 512}, each layout
    against the plain brute force on N_CHECK seeded lanes and against the
@@ -128,7 +129,9 @@ source, started together, and then:
    v4 no more, and v0 equal to K1 bit for bit; a ``[compare]`` line sets
    ``variant_walk_kernel``'s v0 at tile 512 beside its share of K1's bound
    and of its own work bound (its ray-chunk tests x the chunk's columns x
-   a pair's t) and beside K1 on the same rays;
+   a pair's t) and beside K1 on the same rays, and a ``[compare] P2b-d``
+   line sets each ``queue_walk_kernel`` anchor's ms at its entry's case
+   beside the same two shares;
 20. the appearance slice, through K1/K2: Scene A (``multi_material`` lit
    by the 2k procedural studio map) and Scene B (the same layout with
    2048x2048 base-colour, normal and metallic-roughness textures on the
@@ -272,6 +275,7 @@ P2_VARIANTS = ("v0", "v1", "v2", "v3", "v4g32", "v4g128", "v6b4", "v6b8", "v7b4"
 P2_QUEUES = {"v6": "queue_walk_tile", "v7": "queue_walk_none", "v8": "queue_walk_chunk"}
 P3_TILES = 64  # seeded whole tiles of each wavefront held against the plain walk
 P2_TILES = 64
+GRID_COPIES = 8  # P1 grid's rotating inputs: 8 x 8.3 MB, past the H100's 50 MB L2
 # NVIDIA's H100 SXM data sheet: HBM bytes/s and float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
@@ -1293,11 +1297,14 @@ def grid_costs(org):
     back to back (CUDA events, ``time_ms``: the kernels line's ``ms_10``
     and ``library_ms``; its ``ms`` stays ``kernel_probe.run``'s reading over
     5 calls, so that it lines up with earlier runs); the
-    device time of each alone, from one CUDA-graph replay of the same 10
-    calls; and the host path of ``empty`` taken apart, each part over 1,000
+    device time of each alone, from 10 replays of a CUDA graph of the same
+    10 calls, the lesser of two readings in turns; and the host path of ``empty`` taken apart, each part over 1,000
     calls (``time.perf_counter_ns``, microseconds a call) on the first 4,096
     rays, whose launches the card finishes faster than the host makes them
-    (no part of the host path depends on the rays' count)."""
+    (no part of the host path depends on the rays' count); and the device
+    time a call of each over GRID_COPIES copies of the x plane in turn, two
+    rounds in one graph (66 MB of inputs and 133 MB of outputs, past the
+    50 MB L2), beside the 16.6 MB bound."""
     import torch
 
     from heatray_tpu_torch.ops import wide_bvh as wb
@@ -1313,13 +1320,15 @@ def grid_costs(org):
     out = torch.empty_like(x)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
 
-    def graph_ms(fn):
+    def graph_ms(fn, count=None):
+        """Device ms a call: ``fn`` 10 times in one graph, or once when it
+        makes ``count`` calls itself."""
         fn()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(10):
+            for _ in range(1 if count else 10):
                 fn()
-        return time_ms(graph.replay, 1) / 10
+        return time_ms(graph.replay, 10) / (count or 10)
 
     def checks():
         check_ray_tile(256)
@@ -1356,15 +1365,32 @@ def grid_costs(org):
         host_us[part] = (time.perf_counter_ns() - t0) / 1000 / 1e3
         torch.cuda.synchronize()
     ms = {name: time_ms(fn, 10) for name, fn in calls.items()}
-    device_ms = {name: graph_ms(fn) for name, fn in calls.items()}
+    # Device time, the least of two readings in turns (empty, torch.mul,
+    # torch.mul, empty): on one input, and over GRID_COPIES inputs in turn
+    # (66 MB, past the 50 MB L2), two rounds.
+    copies = [Vec3(c, c, c) for c in (org.x.clone() for _ in range(GRID_COPIES))]
+    rotating = {"empty": lambda v: kp.empty(v), "torch.mul": lambda v: torch.mul(v.x, 0.0)}
+    device_ms, rotating_ms = {}, {}
+    for name in [*calls, *reversed(calls)]:
+        one = graph_ms(calls[name])
+        over = graph_ms(lambda fn=rotating[name]: [fn(v) for v in copies * 2], len(copies) * 2)
+        device_ms[name] = min(device_ms.get(name, one), one)
+        rotating_ms[name] = min(rotating_ms.get(name, over), over)
+    del copies
+    bound_ms = 8 * org.x.numel() / PEAK_BYTES * 1e3
     log(f"[compare] P1 grid on {org.x.numel()} rays, ms a call over 10 back to back: empty "
-        f"{ms['empty']:.4f}, torch.mul {ms['torch.mul']:.4f}; device ms a call (one graph "
-        f"replay of 10): empty {device_ms['empty']:.4f}, torch.mul "
-        f"{device_ms['torch.mul']:.4f}")
+        f"{ms['empty']:.4f}, torch.mul {ms['torch.mul']:.4f}; device ms a call (10 replays "
+        f"of a graph of 10, the lesser of 2 in turns): empty {device_ms['empty']:.4f}, torch.mul "
+        f"{device_ms['torch.mul']:.4f}; over {GRID_COPIES} inputs in turn: empty "
+        f"{rotating_ms['empty']:.4f} ({bound_ms / rotating_ms['empty']:.1%} of the "
+        f"{bound_ms:.4f} ms bound), torch.mul {rotating_ms['torch.mul']:.4f} "
+        f"({bound_ms / rotating_ms['torch.mul']:.1%})")
     log(f"[host] P1 grid on {n} rays, us a call over 1,000 calls: "
         + "; ".join(f"{part} {us:.2f}" for part, us in host_us.items()))
     return {"ms_10": ms["empty"], "library_ms": ms["torch.mul"], "device_ms": device_ms["empty"],
-            "library_device_ms": device_ms["torch.mul"], "host_us": host_us}
+            "library_device_ms": device_ms["torch.mul"],
+            "rotating_device_ms": rotating_ms["empty"],
+            "library_rotating_device_ms": rotating_ms["torch.mul"], "host_us": host_us}
 
 
 def phase_p1(accel, prim, gen, err):
@@ -1436,7 +1462,10 @@ def phase_p1(accel, prim, gen, err):
         probe_entry("empty", ms["grid", 256], r, (time_ms(lambda: kp.empty_plain(org), 10), r),
                     probe_bound(f"P1 grid on {r} rays", 8 * r, 0), grid["library_ms"],
                     ray_tile=256, ms_10=grid["ms_10"], device_ms=grid["device_ms"],
-                    library_device_ms=grid["library_device_ms"], host_us=grid["host_us"]),
+                    library_device_ms=grid["library_device_ms"],
+                    rotating_device_ms=grid["rotating_device_ms"],
+                    library_rotating_device_ms=grid["library_rotating_device_ms"],
+                    host_us=grid["host_us"]),
     ]
     log(f"[compare] P1 on {r} rays, leaf {ls}, tile 256, ms a call over 5 back to back: grid "
         f"{ms['grid', 256]:.4f}, nodes {ms['nodes', 256]:.4f}, leaves "
@@ -1595,6 +1624,13 @@ def phase_p2(cornell, gen, err, card):
         f"{work_ms['v0', 512] / v0['ms']:.2%} of its own {work_ms['v0', 512]:.4f} ms "
         f"({v0['tests_per_tile']:.3f} leaf tests a ray x {tree.leaf_size} columns x "
         f"{PAIR_T_FLOPS} FLOP); K1 on the same rays {k1['ms']:.4f} ms; card {card}")
+    log("[compare] P2b-d queue_walk at their entries' cases: " + "; ".join(
+        f"{e['name']} {e['case']}@{e['ray_tile']} {e['ms']:.4f} ms, "
+        f"{bound_ms / e['ms']:.2%} of K1's {bound_ms:.4f} ms bound and "
+        f"{e['work_bound_ms'] / e['ms']:.2%} of its own {e['work_bound_ms']:.4f} ms "
+        f"({by_case[e['case'], e['ray_tile']]['tests_per_tile']:.3f} leaf tests a ray)"
+        for e in entries if e["name"] in P2_QUEUES.values())
+        + f"; K1 on the same rays {k1['ms']:.4f} ms; card {card}")
     return entries, launches
 
 

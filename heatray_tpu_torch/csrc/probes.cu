@@ -25,8 +25,8 @@
 //                       reduction giving each ray's minimum over the warp's
 //                       columns;
 //   empty_kernel        tpu_kernel_probe.py `_empty_kernel` (P1 "grid"):
-//                       x * 0 over the same grid (`ray_tile` rays a block,
-//                       four a thread), the cost of the launch.
+//                       x * 0 over the rays, the cost of a launch that moves
+//                       the rays' x plane.
 //
 // visit_stats_kernel walks the tree as the TPU's streaming kernels do
 // (wide_bvh_block.cuh): one block of 256 rays per tile, a child visited
@@ -63,7 +63,29 @@
 // warp the same ray in the transposed one.  The node walk and
 // visit_stats_kernel are bound by the latency of their divergent or
 // block-serial walks, far above the bytes they move; empty_kernel by the
-// launch itself.
+// bytes it moves (4 read and 4 written a ray: 16.6 MB at 1080p, 5.0 us at
+// 3.35 TB/s) and, from L2, by its launch.
+//
+// empty_kernel's geometry is the card's, not the TPU's: the ray tile is the
+// TPU probe's grid step, and `ray_tile` no longer sets the block (the entry
+// point keeps it, and its callers their checks).  A block is kEmptyThreads
+// threads, each taking kEmptyVecs float4s a trip, all loaded before any is
+// stored, by loads that bypass L1 and streaming stores (__ldcs, __stcs),
+// in a block-strided loop over a grid of as many blocks as the float4s
+// need.  Where x and out sit at the same offset from a 16-byte boundary,
+// the floats before it and past the last whole float4 go one at a time to
+// 8 threads of the first block, once; otherwise (an unaligned view beside
+// an aligned output) every float goes alone.  The earlier design took
+// `ray_tile` / 4 threads a block, one float4 each behind a branch on the
+// alignment in every thread: 8,100 blocks of 64 threads at tile 256.  On an
+// NVIDIA H100 80GB HBM3 at 700 W (profile_torch_wide.py, family `grid`, in
+// turns, device time a call over 2,073,600 floats, three runs): 0.0038-
+// 0.0041 ms from L2 at every tile, into one output or a new one each call,
+// torch.mul(x, 0.0)'s 0.0039-0.0042 (2,025 blocks of 128 threads), the
+// earlier design's 0.0062 at tile 256; over inputs and outputs past the
+// L2 0.0071-0.0074 ms, 67-70% of the bound, torch.mul's 0.0074-0.0075.
+// Blocks of 128 or 512, 1 or 4 float4s a thread, a grid of one wave and
+// loads through L1 all land within 0.0003 ms of it; 2 float4s read best.
 //
 // rows_brute_kernel is tiled so that the float32 pipe, not the load pipe,
 // sets its pace.  A block takes `ray_tile` rays and each of its ray_tile / 4
@@ -543,19 +565,51 @@ __global__ void __launch_bounds__(kWarpThreads) warp_brute_kernel(
   }
 }
 
-// `ray_tile` rays a block, four a thread: 16-byte reads and writes where
-// both pointers allow them, else one float at a time.
-__global__ void __launch_bounds__(256) empty_kernel(const float* __restrict__ ox, int n_rays,
-                                                     int ray_tile, float* __restrict__ out) {
-  const int i = blockIdx.x * ray_tile + 4 * threadIdx.x;
-  const bool aligned = ((reinterpret_cast<size_t>(ox) | reinterpret_cast<size_t>(out)) & 15) == 0;
-  if (aligned && i + 3 < n_rays) {
-    const float4 x = __ldg(reinterpret_cast<const float4*>(ox + i));
-    *reinterpret_cast<float4*>(out + i) =
-        make_float4(x.x * 0.0f, x.y * 0.0f, x.z * 0.0f, x.w * 0.0f);
-  } else {
-    for (int k = i; k < min(i + 4, n_rays); ++k) out[k] = ox[k] * 0.0f;
+constexpr int kEmptyThreads = 256;         // threads of a block of empty_kernel
+constexpr int kEmptyVecs = 2;              // float4s (or floats) a thread takes a trip
+
+// x * 0 over `n` elements of type V (float4 or float) from x to out,
+// kEmptyVecs a thread per trip of a block-strided loop: all its loads
+// issued before any store, streamed past L1 (__ldcs, __stcs).
+__device__ __forceinline__ float times_zero(float v) { return v * 0.0f; }
+__device__ __forceinline__ float4 times_zero(float4 v) {
+  return make_float4(v.x * 0.0f, v.y * 0.0f, v.z * 0.0f, v.w * 0.0f);
+}
+
+template <typename V>
+__device__ __forceinline__ void zero_run(const V* __restrict__ x, int n, V* __restrict__ out) {
+  constexpr int kStep = kEmptyThreads * kEmptyVecs;
+  for (int i0 = blockIdx.x * kStep + threadIdx.x; i0 < n; i0 += gridDim.x * kStep) {
+    V v[kEmptyVecs];
+#pragma unroll
+    for (int u = 0; u < kEmptyVecs; ++u) {
+      if (i0 + u * kEmptyThreads < n) v[u] = __ldcs(x + i0 + u * kEmptyThreads);
+    }
+#pragma unroll
+    for (int u = 0; u < kEmptyVecs; ++u) {
+      if (i0 + u * kEmptyThreads < n) __stcs(out + i0 + u * kEmptyThreads, times_zero(v[u]));
+    }
   }
+}
+
+// out = x * 0 over n floats.  With x and out at the same offset from a
+// 16-byte boundary (`head` >= 0: the floats before it), the head and the
+// tail past the last whole float4 go one float at a time to the first
+// block's first 8 threads, and the float4s between to every thread; else
+// (`head` < 0) every float goes alone.
+__global__ void __launch_bounds__(kEmptyThreads) empty_kernel(const float* __restrict__ x, int n,
+                                                               int head,
+                                                               float* __restrict__ out) {
+  if (head < 0) {
+    zero_run(x, n, out);
+    return;
+  }
+  const int vecs = (n - head) / 4;
+  if (blockIdx.x == 0 && threadIdx.x < 8) {
+    const int k = threadIdx.x < 4 ? threadIdx.x : head + 4 * vecs + threadIdx.x - 4;
+    if (threadIdx.x < 4 ? k < head : k < n) out[k] = x[k] * 0.0f;
+  }
+  zero_run(reinterpret_cast<const float4*>(x + head), vecs, reinterpret_cast<float4*>(out + head));
 }
 
 inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; }
@@ -566,8 +620,9 @@ inline int blocks_for(int n, int threads) { return (n + threads - 1) / threads; 
 // synchronise, and returns the first CUDA error (0 = the launch was
 // accepted).  `ray_tile` is the rays of a block of the per-ray kernels (a
 // multiple of 32, at most 1024; a thread each, but four a thread in
-// rows_brute_kernel and empty_kernel, and kWarpThreads threads for the
-// whole tile in warp_brute_kernel); visit_stats_kernel's tile is 256.
+// rows_brute_kernel, and kWarpThreads threads for the whole tile in
+// warp_brute_kernel); visit_stats_kernel's tile is 256, and empty_kernel's
+// blocks do not depend on it.
 
 extern "C" int probe_block_stack_depth() { return kBlockStack; }
 extern "C" int probe_stack_depth() { return kStackDepth; }
@@ -640,8 +695,13 @@ extern "C" int probe_warp(const float* ox, const float* oy, const float* oz,
 extern "C" int probe_empty(const float* ox, int n_rays, int ray_tile, float* out,
                            void* stream) {
   if (n_rays > 0) {
-    empty_kernel<<<blocks_for(n_rays, ray_tile), ray_tile / 4, 0,
-                   static_cast<cudaStream_t>(stream)>>>(ox, n_rays, ray_tile, out);
+    const size_t xa = reinterpret_cast<size_t>(ox), oa = reinterpret_cast<size_t>(out);
+    const bool paired = ((xa ^ oa) & 15) == 0;
+    const int head = paired ? min(static_cast<int>((16 - (xa & 15)) & 15) / 4, n_rays) : -1;
+    const int items = paired ? (n_rays - head) / 4 : n_rays;
+    const int blocks = max(blocks_for(items, kEmptyThreads * kEmptyVecs), 1);
+    empty_kernel<<<blocks, kEmptyThreads, 0, static_cast<cudaStream_t>(stream)>>>(ox, n_rays,
+                                                                                  head, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,9 +23,8 @@
 //                        appends live leaves to a shared-memory queue of 64
 //                        entries across nodes; whenever it holds `batch` or
 //                        more, the last `batch` are drained, each ray testing
-//                        them all against its best t as it stood before the
-//                        drain and merging the results once; the rest drains
-//                        at the end.  Three anchors:
+//                        them all and merging the results once; the rest
+//                        drains at the end.  Three anchors:
 //     kTile    (v6)      the ray origins re-centred on the tile's origin
 //                        centroid, and the unanchored leaf rows staged in
 //                        shared memory with their translation re-centred on
@@ -44,14 +43,14 @@
 // each (ray j of thread t is ray j * 1024 + t of the tile); the variant
 // walk holds one ray a thread.  Lanes past the last ray are absent: they
 // enter no box, test nothing and add nothing to a sum (the TPU kernels pad
-// the last tile with rays of origin 0).  The queue kernel reads the leaf
-// rows from global memory (the Cornell box's leaf-32 `w`, 263 KB, stays in
-// L2), except v6's re-centred ones.  Each kernel also writes, per tile, the
-// ray-chunk tests it ran (a chunk tested by the whole tile counts its rays),
-// which says what each variant's work was.
+// the last tile with rays of origin 0).  Both kernels stage the chunks they
+// test in shared memory (the Cornell box's leaf-32 `w`, 263 KB, stays in
+// L2).  Each kernel also writes, per tile, the ray-chunk tests it ran (a
+// chunk tested by the whole tile counts its rays), which says what each
+// variant's work was.
 //
 // Every barrier sits on a condition that is the same for the whole block
-// (the node, its OR-ed child bits, the queue count); v4's group test is the
+// (the node, its OR-ed child bits, the queue count, the drain count); v4's group test is the
 // same across a group's warps and has no barrier under it.  Ties in t go to
 // the lowest slot in every variant, so each computes the function of its
 // plain version exactly (heatray_tpu_torch/probes/kernel_variants.py):
@@ -87,6 +86,43 @@
 // the order of its tests are the earlier design's, so t, slot and the tests
 // per tile are too.  They are probes: nothing else here is tuned.
 //
+// queue_walk_kernel's drains.  A drain's `batch` chunks (at most kMaxBatch,
+// 24 KB at tc 32) are copied once into shared memory as the same column
+// records, one commit group for the whole drain, each thread taking whole
+// columns; v6's thread then re-centres the translation of the columns it
+// copied itself, after its own wait and before the barrier, in the
+// expression's order (`cx * x + cy * y + cz * z + w`; built with
+// --fmad=false, so the rows are bit for bit the earlier design's).  Each ray
+// tests chunk b of the drain with t first and the barycentrics behind one
+// branch (`staged_closest`), against nextafter(min(bound, t_batch)): its
+// best t before the drain or the drain's best so far, whichever is lower.
+// A column above t_batch could never be taken, and one equal to it is kept,
+// so that a later chunk's lower slot still wins a tie; the result is the
+// earlier design's, where every chunk was tested against the stale bound.
+// At tile 2048 a thread's two rays share each column's reads (the columns
+// outside, the rays inside, `staged_closest_rays`).  The walk takes one
+// barrier a node, the block's OR, whose warp bits alternate between two
+// arrays by node parity, and one a drain, after its copy: every thread
+// keeps the node, the stack's depth and the queue's length, the same on
+// all, and pops the next node itself; thread 0 alone writes the stack and
+// the queue, whose entries are read a node later at the earliest (a drain
+// takes the node's own live leaves from its child codes).  The earlier
+// design took three barriers a node besides the OR's, two more a drain for
+// v6's scalar copy, and read each pair's 12 Woop values from device memory
+// (v7, v8), one ray a thread.  A ray's leaves, its bound at each and the
+// order of its tests are the earlier design's, so t, slot and the tests per
+// tile are too.  On an NVIDIA H100 80GB HBM3 at 700 W (profile_torch_wide.py,
+// family `queue`, in turns with the earlier design): v8 at batch 8 takes
+// 2.82 ms at tile 512 (4.62 before), v7 and v6 at batch 4 2.72 (4.49,
+// 3.76), v8 at tile 2048 5.61 (9.43).  With the drains' tests removed the
+// walk takes 0.50 ms at tile 512, so the pair tests are about four fifths
+// of the time, at about 420 Gpairs/s (rows_brute_kernel's exact tests:
+// 516): issue on the float32 pipe bounds them, as it does the brute force.
+// The tightened bound saves no measurable time (the stale one took 0.2%
+// more to 1.7% less), nor do two drain buffers that drop the barrier
+// between two drains of one node (1.6% less to 2.8% more); the two rays'
+// loop unrolled 8 times takes 2-3% off tile 2048 against 4 or 2.
+//
 // Numerics, layouts, the slab and pair tests: wide_bvh_common.cuh.
 
 #include <cuda_runtime.h>
@@ -99,6 +135,7 @@ using namespace wide_bvh;
 
 constexpr int kQueueSize = 64;  // the TPU kernels' SMEM leaf queue
 constexpr int kMaxBatch = 16;   // so that batch - 1 + 8 entries always fit
+constexpr int kSlotBuffers = 1;  // queue_walk_kernel's drain buffers
 
 enum class Variant { kBranch, kMasked, kQueue, kNoSlot, kGroup };
 enum class Anchor { kTile, kNone, kChunk };
@@ -145,28 +182,6 @@ __device__ __forceinline__ void tile_sums(float (&part)[Rays * Threads / 32][3],
     out[a] = t;
   }
   __syncthreads();  // part may be written again
-}
-
-// Closest hit of `r`, its origin re-centred to (ax, ay, az), over the tc
-// columns of chunk W, at most `bound` (t == bound kept, so that a lower slot
-// can still win a tie): its t and column, the lowest on ties; (kMissT, -1)
-// without one.
-__device__ __forceinline__ void chunk_closest(const float* __restrict__ W, int tc,
-                                              float ax, float ay, float az,
-                                              const Ray& r, float t_min, float bound,
-                                              float& t_out, int& col_out) {
-  const float t_lim = nextafterf(bound, __int_as_float(0x7f800000));
-  float t = kMissT;
-  int col = -1;
-  for (int j = 0; j < tc; ++j) {
-    const float tj = tri_t(W, tc, j, ax, ay, az, r, t_min, t_lim);
-    if (tj < t) {
-      t = tj;
-      col = j;
-    }
-  }
-  t_out = t;
-  col_out = col;
 }
 
 __device__ __forceinline__ void take(float t, int slot, float& best, int& best_slot) {
@@ -313,18 +328,66 @@ __global__ void __launch_bounds__(Threads) variant_walk_kernel(WalkArgs a) {
   write_tests(&tile_tests, tests, a.tests_out);
 }
 
+// staged_closest for the Rays rays of a thread at once: each staged column
+// read once for all of them, each ray's tests (its t, then behind one
+// branch its barycentrics) in staged_closest's order.  o[q] is ray q's
+// re-centred origin; a ray whose `lim` is -inf tests nothing.
+template <int Rays>
+__device__ __forceinline__ void staged_closest_rays(const float4* cols, int tc,
+                                                    const Ray (&r)[Rays],
+                                                    const float (&o)[Rays][3],
+                                                    const float (&lim)[Rays], float t_min,
+                                                    float (&t)[Rays], int (&col)[Rays]) {
+#pragma unroll
+  for (int q = 0; q < Rays; ++q) {
+    t[q] = kMissT;
+    col[q] = -1;
+  }
+#pragma unroll 8
+  for (int k = 0; k < tc; ++k) {
+    const float4* c = cols + 3 * k;
+    const float4 s = c[2];
+#pragma unroll
+    for (int q = 0; q < Rays; ++q) {
+      const float tj = plane_t(s, o[q][0], o[q][1], o[q][2], r[q]);
+      if (!((tj > t_min) & (tj < lim[q]) & (tj < t[q]))) continue;
+      if (inside_t(c[0], c[1], tj, o[q][0], o[q][1], o[q][2], r[q]) < kMissT) {
+        t[q] = tj;
+        col[q] = k;
+      }
+    }
+  }
+}
+
+// The chunk of the i-th live leaf of a node, near to far (`leaves`: the
+// node's child bits that are live leaves).
+__device__ __forceinline__ int nth_leaf(const int* __restrict__ codes, unsigned leaves,
+                                        bool low_first, int i) {
+  for (int k = 0; k < kArity; ++k) {
+    const int c = low_first ? k : kArity - 1 - k;
+    if (!((leaves >> c) & 1u)) continue;
+    if (i-- == 0) return -2 - codes[c];
+  }
+  return 0;  // not reached: i < popc(leaves)
+}
+
+// A block of `Threads` threads, `Rays` rays each.  A drain's chunks are
+// staged in the dynamic shared memory: kSlotBuffers buffers of `batch`
+// chunks of tc column records.
 template <Anchor A, int Threads, int Rays>
 __global__ void __launch_bounds__(Threads) queue_walk_kernel(WalkArgs a) {
   constexpr int kTileRays = Threads * Rays;
-  __shared__ BlockWalk<Threads> s;
-  __shared__ float part[Rays * Threads / 32][3];
+  constexpr int kWarps = Threads / 32;
+  __shared__ int stack[kBlockStack];
+  __shared__ unsigned warp_bits[2][kWarps];  // by node parity
+  __shared__ float part[Rays * kWarps][3];
   __shared__ int queue[kQueueSize];
+  __shared__ int slot_chunk[kSlotBuffers][kMaxBatch];
   __shared__ int tile_tests;
-  // kTile: the drained chunks, their translation re-centred on the anchor.
   extern __shared__ float4 slot_mem[];
-  float* slots = reinterpret_cast<float*>(slot_mem);
-  const int chunk_floats = 12 * a.tc;
+  const int tc = a.tc;
   const int batch = a.param;
+  if (threadIdx.x == 0) tile_tests = 0;  // visible after tile_sums' barriers
 
   const int base = blockIdx.x * kTileRays;
   Ray r[Rays];
@@ -365,66 +428,107 @@ __global__ void __launch_bounds__(Threads) queue_walk_kernel(WalkArgs a) {
     cz = sums[2] / n;
   }
   float ro[Rays][3];
+  bool any_valid = false;
 #pragma unroll
   for (int j = 0; j < Rays; ++j) {
     ro[j][0] = r[j].ox - cx;
     ro[j][1] = r[j].oy - cy;
     ro[j][2] = r[j].oz - cz;
+    any_valid |= valid[j];
   }
   int tests = 0;
+  int drains = 0;  // the same on every thread
 
-  // Test every valid ray against the n chunks qs[0..n), each against the
-  // ray's best t before the drain, and merge once.  Called by the whole block.
-  auto drain = [&](const int* qs, int n) {
-    if constexpr (A == Anchor::kTile) {
-      __syncthreads();  // the slots' last readers are done
-      const int cols = 3 * a.tc;
-      for (int p = threadIdx.x; p < n * cols; p += Threads) {
-        const int b = p / cols, col = p - b * cols;
-        const float* src = a.w + (size_t)qs[b] * chunk_floats;
-        float* dst = slots + b * chunk_floats;
-        const float c0 = src[col], c1 = src[cols + col], c2 = src[2 * cols + col];
-        dst[col] = c0;
-        dst[cols + col] = c1;
-        dst[2 * cols + col] = c2;
-        dst[3 * cols + col] = cx * c0 + cy * c1 + cz * c2 + src[3 * cols + col];
+  // Drain queue entries e0 .. e0 + n - 1: those below `fresh` stand in the
+  // shared queue, those from `fresh` on are the current node's live leaves
+  // (`leaves`), near to far.  Their columns are staged; then every valid
+  // ray tests each chunk in turn against the lower of its best t before
+  // the drain and the drain's best so far, with ties kept for a lower
+  // slot, and merges the drain's best once.  Called by the whole block.
+  auto drain = [&](int e0, int n, int fresh, const int* codes, unsigned leaves,
+                   bool low_first) {
+    const int buf = drains++ % kSlotBuffers;
+    const float4* cols = slot_mem + (size_t)buf * 3 * batch * tc;
+    float* dst = reinterpret_cast<float*>(slot_mem + (size_t)buf * 3 * batch * tc);
+    for (int p = threadIdx.x; p < n * tc; p += Threads) {
+      const int b = p / tc, j = p - b * tc;
+      const int e = e0 + b;
+      const int chunk = e < fresh ? queue[e] : nth_leaf(codes, leaves, low_first, e - fresh);
+      if (j == 0) slot_chunk[buf][b] = chunk;
+      const float* src = a.w + ((size_t)chunk * kColFloats * tc + j);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          cp_async4(dst + kColFloats * p + 4 * g + f, src + f * 3 * tc + g * tc);
+        }
       }
-      __syncthreads();  // the slots are written
+    }
+    cp_async_commit();
+    cp_async_wait(0);
+    if constexpr (A == Anchor::kTile) {
+      // The rows' translation re-centred on the centroid, by the thread
+      // that copied the column, in the expression's order.
+      for (int p = threadIdx.x; p < n * tc; p += Threads) {
+        float* c = dst + kColFloats * p;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          c[4 * g + 3] = cx * c[4 * g] + cy * c[4 * g + 1] + cz * c[4 * g + 2] + c[4 * g + 3];
+        }
+      }
+    }
+    __syncthreads();  // the drain's columns and chunks are visible
+    if (!any_valid) return;
+    float bound[Rays], t_batch[Rays];
+    int slot_batch[Rays];
+#pragma unroll
+    for (int j = 0; j < Rays; ++j) {
+      bound[j] = best[j];
+      t_batch[j] = kMissT;
+      slot_batch[j] = -1;
+    }
+    for (int b = 0; b < n; ++b) {
+      const int chunk = slot_chunk[buf][b];
+      float o[Rays][3], lim[Rays], t[Rays];
+      int col[Rays];
+#pragma unroll
+      for (int j = 0; j < Rays; ++j) {
+        o[j][0] = ro[j][0];
+        o[j][1] = ro[j][1];
+        o[j][2] = ro[j][2];
+        if constexpr (A == Anchor::kChunk) {
+          o[j][0] -= a.wanchor[chunk];
+          o[j][1] -= a.wanchor[a.n_chunks + chunk];
+          o[j][2] -= a.wanchor[2 * a.n_chunks + chunk];
+        }
+        // A column above the drain's best could never be taken; one equal
+        // to it is kept, so that a lower slot still wins the tie.
+        lim[j] = valid[j] ? nextafterf(fminf(bound[j], t_batch[j]), __int_as_float(0x7f800000))
+                          : -__int_as_float(0x7f800000);
+      }
+      if constexpr (Rays == 1) {
+        staged_closest(cols + b * 3 * tc, tc, r[0], o[0][0], o[0][1], o[0][2], lim[0], a.t_min,
+                       t[0], col[0]);
+      } else {
+        staged_closest_rays<Rays>(cols + b * 3 * tc, tc, r, o, lim, a.t_min, t, col);
+      }
+#pragma unroll
+      for (int j = 0; j < Rays; ++j) take(t[j], chunk * tc + col[j], t_batch[j], slot_batch[j]);
     }
 #pragma unroll
     for (int j = 0; j < Rays; ++j) {
       if (!valid[j]) continue;
-      const float bound = best[j];
-      float t_batch = kMissT;
-      int slot_batch = -1;
-      for (int b = 0; b < n; ++b) {
-        const int chunk = qs[b];
-        const float* W = A == Anchor::kTile ? slots + b * chunk_floats
-                                            : a.w + (size_t)chunk * chunk_floats;
-        float ax = ro[j][0], ay = ro[j][1], az = ro[j][2];
-        if constexpr (A == Anchor::kChunk) {
-          ax -= a.wanchor[chunk];
-          ay -= a.wanchor[a.n_chunks + chunk];
-          az -= a.wanchor[2 * a.n_chunks + chunk];
-        }
-        float t;
-        int col;
-        chunk_closest(W, a.tc, ax, ay, az, r[j], a.t_min, bound, t, col);
-        take(t, chunk * a.tc + col, t_batch, slot_batch);
-      }
-      take(t_batch, slot_batch, best[j], best_slot[j]);
+      take(t_batch[j], slot_batch[j], best[j], best_slot[j]);
       tests += n;
     }
   };
 
-  int nq = 0;  // the queue's length, the same on every thread
-  if (threadIdx.x == 0) {
-    s.node = 0;
-    s.sp = 0;
-    tile_tests = 0;
-  }
-  __syncthreads();
-  for (int node = s.node; node >= 0; node = s.node) {
+  // The walk.  Every thread keeps the node, the stack's depth and the
+  // queue's length, the same on all; thread 0 alone writes the stack and
+  // the queue, whose entries are read a node later at the earliest, after
+  // the barrier of the block's OR.
+  int node = 0, sp = 0, nq = 0, parity = 0;
+  while (node >= 0) {
     const float* boxes = a.wbox + (size_t)node * kArity * 8;
     const int* codes = a.wchild + (size_t)node * kArity;
     unsigned mine = 0;
@@ -432,22 +536,50 @@ __global__ void __launch_bounds__(Threads) queue_walk_kernel(WalkArgs a) {
     for (int j = 0; j < Rays; ++j) {
       if (valid[j]) mine |= live_children(boxes, codes, r[j], a.t_min, best[j], a.widen);
     }
-    const unsigned live = block_or(s, mine);
+    // The block's OR, the node's one barrier.  Its warp bits alternate
+    // between two arrays, so that the next node's cannot overwrite them
+    // while a warp still reads them.
+    mine = __reduce_or_sync(kFullMask, mine);
+    if ((threadIdx.x & 31) == 0) warp_bits[parity][threadIdx.x >> 5] = mine;
+    __syncthreads();
+    unsigned live = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) live |= warp_bits[parity][k];
+    parity ^= 1;
     const bool low_first = sign[a.waxis[node]];
-    for (int k = 0; k < kArity; ++k) {  // live leaves, near to far
-      const int c = low_first ? k : kArity - 1 - k;
-      if (((live >> c) & 1u) && codes[c] <= -2) {
-        if (threadIdx.x == 0) queue[nq] = -2 - codes[c];
-        ++nq;
-      }
+    unsigned leaves = 0;
+#pragma unroll
+    for (int c = 0; c < kArity; ++c) {
+      if (((live >> c) & 1u) && codes[c] <= -2) leaves |= 1u << c;
     }
-    __syncthreads();  // the queue is written
-    for (; nq >= batch; nq -= batch) drain(queue + nq - batch, batch);
-    __syncthreads();  // every thread is done with warp_bits and the queue
-    push_and_pop(s, codes, live, low_first);
-    __syncthreads();  // the next node is visible
+    const int fresh = nq;
+    nq += __popc(leaves);
+    for (bool first = true; nq >= batch; nq -= batch, first = false) {
+      if (kSlotBuffers == 1 && !first) __syncthreads();  // the last drain's readers are done
+      drain(nq - batch, batch, fresh, codes, leaves, low_first);
+    }
+    // The node's entries that stay in the queue, and its live internal
+    // children pushed far to near, all but the nearest, which is next.
+    if (threadIdx.x == 0) {
+      for (int e = fresh; e < nq; ++e) queue[e] = nth_leaf(codes, leaves, low_first, e - fresh);
+    }
+    int next = -1;
+    for (int k = 0; k < kArity; ++k) {
+      const int c = low_first ? kArity - 1 - k : k;
+      const int code = codes[c];
+      if (!((live >> c) & 1u) || code < 0) continue;
+      if (next >= 0) {
+        if (threadIdx.x == 0) stack[sp] = next;
+        ++sp;
+      }
+      next = code;
+    }
+    node = next >= 0 ? next : sp > 0 ? stack[--sp] : -1;
   }
-  if (nq > 0) drain(queue, nq);
+  if (nq > 0) {
+    __syncthreads();  // the queue's entries are visible; the last drain's readers are done
+    drain(0, nq, nq, nullptr, 0u, false);
+  }
 #pragma unroll
   for (int j = 0; j < Rays; ++j) {
     if (valid[j]) {
@@ -483,13 +615,11 @@ int launch_variant(const WalkArgs& a, int ray_tile, cudaStream_t stream) {
 template <Anchor A, int Threads, int Rays>
 int launch_queue(const WalkArgs& a, cudaStream_t stream) {
   auto kernel = queue_walk_kernel<A, Threads, Rays>;
-  size_t bytes = 0;
-  if (A == Anchor::kTile) {
-    bytes = sizeof(float) * 12 * (size_t)a.tc * a.param;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return refused(err);
-  }
+  // Above 48 KB the drain's slots need the kernel's opt-in.
+  const size_t bytes = sizeof(float4) * 3 * (size_t)a.tc * a.param * kSlotBuffers;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return refused(err);
   const int tiles = (a.n_rays + Threads * Rays - 1) / (Threads * Rays);
   kernel<<<tiles, Threads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -46,8 +46,9 @@ def empty_plain(origins: Vec3) -> torch.Tensor:
 
 def empty(origins: Vec3, ray_tile: int = 256) -> torch.Tensor:
     """``origins.x * 0`` (R,): CPU tensors take the plain version; CUDA
-    tensors launch ``empty_kernel`` (``csrc/probes.cu``), ``ray_tile`` rays
-    a block."""
+    tensors launch ``empty_kernel`` (``csrc/probes.cu``), whose blocks are
+    the card's, whatever ``ray_tile`` (the TPU probe's grid step, still
+    checked)."""
     check_ray_tile(ray_tile)
     x = origins.x
     if wide_bvh.on_cpu(x):

@@ -1,21 +1,25 @@
 #!/usr/bin/env python3
 """K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a/K5b and K4a/K4b
 (``csrc/wide_bvh_t.cu``), K6a/K6b (``csrc/bvh2.cu``), K7a/K7b
-(``csrc/chunks.cu``), the brute-force probe kernels (``csrc/probes.cu``)
-and P2's walk (``csrc/variants.cu`` ``variant_walk_kernel``) beside
-variants of their design, on the 1080p launches of the Cornell box (K1, K5,
-K6, K7, the probes) and of ``high_poly`` (K4) on an NVIDIA card.
+(``csrc/chunks.cu``), the brute-force probe kernels and P1's grid
+(``csrc/probes.cu``) and P2's walks (``csrc/variants.cu``
+``variant_walk_kernel`` and ``queue_walk_kernel``) beside variants of their
+design, on the 1080p launches of the Cornell box (K1, K5, K6, K7, the
+probes) and of ``high_poly`` (K4) on an NVIDIA card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7,brute,walk] [--parent DIR]
+    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7,brute,walk,queue,grid]
+        [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
 of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a and
 K5b), ``K6_VARIANTS`` (K6a/K6b), ``CHUNK_VARIANTS`` (K7a/K7b),
 ``BRUTE_VARIANTS`` (``rows_brute_kernel``) and ``WARP_VARIANTS``
-(``warp_brute_kernel``; both family ``brute``) or ``WALK_VARIANTS``
-(``variant_walk_kernel``, family ``walk``) applied, built with the
+(``warp_brute_kernel``; both family ``brute``), ``WALK_VARIANTS``
+(``variant_walk_kernel``, family ``walk``), ``QUEUE_VARIANTS``
+(``queue_walk_kernel``, family ``queue``) or ``GRID_VARIANTS``
+(``empty_kernel``, family ``grid``) applied, built with the
 package's nvcc flags into ``build/wide_variants/`` (one nvcc each, all
 started together).  ``--parent DIR`` adds the ``wide_bvh.cu``,
 ``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu``, ``probes.cu`` and
@@ -34,11 +38,14 @@ context's, which Route B builds alike); the brute force (P1 ``leaves``, P4
 row, P4 warp) on the Cornell box's primary rays of ``chip_smoke.py``
 phase 17, over the leaf-32 and leaf-128 trees' anchored chunks (P1) and
 the packs of 128 and 512 (P4); P2a's cases (v0-v3, v4 at groups 32 and
-128, tiles 512 and 1024) on phase 19's sorted depth-2 wavefront over the
-leaf-32 tree.  It prints, one reading per line:
+128, tiles 512 and 1024) and P2b-d's (v6 and v7 at batch 4 and 8, v8 at 8
+and 16, tiles 512, 1024 and 2048) on phase 19's sorted depth-2 wavefront
+over the leaf-32 tree; P1's grid on the x plane of phase 17's rays.  It
+prints, one reading per line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
-- ``[build]``: each variant's registers and spill bytes per kernel;
+- ``[build]``: each variant's registers, spill bytes and static shared
+  bytes per kernel;
 - ``[check]``: each variant's results against the shipped kernel's on every
   launch it runs (t, slot or id, and blocked, bit for bit); a variant of
   this tree must equal it, the parent's count of differing lanes is
@@ -48,7 +55,10 @@ leaf-32 tree.  It prints, one reading per line:
   variant against the plain version too, on ``chip_smoke.N_CHECK`` seeded
   lanes of each launch (the brute force within ``chip_smoke.TOL``); P2a's
   t, slot and tests per tile of every build against the parent's (or,
-  without one, the shipped kernel's), all of which must be equal;
+  without one, the shipped kernel's), all of which must be equal, and so
+  P2b-d's (``walk-only`` excepted, which is timed only); P1 grid's output
+  of every build and of ``torch.mul`` equal to x * 0 bit for bit on the
+  rays, an unaligned view, 1, 3 and 8,191 floats and the special values;
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
   in order and then in reverse, min/max of the two: K1/K2 for every variant
   over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
@@ -61,7 +71,15 @@ leaf-32 tree.  It prints, one reading per line:
   ``warp_brute_kernel`` for each of ``WARP_VARIANTS``, the shipped build
   and the parent at P4's, each beside its share of the operation bound;
   ``variant_walk_kernel`` for each of ``WALK_VARIANTS`` and the parent at
-  each case, with K1 on the same rays;
+  each case, with K1 on the same rays; ``queue_walk_kernel`` for each of
+  ``QUEUE_VARIANTS`` and the parent at each case, beside each case's own
+  work bound, with v0 and K1 on the same rays; ``empty_kernel`` for each
+  of ``GRID_VARIANTS``, the parent and ``torch.mul``, device ms a call at
+  tiles 256, 512 and 1024 from a graph of 10 calls on one input (L2; into
+  one output, or each into a new one) and of 16 over 8 inputs and outputs
+  (past the L2), beside the bytes bound;
+- ``[geometry]``: the grid and block of ``torch.mul(x, 0.0)``'s kernel and
+  of ``empty_kernel``'s (shipped, parent), from the profiler's trace;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
   leaf service meets (one per warp, offered leaf and round; the ``count``
   variant): their number, mean rays per group, and the share of groups, and
@@ -75,8 +93,9 @@ leaf-32 tree.  It prints, one reading per line:
 - ``[sass]``: with ``--parent``, for each kernel, whether its SASS equals
   the parent's instruction for instruction, or how many of its
   instructions differ; and the SASS length of each brute-force variant's
-  ``rows_brute_kernel`` and ``warp_brute_kernel``, and of each walk
-  variant's ``variant_walk_kernel`` instances.
+  ``rows_brute_kernel`` and ``warp_brute_kernel``, and of each walk and
+  queue variant's ``variant_walk_kernel`` or ``queue_walk_kernel``
+  instances.
 
 It imports no jax.
 """
@@ -95,6 +114,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+FAMILIES = ("k1", "k4", "k5", "k6", "k7", "brute", "walk", "queue", "grid")
 CSRC = REPO / "heatray_tpu_torch" / "csrc"
 OUT = REPO / "build" / "wide_variants"
 WIDTH, HEIGHT = 1920, 1080
@@ -516,6 +536,61 @@ WALK_VARIANTS = {
 WALK_CASES = (("v0", 128), ("v1", 128), ("v2", 128), ("v3", 128), ("v4", 32), ("v4", 128))
 WALK_TILES = (512, 1024)
 
+# queue_walk_kernel (P2b-d), family "queue": name -> (what it changes, [(file,
+# text, replacement)]).  ``walk-only`` keeps the drains' copies and barriers
+# and removes their tests: no hit culls its walk, so its t, slot and tests
+# are not the kernel's, and it is timed only.
+QUEUE_VARIANTS = {
+    "shipped": ("queue_walk_kernel as shipped: each drain's chunks staged in shared memory, t "
+                "first, each chunk against the drain's best so far, one barrier a node and one a "
+                "drain; at tile 2048 the two rays' column loop unrolled 8 times", []),
+    "buffers-2": ("two drain buffers by turns: no barrier between two drains of one node", [
+        (_WALK, "constexpr int kSlotBuffers = 1;", "constexpr int kSlotBuffers = 2;"),
+    ]),
+    "stale": ("each chunk of a drain against the ray's best t before the drain, as the parent", [
+        (_WALK, "nextafterf(fminf(bound[j], t_batch[j]), __int_as_float(0x7f800000))",
+         "nextafterf(bound[j], __int_as_float(0x7f800000))"),
+    ]),
+    **{f"rays-unroll-{n}": (f"tile 2048: the two rays' loop over the columns unrolled {n} "
+                            f"times", [
+        (_WALK, "#pragma unroll 8\n  for (int k = 0; k < tc; ++k) {",
+         f"#pragma unroll {n}\n  for (int k = 0; k < tc; ++k) {{"),
+    ]) for n in (2, 4)},
+    "walk-only": ("the drains' copies and barriers kept, their tests removed (timed only)", [
+        (_WALK, "    if (!any_valid) return;\n", "    return;\n"),
+    ]),
+}
+TIMED_ONLY = ("walk-only",)
+# P2b-d's cases timed: (variant, batch) at each of QUEUE_TILES, on phase 19's
+# sorted depth-2 wavefront.
+QUEUE_CASES = (("v6", 4), ("v6", 8), ("v7", 4), ("v7", 8), ("v8", 8), ("v8", 16))
+QUEUE_TILES = (512, 1024, 2048)
+
+# empty_kernel (P1 grid), family "grid": name -> (what it changes, [(file,
+# text, replacement)]).
+GRID_VARIANTS = {
+    "shipped": ("empty_kernel as shipped: blocks of 256, 2 float4s a thread loaded before any "
+                "store, __ldcs/__stcs, the head and tail by 8 threads of the first block", []),
+    **{f"threads-{n}": (f"blocks of {n} threads", [
+        (_PROBES, "constexpr int kEmptyThreads = 256;", f"constexpr int kEmptyThreads = {n};"),
+    ]) for n in (128, 512)},
+    **{f"vecs-{n}": (f"{n} float4s a thread", [
+        (_PROBES, "constexpr int kEmptyVecs = 2;", f"constexpr int kEmptyVecs = {n};"),
+    ]) for n in (1, 4)},
+    "stride": ("a grid of one wave (132 SMs x 2,048 threads), block-strided", [
+        (_PROBES, "const int blocks = max(blocks_for(items, kEmptyThreads * kEmptyVecs), 1);",
+         "const int blocks = max(min(blocks_for(items, kEmptyThreads * kEmptyVecs), "
+         "132 * 2048 / kEmptyThreads), 1);"),
+    ]),
+    "cached": ("plain loads and stores (through L1) in place of __ldcs/__stcs", [
+        (_PROBES, "v[u] = __ldcs(x + i0 + u * kEmptyThreads);", "v[u] = x[i0 + u * kEmptyThreads];"),
+        (_PROBES, "__stcs(out + i0 + u * kEmptyThreads, times_zero(v[u]));",
+         "out[i0 + u * kEmptyThreads] = times_zero(v[u]);"),
+    ]),
+}
+GRID_TILES = (256, 512, 1024)
+GRID_COPIES = 8  # rotating inputs and outputs: 8 x 2 x 8.3 MB, past the 50 MB L2
+
 
 def log(*args):
     print(*args, flush=True)
@@ -600,7 +675,8 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
                "any_stream_t": (wb._ANY_BLOCK_ARGS, 8),
                "closest_bvh": (k6a, 7), "any_bvh": (k6b, 8),
                "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8),
-               **{name: (_SIGNATURES[name], None) for name in ("probe_rows", "probe_warp")},
+               **{name: (_SIGNATURES[name], None) for name in ("probe_rows", "probe_warp",
+                                                                "probe_empty")},
                **{name: (_VARIANT_SIGNATURES[name], None) for name in ("variant_walk",
                                                                        "queue_walk")}}
     for entry, (args, at) in entries.items():
@@ -651,7 +727,9 @@ def resources(report: str) -> str:
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             out.setdefault(kernel, {})["regs"] = f"{m.group(1)} registers"
-    return ", ".join(f"{k} {v.get('regs', '?')} ({v.get('spill', '?')})"
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[kernel]["smem"] = f", {smem.group(1)} B static shared" if smem else ""
+    return ", ".join(f"{k} {v.get('regs', '?')} ({v.get('spill', '?')}{v.get('smem', '')})"
                      for k, v in sorted(out.items()))
 
 
@@ -1049,6 +1127,182 @@ def profile_walk(libs) -> None:
     log(f"[time] walk: K1 (closest_wide) on the same rays {k1:.4f}")
 
 
+def profile_queue(libs) -> None:
+    """``queue_walk_kernel``'s variants and the parent on ``chip_smoke.py``
+    phase 19's rays (the Cornell box's sorted depth-2 wavefront at 1080p,
+    over its leaf-32 ``"wide"`` tree): each of QUEUE_CASES at each of
+    QUEUE_TILES, t, slot and the tests per tile checked bit for bit against
+    the parent's (when given) and the shipped kernel's (TIMED_ONLY variants
+    excepted), then timed in turns, with v0 (``variant_walk_kernel``, tile
+    512) and K1 on the same rays."""
+    import torch
+
+    from chip_smoke import PAIR_T_FLOPS, PEAK_FLOPS, time_ms
+    from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.probes import cornell
+    from heatray_tpu_torch.probes import kernel_variants as kv
+
+    device = torch.device("cuda:0")
+    scene, camera, opts, ctx = cornell(WIDTH, HEIGHT, 4, device)
+    paths = kv.wavefront(scene, camera, ctx, opts)
+    bvh = ctx.accel_pack.wide
+    rows = kv.unanchored_rows(ctx.accel_pack.accel, bvh)
+    o, d = paths.org, paths.direction
+    torch.cuda.synchronize()
+    cases = [(v, b, rt) for rt in QUEUE_TILES for v, b in QUEUE_CASES]
+
+    def run(name, case):
+        variant, batch, rt = case
+        return kv._launch("queue_walk", kv._ANCHORS[variant], bvh.w if variant == "v8" else rows,
+                          bvh, o, d, rt, batch, kv.T_MIN, lib=libs[name])
+
+    ref = "parent" if "parent" in libs else "shipped"
+    log(f"[rays] queue: {o.x.numel()} lanes of the sorted depth-2 wavefront, "
+        f"{int(paths.active.sum())} live; {bvh.num_chunks} leaves of {bvh.leaf_size}")
+    work = {}
+    for case in cases:
+        want = run(ref, case)
+        work[case] = float(want[2].double().sum()) * bvh.leaf_size * PAIR_T_FLOPS / PEAK_FLOPS * 1e3
+        for name in libs:
+            got = run(name, case)
+            off = [int((a != b).sum()) for a, b in zip(got, want)]
+            log(f"[check] queue {case[0]}b{case[1]} rt {case[2]} {name}: lanes whose t, slot "
+                f"differ and tiles whose tests differ from the {ref}'s {off}; "
+                f"{float(got[2].double().mean()) / case[2]:.3f} leaf tests per ray of a tile")
+            if any(off) and name not in TIMED_ONLY:
+                raise AssertionError(f"queue {name} at {case} differs from the {ref}'s")
+    ms = in_turns(list(libs), cases, run)
+    for name in libs:
+        log(f"[time] queue {name}: " + ", ".join(
+            f"{v}b{b}@{rt} {min(x):.4f}/{max(x):.4f}" for (v, b, rt), x in ms[name].items()))
+    log("[time] queue own-work bound (tests x columns x 15 FLOP at 67 TFLOP/s): " + ", ".join(
+        f"{v}b{b}@{rt} {w:.4f}" for (v, b, rt), w in work.items()))
+    v0 = time_ms(lambda: kv._launch("variant_walk", 0, bvh.w, bvh, o, d, 512, 128, kv.T_MIN,
+                                    lib=libs["shipped"]), 10)
+    k1 = time_ms(lambda: wb.intersect_closest_wide(bvh, o, d), 10)
+    log(f"[time] queue: v0 (variant_walk_kernel, tile 512) {v0:.4f}, K1 (closest_wide) {k1:.4f} "
+        f"on the same rays")
+
+
+def _kernel_geometry(fn, trace: Path) -> list:
+    """(kernel name, grid, block) of each kernel ``fn`` launches, from the
+    profiler's trace."""
+    import json
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    return [(e["name"][:60], e["args"].get("grid"), e["args"].get("block"))
+            for e in events if e.get("cat") == "kernel"]
+
+
+def profile_grid(libs) -> None:
+    """``empty_kernel``'s variants, the parent and ``torch.mul(x, 0.0)`` on
+    the x plane of the Cornell box's 1080p primary rays (``chip_smoke.py``
+    phase 17's): each build's output bit for bit equal to ``x * 0`` there,
+    on an unaligned view, on 1, 3 and 8,191 floats and on the special
+    values; then, in turns at each of GRID_TILES, the device time a call
+    from CUDA-graph replays of 10 calls on one input (which stays in the
+    50 MB L2), into one output or each into a new one (as the wrapper and
+    ``torch.mul`` allocate it), and of 2 x GRID_COPIES calls over
+    GRID_COPIES inputs and outputs (133 MB), each beside the 16.6 MB bound; and ``torch.mul``'s and
+    ``empty_kernel``'s grid and block from the profiler's trace."""
+    import torch
+
+    from chip_smoke import PEAK_BYTES, time_ms
+    from heatray_tpu_torch.probes import cornell
+    from heatray_tpu_torch.render import integrator
+
+    device = torch.device("cuda:0")
+    _, camera, opts, ctx = cornell(WIDTH, HEIGHT, 4, device)
+    x = integrator.start_paths(camera, ctx, opts, 0).org.x.contiguous()
+    n = x.numel()
+
+    def call(name, src, out, rt=256):
+        """x * 0 of ``src`` into ``out``, or into a new tensor (as the
+        wrapper and ``torch.mul`` allocate it) where ``out`` is None."""
+        if name == "torch.mul":
+            return torch.mul(src, 0.0) if out is None else torch.mul(src, 0.0, out=out)
+        out = torch.empty_like(src) if out is None else out
+        stream = torch.cuda.current_stream(device).cuda_stream  # a graph captures on its own
+        err = libs[name].probe_empty(src.data_ptr(), src.numel(), rt, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"grid {name}: launch refused ({err})")
+        return out
+
+    special = torch.tensor([-1.0, -0.0, 0.0, float("inf"), -float("inf"), float("nan"), 3e37,
+                            -3e37], device=device)
+    inputs = {"rays": x, "rays[1:]": x[1:], "n=1": x[:1], "n=3": x[5:8], "n=8191": x[3:8194],
+              "special": special.repeat(1025)[1:]}
+    for name in [*libs, "torch.mul"]:
+        for label, src in inputs.items():
+            for rt in GRID_TILES:
+                got = call(name, src, torch.empty_like(src), rt)
+                want = src * 0.0
+                same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+                if not same:
+                    raise AssertionError(f"grid {name} {label} rt {rt}: differs from x * 0 bit "
+                                         f"for bit on {int((got.view(torch.int32) != want.view(torch.int32)).sum())} floats")
+        log(f"[check] grid {name}: x * 0 bit for bit on {', '.join(inputs)}, at tiles "
+            f"{GRID_TILES}")
+    bound = 8 * n / PEAK_BYTES * 1e3
+    copies = [(x.clone(), torch.empty_like(x)) for _ in range(GRID_COPIES)]
+    one = (x, torch.empty_like(x))
+
+    def graph_ms(fns):
+        for fn in fns:
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for fn in fns:
+                fn()
+        return time_ms(graph.replay, 5) / len(fns)
+
+    names = [*libs, "torch.mul"]
+    whats = [(rt, mode) for rt in GRID_TILES for mode in ("L2", "L2 new out", "rotating")]
+
+    def run(name, what):
+        rt, mode = what
+        pairs = {"L2": [one] * 10, "L2 new out": [(x, None)] * 10, "rotating": copies * 2}[mode]
+        return graph_ms([lambda s=s, o=o: call(name, s, o, rt) for s, o in pairs])
+
+    ms = {name: {what: [] for what in whats} for name in names}
+    for name in names + names[::-1]:
+        for what in whats:
+            ms[name][what].append(run(name, what))
+    log(f"[bound] grid on {n} floats: {8 * n / 1e6:.1f} MB -> {bound:.4f} ms (bytes)")
+    for name in names:
+        log(f"[time] grid {name}, device ms a call: " + ", ".join(
+            f"rt {rt} {mode} {min(v):.4f}/{max(v):.4f} ({bound / min(v):.0%} of the bound)"
+            for (rt, mode), v in ms[name].items()))
+    # Through the wrappers, as chip_smoke.py phase 17 reads them: this
+    # tree's kernel_probe.empty and torch.mul, each allocating its output.
+    from heatray_tpu_torch.probes import kernel_probe as kp
+    from heatray_tpu_torch.vec import Vec3
+
+    v = Vec3(x, x, x)
+    wrappers = {"kernel_probe.empty": lambda: kp.empty(v), "torch.mul": lambda: torch.mul(x, 0.0)}
+    got = {name: [] for name in wrappers}
+    for name in [*wrappers, *reversed(wrappers)]:
+        got[name].append(graph_ms([wrappers[name]] * 10))
+    log(f"[time] grid through the wrappers, device ms a call from L2 (x {x.data_ptr() % 16} bytes "
+        f"past a 16-byte boundary): " + ", ".join(f"{name} {min(t):.4f}/{max(t):.4f}"
+                                                for name, t in got.items()))
+    OUT.mkdir(parents=True, exist_ok=True)
+    for name, fn in (("torch.mul", lambda: torch.mul(x, 0.0)),
+                     ("shipped", lambda: call("shipped", x, one[1])),
+                     *((("parent", lambda: call("parent", x, one[1])),) if "parent" in libs else ())):
+        log(f"[geometry] grid {name}: " + "; ".join(
+            f"{k} grid {g} block {b}" for k, g, b in _kernel_geometry(fn, OUT / "grid_trace.json")))
+
+
 def profile_k4(libs, trees, rays, eps) -> None:
     """K4a's and K4b's variants (and the parent's, which takes no block
     boxes) over ``high_poly``'s leaf-128 trees on phase 7's four launches:
@@ -1187,20 +1441,20 @@ def compare_sass(pairs) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels", default="k1,k4,k5,k6,k7,brute,walk",
+    ap.add_argument("--kernels", default=",".join(FAMILIES),
                     help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 "
                          "(K5a/K5b), k6 (K6a/K6b), k7 (K7a/K7b), brute (rows_brute_kernel and "
-                         "warp_brute_kernel) and walk (variant_walk_kernel), comma-separated "
-                         "(default: all seven)")
+                         "warp_brute_kernel), walk (variant_walk_kernel), queue "
+                         "(queue_walk_kernel) and grid (empty_kernel), comma-separated "
+                         "(default: all nine)")
     ap.add_argument("--parent", type=Path,
                     help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu, chunks.cu, "
                          "probes.cu and variants.cu to time too, and whose kernels' SASS to "
                          "compare")
     args = ap.parse_args()
     families = set(args.kernels.split(","))
-    if not families or families - {"k1", "k4", "k5", "k6", "k7", "brute", "walk"}:
-        raise SystemExit(f"--kernels takes k1, k4, k5, k6, k7, brute and walk, not "
-                         f"{args.kernels!r}")
+    if not families or families - set(FAMILIES):
+        raise SystemExit(f"--kernels takes {', '.join(FAMILIES)}, not {args.kernels!r}")
 
     import torch
 
@@ -1214,7 +1468,8 @@ def main() -> int:
     tables = {"k1": (VARIANTS, _K1), "k4": (K4_VARIANTS, _K5), "k5": (T_VARIANTS, _K5),
               "k6": (K6_VARIANTS, _K6), "k7": (CHUNK_VARIANTS, _K7),
               "brute": ({**BRUTE_VARIANTS, **WARP_VARIANTS}, _PROBES),
-              "walk": (WALK_VARIANTS, _WALK)}
+              "walk": (WALK_VARIANTS, _WALK), "queue": (QUEUE_VARIANTS, _WALK),
+              "grid": (GRID_VARIANTS, _PROBES)}
     sources = {}  # (family, name) -> source
     for family in sorted(families):
         variants, target = tables[family]
@@ -1255,10 +1510,11 @@ def main() -> int:
             code = sass(so)
             log(f"[sass] brute {name}: rows_brute_kernel {len(code['P1/P4 rows_brute'])}, "
                 f"warp_brute_kernel {len(code['P4 warp_brute'])} instructions")
-        elif family == "walk":
-            code = {k: v for k, v in sass(so).items() if k.startswith("P2 variant_walk")}
-            log(f"[sass] walk {name}: variant_walk_kernel " + ", ".join(
-                f"{k[len('P2 variant_walk'):]} {len(v)}" for k, v in sorted(code.items()))
+        elif family in ("walk", "queue"):
+            kernel = {"walk": "variant_walk", "queue": "queue_walk"}[family]
+            code = {k: v for k, v in sass(so).items() if k.startswith(f"P2 {kernel}")}
+            log(f"[sass] {family} {name}: {kernel}_kernel " + ", ".join(
+                f"{k[len(f'P2 {kernel}'):]} {len(v)}" for k, v in sorted(code.items()))
                 + " instructions")
 
     device = torch.device("cuda:0")
@@ -1277,6 +1533,10 @@ def main() -> int:
         profile_brute(libs["brute"])
     if libs["walk"]:
         profile_walk(libs["walk"])
+    if libs["queue"]:
+        profile_queue(libs["queue"])
+    if libs["grid"]:
+        profile_grid(libs["grid"])
     if libs["k4"]:
         hp_trees, hp_rays, eps = hp_launches(device)
         profile_k4(libs["k4"], hp_trees, hp_rays, eps)

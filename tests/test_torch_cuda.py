@@ -798,6 +798,27 @@ def test_node_walk_and_empty_kernels_match_plain(cuda_device, ray_tile, n_rays):
         assert int(visits.max()) > 1
 
 
+@pytest.mark.parametrize("ray_tile", [256, 512, 1024])
+def test_empty_kernel_matches_plain_on_any_view(cuda_device, ray_tile):
+    """P1 ``grid`` on an unaligned view, on 1, 3 and 8,191 floats and on -1,
+    -0, 0, +-inf, NaN and +-3e37 (aligned and not): x * 0 equal to
+    ``empty_plain`` bit for bit, one launch counted each."""
+    o, _ = _rays(8192, 9, cuda_device)
+    special = torch.tensor([-1.0, -0.0, 0.0, float("inf"), -float("inf"), float("nan"), 3e37,
+                            -3e37], device=cuda_device).repeat(5)
+    views = [o.x[1:], o.x[:1], o.x[1:2], o.x[5:8], o.x[:8191], o.x[3:], special, special[1:],
+             special[3:6]]
+    for x in views:
+        v = Vec3(x, x, x)
+        launches = kernel_probe.empty.launches
+        got = kernel_probe.empty(v, ray_tile)
+        want = kernel_probe.empty_plain(v)
+        torch.cuda.synchronize()
+        assert kernel_probe.empty.launches == launches + 1
+        assert got.shape == x.shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), x.numel()
+
+
 @pytest.mark.parametrize("layout", ["rows", "warp"])
 @pytest.mark.parametrize("anchored, ray_tile", [(False, 256), (True, 512)])
 def test_brute_kernels_match_plain(cuda_device, layout, anchored, ray_tile):
@@ -948,6 +969,21 @@ def test_queue_kernels_match_plain(cuda_device, ray_tile):
             assert fn.launches == launches + 1
             tests = _assert_equal_to_plain(case, out, kv.case_plain(case, bvh, rows, o, d))
             assert tests.shape == (4,) and int(tests.min()) > 0
+
+
+@pytest.mark.parametrize("ray_tile", [256, 512, 1024, 2048])
+def test_queue_v8_equals_k1(cuda_device, ray_tile):
+    """P2d: v8 (per-chunk anchors) computes K1's function, and its t and
+    slots equal K1's bit for bit at every batch, on whole tiles with a
+    partial last one, as v0's do in ``test_walk_variant_kernels_match_plain``."""
+    _, _, bvh = _cornell_tree(cuda_device, 32)
+    o, d = _rays(3 * ray_tile + 100, 27, cuda_device)
+    t_k1, slot_k1, _ = wide_bvh.intersect_closest_wide(bvh, o, d)
+    for batch in range(1, kernel_variants.MAX_BATCH + 1):
+        t, slot, _ = kernel_variants.closest_v8(bvh, o, d, ray_tile, batch)
+        torch.cuda.synchronize()
+        assert torch.equal(t, t_k1) and torch.equal(slot, slot_k1), batch
+    assert int((t_k1 < MISS_T).sum()) > 0
 
 
 def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda_device):

@@ -404,6 +404,23 @@ def test_empty_matches_reference(p1, rays512):
     np.testing.assert_array_equal(kernel_probe.empty(o).numpy(), ref)
 
 
+def test_empty_keeps_special_values_like_reference(p1):
+    """``empty_plain`` against ``_empty_kernel`` in interpret mode on origins
+    x of -1, -0, 0, +-inf, NaN and +-3e37, bit for bit: the sign of a zero
+    product and the NaN of inf * 0 included."""
+    x = np.array([-1.0, -0.0, 0.0, np.inf, -np.inf, np.nan, 3e37, -3e37], np.float32)
+    org = np.stack([np.tile(x, 4), np.zeros(32), np.ones(32)], axis=1).astype(np.float32)
+    dirs = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (32, 1))
+    ref = _row_call(p1, p1["_empty_kernel"], (JaxVec3.from_array(jnp.asarray(org)),
+                                              JaxVec3.from_array(jnp.asarray(dirs))), (), 256)
+    got = kernel_probe.empty(Vec3(*(torch.from_numpy(org[:, k].copy()) for k in range(3)))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    zeros = [0, 1, 2, 6, 7]
+    assert (got[zeros] == 0).all() and np.signbit(got[zeros]).tolist() == [True, True, False,
+                                                                           False, True]
+    assert np.isnan(got[3:6]).all()
+
+
 # --- P4 ------------------------------------------------------------------------
 
 
@@ -581,6 +598,155 @@ def test_queue_variants_match_reference(p2, variant, batch):
         ref = ns["run_v8"](fused, jo, jd, ray_tile=256, batch=batch)
         t, slot, _ = kernel_variants.closest_v8(bvh, o, d, 256, batch)
     _assert_like_reference(t, slot, ref, bvh, o, d)
+
+
+def _take(t, slot, best, best_slot):
+    """``take`` of ``csrc/variants.cu``: the lower t, on ties the lower slot."""
+    better = (t < best) | ((t == best) & (t < MISS_T) & (slot < best_slot))
+    return torch.where(better, t, best), torch.where(better, slot, best_slot)
+
+
+def _staged_chunk(cw, tc, o, d, lim, t_min=T_MIN):
+    """``staged_closest`` over one chunk's columns ``cw`` (4, 3 Tc), the rays'
+    origins ``o`` re-centred: column by column, each ray's t first, then,
+    only where it lies in (t_min, lim) and below the ray's t so far in the
+    chunk, its barycentrics (``woop_t``'s expressions).  (t, col) per ray."""
+    t = torch.full_like(d.x, MISS_T)
+    col = torch.full(d.x.shape, -1, dtype=torch.int32)
+    for j in range(tc):
+        s, u, v = (cw[:, g * tc + j] for g in (2, 0, 1))
+        tj = -(o.x * s[0] + o.y * s[1] + o.z * s[2] + s[3]) / (d.x * s[0] + d.y * s[1]
+                                                              + d.z * s[2])
+        live = ((tj > t_min) & (tj < lim) & (tj < t)).nonzero()[:, 0]
+        if not live.numel():
+            continue
+        oj, dj, tl = o.map(lambda c: c[live]), d.map(lambda c: c[live]), tj[live]
+        b1 = (oj.x * u[0] + oj.y * u[1] + oj.z * u[2] + u[3]) + tl * (dj.x * u[0] + dj.y * u[1]
+                                                                    + dj.z * u[2])
+        b2 = (oj.x * v[0] + oj.y * v[1] + oj.z * v[2] + v[3]) + tl * (dj.x * v[0] + dj.y * v[1]
+                                                                    + dj.z * v[2])
+        inside = (b1 >= -intersect.BARY_EPS) & (b2 >= -intersect.BARY_EPS) & (
+            b1 + b2 <= 1.0 + intersect.BARY_EPS)
+        hit = live[inside]
+        t[hit], col[hit] = tl[inside], j
+    return t, col
+
+
+def _drain(w, anchor, chunks, o, d, best, best_slot, tightened):
+    """One drain of ``queue_walk_kernel``: every ray tests the chunks in
+    queue order, each against ``nextafter(min(bound, t_batch))`` (the
+    redesign: ``bound`` its best t before the drain, ``t_batch`` the
+    drain's best so far) or against ``nextafter(bound)`` (the parent's
+    rule), and merges the drain's best once."""
+    tc = w.shape[2] // 3
+    inf = torch.tensor(float("inf"))
+    t_batch = torch.full_like(best, MISS_T)
+    slot_batch = torch.full_like(best_slot, -1)
+    for c in chunks:
+        oc = o if anchor is None else Vec3(o.x - anchor[0, c], o.y - anchor[1, c],
+                                           o.z - anchor[2, c])
+        lim = torch.nextafter(torch.minimum(best, t_batch) if tightened else best, inf)
+        t, col = _staged_chunk(w[c], tc, oc, d, lim)
+        t_batch, slot_batch = _take(t, c * tc + col, t_batch, slot_batch)
+    return _take(t_batch, slot_batch, best, best_slot)
+
+
+def _queue_walk_model(bvh, w, anchor, o, d, ray_tile, batch):
+    """``queue_walk_kernel``'s walk and queue (``csrc/variants.cu``, its
+    constants read from the source) per tile of ``ray_tile`` rays, each
+    drain run by both rules of ``_drain``, which must leave every ray's t
+    and slot equal bit for bit.  Returns (t, slot, drains)."""
+    queue_size, max_batch = (_cu_constant("variants.cu", n) for n in ("kQueueSize", "kMaxBatch"))
+    assert 1 <= batch <= max_batch
+    codes = bvh.wchild.view(-1, wide_bvh.ARITY)
+    code_list, axes = codes.tolist(), bvh.waxis.tolist()
+    filled = codes != -1
+    ts, slots, drains = [], [], 0
+    for lo in range(0, o.x.numel(), ray_tile):
+        ob, db = o.map(lambda c: c[lo:lo + ray_tile]), d.map(lambda c: c[lo:lo + ray_tile])
+        n = ob.x.numel()
+        signs = [bool(kernel_variants.tile_sums(c, ray_tile)[0] >= 0) for c in (db.x, db.y, db.z)]
+        rcp = wide_bvh.reciprocals(db)
+        best = torch.full((n,), MISS_T)
+        slot = torch.full((n,), -1, dtype=torch.int32)
+        queue, stack, node = [], [], 0
+
+        def drain(chunks):
+            nonlocal best, slot, drains
+            new = _drain(w, anchor, chunks, ob, db, best, slot, True)
+            old = _drain(w, anchor, chunks, ob, db, best, slot, False)
+            assert all(torch.equal(a, b) for a, b in zip(new, old))
+            best, slot = new
+            drains += 1
+
+        while node >= 0:
+            b = bvh.wbox[node].T[:, :, None]
+            enter = wide_bvh.widened_slab(b[0:3], b[3:6], (ob.x, ob.y, ob.z), rcp, best, T_MIN)
+            live = (enter & filled[node][:, None]).any(dim=1).tolist()
+            order = (range(wide_bvh.ARITY) if signs[axes[node]]
+                     else range(wide_bvh.ARITY - 1, -1, -1))
+            queue += [-2 - code_list[node][k] for k in order
+                      if live[k] and code_list[node][k] <= -2]
+            assert len(queue) <= queue_size
+            while len(queue) >= batch:
+                drain(queue[-batch:])
+                del queue[-batch:]
+            stack += [code_list[node][k] for k in reversed(order)
+                      if live[k] and code_list[node][k] >= 0]
+            node = stack.pop() if stack else -1
+        if queue:
+            drain(queue)
+        ts.append(best)
+        slots.append(slot)
+    return torch.cat(ts), torch.cat(slots), drains
+
+
+@pytest.mark.parametrize("variant, batch", [("v7", 1), ("v7", 4), ("v8", 8), ("v8", 16)])
+def test_queue_drain_model_keeps_the_parent_rule(p2, variant, batch):
+    """A PyTorch model of the redesigned drain (each chunk against the lower
+    of the ray's bound and the drain's best so far, nextafter kept; t first,
+    barycentrics behind the branch) gives, drain by drain, the (t, slot) of
+    the parent's rule (each chunk against the stale bound), bit for bit,
+    through the queue walk on the leaf-32 Cornell tree and 512 seeded rays
+    in tiles of 256; and the plain versions of ``closest_v7`` and
+    ``closest_v8`` (masks equal, t within 1e-5, slots equal)."""
+    _, _, bvh, rows, (_, (o, d)) = p2
+    w, anchor = (rows, None) if variant == "v7" else (bvh.w, bvh.wanchor)
+    t, slot, drains = _queue_walk_model(bvh, w, anchor, o, d, 256, batch)
+    if variant == "v7":
+        t_p, slot_p = kernel_variants.closest_rows_plain(rows, o, d, None)
+    else:
+        t_p, slot_p, _ = wide_bvh.closest_wide_plain(bvh, o, d)
+    hit = t_p < MISS_T
+    assert torch.equal(t < MISS_T, hit) and 100 < int(hit.sum()) < 512
+    torch.testing.assert_close(t, t_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(slot, slot_p.int())
+    assert drains >= 2
+
+
+def test_queue_drain_keeps_a_tie_for_the_later_lower_slot(p2):
+    """A tie across two drained chunks: the same triangle in chunks 0 and 1,
+    drained as [1, 0], so that the later chunk holds the lower slot.  The
+    tightened bound keeps the tie (nextafter of the drain's best), and the
+    lower slot wins, as under the parent's rule; a bound without nextafter
+    would drop it."""
+    _, _, bvh, _, (_, (o, d)) = p2
+    tc = bvh.leaf_size
+    t0, slot0, _ = wide_bvh.closest_wide_plain(bvh, o, d)
+    ray = int((t0 < MISS_T).nonzero()[0, 0])
+    c = int(slot0[ray]) // tc
+    w = torch.stack([bvh.w[c], bvh.w[c]])
+    anchor = bvh.wanchor[:, [c, c]]
+    one = (o.map(lambda x: x[ray:ray + 1]), d.map(lambda x: x[ray:ray + 1]))
+    start = (torch.full((1,), MISS_T), torch.full((1,), -1, dtype=torch.int32))
+    col = int(slot0[ray]) % tc
+    for tightened in (True, False):
+        t, slot = _drain(w, anchor, [1, 0], *one, *start, tightened)
+        assert float(t[0]) == float(t0[ray]) and int(slot[0]) == col
+    t1, slot1 = _drain(w, anchor, [1], *one, *start, True)
+    assert int(slot1[0]) == tc + col
+    oc = Vec3(*(x[ray:ray + 1] - anchor[k, 0] for k, x in enumerate((o.x, o.y, o.z))))
+    assert int(_staged_chunk(w[0], tc, oc, one[1], t1)[1][0]) == -1
 
 
 def test_unanchored_rows_match_reference(p2):
