@@ -102,7 +102,10 @@ source, started together, and then:
    and the unsorted bounces 2-4, plain and seeded, and ``high_poly`` over
    phase 5's leaf-128 tree on its primary rays and first bounce; on 64
    seeded whole tiles of each wavefront the plain walk must give the same
-   node, leaf and improving counts and overlap sums within 1e-6 relative;
+   node, leaf and improving counts, overlap sums within 1e-6 relative, and
+   the same work counts (``visit_stats(work=True)``: box tests, pair tests,
+   pairs in range), from which each wavefront's bound is made; one
+   ``[compare]`` line per Cornell depth sets P3's ms beside that bound;
 17. runs the P1 probe (``probes.kernel_probe``: ``grid``, ``nodes`` and
    ``leaves``, with K1 as ``full``) on the 1080p Cornell primary rays at
    leaf {32, 64, 128} x tile {256, 512, 1024}; each probe is checked
@@ -1227,10 +1230,13 @@ def timed_once(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def phase_p3(cornell, high_poly, gen, err):
+def phase_p3(cornell, high_poly, gen, err, card):
     """Phase 16: P3 through ``visit_stats.run`` on the Cornell and
-    ``high_poly`` wavefronts, each checked on P3_TILES seeded whole tiles
-    against the plain walk.  Returns (kernels-line entry, launches)."""
+    ``high_poly`` wavefronts; on each, the kernel's work counts
+    (``visit_stats(work=True)``) and, on P3_TILES seeded whole tiles, its
+    four counts and work counts against the plain walk; each wavefront's
+    bound from its work counts, and a ``[compare]`` line per Cornell depth.
+    Returns (kernels-line entry, launches)."""
     import torch
 
     from heatray_tpu_torch.probes import visit_stats as vs
@@ -1248,47 +1254,51 @@ def phase_p3(cornell, high_poly, gen, err):
     for label, t, recs in (("cornell leaf 32", tree, c_recs), ("high_poly leaf 128", hp_tree,
                                                                 hp_recs)):
         for rec in recs:
-            device = rec["org"].x.device
-            n_tiles = rec["org"].x.numel() // vs.TILE
-            tiles = torch.randperm(n_tiles, generator=gen)[:P3_TILES]
-            lanes = (tiles[:, None] * vs.TILE + torch.arange(vs.TILE)).reshape(-1).to(device)
+            org, d = rec["org"], rec["direction"]
+            what = f"P3 {label} depth {rec['depth']} {rec['tag']}"
+            r = org.x.numel()
+            n_tiles = r // vs.TILE
+            tiles = torch.randperm(n_tiles, generator=gen)[:P3_TILES].to(org.x.device)
+            lanes = (tiles[:, None] * vs.TILE + torch.arange(vs.TILE, device=org.x.device)
+                     ).reshape(-1)
             sw, sa = rec["seed"]
+            *counts, spent = vs.visit_stats(t, org, d, sw, sa, seed_k=rec["seed_k"], work=True)
+            if not all(torch.equal(a, b) for a, b in zip(counts, rec["stats"])):
+                raise AssertionError(f"{what}: the counts of the work run differ from the timed "
+                                     "run's")
             ms, want = timed_once(lambda: vs.visit_stats_plain(
-                t, subset(rec["org"], lanes), subset(rec["direction"], lanes), sw, sa,
-                seed_k=rec["seed_k"]))
-            got = [a[tiles.to(device)] for a in rec["stats"]]
+                t, subset(org, lanes), subset(d, lanes), sw, sa, seed_k=rec["seed_k"], work=True))
+            got = [a[tiles] for a in (*counts, spent)]
             for i, (a, b) in enumerate(zip(got, want)):
                 same = ((a - b).abs() <= 1e-6 * b.abs()).all() if i == 2 else torch.equal(a, b)
                 if not bool(same):
-                    raise AssertionError(f"P3 {label} depth {rec['depth']} {rec['tag']}: count {i} "
-                                         f"differs on {int((a != b).sum())} tiles")
-                err["visit_stats"] = max(err["visit_stats"], float((a - b).abs().max()))
-            log(f"[check] P3 {label} depth {rec['depth']} {rec['tag']}: {tiles.numel()} tiles of "
-                f"{n_tiles} equal to the plain walk ({ms:.1f} ms); kernel {rec['ms']:.4f} ms")
+                    off = int((a != b).reshape(a.shape[0], -1).any(dim=1).sum())
+                    raise AssertionError(f"{what}: count {i} differs on {off} tiles")
+                if i < 4:
+                    err["visit_stats"] = max(err["visit_stats"], float((a - b).abs().max()))
+            # The bound: the work its counts need (``vs.WORK``): each ray's
+            # tests of the filled children of the visited nodes, and its pair
+            # tests (with their barycentrics where t lies in range) of the
+            # leaves its own slab entered.
+            box_tests, pair_tests, in_range = (int(x) for x in spent.sum(dim=0).tolist())
+            flops = box_tests * SLAB_FLOPS + pair_tests * PAIR_T_FLOPS + in_range * BARY_FLOPS
+            rec["bound"] = probe_bound(f"{what} on {r} rays: {box_tests} box tests, {pair_tests} "
+                                       f"pair tests ({in_range} in range)",
+                                       24 * r + 16 * -(-r // vs.TILE), flops)
+            log(f"[check] {what}: {tiles.numel()} tiles of {n_tiles} equal to the plain walk, "
+                f"counts and work counts ({ms:.1f} ms); kernel {rec['ms']:.4f} ms")
             plain = plain or (ms, lanes.numel())
-    # The entry: the Cornell primary rays, unseeded.  Its bound counts the
-    # work its counts need (``vs.WORK``, counted by the kernel and held
-    # against the plain walk on P3_TILES tiles): each ray's tests of the
-    # filled children of the visited nodes, and its pair tests (with their
-    # barycentrics where t lies in range) of the leaves its own slab entered.
-    rec = c_recs[0]
-    org, d = rec["org"], rec["direction"]
-    r = org.x.numel()
-    *counts, spent = vs.visit_stats(tree, org, d, work=True)
-    tiles = torch.randperm(r // vs.TILE, generator=gen)[:P3_TILES]
-    lanes = (tiles[:, None] * vs.TILE + torch.arange(vs.TILE)).reshape(-1).to(org.x.device)
-    want = vs.visit_stats_plain(tree, subset(org, lanes), subset(d, lanes), work=True)[4]
-    if not (all(torch.equal(a, b) for a, b in zip(counts, rec["stats"]))
-            and torch.equal(spent[tiles.to(spent.device)], want)):
-        raise AssertionError("P3 cornell leaf 32 depth 1 plain: the work counts differ from "
-                             "the plain walk's, or the counts from the timed run's")
-    box_tests, pair_tests, in_range = (int(x) for x in spent.sum(dim=0).tolist())
-    log(f"[check] P3 cornell leaf 32 depth 1 plain: the work counts equal the plain walk's on "
-        f"{tiles.numel()} tiles")
-    flops = box_tests * SLAB_FLOPS + pair_tests * PAIR_T_FLOPS + in_range * BARY_FLOPS
-    bound = probe_bound(f"P3 on {r} rays: {box_tests} box tests, {pair_tests} pair tests "
-                        f"({in_range} in range)", 24 * r + 16 * (r // vs.TILE), flops)
-    return probe_entry("visit_stats", rec["ms"], r, plain, bound), launches
+    for dep in range(1, DEPTH + 1):
+        line = "; ".join(
+            f"{rec['tag']} {rec['ms']:.4f} ms beside its bound {rec['bound'][0]:.4f} "
+            f"({rec['bound'][1]}, {rec['ms'] / rec['bound'][0]:.1f}x)"
+            for rec in c_recs if rec["depth"] == dep)
+        log(f"[compare] P3 cornell leaf 32 depth {dep} ({c_recs[2 * dep - 2]['org'].x.numel()} "
+            f"rays): {line}; card {card}")
+    # The entry: the Cornell primary rays, unseeded, with depth 2 beside.
+    rec, rec2 = c_recs[0], c_recs[2]
+    return probe_entry("visit_stats", rec["ms"], rec["org"].x.numel(), plain, rec["bound"],
+                       depth2_ms=rec2["ms"], depth2_bound_ms=rec2["bound"][0]), launches
 
 
 def grid_costs(org):
@@ -2480,7 +2490,8 @@ def main() -> int:
     from heatray_tpu_torch.probes import visit_stats
 
     p_setup = visit_stats.setup("cornell", WIDTH, HEIGHT, DEPTH, device)
-    p3_entry, p3_launches = phase_p3(p_setup, (hp_scene, hp_camera, opts, hp_ctx), gen, err)
+    p3_entry, p3_launches = phase_p3(p_setup, (hp_scene, hp_camera, opts, hp_ctx), gen, err,
+                                     card)
     del hp_ctx
 
     # --- 17-18. P1 (node walk, leaf tests, launch) and P4 (row and warp) --------

@@ -7,7 +7,7 @@
 //                       tile, node visits, leaf visits, the summed share of
 //                       the tile's rays that enter each opened leaf, and the
 //                       leaf visits that lowered some ray's best t;
-//   nodes_kernel        tpu_kernel_probe.py `_nodes_kernel` (P1 "nodes"): the
+//   nodes_kernel        tpu_kernel_probe.py `_nodes_kernel` (P1 "nodes"): K1's
 //                       walk without its leaf tests;
 //   rows_brute_kernel   tpu_kernel_probe.py `_leaves_kernel` (P1 "leaves") and
 //                       tpu_vpu_leaf.py `_mxu_kernel` (P4): closest t of every
@@ -28,43 +28,97 @@
 //                       x * 0 over the rays, the cost of a launch that moves
 //                       the rays' x plane.
 //
-// visit_stats_kernel walks the tree as the TPU's streaming kernels do
-// (wide_bvh_block.cuh): one block of 256 rays per tile, a child visited
-// if any ray of the block enters its widened box before that ray's best t
-// as it stood at node entry, leaves near to far by the block's summed
-// direction along the node's axis, internal children pushed far to near,
-// leaf chunks staged by cp.async.  At each opened leaf every ray of the
-// block is tested, as the TPU kernel does.
-// The optional seed chunk (the K largest triangles, anchored at their box
-// centre) is tested first.  Thread 0 keeps the four counts and writes the
-// tile's row.  Lanes past the last ray are absent: they vote for no child
-// and count towards no share (the TPU kernel pads the last tile with rays
-// of origin 0 and direction 0, which enter every box that holds the origin).
+// visit_stats_kernel walks the tree as the TPU's streaming kernels do: one
+// block of 256 rays per tile, a child visited if any ray of the block
+// enters its widened box before that ray's best t as it stood at node
+// entry, leaves near to far by the block's summed direction along the
+// node's axis, internal children pushed far to near.  The optional seed
+// chunk (the K largest triangles, anchored at their box centre) is tested
+// first.  Lanes past the last ray are absent: they vote for no child and
+// count towards no share (the TPU kernel pads the last tile with rays of
+// origin 0 and direction 0, which enter every box that holds the origin).
 // Given `work_out`, it also counts the work the four counts need: the child
 // boxes of the visited nodes, times the tile's rays; the filled triangles
 // of each opened leaf, times the rays whose slab entered it at node entry;
 // and of those pairs, the ones whose t lies in (t_min, the ray's best t at
 // the leaf), which then need their barycentrics.
 //
-// nodes_kernel is K1's walk as it stood before its leaf tests were served
-// by the warp (one thread per ray, its own stack, near child first by its
-// own direction) with the leaf test removed.  With no best hit to cull by,
-// the set of nodes a ray visits depends neither on the order nor on that
-// change: it is the node set of wide_bvh_walk.cuh's walk too.  Its time is
-// that of a thread-serial loop, not of the walk's rounds of a warp (one
-// visit a round, a vote to end), so it does not split K1's time between
-// walk and leaves.  It writes t = kMissT, as the TPU kernel does, and each
-// ray's node count, without which nothing would depend on the walk.
+// What bounded its first design on this card: at each opened leaf every
+// ray of the block tested every column, staged in shared memory, behind
+// two barriers a leaf and two a node besides the block's OR, as the TPU
+// kernel tests the whole tile in one contraction.  On the Cornell bounces
+// only 2-5% of a tile's rays enter a leaf it opens (0.6% on high_poly's
+// first bounce), so 95-99% of its pair tests were for rays that could not
+// lower their best there, and its time followed its leaf visits.
+// What this design does about it: each opened leaf is served only to the
+// rays whose own slab entered its widened box at node entry.  A ray that
+// did not cannot lower its best t there (the widened boxes hold every hit
+// the pair test accepts, ROADMAP F5), so every ray's best, the four counts
+// and the work counts are those of testing every ray, the plain version's
+// rule, which chip_smoke.py and the card tests hold it to.  Each warp
+// serves its own entering rays from device memory (the chunks stay in L2),
+// `serve_leaf`: lane j holds column j of each block of 32; a group of up to
+// 24 rays is tested one ray at a time, the least t a `redux.sync` minimum,
+// a larger group ray per lane with the columns shuffled to it; t first, the
+// barycentrics behind a branch (`woop_t`'s expressions as they are); a warp
+// none of whose rays entered a leaf skips it.  The walk takes one barrier a
+// node, the block's OR, on which the warps' bits of the previous node's
+// improving leaves ride (double-buffered by node parity); every thread
+// keeps the node and the stack's depth and pops the next node itself,
+// thread 0 alone writing the stack.  Node and leaf visits are the same on
+// every thread and each warp sums its own entering rays and pairs, so
+// thread 0 reads no per-child counts at a node (with that loop the kernel
+// took 13-15% more time on the Cornell wavefronts, 4-8% on high_poly's).
+// What bounds it now: the latency of the block-serial walk, 22-29 node
+// visits a tile on the Cornell bounces, each a chain of 8 box loads and
+// slab tests, a reduction and a barrier, with each warp's leaf services
+// between two barriers; 14x its operation bound there, 17x on the primary
+// rays.  On an NVIDIA H100 80GB HBM3 at 700 W (profile_torch_wide.py,
+// family `stats`, in turns with the first design, 1080p wavefronts): the
+// Cornell box's depths 1-4 over its leaf-32 tree 0.415, 1.558, 1.861, 1.881
+// ms (first design 0.634, 8.044, 13.641, 14.563), seeded 0.575-2.147
+// (0.820-14.882); high_poly's depths 1-2 over its leaf-128 tree 0.857 and
+// 1.168 (4.718, 11.807).  Every ray tested through this walk and service
+// (`every-ray`) took 0.84-0.93x the first design, so the service makes the
+// gain; fetching the next node's row and the entered leaves into L1 first
+// (`prefetch.global.L1`) took 2-20% more, testing the seed's columns
+// against no running best 1-4% more, and register caps of 2, 3 or 5 blocks
+// an SM (80, 76 or 48 registers, against 64 with 52 bytes spilled) 1-15%
+// more.
 //
-// What bounds them on an H100: the brute-force kernels are bound by
-// operations (15 float32 operations per pair for t, 30 more for the
-// barycentrics where t lies in range, against 67 TFLOP/s); every thread of
-// a block reads the same Woop column in the row layout, and every lane of a
-// warp the same ray in the transposed one.  The node walk and
-// visit_stats_kernel are bound by the latency of their divergent or
-// block-serial walks, far above the bytes they move; empty_kernel by the
-// bytes it moves (4 read and 4 written a ray: 16.6 MB at 1080p, 5.0 us at
-// 3.35 TB/s) and, from L2, by its launch.
+// nodes_kernel is K1's walk as it ships (wide_bvh_walk.cuh `closest_walk`:
+// one ray a thread in blocks of 128 under K1's register cap, one node a
+// round, pending leaf children taken near to far and re-culled by slab,
+// the warp's vote to end) with `NoServe`, a service that serves nothing.
+// Nothing lowers a ray's best, so its node set is that of a walk with no
+// far end, as the plain version counts it.  It writes t = kMissT, as the
+// TPU kernel does, and each ray's node visits, counted by the walk
+// (`kCountsVisits`: the walks of the other services compile as they did).
+// `ray_tile` no longer sets the block (the entry point keeps it, and its
+// callers their checks).  Its first design was K1's walk before the warp
+// served its leaves, a thread-serial loop in blocks of `ray_tile` (up to
+// 1,024 threads, 64 registers, its stack in local memory), whose time said
+// nothing of K1's walk.  What bounds it: the latency of the warp's rounds,
+// each a node's 8 box loads and slab tests, far above the bytes it moves
+// (a known hit's cull saves 9% on the primary rays, 33% on the head, where
+// rays visit more nodes; the walk visits 1.39 and 1.80 nodes a ray there,
+// and a warp runs as many rounds as its longest walk).  On an NVIDIA
+// H100 80GB HBM3 at 700 W (profile_torch_wide.py, family `nodes`, in turns,
+// leaf 32): 0.0867 ms on the Cornell primary rays and 0.2051 on the sorted
+// depth-2 head (first design 0.0738, 0.1543), where K1 takes 0.3995 and
+// 0.5984.  Culled by each ray's final t from K1 (`known-hit`) the walk
+// takes 0.0786 and 0.1383, so K1's leaf service is 80% and 77% of K1; the
+// node rows staged in shared memory (`smem-rows`) save nothing on the
+// primary rays and 4% on the head, so the node loads' latency is not what
+// bounds the walk.
+//
+// What bounds the other kernels on an H100: the brute-force kernels are
+// bound by operations (15 float32 operations per pair for t, 30 more for
+// the barycentrics where t lies in range, against 67 TFLOP/s); every thread
+// of a block reads the same Woop column in the row layout, and every lane
+// of a warp the same ray in the transposed one.  empty_kernel is bound by
+// the bytes it moves (4 read and 4 written a ray: 16.6 MB at 1080p, 5.0 us
+// at 3.35 TB/s) and, from L2, by its launch.
 //
 // empty_kernel's geometry is the card's, not the TPU's: the ray tile is the
 // TPU probe's grid step, and `ray_tile` no longer sets the block (the entry
@@ -170,30 +224,94 @@
 #include <cuda_runtime.h>
 
 #include "wide_bvh_block.cuh"
+#include "wide_bvh_walk.cuh"
 
 namespace {
 
 using namespace wide_bvh;
 
-constexpr int kStackDepth = 64;  // K1's per-thread stack
+// Groups of more entering rays than this in a warp are served ray per lane,
+// smaller ones one ray at a time across the columns: K1's threshold
+// (wide_bvh_common.cuh kLaneRays).
+constexpr int kStatsLaneRays = 24;
 
-// Does t of ray `r` against column j of chunk `W` lie in (t_min, t_max)?
-// tri_t's t, in its order.
-__device__ __forceinline__ bool t_in_range(const float* __restrict__ W, int tc, int j,
-                                           float ax, float ay, float az, const Ray& r,
-                                           float t_min, float t_max) {
-  const int stride = 3 * tc;
-  const int s = 2 * tc + j;
-  const float* c0 = W;               // feature row x
-  const float* c1 = W + stride;      // feature row y
-  const float* c2 = W + 2 * stride;  // feature row z
-  const float* c3 = W + 3 * stride;  // feature row 1
-  const float pos = ax * c0[s] + ay * c1[s] + az * c2[s] + c3[s];
-  const float pds = r.dx * c0[s] + r.dy * c1[s] + r.dz * c2[s];
-  const float t = -pos / pds;
-  return t > t_min && t < t_max;
+// This lane's column j of chunk `W` (device memory) as its b1, b2 and s
+// blocks (x, y, z, 1); zero past the chunk's last column (t = -0 / 0 is NaN
+// there, in no range).
+__device__ __forceinline__ void load_col(const float* __restrict__ W, int tc, int j, float4& u,
+                                         float4& v, float4& s) {
+  u = v = s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (j < tc) {
+    u = make_float4(W[j], W[3 * tc + j], W[6 * tc + j], W[9 * tc + j]);
+    v = make_float4(W[tc + j], W[4 * tc + j], W[7 * tc + j], W[10 * tc + j]);
+    s = make_float4(W[2 * tc + j], W[5 * tc + j], W[8 * tc + j], W[11 * tc + j]);
+  }
 }
 
+__device__ __forceinline__ float4 shfl4(const float4& x, int src) {
+  return make_float4(__shfl_sync(kFullMask, x.x, src), __shfl_sync(kFullMask, x.y, src),
+                     __shfl_sync(kFullMask, x.z, src), __shfl_sync(kFullMask, x.w, src));
+}
+
+// One opened leaf, chunk `W`, served to `ent`, the lanes of the warp whose
+// ray's own slab entered it at node entry: each such lane's least t in
+// (t_min, best) at which its ray meets a column of the chunk, kMissT for
+// none (`woop_t` against the ray's best before the leaf, split into t and,
+// behind a branch, the barycentrics, its expressions as they are).  `a` is
+// this lane's ray with its origin re-centred on the chunk's anchor.  Each
+// lane adds to `in_range` the pairs it tested whose t lay in range.  A
+// group of more than kStatsLaneRays rays has each lane test its own ray
+// against the columns in turn, broadcast from lane j's registers by
+// shuffles, the barycentrics' shuffles behind a branch the same on the
+// warp; a smaller group tests its rays one after the other, one column per
+// lane, the least t a `redux.sync` minimum of order keys.  Every lane of the
+// warp calls it, with the same `ent`.
+__device__ __forceinline__ float serve_leaf(const float* __restrict__ W, int tc, unsigned ent,
+                                            const Ray& a, float t_min, float best,
+                                            unsigned& in_range) {
+  const int lane = threadIdx.x & 31;
+  const bool mine = (ent >> lane) & 1u;
+  const bool per_lane = __popc(ent) > kStatsLaneRays;
+  float t_leaf = kMissT;
+  for (int j0 = 0; j0 < tc; j0 += 32) {
+    float4 u, v, s;
+    load_col(W, tc, j0 + lane, u, v, s);
+    if (per_lane) {
+      const int n = min(32, tc - j0);
+      for (int k = 0; k < n; ++k) {
+        const float t = plane_t(shfl4(s, k), a.ox, a.oy, a.oz, a);
+        const bool in = mine & (t > t_min) & (t < best);
+        in_range += in;
+        if (__any_sync(kFullMask, in)) {
+          const float hit = inside_t(shfl4(u, k), shfl4(v, k), t, a.ox, a.oy, a.oz, a);
+          if (in) t_leaf = fminf(t_leaf, hit);
+        }
+      }
+      continue;
+    }
+    for (unsigned rays = ent; rays; rays &= rays - 1) {
+      const int src = __ffs(static_cast<int>(rays)) - 1;
+      const Ray q = shfl_ray(a, src);
+      const float q_best = __shfl_sync(kFullMask, best, src);
+      const float t = plane_t(s, q.ox, q.oy, q.oz, q);
+      const bool in = (t > t_min) & (t < q_best);
+      in_range += in;
+      float hit = kMissT;
+      if (in) hit = inside_t(u, v, t, q.ox, q.oy, q.oz, q);
+      const unsigned low = __reduce_min_sync(kFullMask, order_key(hit));
+      if (lane == src) t_leaf = fminf(t_leaf, key_float(low));
+    }
+  }
+  return t_leaf;
+}
+
+// One block of kTile rays.  Every thread keeps the node and the stack's
+// depth, the same on all, and pops the next node itself; thread 0 alone
+// writes the stack.  The node's one barrier is the block's OR of its child
+// bits; the warps' bits of the previous node's improving leaves ride on it,
+// double-buffered by node parity.  Node and leaf visits are the same on
+// every thread; each warp sums its own entering rays and pairs, and the
+// block's sums are taken once at the end.
 __global__ void __launch_bounds__(kTile) visit_stats_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
@@ -204,18 +322,17 @@ __global__ void __launch_bounds__(kTile) visit_stats_kernel(
     const float* __restrict__ seed_w, const float* __restrict__ seed_anchor,
     int seed_k, float t_min, Widen widen, float* __restrict__ stats_out,
     const int* __restrict__ chunk_fill, long long* __restrict__ work_out) {
-  __shared__ Walk s;
-  __shared__ int warp_count[kTileWarps][kArity];
-  __shared__ unsigned long long in_range_sum;
-  extern __shared__ float4 slot_mem[];
-  float* slots = reinterpret_cast<float*>(slot_mem);
-  const int chunk_floats = 12 * tc;
+  __shared__ Walk s;  // its stack and block_signs' sums
+  __shared__ unsigned warp_bits[2][kTileWarps];
+  __shared__ unsigned warp_fell[2][kTileWarps];
+  __shared__ unsigned long long block_sums[3];  // entering rays, entering pairs, pairs in range
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   const int i = blockIdx.x * kTile + threadIdx.x;
   const bool valid = i < n_rays;
   Ray r = {};
   if (valid) r = load_ray(ox, oy, oz, dx, dy, dz, i);
+  if (threadIdx.x < 3) block_sums[threadIdx.x] = 0;  // visible after block_signs' barrier
   bool sign[3];
   block_signs(s, valid, r, sign);
 
@@ -228,127 +345,128 @@ __global__ void __launch_bounds__(kTile) visit_stats_kernel(
       best = fminf(best, tri_t(seed_w, seed_k, j, ax, ay, az, r, t_min, best));
     }
   }
-  // Thread 0's counts: node visits, leaf visits, summed overlap share,
-  // improving leaf visits.
-  float nodes = 0.0f, leaves = 0.0f, overlap = 0.0f, improving = 0.0f;
-  // With work_out: thread 0's filled children and entering pairs, and each
-  // thread's pairs in range.
+  // The counts: node visits, leaf visits and improving leaf visits (thread
+  // 0's), the filled children of the visited nodes; the warp's entering
+  // rays and pairs, and each lane's pairs in range.
+  float nodes = 0.0f, leaves = 0.0f, improving = 0.0f;
   long long children = 0, pairs = 0;
-  unsigned long long in_range = 0;
-  if (threadIdx.x == 0) {
-    s.node = 0;
-    s.sp = 0;
-    in_range_sum = 0;
-  }
-  __syncthreads();
-  for (int node = s.node; node >= 0; node = s.node) {
+  unsigned entered = 0, in_range = 0;
+  unsigned fell_bits = 0;  // the warp's: the last node's leaves that lowered a ray's best t
+  int node = 0, sp = 0, parity = 0;
+  while (node >= 0) {
     const float* boxes = wbox + (size_t)node * kArity * 8;
     const int* codes = wchild + (size_t)node * kArity;
     const unsigned mine = valid ? live_children(boxes, codes, r, t_min, best, widen) : 0u;
+    const unsigned bits = __reduce_or_sync(kFullMask, mine);
+    if (lane == 0) {
+      warp_bits[parity][warp] = bits;
+      warp_fell[parity][warp] = fell_bits;
+    }
+    __syncthreads();  // the node's one barrier
+    unsigned live = 0;
 #pragma unroll
-    for (int k = 0; k < kArity; ++k) {
-      const int n_in = __popc(__ballot_sync(kFullMask, (mine >> k) & 1u));
-      if (lane == 0) warp_count[warp][k] = n_in;
+    for (int k = 0; k < kTileWarps; ++k) live |= warp_bits[parity][k];
+    if (threadIdx.x == 0) {
+      unsigned fell = 0;
+      for (int k = 0; k < kTileWarps; ++k) fell |= warp_fell[parity][k];
+      improving += static_cast<float>(__popc(fell));  // the previous node's leaves
     }
-    const unsigned live = block_or(s, mine);  // its barrier also publishes warp_count
-    const bool low_first = sign[waxis[node]];
-    nodes += 1.0f;
-    if (work_out != nullptr && threadIdx.x == 0) {
-      for (int k = 0; k < kArity; ++k) children += codes[k] != -1;
-    }
-
-    const int n = stage_leaves(codes, live, low_first, w, chunk_floats, slots);
-    for (int k = 0, q = 0; k < kArity; ++k) {
-      const int c = low_first ? k : kArity - 1 - k;
+    parity ^= 1;
+    unsigned leaf_bits = 0, filled = 0;
+#pragma unroll
+    for (int c = 0; c < kArity; ++c) {
       const int code = codes[c];
-      if (!((live >> c) & 1u) || code > -2) continue;
-      cp_async_wait(n - 1 - q);
-      __syncthreads();  // slot q has arrived for every thread's share
-      bool fell = false;
-      if (valid) {
-        const int chunk = -2 - code;
-        const float ax = r.ox - wanchor[chunk];
-        const float ay = r.oy - wanchor[n_chunks + chunk];
-        const float az = r.oz - wanchor[2 * n_chunks + chunk];
-        const float* W = slots + q * chunk_floats;
-        float t_leaf = kMissT;
-        for (int j = 0; j < tc; ++j) {
-          t_leaf = fminf(t_leaf, tri_t(W, tc, j, ax, ay, az, r, t_min, best));
-        }
-        if (work_out != nullptr && ((mine >> c) & 1u)) {
-          for (int j = 0; j < tc; ++j) {
-            in_range += t_in_range(W, tc, j, ax, ay, az, r, t_min, best);
-          }
-        }
-        fell = t_leaf < best;
-        best = fminf(best, t_leaf);
-      }
-      const bool any_fell = __syncthreads_or(fell);
-      if (threadIdx.x == 0) {
-        int n_in = 0;
-        for (int v = 0; v < kTileWarps; ++v) n_in += warp_count[v][c];
-        leaves += 1.0f;
-        overlap += static_cast<float>(n_in) / static_cast<float>(kTile);
-        if (any_fell) improving += 1.0f;
-        if (work_out != nullptr) {
-          pairs += static_cast<long long>(n_in) * chunk_fill[-2 - code];
-        }
-      }
-      ++q;
+      if (code != -1) filled |= 1u << c;
+      if (code <= -2) leaf_bits |= 1u << c;
     }
-    __syncthreads();  // every thread is done with the slots, warp_bits and warp_count
-    push_and_pop(s, codes, live, low_first);
-    __syncthreads();  // the next node is visible
+    leaf_bits &= live;
+    nodes += 1.0f;
+    leaves += static_cast<float>(__popc(leaf_bits));
+    children += __popc(filled);
+    const bool low_first = sign[waxis[node]];
+
+    // The live internal children, far to near: all but the nearest pushed
+    // (by thread 0), the nearest next; else the stack's top.  An entry is
+    // read a node later at the earliest, after the node's barrier.
+    int next = -1;
+    for (int k = 0; k < kArity; ++k) {
+      const int c = low_first ? kArity - 1 - k : k;
+      const int code = codes[c];
+      if (!((live >> c) & 1u) || code < 0) continue;
+      if (next >= 0) {
+        if (threadIdx.x == 0) s.stack[sp] = next;
+        ++sp;
+      }
+      next = code;
+    }
+    const int following = next >= 0 ? next : sp > 0 ? s.stack[--sp] : -1;
+
+    // The node's live leaves, near to far, each served to the warp's rays
+    // that entered it (a branch the same on the warp).
+    fell_bits = 0;
+    for (int k = 0; k < kArity; ++k) {
+      const int c = low_first ? k : kArity - 1 - k;
+      if (!((leaf_bits >> c) & 1u)) continue;
+      const unsigned ent = __ballot_sync(kFullMask, (mine >> c) & 1u);
+      const int chunk = -2 - codes[c];
+      entered += __popc(ent);
+      if (work_out != nullptr) pairs += static_cast<long long>(__popc(ent)) * chunk_fill[chunk];
+      if (!ent) continue;
+      Ray a = r;
+      a.ox = r.ox - wanchor[chunk];
+      a.oy = r.oy - wanchor[n_chunks + chunk];
+      a.oz = r.oz - wanchor[2 * n_chunks + chunk];
+      const float t_leaf =
+          serve_leaf(w + (size_t)chunk * 12 * tc, tc, ent, a, t_min, best, in_range);
+      const bool fell = ((ent >> lane) & 1u) && t_leaf < best;
+      if (__any_sync(kFullMask, fell)) fell_bits |= 1u << c;
+      best = fminf(best, t_leaf);
+    }
+    node = following;
   }
-  if (work_out != nullptr) atomicAdd(&in_range_sum, in_range);
+  if (lane == 0) {
+    warp_fell[parity][warp] = fell_bits;
+    atomicAdd(&block_sums[0], static_cast<unsigned long long>(entered));
+    if (work_out != nullptr) atomicAdd(&block_sums[1], static_cast<unsigned long long>(pairs));
+  }
+  if (work_out != nullptr) {
+    const unsigned warp_in = __reduce_add_sync(kFullMask, in_range);
+    if (lane == 0) atomicAdd(&block_sums[2], static_cast<unsigned long long>(warp_in));
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
+    unsigned fell = 0;
+    for (int k = 0; k < kTileWarps; ++k) fell |= warp_fell[parity][k];
+    improving += static_cast<float>(__popc(fell));  // the last node's leaves
     float* row = stats_out + 4 * (size_t)blockIdx.x;
     row[0] = nodes;
     row[1] = leaves;
-    row[2] = overlap;
+    // The sum over opened leaves of each one's entering share n / kTile:
+    // every partial sum is a multiple of 1 / kTile far below 2^24 / kTile,
+    // so the sum of the integers, divided once, is the same float.
+    row[2] = static_cast<float>(block_sums[0]) / static_cast<float>(kTile);
     row[3] = improving;
     if (work_out != nullptr) {
       long long* work = work_out + 3 * (size_t)blockIdx.x;
       work[0] = children * min(kTile, n_rays - static_cast<int>(blockIdx.x) * kTile);
-      work[1] = pairs;
-      work[2] = static_cast<long long>(in_range_sum);
+      work[1] = static_cast<long long>(block_sums[1]);
+      work[2] = static_cast<long long>(block_sums[2]);
     }
   }
 }
 
-__global__ void __launch_bounds__(1024) nodes_kernel(
+// K1's walk (wide_bvh_walk.cuh `closest_walk`, K1's blocks and register
+// cap) with the service that serves nothing: t = kMissT and each ray's
+// node visits.
+__global__ void __launch_bounds__(kWalkThreads, 8) nodes_kernel(
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
     const float* __restrict__ dy, const float* __restrict__ dz, int n_rays,
     const float* __restrict__ wbox, const int* __restrict__ wchild,
     const int* __restrict__ waxis, float t_min, Widen widen,
     float* __restrict__ t_out, int* __restrict__ visits_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-
-  int stack[kStackDepth];
-  int sp = 0;
-  int node = 0;
-  int visits = 0;
-  while (node >= 0) {
-    ++visits;
-    const float* boxes = wbox + (size_t)node * kArity * 8;
-    const int* codes = wchild + (size_t)node * kArity;
-    const int axis = waxis[node];
-    const float d_axis = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-    const bool low_first = d_axis >= 0.0f;
-    const unsigned live = live_children(boxes, codes, r, t_min, kMissT, widen);
-    for (int k = 0; k < kArity; ++k) {  // far to near: the stack pops near first
-      const int c = low_first ? kArity - 1 - k : k;
-      const int code = codes[c];
-      if (((live >> c) & 1u) && code >= 0) stack[sp++] = code;
-    }
-    node = sp > 0 ? stack[--sp] : -1;
-  }
-  t_out[i] = kMissT;
-  visits_out[i] = visits;
+  closest_walk<NoServe>(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, nullptr, nullptr, 0,
+                        0, t_min, widen, t_out, visits_out);
 }
 
 constexpr int kRowRays = 4;       // rays a thread of rows_brute_kernel holds
@@ -638,11 +756,7 @@ extern "C" int probe_visit_stats(const float* ox, const float* oy, const float* 
                                  const int* chunk_fill, long long* work_out,
                                  void* stream) {
   if (n_rays > 0) {
-    size_t bytes = 0;
-    const cudaError_t err = slot_memory(visit_stats_kernel, leaf_size, &bytes);
-    if (err != cudaSuccess) return refused(err);
-    visit_stats_kernel<<<tiles_for(n_rays), kTile, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+    visit_stats_kernel<<<tiles_for(n_rays), kTile, 0, static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, w, wanchor, n_chunks,
         leaf_size, seed_w, seed_anchor, seed_k, t_min, Widen{box_pad, far_scale},
         stats_out, chunk_fill, work_out);
@@ -656,8 +770,7 @@ extern "C" int probe_nodes(const float* ox, const float* oy, const float* oz,
                            const int* waxis, int ray_tile, float t_min, float box_pad,
                            float far_scale, float* t_out, int* visits_out, void* stream) {
   if (n_rays > 0) {
-    nodes_kernel<<<blocks_for(n_rays, ray_tile), ray_tile, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+    nodes_kernel<<<walk_blocks(n_rays), kWalkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, t_min,
         Widen{box_pad, far_scale}, t_out, visits_out);
   }

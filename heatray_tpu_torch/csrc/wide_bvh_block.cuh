@@ -4,9 +4,7 @@
 // together, with the current node and the stack in shared memory so that
 // the loop is the same for every thread; a child is visited if any ray of
 // the block enters it, near to far by the block's summed direction along
-// the node's sort axis; the live leaf chunks of a node are copied with
-// cp.async into up to 8 shared-memory slots, one commit group each, all
-// started before the first wait.  Also the staged-column pair test of the
+// the node's sort axis.  Also the staged-column pair test of the
 // brute-force probes and the walk variants: columns copied by 4-byte
 // cp.async into 48-byte column records, and `woop_t` split into its t and,
 // behind a branch, its barycentrics, with its expressions as they are.
@@ -35,12 +33,6 @@ struct BlockWalk {
   float warp_dir[kWarps][3];
 };
 using Walk = BlockWalk<kTile>;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -143,27 +135,6 @@ __device__ __forceinline__ unsigned block_or(BlockWalk<Threads>& s, unsigned bit
 #pragma unroll
   for (int k = 0; k < BlockWalk<Threads>::kWarps; ++k) live |= s.warp_bits[k];
   return live;
-}
-
-// Start the copies of every live leaf chunk of the node, near to far, into
-// slots 0, 1, ...; one commit group per chunk.  Returns their count.
-__device__ __forceinline__ int stage_leaves(const int* __restrict__ codes,
-                                            unsigned live, bool low_first,
-                                            const float* __restrict__ w,
-                                            int chunk_floats, float* slots) {
-  int n = 0;
-  for (int k = 0; k < kArity; ++k) {
-    const int c = low_first ? k : kArity - 1 - k;
-    const int code = codes[c];
-    if (!((live >> c) & 1u) || code > -2) continue;
-    const float4* src =
-        reinterpret_cast<const float4*>(w + (size_t)(-2 - code) * chunk_floats);
-    float4* dst = reinterpret_cast<float4*>(slots + n * chunk_floats);
-    for (int p = threadIdx.x; p < chunk_floats / 4; p += kTile) cp_async16(dst + p, src + p);
-    cp_async_commit();
-    ++n;
-  }
-  return n;
 }
 
 // Thread 0 pushes the live internal children far to near (the stack then

@@ -2,7 +2,7 @@
 // warp: the loops of K1/K2 (wide_bvh.cu) and K3a/K3b (wide_bvh_stream.cu),
 // and K5a/K5b and K4a/K4b (wide_bvh_t.cu), which differ only in the leaf
 // service they call (`LaneServe`, `WarpServe`, `BlockServe`) and in their
-// register cap.
+// register cap; and P1 `nodes` (probes.cu), K1's walk with `NoServe`.
 //
 // Each thread walks its own ray with its own stack, in its own near-to-far
 // order along the node's sort axis, culling children against its own best
@@ -165,6 +165,24 @@ struct BlockServe {
   }
 };
 
+// P1 `nodes`'s (probes.cu): a service that serves nothing, so that the walk
+// is K1's with its leaf tests taken out.  Nothing lowers a ray's best, so
+// its node set is that of a walk with no far end; `closest_walk` counts a
+// ray's node visits and writes the count in place of the slot.
+struct NoServe {
+  __device__ __forceinline__ static void closest(int, const float* __restrict__, int,
+                                                 const float* __restrict__, int, const Ray&,
+                                                 float, float&, int&) {}
+};
+
+// Whether `closest_walk` counts each ray's node visits and writes the count
+// in place of its slot: for NoServe only, so that the walks of the other
+// services compile as they did without the count.
+template <class Serve>
+constexpr bool kCountsVisits = false;
+template <>
+constexpr bool kCountsVisits<NoServe> = true;
+
 // The body of a closest-hit walk kernel (one thread per ray, kWalkThreads a
 // block): t and slot of each ray's closest hit, kMissT and -1 for none.
 // `Serve::closest` serves the offered leaves, given `extra` after its
@@ -186,6 +204,7 @@ __device__ __forceinline__ void closest_walk(
 
   float best = kMissT;
   int best_slot = -1;
+  int visits = 0;  // kCountsVisits<Serve> only
   RayWalk walk;
   start_walk(walk, valid);
   for (;;) {
@@ -198,13 +217,18 @@ __device__ __forceinline__ void closest_walk(
       }
       if (chunk >= 0 || walk.node < 0 || v == kVisits) break;
       visit(walk, wbox, wchild, waxis, r, t_min, best, widen);
+      if constexpr (kCountsVisits<Serve>) ++visits;
     }
     Serve::closest(chunk, w, tc, wanchor, n_chunks, r, t_min, best, best_slot, extra...);
     if (!__any_sync(kFullMask, walk.node >= 0 || walk.leaves)) break;
   }
   if (valid) {
     t_out[i] = best;
-    slot_out[i] = best_slot;
+    if constexpr (kCountsVisits<Serve>) {
+      slot_out[i] = visits;
+    } else {
+      slot_out[i] = best_slot;
+    }
   }
 }
 

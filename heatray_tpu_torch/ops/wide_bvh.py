@@ -299,9 +299,6 @@ _ANY_ARGS = (
 # K5's and K4's: the tree's block boxes after the ray count.
 _CLOSEST_BLOCK_ARGS = _CLOSEST_ARGS[:7] + [_P] + _CLOSEST_ARGS[7:]
 _ANY_BLOCK_ARGS = _ANY_ARGS[:8] + [_P] + _ANY_ARGS[8:]
-# Shared memory a block of the block-walk probe (P3) may take for its 8
-# leaf slots (of the H100's 227 KB per block, less the walk's own state).
-_STREAM_SLOT_BYTES = 200 * 1024
 
 
 def _bind(name: str, depth_fns: tuple, pairs: tuple) -> ctypes.CDLL:
@@ -388,20 +385,6 @@ def _block_tree_args(bvh: WideBVH, depth: int) -> list:
         raise ValueError("WideBVH.blocks must be a contiguous float32 (C, leaf_size / 32, 6) "
                          "tensor on the tree's device")
     return [blocks.data_ptr()] + tree
-
-
-def _stream_tree_args(bvh: WideBVH, depth: int) -> list:
-    """``_tree_args`` plus what the leaf staging of the block walk of the P3
-    probe (``probes/visit_stats.py``) needs: 16-byte copies and 8 chunks in
-    shared memory."""
-    tree = _tree_args(bvh, depth)
-    if bvh.w.data_ptr() % 16:
-        raise ValueError("WideBVH.w must be 16-byte aligned for the block-walk kernels")
-    if ARITY * bvh.w[0].numel() * 4 > _STREAM_SLOT_BYTES:
-        raise ValueError(
-            f"leaf size {bvh.leaf_size} does not fit 8 chunks in shared memory"
-        )
-    return tree
 
 
 def launch(fn, device, *args) -> None:

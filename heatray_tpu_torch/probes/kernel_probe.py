@@ -6,7 +6,7 @@ for leaf sizes {32, 64, 128} and ray tiles (block sizes) {256, 512, 1024}:
 - ``grid``: an empty kernel over the same grid, ``x * 0`` per ray (the
   launch and grid cost; ``empty``);
 - ``nodes``: K1's walk with its leaf tests removed (``node_walk``: the box
-  tests, the stack and the loop);
+  tests, the stack, the pending leaves' re-culls and the warp's loop);
 - ``leaves``: the leaf pair tests without the walk, every ray against every
   chunk of the tree (``leaves``, through ``vpu_leaf.rows_closest`` over the
   tree's anchored chunks and their anchors);
@@ -94,21 +94,31 @@ def node_walk(bvh, origins: Vec3, directions: Vec3, ray_tile: int = 256, t_min: 
     ray.
 
     CPU tensors take the plain version; CUDA tensors launch ``nodes_kernel``
-    (``csrc/probes.cu``) in blocks of ``ray_tile``."""
+    (``csrc/probes.cu``: K1's loop, ``closest_walk``, with a service that
+    serves nothing), in K1's blocks of 128 whatever ``ray_tile`` (the TPU
+    probe's grid step, still checked)."""
     check_ray_tile(ray_tile)
     if wide_bvh.on_cpu(bvh):
         return node_walk_plain(bvh, origins, directions, t_min)
-    lib = kernels()
+    out = _launch_nodes(kernels(), bvh, origins, directions, ray_tile, t_min)
+    if origins.x.numel():
+        node_walk.launches += 1
+    return out
+
+
+def _launch_nodes(lib, bvh, origins: Vec3, directions: Vec3, ray_tile: int, t_min: float,
+                  t=None):
+    """``node_walk``'s launch through ``lib`` (a build of ``csrc/probes.cu``),
+    counting nothing; ``t``, if given, is the t output the kernel writes
+    (and a variant may read)."""
     tree = wide_bvh._tree_args(bvh, lib.probe_stack_depth())
     device = bvh.w.device
     comps, ptrs = wide_bvh._ray_ptrs(origins, directions, device)
     r = comps[0].shape[0]
-    t = torch.empty((r,), dtype=torch.float32, device=device)
+    t = torch.empty((r,), dtype=torch.float32, device=device) if t is None else t
     visits = torch.empty((r,), dtype=torch.int32, device=device)
     launch(lib.probe_nodes, device, *ptrs, r, *tree[:3], ray_tile, float(t_min),
            wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE, t.data_ptr(), visits.data_ptr())
-    if r:
-        node_walk.launches += 1
     return t, visits
 
 

@@ -1,10 +1,11 @@
 """P3: traversal visit statistics per 256-ray block, on real bounce wavefronts.
 
 Port of ``tpu_visit_stats.py``.  For each tile of 256 rays, K3's block walk
-(``csrc/wide_bvh_block.cuh``: a child is visited if any ray of the block
-enters its widened box before that ray's best hit as it stood at node
-entry) is run with every ray of the block tested at each opened leaf, and
-counts:
+(a child is visited if any ray of the block enters its widened box before
+that ray's best hit as it stood at node entry) is run with every ray of the
+block tested at each opened leaf, as the TPU kernel tests them (the plain
+version; the kernel tests only the rays whose own slab entered the leaf,
+which cannot change a count: ROADMAP F5), and counts:
 
 - ``nodes``: node visits;
 - ``leaves``: leaf visits;
@@ -239,18 +240,30 @@ def visit_stats(tree, origins: Vec3, directions: Vec3, seed_w=None, seed_anchor=
     those counts need.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``visit_stats_kernel`` (``csrc/probes.cu``), whose tile is 256 rays."""
+    ``visit_stats_kernel`` (``csrc/probes.cu``), whose tile is 256 rays and
+    which serves each opened leaf only to the rays that entered it (the
+    rule ``group_walk(every_ray=False)`` models; the counts do not change)."""
     if seed_k and (seed_w is None or tuple(seed_w.shape) != (4, 3 * seed_k)):
         raise ValueError(f"seed_w must be a (4, {3 * seed_k}) chunk")
     if wide_bvh.on_cpu(tree):
         return visit_stats_plain(tree, origins, directions, seed_w, seed_anchor, ray_tile,
                                  seed_k, t_min, work)
-    lib = kernels()
+    out = _launch(kernels(), tree, origins, directions, seed_w, seed_anchor, ray_tile, seed_k,
+                  t_min, work)
+    if origins.x.numel():
+        visit_stats.launches += 1
+    return out
+
+
+def _launch(lib, tree, origins: Vec3, directions: Vec3, seed_w, seed_anchor, ray_tile: int,
+            seed_k: int, t_min: float, work: bool):
+    """``visit_stats``'s launch through ``lib`` (a build of ``csrc/probes.cu``),
+    counting nothing."""
     if ray_tile != lib.probe_block_tile():
         raise ValueError(f"visit_stats_kernel walks tiles of {lib.probe_block_tile()} rays, "
                          f"not {ray_tile}")
     device = tree.w.device
-    tree_args = wide_bvh._stream_tree_args(tree, lib.probe_block_stack_depth())
+    tree_args = wide_bvh._tree_args(tree, lib.probe_block_stack_depth())
     comps, ptrs = wide_bvh._ray_ptrs(origins, directions, device)
     r = comps[0].shape[0]
     n_tiles = -(-r // ray_tile)
@@ -267,8 +280,6 @@ def visit_stats(tree, origins: Vec3, directions: Vec3, seed_w=None, seed_anchor=
         work_args = [fill.data_ptr(), spent.data_ptr()]
     launch(lib.probe_visit_stats, device, *ptrs, r, *tree_args, *seed, int(seed_k),
            float(t_min), wide_bvh.BOX_PAD, wide_bvh.FAR_SCALE, stats.data_ptr(), *work_args)
-    if r:
-        visit_stats.launches += 1
     counts = stats[:, 0], stats[:, 1], stats[:, 2], stats[:, 3]
     return counts + (spent,) if work else counts
 

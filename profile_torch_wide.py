@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """K1/K2 (``heatray_tpu_torch/csrc/wide_bvh.cu``), K5a/K5b and K4a/K4b
 (``csrc/wide_bvh_t.cu``), K6a/K6b (``csrc/bvh2.cu``), K7a/K7b
-(``csrc/chunks.cu``), the brute-force probe kernels and P1's grid
-(``csrc/probes.cu``) and P2's walks (``csrc/variants.cu``
+(``csrc/chunks.cu``), the brute-force probe kernels, P1's grid and nodes
+and P3 (``csrc/probes.cu``) and P2's walks (``csrc/variants.cu``
 ``variant_walk_kernel`` and ``queue_walk_kernel``) beside variants of their
 design, on the 1080p launches of the Cornell box (K1, K5, K6, K7, the
 probes) and of ``high_poly`` (K4) on an NVIDIA card.
 
 Run from the root of a checkout, on a machine with one card:
 
-    python3 profile_torch_wide.py [--kernels k1,k4,k5,k6,k7,brute,walk,queue,grid]
-        [--parent DIR]
+    python3 profile_torch_wide.py
+        [--kernels k1,k4,k5,k6,k7,brute,walk,queue,grid,stats,nodes] [--parent DIR]
 
 Each variant is a copy of ``heatray_tpu_torch/csrc/`` with the text edits
 of ``VARIANTS`` (K1/K2), ``K4_VARIANTS`` (K4a/K4b), ``T_VARIANTS`` (K5a and
@@ -18,8 +18,10 @@ K5b), ``K6_VARIANTS`` (K6a/K6b), ``CHUNK_VARIANTS`` (K7a/K7b),
 ``BRUTE_VARIANTS`` (``rows_brute_kernel``) and ``WARP_VARIANTS``
 (``warp_brute_kernel``; both family ``brute``), ``WALK_VARIANTS``
 (``variant_walk_kernel``, family ``walk``), ``QUEUE_VARIANTS``
-(``queue_walk_kernel``, family ``queue``) or ``GRID_VARIANTS``
-(``empty_kernel``, family ``grid``) applied, built with the
+(``queue_walk_kernel``, family ``queue``), ``GRID_VARIANTS``
+(``empty_kernel``, family ``grid``), ``STATS_VARIANTS``
+(``visit_stats_kernel``, family ``stats``) or ``NODES_VARIANTS``
+(``nodes_kernel``, family ``nodes``) applied, built with the
 package's nvcc flags into ``build/wide_variants/`` (one nvcc each, all
 started together).  ``--parent DIR`` adds the ``wide_bvh.cu``,
 ``wide_bvh_t.cu``, ``bvh2.cu``, ``chunks.cu``, ``probes.cu`` and
@@ -40,8 +42,11 @@ phase 17, over the leaf-32 and leaf-128 trees' anchored chunks (P1) and
 the packs of 128 and 512 (P4); P2a's cases (v0-v3, v4 at groups 32 and
 128, tiles 512 and 1024) and P2b-d's (v6 and v7 at batch 4 and 8, v8 at 8
 and 16, tiles 512, 1024 and 2048) on phase 19's sorted depth-2 wavefront
-over the leaf-32 tree; P1's grid on the x plane of phase 17's rays.  It
-prints, one reading per line:
+over the leaf-32 tree; P1's grid on the x plane of phase 17's rays; P3 on
+phase 16's wavefronts at 1080p (the Cornell box's depths 1-4 over its
+leaf-32 tree, ``high_poly``'s depths 1-2 over its leaf-128 tree, plain and
+seeded); P1's nodes beside K1 on the Cornell box's primary rays and sorted
+depth-2 head at leaf 32.  It prints, one reading per line:
 
 - the card's name and power limit, as ``nvidia-smi`` gives them;
 - ``[build]``: each variant's registers, spill bytes and static shared
@@ -59,6 +64,10 @@ prints, one reading per line:
   P2b-d's (``walk-only`` excepted, which is timed only); P1 grid's output
   of every build and of ``torch.mul`` equal to x * 0 bit for bit on the
   rays, an unaligned view, 1, 3 and 8,191 floats and the special values;
+  P3's four counts and work counts of every tile, every build, equal to
+  the parent's (``every-ray``'s counts only); P1 nodes' t (MISS_T) and
+  visits of every ray equal to the parent's (``known-hit``: t equal to
+  K1's, visits at most the shipped walk's);
 - ``[time]``: ms per launch over 10 launches, each library timed in turn,
   in order and then in reverse, min/max of the two: K1/K2 for every variant
   over the leaf-32 tree, and ``shipped``, ``warp`` and the parent over the
@@ -77,7 +86,17 @@ prints, one reading per line:
   of ``GRID_VARIANTS``, the parent and ``torch.mul``, device ms a call at
   tiles 256, 512 and 1024 from a graph of 10 calls on one input (L2; into
   one output, or each into a new one) and of 16 over 8 inputs and outputs
-  (past the L2), beside the bytes bound;
+  (past the L2), beside the bytes bound; ``visit_stats_kernel`` for each of
+  ``STATS_VARIANTS`` and the parent on every wavefront, beside its bound
+  from its work counts (``[work]``); ``nodes_kernel`` for each of
+  ``NODES_VARIANTS`` and the parent, with K1, on K1's two launches;
+- ``[work]``: each P3 wavefront's visits per tile, overlap share and work
+  counts, and the bound they make; ``[bound]``: the node walk's bound on
+  each of K1's two launches, with no far end and culled by K1's hits;
+- ``[split]``: K1's time on each of those launches split by the ``nodes``
+  family: K1 less ``known-hit`` (the leaf service), the shipped walk less
+  ``known-hit`` (what a known hit's cull saves), the shipped walk less
+  ``smem-rows`` (the node loads' latency);
 - ``[geometry]``: the grid and block of ``torch.mul(x, 0.0)``'s kernel and
   of ``empty_kernel``'s (shipped, parent), from the profiler's trace;
 - ``[groups]``: at each leaf size and launch, the groups of rays that K1/K2's
@@ -114,7 +133,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-FAMILIES = ("k1", "k4", "k5", "k6", "k7", "brute", "walk", "queue", "grid")
+FAMILIES = ("k1", "k4", "k5", "k6", "k7", "brute", "walk", "queue", "grid", "stats", "nodes")
 CSRC = REPO / "heatray_tpu_torch" / "csrc"
 OUT = REPO / "build" / "wide_variants"
 WIDTH, HEIGHT = 1920, 1080
@@ -129,6 +148,7 @@ _K6 = "bvh2.cu"
 _K7 = "chunks.cu"
 _PROBES = "probes.cu"
 _WALK = "variants.cu"
+_WALK_LOOP = "wide_bvh_walk.cuh"
 # A ray-per-lane branch for large groups in the any-hit block service of K2
 # and K7b (`serve_cols_any`), as K1's closest-hit service has.
 _ANY_LANES = """  if (__popc(rays) > kLaneRays) {
@@ -592,6 +612,163 @@ GRID_TILES = (256, 512, 1024)
 GRID_COPIES = 8  # rotating inputs and outputs: 8 x 2 x 8.3 MB, past the 50 MB L2
 
 
+# visit_stats_kernel (P3), family "stats": name -> (what it changes, [(file,
+# text, replacement)]).  ``every-ray`` serves each opened leaf to every ray
+# of the block, as the parent did, through the shipped barriers and service:
+# its four counts are the kernel's, its pairs in range are not (it counts
+# those of every ray), so only the counts are checked.  ``prefetch`` and
+# ``seed-independent`` set their helpers before the kernel.
+_STATS_KERNEL = "// One block of kTile rays.  Every thread keeps the node and the stack's"
+_PREFETCH_HELPERS = """// A hint that the 128-byte line at `p` will be read soon: it is fetched
+// into L1 while the warp works on, so that the read finds it there.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// The warp's prefetch of a chunk of `tc` columns (its 12 tc floats, one
+// line a lane) and of its anchor.
+__device__ __forceinline__ void prefetch_chunk(const float* __restrict__ w,
+                                               const float* __restrict__ wanchor, int n_chunks,
+                                               int tc, int chunk) {
+  const int lane = threadIdx.x & 31;
+  const char* rows = reinterpret_cast<const char*>(w + (size_t)chunk * 12 * tc);
+  for (int k = lane; k < 12 * tc / 32; k += 32) prefetch_l1(rows + 128 * k);
+  if (lane >= 29) prefetch_l1(wanchor + (lane - 29) * n_chunks + chunk);
+}
+
+"""
+_SEED_HELPER = """// The closest hit of a ray over the seed chunk (K columns, anchored at
+// `anchor`), or kMissT: each column's `woop_t` against kMissT, t first and
+// the barycentrics behind a branch, then the least.  With no running best
+// in the range test the columns' tests are independent, and the least is
+// the same.
+__device__ __forceinline__ float seed_t(const float* __restrict__ sw, int k,
+                                        const float* __restrict__ anchor, const Ray& r,
+                                        float t_min) {
+  const float ax = r.ox - anchor[0], ay = r.oy - anchor[1], az = r.oz - anchor[2];
+  float best = kMissT;
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    const float4 s = make_float4(sw[2 * k + j], sw[5 * k + j], sw[8 * k + j], sw[11 * k + j]);
+    const float t = plane_t(s, ax, ay, az, r);
+    if (!((t > t_min) & (t < kMissT))) continue;
+    const float4 u = make_float4(sw[j], sw[3 * k + j], sw[6 * k + j], sw[9 * k + j]);
+    const float4 v = make_float4(sw[k + j], sw[4 * k + j], sw[7 * k + j], sw[10 * k + j]);
+    best = fminf(best, inside_t(u, v, t, ax, ay, az, r));
+  }
+  return best;
+}
+
+"""
+_POP = "    const int following = next >= 0 ? next : sp > 0 ? s.stack[--sp] : -1;\n"
+_SEED_LOOP = """  if (valid && seed_k > 0) {
+    const float ax = r.ox - seed_anchor[0];
+    const float ay = r.oy - seed_anchor[1];
+    const float az = r.oz - seed_anchor[2];
+    for (int j = 0; j < seed_k; ++j) {
+      best = fminf(best, tri_t(seed_w, seed_k, j, ax, ay, az, r, t_min, best));
+    }
+  }
+"""
+_PREFETCH_POP = """    const int following = next >= 0 ? next : sp > 0 ? s.stack[--sp] : -1;
+    if (following >= 0 && lane < 3) {
+      const size_t row = (size_t)following * kArity;
+      prefetch_l1(lane < 2 ? static_cast<const void*>(wbox + (row + 4 * lane) * 8)
+                           : static_cast<const void*>(wchild + row));
+    }
+    const unsigned served = leaf_bits & bits;
+    for (unsigned b = served; b; b &= b - 1) {
+      prefetch_chunk(w, wanchor, n_chunks, tc, -2 - codes[__ffs(static_cast<int>(b)) - 1]);
+    }
+
+"""
+STATS_VARIANTS = {
+    "shipped": ("visit_stats_kernel as shipped: each opened leaf served only to the rays that "
+                "entered it, by their warps, from device memory; one barrier a node; each warp "
+                "sums its own entering rays and pairs", []),
+    "every-ray": ("every ray of the block tested at each opened leaf (the parent's rule) through "
+                  "the shipped barriers and service", [
+        (_PROBES, "      if (!ent) continue;\n",
+         "      if (!__any_sync(kFullMask, valid)) continue;\n"),
+        (_PROBES, "serve_leaf(w + (size_t)chunk * 12 * tc, tc, ent,",
+         "serve_leaf(w + (size_t)chunk * 12 * tc, tc, __ballot_sync(kFullMask, valid),"),
+    ]),
+    "prefetch": ("the next node's row and the chunks of the leaves a warp's rays entered fetched "
+                 "into L1 (prefetch.global.L1) before its leaves are served", [
+        (_PROBES, _STATS_KERNEL, _PREFETCH_HELPERS + _STATS_KERNEL),
+        (_PROBES, _POP, _PREFETCH_POP),
+    ]),
+    **{f"min-{n}": (f"__launch_bounds__ with {n} blocks an SM: up to {65536 // (256 * n) // 8 * 8} "
+                    "registers", [
+        (_PROBES, "__launch_bounds__(kTile) visit_stats_kernel(",
+         f"__launch_bounds__(kTile, {n}) visit_stats_kernel("),
+    ]) for n in (2, 3, 5)},
+    "seed-independent": ("each seed column tested against no running best (t first, the "
+                         "barycentrics behind a branch, unrolled 4 times), then the least", [
+        (_PROBES, _STATS_KERNEL, _SEED_HELPER + _STATS_KERNEL),
+        (_PROBES, _SEED_LOOP,
+         "  if (valid && seed_k > 0) best = seed_t(seed_w, seed_k, seed_anchor, r, t_min);\n"),
+    ]),
+}
+COUNTS_ONLY = ("every-ray",)
+# P3's wavefronts timed: (scene, depth) at 1080p, each plain and seeded.
+STATS_WAVES = (("cornell", 1), ("cornell", 2), ("cornell", 3), ("cornell", 4),
+               ("high-poly", 1), ("high-poly", 2))
+
+# nodes_kernel (P1 nodes), family "nodes": name -> (what it changes, [(file,
+# text, replacement)]).  ``known-hit`` reads each ray's t from its t output
+# (K1's t, written there first) as its best from the start: the walk K1
+# would take if it knew its hit.  ``smem-rows`` takes the tree's node count
+# in ``ray_tile`` (the shipped kernel's blocks do not depend on it) and
+# stages the node rows in that much dynamic shared memory.
+_NODE_ROW_BYTES = 8 * 8 * 4 + 8 * 4 + 4  # a node's boxes, child codes and axis
+_SMEM_ROWS = """  extern __shared__ float4 rows_mem[];
+  unsigned bytes;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+  const int n_nodes = static_cast<int>(bytes) / {row};
+  float* sbox = reinterpret_cast<float*>(rows_mem);
+  int* schild = reinterpret_cast<int*>(sbox + n_nodes * kArity * 8);
+  int* saxis = schild + n_nodes * kArity;
+  for (int k = threadIdx.x; k < n_nodes * kArity * 2; k += blockDim.x) {{
+    cp_async16(sbox + 4 * k, wbox + 4 * k);
+  }}
+  for (int k = threadIdx.x; k < n_nodes * kArity / 4; k += blockDim.x) {{
+    cp_async16(schild + 4 * k, wchild + 4 * k);
+  }}
+  for (int k = threadIdx.x; k < n_nodes; k += blockDim.x) {{
+    cp_async4(reinterpret_cast<float*>(saxis + k), reinterpret_cast<const float*>(waxis + k));
+  }}
+  cp_async_commit();
+  cp_async_wait(0);
+  __syncthreads();
+  closest_walk<NoServe>(ox, oy, oz, dx, dy, dz, n_rays, sbox, schild, saxis, nullptr, nullptr, 0,
+""".format(row=_NODE_ROW_BYTES)
+_NODES_KERNEL = "// K1's walk (wide_bvh_walk.cuh `closest_walk`, K1's blocks and register"
+_CP_ASYNC16 = """__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+"""
+NODES_VARIANTS = {
+    "shipped": ("nodes_kernel as shipped: K1's walk (closest_walk, blocks of 128, one node a "
+                "round, pending leaves re-culled) with a service that serves nothing", []),
+    "known-hit": ("the same walk culled by each ray's final t from K1 (read from its t output)", [
+        (_WALK_LOOP, "  float best = kMissT;\n  int best_slot = -1;\n  int visits = 0;",
+         "  float best = valid ? t_out[i] : kMissT;\n  int best_slot = -1;\n  int visits = 0;"),
+    ]),
+    "smem-rows": ("the node rows (boxes, child codes, axis) staged once per block in shared "
+                  "memory by cp.async", [
+        (_PROBES, _NODES_KERNEL, _CP_ASYNC16 + _NODES_KERNEL),
+        (_PROBES, "  closest_walk<NoServe>(ox, oy, oz, dx, dy, dz, n_rays, wbox, wchild, waxis, "
+                  "nullptr, nullptr, 0,\n", _SMEM_ROWS),
+        (_PROBES, "nodes_kernel<<<walk_blocks(n_rays), kWalkThreads, 0,",
+         f"nodes_kernel<<<walk_blocks(n_rays), kWalkThreads, ray_tile * {_NODE_ROW_BYTES},"),
+    ]),
+}
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -676,7 +853,8 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
                "closest_bvh": (k6a, 7), "any_bvh": (k6b, 8),
                "closest_chunks": (ip._CLOSEST_ARGS, 7), "any_chunks": (ip._ANY_ARGS, 8),
                **{name: (_SIGNATURES[name], None) for name in ("probe_rows", "probe_warp",
-                                                                "probe_empty")},
+                                                                "probe_empty", "probe_visit_stats",
+                                                                "probe_nodes")},
                **{name: (_VARIANT_SIGNATURES[name], None) for name in ("variant_walk",
                                                                        "queue_walk")}}
     for entry, (args, at) in entries.items():
@@ -689,7 +867,8 @@ def library(so: Path, source: Path) -> ctypes.CDLL:
             fn.argtypes = args[:at] + _BVH_TREE + args[at + len(tp._BLOCK_TREE):]
         fn.restype = ctypes.c_int
     for depth in ("wide_bvh_stack_depth", "wide_t_stack_depth", "stream_t_stack_depth",
-                  "bvh2_stack_depth", "variants_stack_depth"):
+                  "bvh2_stack_depth", "variants_stack_depth", "probe_block_stack_depth",
+                  "probe_stack_depth", "probe_block_tile"):
         if hasattr(lib, depth):
             getattr(lib, depth).restype = ctypes.c_int
     return lib
@@ -1184,6 +1363,173 @@ def profile_queue(libs) -> None:
         f"on the same rays")
 
 
+def profile_stats(libs) -> None:
+    """``visit_stats_kernel``'s variants and the parent on the wavefronts of
+    ``chip_smoke.py`` phase 16 at 1080p (STATS_WAVES: the Cornell box's
+    depths 1-4 over its leaf-32 tree, ``high_poly``'s depths 1-2 over its
+    leaf-128 tree), plain and seeded: the four counts of every tile of
+    every build equal to the parent's (or, without one, the shipped
+    kernel's), the work counts too but for COUNTS_ONLY; then timed in
+    turns, each wavefront beside its bound from the shipped kernel's work
+    counts."""
+    import torch
+
+    from chip_smoke import BARY_FLOPS, PAIR_T_FLOPS, PEAK_BYTES, PEAK_FLOPS, SLAB_FLOPS
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.probes import visit_stats as vs
+    from heatray_tpu_torch.render import integrator
+
+    device = torch.device("cuda:0")
+    waves = {}  # (scene, depth) -> (tree, origins, directions, seed chunk and anchor)
+    for name in dict(STATS_WAVES):
+        depth = max(d for n, d in STATS_WAVES if n == name)
+        scene, camera, opts, ctx, tree = vs.setup(name, WIDTH, HEIGHT, depth, device)
+        seed = vs.seed_chunk(scene, ctx.accel_pack.accel)[:2]
+        frame = FrameGlobals.create(0, device=device)
+        paths = integrator.start_paths(camera, ctx, opts, 0)
+        for dep in range(1, depth + 1):
+            waves[name, dep] = (tree, paths.org, paths.direction, seed)
+            if dep < depth:
+                paths, _ = integrator.bounce(scene, ctx, opts, frame, dep, paths, ctx.accel_pack)
+    torch.cuda.synchronize()
+    cases = [(name, dep, k) for name, dep in STATS_WAVES for k in (0, vs.SEED_K)]
+
+    def run(name, case, work=False):
+        tree, o, d, (sw, sa) = waves[case[:2]]
+        return vs._launch(libs[name], tree, o, d, sw, sa, vs.TILE, case[2], 1e-4, work)
+
+    ref = "parent" if "parent" in libs else "shipped"
+    bounds = {}
+    for case in cases:
+        tree, o, d, _ = waves[case[:2]]
+        want = run(ref, case, work=True)
+        for name in libs:
+            got = run(name, case, work=True)
+            off = [int((a != b).sum()) for a, b in zip(got[:4], want[:4])]
+            off_work = int((got[4] != want[4]).any(dim=1).sum())
+            log(f"[check] stats {case[0]} depth {case[1]} seed {case[2]} {name}: tiles whose "
+                f"nodes, leaves, overlap, improving differ from the {ref}'s {off}, whose work "
+                f"counts differ {off_work}")
+            if any(off) or (off_work and name not in COUNTS_ONLY):
+                raise AssertionError(f"stats {name} at {case} differs from the {ref}'s")
+        box_tests, pair_tests, in_range = (int(x) for x in want[4].sum(dim=0).tolist())
+        r = o.x.numel()
+        flops = box_tests * SLAB_FLOPS + pair_tests * PAIR_T_FLOPS + in_range * BARY_FLOPS
+        nbytes = 24 * r + 16 * (-(-r // vs.TILE))
+        bounds[case] = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS) * 1e3
+        s = vs.summary(want)
+        log(f"[work] stats {case[0]} depth {case[1]} seed {case[2]}: {r} rays; nodes/tile "
+            f"{s['nodes_mean']:.2f}, leaves/tile {s['leaves_mean']:.2f} (max "
+            f"{s['leaves_max']:.0f}), overlap {s['overlap_frac']:.4f}; {box_tests} box tests, "
+            f"{pair_tests} pair tests, {in_range} in range; bound {bounds[case]:.4f} ms")
+    ms = in_turns(list(libs), cases, run)
+    for name in libs:
+        log(f"[time] stats {name}: " + ", ".join(
+            f"{n} d{dep}{' seeded' if k else ''} {min(x):.4f}/{max(x):.4f}"
+            for (n, dep, k), x in ms[name].items()))
+    log("[time] stats bound (its work counts: 26 a box test, 15 a pair test, 30 in range, at "
+        "67 TFLOP/s): " + ", ".join(f"{n} d{dep}{' seeded' if k else ''} {b:.4f}"
+                                    for (n, dep, k), b in bounds.items()))
+
+
+def k1_launches(device):
+    """The Cornell box's leaf-32 ``"wide"`` tree and K1's launches of
+    ``chip_smoke.py`` phase 4 at 1080p: the primary rays and the sorted,
+    gated depth-2 head."""
+    import torch
+
+    from heatray_tpu_torch import cornell_box, orbit_camera
+    from heatray_tpu_torch.options import FrameGlobals, RenderOptions
+    from heatray_tpu_torch.render import integrator
+
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=4,
+                         wide_leaf_size=32)
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0).to(device)
+    ctx = integrator.make_context(opts, scene, device)
+    pack = ctx.accel_pack
+    primary = integrator.start_paths(camera, ctx, opts, 0)
+    first, _ = integrator.bounce(scene, ctx, opts, FrameGlobals.create(0, device=device), 1,
+                                 primary, pack)
+    paths = integrator._sort_paths(first, *integrator._sort_bounds(pack))
+    head = paths.map(lambda p: p[:integrator._gated_lanes(paths, opts.gate_segments)])
+    torch.cuda.synchronize()
+    return pack.wide, {"primary": primary, "head": head}
+
+
+def profile_nodes(libs) -> None:
+    """``nodes_kernel``'s variants and the parent beside K1 on K1's two
+    Cornell launches at leaf 32 (``k1_launches``): t and each ray's visits
+    of ``shipped`` and ``smem-rows`` equal to the parent's (or, without one,
+    the shipped kernel's), ``known-hit``'s t equal to K1's and its visits at
+    most the shipped kernel's on every ray; then timed in turns with K1, and
+    K1's time split: K1 less ``known-hit`` the leaf service, the shipped walk
+    less ``known-hit`` the cull a known hit saves, the shipped walk less
+    ``smem-rows`` the node loads' latency."""
+    import torch
+
+    from heatray_tpu_torch.ops import wide_bvh as wb
+    from heatray_tpu_torch.ops.intersect import MISS_T
+    from heatray_tpu_torch.probes import kernel_probe as kp
+
+    bvh, rays = k1_launches(torch.device("cuda:0"))
+    k1_t = {what: wb.intersect_closest_wide(bvh, p.org, p.direction)[0] for what, p in rays.items()}
+    tiles = {"known-hit": 256, "smem-rows": bvh.num_nodes, "shipped": 256, "parent": 256}
+    t_in = {what: t.clone() for what, t in k1_t.items()}
+
+    def run(name, what):
+        p = rays[what]
+        if name == "K1":
+            return wb.intersect_closest_wide(bvh, p.org, p.direction)
+        return kp._launch_nodes(libs[name], bvh, p.org, p.direction, tiles[name], 1e-4,
+                                t=t_in[what] if name == "known-hit" else None)
+
+    ref = "parent" if "parent" in libs else "shipped"
+    log(f"[rays] nodes: primary {rays['primary'].org.x.numel()}, head "
+        f"{rays['head'].org.x.numel()}; {bvh.num_nodes} nodes "
+        f"({bvh.num_nodes * _NODE_ROW_BYTES} bytes of rows), {bvh.num_chunks} leaves of "
+        f"{bvh.leaf_size}")
+    visits = {}
+    for what in rays:
+        want = run(ref, what)
+        for name in libs:
+            t, v = run(name, what)
+            visits[name, what] = v
+            if name == "known-hit":
+                ok = torch.equal(t, k1_t[what]) and bool((v <= run("shipped", what)[1]).all())
+            else:
+                ok = bool((t == MISS_T).all()) and torch.equal(v, want[1])
+            log(f"[check] nodes {what} {name}: {'as required' if ok else 'DIFFERS'}; visits a "
+                f"ray mean {float(v.double().mean()):.3f}, max {int(v.max())}")
+            if not ok and name != "parent":
+                raise AssertionError(f"nodes {name} on {what} differs")
+    from chip_smoke import PEAK_BYTES, PEAK_FLOPS, SLAB_FLOPS, walk_work
+
+    for what, p in rays.items():
+        r = p.org.x.numel()
+        for label, t_far in (("no far end", torch.full_like(k1_t[what], MISS_T)),
+                             ("known hit", k1_t[what])):
+            work = walk_work(bvh, p.org, p.direction, t_far, with_leaves=False)
+            bound = max((work["tree_bytes"] + 32 * r) / PEAK_BYTES,
+                        work["boxes"] * SLAB_FLOPS / PEAK_FLOPS) * 1e3
+            log(f"[bound] nodes {what}, {label}: {work['reached']}, {work['boxes'] / r:.3f} box "
+                f"tests a ray -> {bound:.4f} ms (the rays, the outputs and the nodes reached at "
+                f"3.35 TB/s; 26 FLOP a box test at 67 TFLOP/s)")
+    names = [*libs, "K1"]
+    ms = in_turns(names, list(rays), run)
+    for name in names:
+        log(f"[time] nodes {name}: " + ", ".join(f"{what} {min(x):.4f}/{max(x):.4f}"
+                                                 for what, x in ms[name].items()))
+    for what in rays:
+        k1, known, walk = (min(ms[n][what]) for n in ("K1", "known-hit", "shipped"))
+        smem = min(ms["smem-rows"][what])
+        log(f"[split] K1 on {what}: {k1:.4f} ms; the walk knowing its hit (known-hit) {known:.4f}, "
+            f"so the leaf service {k1 - known:.4f} ({(k1 - known) / k1:.0%}); the walk with no "
+            f"far end (shipped) {walk:.4f}, so a known hit's cull saves {walk - known:.4f}; node "
+            f"rows in shared memory (smem-rows) {smem:.4f}, so the node loads' latency "
+            f"{walk - smem:.4f}")
+
+
 def _kernel_geometry(fn, trace: Path) -> list:
     """(kernel name, grid, block) of each kernel ``fn`` launches, from the
     profiler's trace."""
@@ -1445,8 +1791,9 @@ def main() -> int:
                     help="which families to profile: any of k1 (K1/K2), k4 (K4a/K4b), k5 "
                          "(K5a/K5b), k6 (K6a/K6b), k7 (K7a/K7b), brute (rows_brute_kernel and "
                          "warp_brute_kernel), walk (variant_walk_kernel), queue "
-                         "(queue_walk_kernel) and grid (empty_kernel), comma-separated "
-                         "(default: all nine)")
+                         "(queue_walk_kernel), grid (empty_kernel), stats "
+                         "(visit_stats_kernel) and nodes (nodes_kernel), comma-separated "
+                         "(default: all eleven)")
     ap.add_argument("--parent", type=Path,
                     help="another tree whose wide_bvh.cu, wide_bvh_t.cu, bvh2.cu, chunks.cu, "
                          "probes.cu and variants.cu to time too, and whose kernels' SASS to "
@@ -1469,7 +1816,8 @@ def main() -> int:
               "k6": (K6_VARIANTS, _K6), "k7": (CHUNK_VARIANTS, _K7),
               "brute": ({**BRUTE_VARIANTS, **WARP_VARIANTS}, _PROBES),
               "walk": (WALK_VARIANTS, _WALK), "queue": (QUEUE_VARIANTS, _WALK),
-              "grid": (GRID_VARIANTS, _PROBES)}
+              "grid": (GRID_VARIANTS, _PROBES), "stats": (STATS_VARIANTS, _PROBES),
+              "nodes": (NODES_VARIANTS, _PROBES)}
     sources = {}  # (family, name) -> source
     for family in sorted(families):
         variants, target = tables[family]
@@ -1537,6 +1885,10 @@ def main() -> int:
         profile_queue(libs["queue"])
     if libs["grid"]:
         profile_grid(libs["grid"])
+    if libs["stats"]:
+        profile_stats(libs["stats"])
+    if libs["nodes"]:
+        profile_nodes(libs["nodes"])
     if libs["k4"]:
         hp_trees, hp_rays, eps = hp_launches(device)
         profile_k4(libs["k4"], hp_trees, hp_rays, eps)

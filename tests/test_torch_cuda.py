@@ -777,6 +777,74 @@ def test_visit_stats_kernel_matches_plain(cuda_device, leaf_size):
         assert float(got[1].sum()) > 0 and int(got[4][:, 2].sum()) > 0
 
 
+@pytest.fixture(scope="module")
+def bounce_wavefronts():
+    """The first-bounce wavefront (depth 2) of the Cornell box over its
+    leaf-32 tree and of ``high_poly`` over its leaf-128 tree, at 48x38 (1,824
+    rays: 7 whole tiles and 32 rays): scene name -> (scene, accel, tree,
+    origins, directions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
+    from heatray_tpu_torch.options import FrameGlobals
+
+    device = torch.device("cuda:0")
+    out = {}
+    for name in ("cornell", "high-poly"):
+        scene, camera, opts, ctx, tree = visit_stats.setup(name, 48, 38, 2, device)
+        paths = integrator.start_paths(camera, ctx, opts, 0)
+        paths, _ = integrator.bounce(scene, ctx, opts, FrameGlobals.create(0, device=device), 1,
+                                     paths, ctx.accel_pack)
+        out[name] = (scene, ctx.accel_pack.accel, tree, paths.org, paths.direction)
+    return out
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "high-poly"])
+@pytest.mark.parametrize("seed_k", [0, 32])
+def test_visit_stats_kernel_matches_plain_on_every_tile(bounce_wavefronts, scene_name, seed_k):
+    """P3 on a first-bounce wavefront whose rays are no multiple of 256: the
+    four counts and the work counts of every tile equal the plain walk's,
+    which tests every ray at each opened leaf where the kernel serves only
+    the rays that entered it; one launch counted."""
+    scene, accel, tree, o, d = bounce_wavefronts[scene_name]
+    assert o.x.numel() % 256
+    seed_w, seed_anchor, _ = visit_stats.seed_chunk(scene, accel)
+    launches = visit_stats.visit_stats.launches
+    got = visit_stats.visit_stats(tree, o, d, seed_w, seed_anchor, seed_k=seed_k, work=True)
+    torch.cuda.synchronize()
+    assert visit_stats.visit_stats.launches == launches + 1
+    want = visit_stats.visit_stats_plain(tree, o, d, seed_w, seed_anchor, seed_k=seed_k,
+                                         work=True)
+    for a, b in zip(got, want):
+        assert a.shape[0] == 8 and torch.equal(a, b)
+    assert float(got[1].sum()) > 0 and float(got[3].sum()) > 0 and int(got[4][:, 2].sum()) > 0
+
+
+@pytest.mark.parametrize("ray_tile", [256, 512, 1024])
+@pytest.mark.parametrize("n_rays", [8191, 1000])
+def test_node_walk_kernel_matches_plain_on_a_deep_tree(bounce_wavefronts, ray_tile, n_rays):
+    """P1 ``nodes`` over ``high_poly``'s leaf-32 tree, on ray counts that are
+    no multiple of 32 or 128, whatever ``ray_tile`` (the kernel's blocks are
+    K1's): t = MISS_T and each ray's node visits equal the plain count; one
+    launch counted."""
+    _, accel, _, _, _ = bounce_wavefronts["high-poly"]
+    bvh = wide_bvh.build_wide_bvh(accel, leaf_size=32)
+    rng = np.random.default_rng(n_rays)
+    lo = accel.tri_min.min(dim=1).values.cpu().numpy()
+    hi = accel.tri_max.max(dim=1).values.cpu().numpy()
+    o = rng.uniform(lo - 0.2 * (hi - lo), hi + 0.2 * (hi - lo), (n_rays, 3))
+    d = rng.uniform(lo, hi, (n_rays, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = (Vec3(*(torch.from_numpy(a[:, k].astype(np.float32).copy()).to(accel.w.device)
+                   for k in range(3))) for a in (o, d))
+    launches = kernel_probe.node_walk.launches
+    t, visits = kernel_probe.node_walk(bvh, o, d, ray_tile)
+    torch.cuda.synchronize()
+    assert kernel_probe.node_walk.launches == launches + 1
+    t_p, visits_p = kernel_probe.node_walk_plain(bvh, o, d)
+    assert torch.equal(t, t_p) and bool((t == MISS_T).all())
+    assert torch.equal(visits, visits_p) and int(visits.max()) > 20
+
+
 @pytest.mark.parametrize("ray_tile, n_rays", [(256, 8191), (1024, 8191), (512, 0)])
 def test_node_walk_and_empty_kernels_match_plain(cuda_device, ray_tile, n_rays):
     """P1 ``nodes`` and ``grid``: t = MISS_T and each ray's node visits

@@ -253,6 +253,63 @@ def test_group_walk_gives_the_plain_hits(p3, every_ray):
     assert (stats[:, 4].sum() == 0) == every_ray
 
 
+@pytest.fixture(scope="module")
+def entering_cases():
+    """The cases of the rule P3's kernel serves its leaves by: the Cornell
+    box's primary rays and first-bounce wavefront at 32x32 over its leaf-32
+    tree, with its seed chunk; and a seeded soup of 400 triangles whose
+    rays partly miss every box.  Port only: no JAX compile."""
+    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.render import integrator
+
+    scene, camera, opts, ctx, tree = visit_stats.setup("cornell", 32, 32, 2, torch.device("cpu"))
+    seed_w, seed_anchor, _ = visit_stats.seed_chunk(scene, ctx.accel_pack.accel)
+    primary = integrator.start_paths(camera, ctx, opts, 0)
+    bounced, _ = integrator.bounce(scene, ctx, opts, FrameGlobals.create(0), 1, primary,
+                                   ctx.accel_pack)
+    rng = np.random.default_rng(19)
+    centre = rng.uniform(-1.0, 1.0, (400, 3))
+    pos = np.concatenate([centre + rng.uniform(-0.15, 0.15, (400, 3)) for _ in range(3)])
+    idx = np.arange(1200).reshape(3, 400)
+    geometry = types.SimpleNamespace(positions=torch.from_numpy(pos.T.astype(np.float32).copy()),
+                                     indices=torch.from_numpy(idx.astype(np.int32)))
+    accel = intersect.build_woop(geometry.positions, geometry.indices)
+    soup = wide_bvh.build_wide_bvh(accel, leaf_size=32)
+    soup_seed = visit_stats.seed_chunk(types.SimpleNamespace(geometry=geometry), accel)[:2]
+    n = 640
+    org = np.concatenate([rng.uniform(-1.0, 1.0, (n // 2, 3)),
+                          rng.uniform(-1.0, 1.0, (n // 2, 3)) + np.array([0.0, 0.0, 4.0])])
+    aim = rng.uniform(-1.0, 1.0, (n, 3)) - org
+    aim[n // 2 + n // 4:] *= -1.0  # a quarter of the rays leave the soup's box
+    aim /= np.linalg.norm(aim, axis=1, keepdims=True)
+    rays = tuple(Vec3(*(torch.from_numpy(a[:, k].astype(np.float32).copy()) for k in range(3)))
+                 for a in (org, aim))
+    return {"primary": (tree, primary.org, primary.direction, (seed_w, seed_anchor)),
+            "bounce": (tree, bounced.org, bounced.direction, (seed_w, seed_anchor)),
+            "soup": (soup, *rays, soup_seed)}
+
+
+@pytest.mark.parametrize("case", ["primary", "bounce", "soup"])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_entering_rays_alone_give_the_counts(entering_cases, case, seeded):
+    """A ray whose own slab did not enter a leaf's widened box cannot lower
+    its best t there (ROADMAP F5), so serving each opened leaf only to the
+    rays that entered it (P3's kernel) gives the four counts, the three work
+    counts and every ray's t and slot of testing every ray (its plain
+    version); and it skips pairs."""
+    tree, o, d, seed = entering_cases[case]
+    seed = seed if seeded else None
+    (t, slot), every = visit_stats.group_walk(tree, o, d, 256, every_ray=True, seed=seed)
+    (t_e, slot_e), entering = visit_stats.group_walk(tree, o, d, 256, every_ray=False, seed=seed)
+    keep = [0, 1, 2, 3, 5, 6, 7]
+    assert torch.equal(entering[:, keep], every[:, keep])
+    assert torch.equal(t_e, t) and torch.equal(slot_e, slot)
+    assert float(entering[:, 4].sum()) > 0 and float(every[:, 4].sum()) == 0
+    assert float(every[:, 3].sum()) > 0 and float(every[:, 7].sum()) > 0
+    if case == "soup":
+        assert 0 < int((t == MISS_T).sum()) < t.numel()
+
+
 def test_group_signs_follow_the_kernels_sum_order():
     """A block whose directions sum to exactly 0 (so +axis), but to -2^-23
     in the kernels' float32 order (a butterfly within each warp of 32, then
