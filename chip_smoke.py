@@ -181,7 +181,25 @@ source, started together, and then:
    edited triangles; a render checkpointed after 2 passes
    (``save_render_state``) and resumed for 2 more must equal the 4 straight
    passes bit for bit; and ``render.png`` is written by ``save_ldr`` and
-   read back with PIL blocked.
+   read back with PIL blocked;
+22. the live preview and edit loop: ``interactive.InteractiveRenderer`` with
+   ``interactive_block`` on the Cornell box at 1920x1080, depth 4, served
+   by ``viewer.ProgressiveViewer`` on 127.0.0.1, port 0.  K1/K2 against
+   their plain versions on a block pass's lanes (block INTERACTIVE_BLOCK,
+   as in 5); nine block passes through the loop with the launch counts set
+   to 0 just before and read just after (K1 and K2 alone, once per bounce
+   with live lanes), equal to one full pass within 1e-5 and covering every
+   pixel once; ``/frame.png`` decoded to the published image; the mean of
+   TIMED block passes, full passes and publishes after a warm-up; then
+   every edit type sent as ``POST /edit`` and applied by ``poll_and_apply``
+   (material; a directional light added, edited in part and removed; the
+   point light moved; a spot light added, edited and removed; the
+   environment; the camera; the display; a transform; the options, to depth
+   3 and ``ms_impl="lut"``; an environment and a scene loaded from files),
+   each checked to take effect and to reset (``post`` not), with the time
+   from the request to the published frame; after the material and the
+   transform edits the pass must equal a fresh context's bit for bit, and
+   a removal the pass before the light's add.
 
 Each probe phase sets the probe kernels' launch counts to 0 just before
 its run and reads them just after; every kernel of the probe must have
@@ -473,13 +491,14 @@ def check_any(name, bvh, org, d, t_max, label, err, pick=None, t_min=1e-4):
         f"{int(b_k.sum())} blocked")
 
 
-def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=False):
+def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=False, block=None):
     """Each kernel launched at the shapes a pass gives it, against its plain
     version on N_CHECK seeded live lanes of each launch: all primary rays,
     the first bounce's shadow lanes, and the second bounce's sorted, gated
-    head and its shadow lanes (``exact``: see ``check_closest``).  Returns
-    the primary rays, the first-bounce shadow rays, the depth-2 head and its
-    shadow rays."""
+    head and its shadow lanes (``exact``: see ``check_closest``).  ``block``:
+    the primary rays are the lanes of that 3x3 block pass (sample index 0)
+    alone, as ``interactive_block`` traces them.  Returns the primary rays,
+    the first-bounce shadow rays, the depth-2 head and its shadow rays."""
     from heatray_tpu_torch.options import FrameGlobals
     from heatray_tpu_torch.render import integrator
 
@@ -491,6 +510,9 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=Fals
     frame = FrameGlobals.create(0, device=ctx.device)
     cone = integrator.pixel_cone(scene, camera, opts)  # a textured scene's ray cones
     primary = integrator.start_paths(camera, ctx, opts, 0, cone=cone is not None)
+    if block is not None:
+        pixels = integrator.block_pixels(block, opts.height, opts.width, ctx.device)
+        primary = primary.map(lambda p: p.index_select(0, pixels))
     check_closest(closest, tree, primary.org, primary.direction, f"{label} primary", err,
                   live_pick(primary.active, gen), eps, exact)
     first, shadow = integrator.bounce(scene, ctx, opts, frame, 1, primary, pack, cone)
@@ -2178,6 +2200,248 @@ def phase_ingest(gen, err, card):
     return {name: v[5] for name, v in out.items()}
 
 
+INTERACTIVE_BLOCK = 4  # the block pass whose lanes phase 22 checks K1/K2 on
+TIMED = 5  # passes (after one warm-up) behind each mean of phase 22
+
+
+def post_edit(viewer, edit):
+    """Send one edit to the viewer over HTTP, as a browser would."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{viewer.port}/edit", method="POST",
+                                 data=json.dumps(edit).encode(),
+                                 headers={"Content-Type": "application/json"})
+    if json.loads(urllib.request.urlopen(req, timeout=30).read()) != {"queued": True}:
+        raise AssertionError(f"the viewer did not queue {edit!r}")
+
+
+def get_url(viewer, path):
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}{path}", timeout=30).read()
+
+
+def synced_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_interactive(gen, err, card):
+    """Phase 22: the live preview and edit loop (see the module docstring).
+    Returns K1's and K2's launches in the nine block passes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from heatray_tpu_torch import cornell_box, orbit_camera
+    from heatray_tpu_torch.interactive import InteractiveRenderer
+    from heatray_tpu_torch.io_utils.hdr import write_hdr
+    from heatray_tpu_torch.io_utils.png import decode_png
+    from heatray_tpu_torch.options import FrameGlobals, RenderOptions
+    from heatray_tpu_torch.render import integrator
+    from heatray_tpu_torch.scene import export
+    from heatray_tpu_torch.viewer import ProgressiveViewer
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE)
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH,
+                         interactive_block=True)
+    full_opts = dataclasses.replace(opts, interactive_block=False)
+    viewer = ProgressiveViewer(port=0, host="127.0.0.1").start()
+    try:
+        t0 = time.perf_counter()
+        r = InteractiveRenderer(cornell_box(light="both", with_spheres=True),
+                                orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0),
+                                opts, viewer=viewer, orbit=dict(distance=6.2, focal_length=35.0),
+                                device=device)
+        torch.cuda.synchronize()
+        if r.ctx.accel_pack.backend != "wide":
+            raise AssertionError(f"the edit loop got the {r.ctx.accel_pack.backend!r} backend")
+        viewer.set_scene_info(r.scene_info())
+        log(f"[interactive] viewer on 127.0.0.1:{viewer.port}; 1080p context in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # K1/K2 on a block pass's lanes against their plain versions.
+        check_path_rays(("closest_wide", "any_wide"), r.scene, r.camera, r.ctx, opts, gen,
+                        f"interactive block {INTERACTIVE_BLOCK}", err, exact=True,
+                        block=INTERACTIVE_BLOCK)
+
+        # Nine block passes through the edit loop, counted, against one full pass.
+        lanes, gated = [], integrator._gated_lanes
+
+        def count_lanes(*args):
+            lanes.append(gated(*args))
+            return lanes[-1]
+
+        integrator._gated_lanes = count_lanes
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            for _ in range(9):
+                r.step()
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            integrator._gated_lanes = gated
+        runs = 9 + sum(n > 0 for n in lanes)
+        if len(lanes) != 9 * (DEPTH - 1) or any(
+                launches[k] != runs for k in ("closest_wide", "any_wide")) or any(
+                n for k, n in launches.items() if k not in ("closest_wide", "any_wide")):
+            raise AssertionError(f"nine block passes: launches {launches}, not {runs} of K1 and "
+                                 f"K2 alone (gated lanes {lanes})")
+        full = integrator.render_pass(r.scene, r.camera, r.ctx, full_opts,
+                                      FrameGlobals.create(0, device=device),
+                                      torch.zeros_like(r.accum))
+        if not torch.equal(r.accum[3], torch.ones_like(r.accum[3])):
+            raise AssertionError("nine block passes did not cover every pixel once")
+        diff = float((r.accum - full).abs().max())
+        if diff > 1e-5:
+            raise AssertionError(f"nine block passes differ from one full pass by {diff}")
+        log(f"[interactive] nine block passes equal one full pass: max |diff| {diff:.3g}; "
+            f"launches {launches} ({runs} bounces with live lanes; gated lanes {lanes})")
+
+        # The viewer's frame is the published image.
+        publish_ms, _ = synced_ms(r.publish)
+        status = json.loads(get_url(viewer, "/status.json"))
+        frame = decode_png(get_url(viewer, "/frame.png"))
+        if status["passes_done"] != 9 or not np.array_equal(frame, r.frame_rgb8()):
+            raise AssertionError(f"/frame.png or /status.json is not the published image: {status}")
+
+        # Steady times: a block pass, a full pass, a publish.
+        block_ms, full_ms, pub_ms = [], [], []
+        zero = torch.zeros_like(r.accum)
+        for i in range(TIMED + 1):
+            block_ms.append(synced_ms(r.step)[0])
+            full_ms.append(synced_ms(lambda: integrator.render_pass(
+                r.scene, r.camera, r.ctx, full_opts,
+                FrameGlobals.create(i, device=device), zero))[0])
+            pub_ms.append(synced_ms(r.publish)[0])
+        readings = {"block_pass_ms": sum(block_ms[1:]) / TIMED,
+                    "full_pass_ms": sum(full_ms[1:]) / TIMED,
+                    "publish_ms": sum(pub_ms[1:]) / TIMED, "first_publish_ms": publish_ms}
+        log(f"[interactive] {WIDTH}x{HEIGHT} depth {DEPTH}, mean of {TIMED} after a warm-up: "
+            f"block pass {readings['block_pass_ms']:.3f} ms, full pass "
+            f"{readings['full_pass_ms']:.3f} ms, publish {readings['publish_ms']:.3f} ms "
+            f"(post chain, one copy, PNG); card {card}")
+
+        def fresh_equal(label):
+            """The loop's last pass against the same pass through a fresh
+            context of the loop's scene, bit for bit."""
+            ctx = integrator.make_context(r.options, r.scene, device)
+            ref = integrator.render_pass(r.scene, r.camera, ctx, r.options,
+                                         FrameGlobals.create(0, device=device),
+                                         torch.zeros_like(r.accum))
+            if not torch.equal(r.accum, ref):
+                raise AssertionError(f"{label}: the edited loop's pass differs from a fresh "
+                                     f"context's by {float((r.accum - ref).abs().max())}")
+            log(f"[interactive] {label}: the pass equals a fresh context's bit for bit")
+
+        def lights():
+            return r.scene.lights
+
+        (REPO / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+            tmp = Path(tmp)
+            sky = np.ones((64, 128, 3), np.float32) * np.linspace(0.2, 1.5, 64)[:, None, None]
+            write_hdr(str(tmp / "sky.hdr"), sky)
+            export.write_obj(str(tmp / "cornell.obj"), cornell_box(light="both",
+                                                                    with_spheres=True))
+            n_dir, n_spot = lights().num_directional, lights().num_spot
+            edits = [
+                ("material", {"type": "material", "index": 2, "base_color": [0.1, 0.9, 0.2],
+                              "metallic": 1.0, "roughness": 0.3},
+                 lambda: float(r.scene.materials.metallic[2]) == 1.0),
+                ("directional add", {"type": "directional_light", "index": n_dir,
+                                     "direction": [0.3, 1.0, 0.2], "illuminance": 400.0},
+                 lambda: lights().num_directional == n_dir + 1),
+                ("directional update", {"type": "directional_light", "index": n_dir,
+                                        "color": [1.0, 0.5, 0.5]},
+                 lambda: float(lights().dir_direction[n_dir][1]) > 0.9),
+                ("directional remove", {"type": "directional_light", "index": n_dir,
+                                        "remove": True},
+                 lambda: lights().num_directional == n_dir),
+                ("point update", {"type": "point_light", "index": 0,
+                                  "position": [0.3, 1.6, 0.2]},
+                 lambda: torch.allclose(lights().point_position[0].cpu(),
+                                        torch.tensor([0.3, 1.6, 0.2]))),
+                ("spot add", {"type": "spot_light", "index": n_spot, "position": [0.5, 1.9, 0.0],
+                              "direction": [0.0, -1.0, 0.0], "luminous_intensity": 800.0},
+                 lambda: lights().num_spot == n_spot + 1),
+                ("spot update", {"type": "spot_light", "index": n_spot,
+                                 "luminous_intensity": 1600.0},
+                 lambda: float(lights().spot_direction[n_spot][1]) < -0.99),
+                ("spot remove", {"type": "spot_light", "index": n_spot, "remove": True},
+                 lambda: lights().num_spot == n_spot),
+                ("env", {"type": "env", "enabled": True, "solid_color": [0.3, 0.4, 0.6],
+                         "exposure": 0.5, "rotation": 0.3},
+                 lambda: lights().env_enabled == 1 and lights().env_rotation == 0.3),
+                ("camera", {"type": "camera", "distance": 5.8, "phi": 0.15, "theta": 0.05},
+                 lambda: r.orbit["distance"] == 5.8),
+                ("post", {"type": "post", "exposure": 0.5, "tonemapping_enabled": True},
+                 lambda: r.post.exposure == 0.5 and r.post.tonemapping_enabled),
+                ("transform", {"type": "transform", "yaw": 10.0, "scale": 0.95},
+                 lambda: r.ctx.accel_pack.wide.blocks is not None),
+                ("options", {"type": "options", "max_ray_depth": 3, "ms_impl": "lut"},
+                 lambda: (r.options.max_ray_depth, r.options.ms_impl) == (3, "lut")
+                 and r.ctx.ms_lut.device == r.ctx.device),
+                ("load env", {"type": "load", "path": str(tmp / "sky.hdr")},
+                 lambda: tuple(lights().env_map.shape) == (3, 64, 128)),
+                ("load scene", {"type": "load", "path": str(tmp / "cornell.obj")},
+                 lambda: r.scene.geometry.num_triangles == 4106 and lights().env_enabled == 1
+                 and r.ctx.accel_pack.backend == "wide"),
+            ]
+            images, frame_ms = {}, {}
+            for label, edit, took in edits:
+                if r.pass_index == 0:
+                    r.step()
+                before, index = r.accum.clone(), r.pass_index
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                post_edit(viewer, edit)
+                if r.poll_and_apply() != 1:
+                    raise AssertionError(f"{label}: the edit did not arrive")
+                r.step()
+                r.publish()
+                torch.cuda.synchronize()
+                frame_ms[label] = (time.perf_counter() - t0) * 1e3
+                if not took():
+                    raise AssertionError(f"{label}: the edit did not take effect")
+                resets = label != "post"
+                if r.pass_index != (1 if resets else index + 1):
+                    raise AssertionError(f"{label}: pass {r.pass_index} after the edit's step")
+                if not bool(torch.isfinite(r.accum).all()):
+                    raise AssertionError(f"{label}: the image is not finite")
+                if resets and torch.equal(r.accum, before):
+                    raise AssertionError(f"{label}: the image did not change")
+                images[label] = r.accum.clone()
+                if label in ("material", "transform"):
+                    fresh_equal(label)
+            for label in ("directional", "spot"):
+                # A removal gives back the pass before the light's add.
+                prior = "material" if label == "directional" else "point update"
+                if not torch.equal(images[f"{label} remove"], images[prior]):
+                    raise AssertionError(f"{label} remove: the pass differs from the one "
+                                         f"before the add")
+        frame = decode_png(get_url(viewer, "/frame.png"))
+        if not np.array_equal(frame, r.frame_rgb8()):
+            raise AssertionError("/frame.png is not the last published image")
+    finally:
+        viewer.stop()
+    readings["material_to_frame_ms"] = frame_ms["material"]
+    readings["transform_to_frame_ms"] = frame_ms["transform"]
+    readings["seconds"] = time.perf_counter() - t_phase
+    log(f"[interactive] edit to first frame (POST, poll_and_apply, one block pass, publish), "
+        f"ms: {', '.join(f'{k} {v:.1f}' for k, v in frame_ms.items())}; card {card}")
+    log(f"[interactive] phase 22 readings {json.dumps(readings)}")
+    return {k: launches[k] for k in ("closest_wide", "any_wide")}, readings
+
+
 def main() -> int:
     import torch
 
@@ -2530,6 +2794,16 @@ def main() -> int:
         if entry["name"] in ("closest_wide", "any_wide", "closest_stream", "any_stream"):
             entry["ingest_launches"] = {k: v[entry["name"]] for k, v in ingest.items()
                                         if v[entry["name"]]}
+            entry["max_abs_err"] = err[entry["name"]]
+
+    # --- 22. the live preview and edit loop ---------------------------------
+    interactive_launches, interactive = phase_interactive(gen, err, card)
+    for entry in kernels:
+        if entry["name"] in interactive_launches:
+            n = interactive_launches[entry["name"]]
+            entry["interactive_launches"] = n // 9 if n % 9 == 0 else n / 9  # a block pass
+            entry["interactive_launches_nine_passes"] = n
+            entry["interactive"] = interactive
             entry["max_abs_err"] = err[entry["name"]]
 
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")

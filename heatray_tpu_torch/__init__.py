@@ -15,7 +15,8 @@ Scenes come from the built-ins (``BUILTIN_SCENES``), from model files
 (``load_model_scene``: OBJ, PLY, STL, OFF, glTF/GLB, DAE, FBX) or from
 session files (``io_utils.session``); ``scene.edit`` edits them,
 ``io_utils`` writes images (PNG, EXR, HDR) and ``cli`` drives it all from a
-command line.  It imports torch and numpy, never jax.
+command line; ``interactive`` and ``viewer`` serve the live preview and its
+edit loop over HTTP.  It imports torch and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera

@@ -61,6 +61,21 @@ def orbit_view_matrix(distance, phi=0.0, theta=0.0, target=(0.0, 0.0, 0.0)) -> n
     return (m @ trans).astype(np.float32)
 
 
+@dataclasses.dataclass
+class OrbitCamera:
+    """Orbital camera controller on the host (``OrbitCamera.h``)."""
+
+    distance: float = 19.0
+    phi: float = 0.0  # [0, 2pi], about +Y
+    theta: float = 0.0  # [-pi/2, pi/2], about +X
+    target: tuple = (0.0, 0.0, 0.0)
+    max_distance: float = 100.0
+
+    def view_matrix(self) -> np.ndarray:
+        """Camera-to-world matrix (``orbit_view_matrix``)."""
+        return orbit_view_matrix(self.distance, self.phi, self.theta, self.target)
+
+
 def orbit_view_matrix_torch(distance, phi, theta, target=(0.0, 0.0, 0.0)) -> torch.Tensor:
     """``orbit_view_matrix`` on tensors, for camera optimization (the twin of
     ``heatray_tpu.camera.orbit_view_matrix_jnp``): gradients flow to

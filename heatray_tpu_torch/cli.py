@@ -7,8 +7,11 @@
 ``--scene`` is a built-in scene's name, a session ``.json`` or a model file
 (OBJ, PLY, STL, OFF, glTF/GLB, DAE, FBX).  Everything runs on the CUDA card
 unless ``--cpu`` is given; without a card and without ``--cpu`` the command
-raises, as ``render`` does.  The live preview, the edit loop and the
-``benchmark`` command are not ported yet: they raise ``NotImplementedError``.
+raises, as ``render`` does.  ``render --preview [PORT]`` serves the
+progressive render over HTTP (``viewer.py``); with ``--edit`` as well, it
+runs the edit loop (``interactive.py``) over that server until interrupted.
+The ``benchmark`` command is not ported yet: it raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,8 +24,6 @@ import time
 
 # The ROADMAP items that port what this CLI does not have yet.
 _NOT_PORTED = {
-    "--preview": "ROADMAP Queue 1 item 2 (viewer.py)",
-    "--edit": "ROADMAP Queue 1 item 2 (interactive.py)",
     "benchmark": "ROADMAP Queue 1 item 1 (bench_gpu.py; the root bench.py imports JAX)",
 }
 SAMPLE_MODES = ["sobol", "halton", "hammersley", "bluenoise", "random"]
@@ -132,18 +133,26 @@ def cmd_render(args) -> int:
 
     import torch
 
-    from .io_utils.image import save_hdr, save_ldr
-    from .post import PostProcessingParams, apply_post_pipeline
-    from .render.integrator import render, resolve
+    from .post import PostProcessingParams
+    from .render.integrator import render
 
-    if args.preview is not None:
-        _not_ported("--preview")
-    if args.edit:
-        _not_ported("--edit")
     device = _device(args)
     scene, camera, options = build(args)
     t0 = time.time()
     post = PostProcessingParams(tonemapping_enabled=args.tonemap)
+    pass_callback = viewer = None
+    if args.preview is not None:
+        from .viewer import ProgressiveViewer
+
+        viewer = ProgressiveViewer(port=args.preview).start()
+        print(f"live preview: http://localhost:{viewer.port}/ "
+              f"(updates every {args.preview_every} pass(es))", file=sys.stderr)
+        pass_callback = viewer.make_callback(options, post, every=args.preview_every)
+    if args.edit:
+        if viewer is None:
+            print("--edit requires --preview", file=sys.stderr)
+            return 2
+        return _edit_loop(args, scene, camera, options, post, viewer, device)
     if args.trace:
         from torch.profiler import ProfilerActivity, profile
 
@@ -153,7 +162,8 @@ def cmd_render(args) -> int:
         trace_cm = contextlib.nullcontext()
     with trace_cm as prof:
         accum, _ = render(scene, camera, options, num_passes=args.passes,
-                          max_channel_value=args.max_channel, device=device)
+                          max_channel_value=args.max_channel, pass_callback=pass_callback,
+                          device=device)
         if device != "cpu":
             torch.cuda.synchronize()
     dt = time.time() - t0
@@ -165,12 +175,51 @@ def cmd_render(args) -> int:
     print(f"rendered {options.width}x{options.height} x{args.passes} passes "
           f"in {dt:.1f}s", file=sys.stderr)
 
+    _save(args.out, accum, post)
+    if viewer is not None:
+        if args.preview_hold:
+            print("render done; preview still serving (ctrl-C to exit)", file=sys.stderr)
+            try:
+                while True:
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
+        viewer.stop()
+    return 0
+
+
+def _save(path, accum, post):
+    import torch
+
+    from .io_utils.image import save_hdr, save_ldr
+    from .post import apply_post_pipeline
+    from .render.integrator import resolve
+
     with torch.no_grad():
-        if args.out.lower().endswith(HDR_SUFFIXES):
-            save_hdr(args.out, resolve(accum).cpu().numpy())
+        if path.lower().endswith(HDR_SUFFIXES):
+            save_hdr(path, resolve(accum).cpu().numpy())
         else:
-            save_ldr(args.out, apply_post_pipeline(accum, post).cpu().numpy())
-    print(f"wrote {args.out}", file=sys.stderr)
+            save_ldr(path, apply_post_pipeline(accum, post).cpu().numpy())
+    print(f"wrote {path}", file=sys.stderr)
+
+
+def _edit_loop(args, scene, camera, options, post, viewer, device) -> int:
+    """``render --preview --edit``: the edit loop over the preview server,
+    serving until interrupted; then the last accumulation is written."""
+    from .interactive import InteractiveRenderer
+
+    dist, phi, theta = args.orbit
+    r = InteractiveRenderer(
+        scene, camera, options, post=post, viewer=viewer,
+        orbit=dict(distance=dist, phi=phi, theta=theta, focal_length=args.focal_length,
+                   fstop=args.fstop, focus_distance=args.focus_distance),
+        max_channel_value=args.max_channel, device=device,
+    )
+    viewer.set_scene_info(r.scene_info())
+    print("interactive edit loop: POST /edit on the preview port", file=sys.stderr)
+    accum = r.run(publish_every=args.preview_every)
+    viewer.stop()
+    _save(args.out, accum, r.post)
     return 0
 
 
@@ -244,13 +293,13 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render to DIR/trace.json")
     p.add_argument("--preview", type=int, nargs="?", const=8000, default=None,
-                   metavar="PORT", help="live progressive preview over HTTP (not ported yet)")
+                   metavar="PORT", help="live progressive preview over HTTP")
     p.add_argument("--preview-every", type=int, default=1, metavar="N",
                    help="update the preview every N passes")
     p.add_argument("--preview-hold", action="store_true",
                    help="keep serving the preview after the render finishes")
     p.add_argument("--edit", action="store_true",
-                   help="interactive edit loop over the preview server (not ported yet)")
+                   help="interactive edit loop over the preview server")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser(

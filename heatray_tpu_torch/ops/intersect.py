@@ -11,6 +11,9 @@ The brute-force queries test every ray against every row of a row table.
 They are the plain versions behind the wide-BVH traversal kernels
 (``wide_bvh.py``): the same pair arithmetic, in the same operation order, so
 that on identical rows a kernel and its plain version round identically.
+Over the Woop rows of every triangle they are the ``"xla"`` backend
+(``intersect_closest``, ``intersect_any``), whose ids are triangle ids; the
+JAX package computes that backend outside any Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -19,10 +22,11 @@ import dataclasses
 
 import torch
 
-from ..vec import Vec3
+from ..vec import Vec3, clip
 
 BARY_EPS = 1e-6
 MISS_T = 3.0e38
+_DZ_EPS = 1e-15
 # Elements of one (rays x rows) intermediate: bounds the memory of the
 # brute-force queries (32 MB per float32 temporary).
 _PAIR_BUDGET = 1 << 23
@@ -203,3 +207,30 @@ def intersect_closest(accel: WoopAccel, origins: Vec3, directions: Vec3, t_min=1
 def intersect_any(accel: WoopAccel, origins: Vec3, directions: Vec3, t_min=1e-4, t_max=3.0e37):
     """Any-hit (occlusion) query; ``t_max`` a float or per-ray (R,)."""
     return any_rows(origins, directions, accel.w, t_min, t_max)
+
+
+def hit_attributes(accel: WoopAccel, origins: Vec3, directions: Vec3, tri_id, hit_mask):
+    """(t, b1, b2) of each ray against its triangle ``tri_id``, evaluated
+    again from the gathered Woop rows, so that gradients reach the rays and
+    ``accel.w``; misses get (``MISS_T``, 0, 0), barycentrics clamped to
+    [0, 1]."""
+    rows = accel.w[:, tri_id.clamp(min=0).long()]  # (12, R)
+
+    def affine(k, v, with_b):
+        r = rows[4 * k] * v.x + rows[4 * k + 1] * v.y + rows[4 * k + 2] * v.z
+        return r + rows[4 * k + 3] if with_b else r
+
+    dz = affine(2, directions, False)
+    safe_dz = torch.where(torch.abs(dz) > _DZ_EPS, dz, 1.0)
+    t = -affine(2, origins, True) / safe_dz
+    b1 = affine(0, origins, True) + t * affine(0, directions, False)
+    b2 = affine(1, origins, True) + t * affine(1, directions, False)
+    t = torch.where(hit_mask, t, MISS_T)
+    b1 = clip(torch.where(hit_mask, b1, 0.0), 0.0, 1.0)
+    b2 = clip(torch.where(hit_mask, b2, 0.0), 0.0, 1.0)
+    return t, b1, b2
+
+
+def gather_geo_normal(accel: WoopAccel, tri_id) -> Vec3:
+    """The unit geometric normal of each ray's triangle ``tri_id``."""
+    return Vec3.from_planar(accel.geo_normal[:, tri_id.clamp(min=0).long()])

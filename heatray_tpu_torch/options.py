@@ -14,7 +14,10 @@ gradients are the same).  ``wide_leaf_math`` and ``stream_leaf_math`` ("mxu" or
 "vpu") do choose the kernels (K1/K3 or K5/K4) and, for ``"wide"``, the leaf
 size (rounded up to a multiple of 128), but every route runs the same exact
 pair test; only a different leaf size, whose leaf anchors round otherwise,
-can move a t by an ulp.
+can move a t by an ulp.  ``interactive_block`` traces one pixel of each
+3x3 block a pass, block ``k % 9`` with sample index ``k // 9``
+(``render.integrator.render_pass``); ``ms_impl`` "lut" reads the packed
+multiscatter table instead of evaluating its fit (``render.multiscatter``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,11 @@ import enum
 import torch
 
 from .ops.wide_bvh import LEAF_MATHS
+
+# ``intersect_backend``: "xla" is the exact brute force over every triangle
+# (``ops.intersect``, no kernel, as in the JAX package); "sharded" is not
+# ported yet.
+BACKENDS = ("auto", "wide", "stream", "bvh", "pallas", "xla", "sharded")
 
 
 class AOV(enum.Enum):
@@ -104,11 +112,12 @@ class RenderOptions:
         for name in ("wide_leaf_math", "stream_leaf_math"):
             if getattr(self, name) not in LEAF_MATHS:
                 raise ValueError(f"RenderOptions.{name} must be one of {LEAF_MATHS}")
+        if self.intersect_backend not in BACKENDS:
+            raise ValueError(f"RenderOptions.intersect_backend must be one of {BACKENDS}")
+        if self.ms_impl not in ("fit", "lut"):
+            raise ValueError("RenderOptions.ms_impl must be 'fit' or 'lut'")
         unported = {
-            "intersect_backend": self.intersect_backend
-            not in ("auto", "wide", "stream", "bvh", "pallas"),
-            "interactive_block": self.interactive_block,
-            "ms_impl": self.ms_impl != "fit",
+            "intersect_backend": self.intersect_backend == "sharded",
             "image_height": self.image_height is not None,
         }
         for name, bad in unported.items():

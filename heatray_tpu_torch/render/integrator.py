@@ -22,13 +22,21 @@ Backends, on the card and the CPU alike (``intersect_backend``):
 - ``"bvh"``: binary skip-pointer BVH, ``bvh_leaf_size`` leaves
   (``csrc/bvh2.cu``);
 - ``"pallas"``: no tree, ``pallas_tri_chunk``-triangle chunks culled by
-  their boxes (``csrc/chunks.cu``).
+  their boxes (``csrc/chunks.cu``);
+- ``"xla"``: no tree and no kernel, the exact brute force over every
+  triangle (``ops/intersect.py``), as the JAX package's backend of that name.
 
 A context made without a scene is the rebuild mode: every pass rebuilds the
 Woop rows, the chunk packs and the shading table from the scene it is given
 and traces them through the chunk kernels, whatever the backend.  The
 wide-BVH backends return slots and shade from a table in slot order; the
 others return triangle ids and shade from one in triangle order.
+
+With ``interactive_block`` pass k traces only the pixels (x, y) with
+``x % 3 == k % 9 % 3`` and ``y % 3 == k % 9 // 3``, at sample index
+``k // 9`` (``PassGenerator.cpp:372-384``): its wavefront holds those
+pixels' lanes alone, and the accumulation's channel 3 counts a pass on
+them only, so nine block passes equal one full pass.
 
 From the second bounce on, the wavefront can be sorted by direction octant
 and origin Morton code (coherent kernel tiles, live lanes first) and the
@@ -67,7 +75,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..camera import CameraParams
 from ..ops.bvh import BVH, build_bvh
-from ..ops.intersect import WoopAccel, build_woop
+from ..ops.intersect import WoopAccel, build_woop, intersect_any, intersect_closest
 from ..ops.intersect_pallas import (
     WoopPallas,
     intersect_any_pallas,
@@ -94,6 +102,7 @@ from ..scene.scene import Scene
 from ..vec import Vec3
 from .aov import ACCUM_AOVS, SURFACE_AOVS, accum_visualize, compute_surface_aov
 from .envmap import env_radiance
+from .multiscatter import multiscatter_lut_packed
 from .shade import make_sequence_lookup, shade_hits
 from .shade_table import (
     GEO_N,
@@ -118,6 +127,7 @@ _INTERSECTORS = {
     "stream/vpu": (intersect_closest_stream_vpu, intersect_any_stream_vpu),
     "bvh": (intersect_closest_bvh, intersect_any_bvh),
     "pallas": (intersect_closest_pallas, intersect_any_pallas),
+    "xla": (intersect_closest, intersect_any),
 }
 
 
@@ -129,13 +139,15 @@ class AccelPack:
     the backend returns, the backend and, for the wide trees, the leaf math
     their leaves were built for.  Only the backend's pair of structures is
     set: ``wide``/``wide_occl`` (``"wide"``, ``"stream"``),
-    ``bvh``/``bvh_occl`` or ``packed``/``packed_occl``.  ``shade_table`` is
-    None where each pass builds its own (``static_shading=False``)."""
+    ``bvh``/``bvh_occl``, ``packed``/``packed_occl`` or, for ``"xla"``, the
+    Woop rows themselves and ``accel_occl``.  ``shade_table`` is None where
+    each pass builds its own (``static_shading=False``)."""
 
     accel: WoopAccel
     shade_table: torch.Tensor | None
     backend: str
     leaf_math: str = "mxu"
+    accel_occl: WoopAccel | None = None
     wide: WideBVH | None = None
     wide_occl: WideBVH | None = None
     bvh: BVH | None = None
@@ -151,7 +163,8 @@ class AccelPack:
 
     def structures(self):
         """(closest-hit structure, occluder structure) of the backend."""
-        name = {"wide": "wide", "stream": "wide", "bvh": "bvh", "pallas": "packed"}[self.backend]
+        name = {"wide": "wide", "stream": "wide", "bvh": "bvh", "pallas": "packed",
+                "xla": "accel"}[self.backend]
         return getattr(self, name), getattr(self, name + "_occl")
 
 
@@ -170,6 +183,8 @@ class RenderContext:
     tables: SampleTables
     accel_pack: AccelPack | None
     device: torch.device
+    # ((L+1)^2, 4) corner-packed multiscatter table (``ms_impl="lut"``).
+    ms_lut: torch.Tensor
 
 
 def _device(device) -> torch.device:
@@ -231,7 +246,11 @@ def build_accel(scene: Scene, options: RenderOptions, static_shading: bool = Tru
         return pack if static_shading else dataclasses.replace(pack, shade_table=None)
     accel = build_woop(scene.geometry.positions, scene.geometry.indices)
     include = _occluder_mask(scene).cpu().numpy() if scene.has_alpha_mask else None
-    if backend == "bvh":
+    if backend == "xla":
+        pack = AccelPack(accel=accel, shade_table=None, backend=backend,
+                         accel_occl=_occluder_accel(accel, scene) if scene.has_alpha_mask
+                         else accel)
+    elif backend == "bvh":
         bvh = build_bvh(accel, leaf_size=options.bvh_leaf_size)
         bvh_occl = bvh if include is None else build_bvh(
             accel, leaf_size=options.bvh_leaf_size, include=include)
@@ -298,6 +317,7 @@ def make_context(options: RenderOptions, scene: Scene | None = None, device="cud
         accel_pack=(build_accel(scene, options, static_shading=static_shading)
                     if scene is not None else None),
         device=device,
+        ms_lut=multiscatter_lut_packed(device),
     )
 
 
@@ -364,11 +384,14 @@ def _park_dead(org: Vec3, direction: Vec3, active):
     )
 
 
-def _accum_update(contrib: Vec3, h: int, w: int) -> torch.Tensor:
-    """Flat contribution -> planar (4, H, W) update (channel 3 = 1 pass)."""
+def _accum_update(contrib: Vec3, h: int, w: int, alpha=None) -> torch.Tensor:
+    """Flat per-pixel contribution -> planar (4, H, W) update; channel 3
+    counts the pass: 1 everywhere, or the per-pixel ``alpha`` (H * W,)."""
+    if alpha is None:
+        alpha = torch.ones((h, w), dtype=torch.float32, device=contrib.x.device)
     return torch.stack(
         [contrib.x.reshape(h, w), contrib.y.reshape(h, w), contrib.z.reshape(h, w),
-         torch.ones((h, w), dtype=torch.float32, device=contrib.x.device)]
+         alpha.reshape(h, w)]
     )
 
 
@@ -563,6 +586,8 @@ def _shade_bounce(scene: Scene, ctx: RenderContext, options: RenderOptions,
         rr_start_depth=options.rr_start_depth,
         sample_mode=options.sample_mode,
         footprint_world=None if path_len is None else cone * path_len,
+        ms_impl=options.ms_impl,
+        ms_lut=ctx.ms_lut,
     )
     contrib = contrib + clamp(res.emission)
     p = org + direction * t_sane
@@ -650,6 +675,15 @@ def _bounce_modes(ctx: RenderContext, options: RenderOptions, r: int):
     return sort_on, gate_on and options.gate_segments > 1 and r > 1
 
 
+def block_pixels(block: int, h: int, w: int, device) -> torch.Tensor:
+    """(N,) int64 ids, in row order, of the pixels (x, y) of 3x3 block
+    coordinate ``block``: ``x % 3 == block % 3``, ``y % 3 == block // 3``
+    (``perspective.rlsl:42-57``)."""
+    ys = torch.arange(block // 3, h, 3, device=device)
+    xs = torch.arange(block % 3, w, 3, device=device)
+    return (ys[:, None] * w + xs[None, :]).reshape(-1)
+
+
 def _gated_lanes(paths: Paths, segments: int) -> int:
     """How many leading lanes of a sorted wavefront the bounce must run: the
     live prefix rounded up to whole segments of ``ceil(R / segments)``
@@ -675,14 +709,34 @@ def render_pass(
     traced rays: per bounce, the live closest-hit lanes plus the shadow
     lanes (the rays/s benchmark count).  A context without a pack renders
     in the rebuild mode; a context made with ``static_shading=False``
-    builds the pass's shading table here, from ``scene``."""
+    builds the pass's shading table here, from ``scene``.  With
+    ``interactive_block`` the pass traces block ``frame.sample_index % 9``
+    at sample index ``frame.sample_index // 9`` (see the module
+    docstring)."""
     pack = ctx.accel_pack if ctx.accel_pack is not None else rebuild_pack(scene, options)
     pack = pass_pack(scene, pack, texture_tail(scene, options))
     cone = pixel_cone(scene, camera, options)
+    h, w = options.height, options.width
+    pixels = alpha = None
+    if options.interactive_block:
+        # Raygen and shading both draw at the block pass's sample index.
+        block = frame.sample_index % 9
+        frame = dataclasses.replace(frame, sample_index=frame.sample_index // 9)
+        pixels = block_pixels(block, h, w, ctx.device)
     paths = start_paths(camera, ctx, options, frame.sample_index, cone=cone is not None)
+    if pixels is not None:
+        # The block's lanes alone, each keeping its pixel id in ``pix``.
+        paths = paths.map(lambda p: p.index_select(0, pixels))
+        alpha = torch.zeros(h * w, dtype=torch.float32, device=ctx.device).index_fill_(
+            0, pixels, 1.0)
     r = paths.active.shape[0]
     if options.aov in SURFACE_AOVS:
-        accum = accum + _surface_aov(scene, options, paths, pack)
+        value = _surface_aov(scene, options, paths, pack)
+        if pixels is not None:
+            # As in the JAX package, a surface AOV counts the pass on every
+            # pixel; the pixels off the block get a miss's zero.
+            value = _to_pixels(value, paths.pix, h * w)
+        accum = accum + _accum_update(value, h, w)
         return (accum, {"rays": r}) if with_stats else accum
     sort_on, gate_on = _bounce_modes(ctx, options, r)
     if sort_on:
@@ -706,26 +760,30 @@ def render_pass(
         paths = nxt if n == r else _merge(nxt, paths.map(lambda p: p[n:]))
 
     contrib = paths.contrib
-    if sort_on:
+    if sort_on or pixels is not None:
         # Undo the permutations: lane i accumulates into pixel pix[i].
-        contrib = contrib.map(lambda c: torch.empty_like(c).index_copy_(0, paths.pix, c))
-    accum = accum + _accum_update(contrib, options.height, options.width)
+        contrib = _to_pixels(contrib, paths.pix, h * w)
+    accum = accum + _accum_update(contrib, h, w, alpha)
     if with_stats:
         return accum, {"rays": int(ray_count)}
     return accum
 
 
-def _surface_aov(scene: Scene, options: RenderOptions, paths: Paths, pack: AccelPack
-                 ) -> torch.Tensor:
-    """The accumulation update of a surface AOV: the attribute at each
-    camera ray's closest hit (``physicallyBased.rlsl:159-203``)."""
+def _to_pixels(v: Vec3, pix: torch.Tensor, n: int) -> Vec3:
+    """Per-lane values to (n,) per-pixel planes: lane i into pixel
+    ``pix[i]``, zero in pixels no lane holds."""
+    return v.map(lambda c: torch.zeros(n, dtype=c.dtype, device=c.device).index_copy_(0, pix, c))
+
+
+def _surface_aov(scene: Scene, options: RenderOptions, paths: Paths, pack: AccelPack) -> Vec3:
+    """The attribute of a surface AOV at each camera ray's closest hit
+    (``physicallyBased.rlsl:159-203``)."""
     _, hit_id, hit = _make_intersectors(pack)[0](
         _detach(paths.org), _detach(paths.direction), options.ray_epsilon)
     rows = gather_rows(pack.shade_table, hit_id.clamp(min=0))
     front = paths.direction.dot(rows.vec(GEO_N)) < 0.0
     _, b1, b2 = hit_attributes_rows(rows, paths.org, paths.direction, hit)
-    value = compute_surface_aov(scene, options.aov, rows, b1, b2, front, hit)
-    return _accum_update(value, options.height, options.width)
+    return compute_surface_aov(scene, options.aov, rows, b1, b2, front, hit)
 
 
 def render(

@@ -1,10 +1,13 @@
-"""GGX multiscattering energy compensation, the gather-free Chebyshev fit
-(port of ``ms_impl="fit"`` of ``heatray_tpu.render.multiscatter``).
+"""GGX multiscattering energy compensation (port of
+``heatray_tpu.render.multiscatter``).
 
 The directional albedo E(roughness, NdotV) is tabulated on the host by the
-reference's Monte Carlo tool (``MultiScatterUtil.cpp:91-139``), fitted by a
-degree-16 Chebyshev product surface, and evaluated per lane as
-``f_ms = 1 + Cspec (1 - E) / E``.
+reference's Monte Carlo tool (``MultiScatterUtil.cpp:91-139``) as
+(1 - E) / E, and evaluated per lane as ``f_ms = 1 + Cspec (1 - E) / E``
+either from a degree-16 Chebyshev product surface fitted to E
+(``ms_impl="fit"``, no gather) or by a bilinear lookup in the table,
+packed so that one row gather fetches a cell's four corners
+(``ms_impl="lut"``).
 """
 
 from __future__ import annotations
@@ -70,6 +73,25 @@ def generate_multiscatter_lut() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=1)
+def _packed_lut_np() -> np.ndarray:
+    """((L+1)^2, 4): row (y0+1)*(L+1) + (x0+1) holds the four edge-clamped
+    corner texels [c00, c10, c01, c11] of cell (x0, y0)."""
+    pad = np.pad(generate_multiscatter_lut(), 1, mode="edge")
+    lp1 = LUT_SIZE + 1
+    rows = np.empty((lp1 * lp1, 4), np.float32)
+    rows[:, 0] = pad[:lp1, :lp1].reshape(-1)  # c00 = [y0,   x0  ]
+    rows[:, 1] = pad[:lp1, 1:].reshape(-1)  # c10 = [y0,   x0+1]
+    rows[:, 2] = pad[1:, :lp1].reshape(-1)  # c01 = [y0+1, x0  ]
+    rows[:, 3] = pad[1:, 1:].reshape(-1)  # c11 = [y0+1, x0+1]
+    return rows
+
+
+def multiscatter_lut_packed(device="cpu") -> torch.Tensor:
+    """The corner-packed table of ``compute_multiscattering`` on ``device``."""
+    return torch.from_numpy(_packed_lut_np()).to(device)
+
+
+@functools.lru_cache(maxsize=1)
 def _fit_coeffs_np() -> np.ndarray:
     """(D+1, D+1) Chebyshev-product coefficients of E = 1 / (1 + LUT),
     least squares weighted by 1/E^2; row = roughness degree, column =
@@ -110,3 +132,21 @@ def compute_multiscattering_fit(c_spec, n_dot_i, roughness):
     e = torch.sum(_cheb_planes(y, FIT_DEGREE) * inner, dim=0)
     e = clip(e, 1e-3, 1.0)
     return 1.0 + c_spec * ((1.0 - e) / e)
+
+
+def compute_multiscattering(packed_lut: torch.Tensor, c_spec, n_dot_i, roughness):
+    """``f_ms = 1 + c_spec * LUT(n_dot_i, roughness)`` (``microfacet.rlsl:17-23``),
+    bilinear in the table from ``multiscatter_lut_packed``; the row index is
+    clamped to the table, as the JAX package's ``take(mode="clip")``."""
+    lp1 = int(round(packed_lut.shape[0] ** 0.5))
+    size = lp1 - 1
+    x = n_dot_i * size - 0.5
+    y = roughness * size - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    key = ((y0.long() + 1) * lp1 + x0.long() + 1).clamp(0, packed_lut.shape[0] - 1)
+    rows = packed_lut[key]
+    c00, c10, c01, c11 = rows.unbind(-1)
+    top = c00 + (c10 - c00) * fx
+    bot = c01 + (c11 - c01) * fx
+    return 1.0 + c_spec * (top + (bot - top) * fy)

@@ -30,7 +30,7 @@ from . import brdf, shade_table as st
 from .bsdf_sampling import cosine_weighted_sample, refract, sample_visible_ggx
 from .envmap import env_radiance
 from .light_sampling import compute_light_sample
-from .multiscatter import compute_multiscattering_fit
+from .multiscatter import compute_multiscattering, compute_multiscattering_fit
 from .onb import (
     frame_to_world,
     greater_than_zero,
@@ -89,13 +89,21 @@ def shade_hits(
     rr_start_depth: int = 3,
     sample_mode: str = "sobol",
     footprint_world=None,
+    ms_impl: str = "fit",
+    ms_lut=None,
 ) -> ShadeResult:
     """Shade one wavefront of surface hits, masked by ``active``.
 
     ``footprint_world`` (R,) is the ray cone's width at the hit (world
     units); with it, texture fetches are trilinear mip samples
-    (``Texture.h:51``)."""
+    (``Texture.h:51``).  ``ms_impl`` "lut" takes the multiscatter factor
+    from ``ms_lut`` (``multiscatter_lut_packed``), "fit" from the fit."""
     lights = scene.lights
+
+    def multiscatter(c_spec, n_dot, rough):
+        if ms_impl == "fit":
+            return compute_multiscattering_fit(c_spec, n_dot, rough)
+        return compute_multiscattering(ms_lut, c_spec, n_dot, rough)
 
     w0 = 1.0 - b1 - b2
     p = org + ray_dir * t
@@ -238,7 +246,7 @@ def shade_hits(
     env_sel = ls.light_type == LIGHT_TYPE_ENVIRONMENT
 
     a_sp, rough_sp, cs_sp, lobep_sp = spec_lobe_params(sel_c)
-    ms = compute_multiscattering_fit(cs_sp, n_dot_v, rough_sp)
+    ms = multiscatter(cs_sp, n_dot_v, rough_sp)
 
     # Punctual branch: the BRDF toward the chosen light.
     l_dir = ls.direction
@@ -300,7 +308,7 @@ def shade_hits(
 
     isel_d, isel_c, isel_s = select_lobe(rnd_u[4])
     a_isp, rough_isp, cs_isp, lobep_isp = spec_lobe_params(isel_c)
-    ms_i = compute_multiscattering_fit(cs_isp, n_dot_v, rough_isp)
+    ms_i = multiscatter(cs_isp, n_dot_v, rough_isp)
 
     io_diff = frame_to_world(*cosine_weighted_sample(rnd_u[3], rnd_v[3]), fx, n, fz)
     ih = frame_to_world(*sample_visible_ggx(local_v, rnd_u[3], rnd_v[3], a_isp), fx, n, fz)

@@ -230,6 +230,13 @@ def translate(v) -> np.ndarray:
     return m
 
 
+def scale(v) -> np.ndarray:
+    """Scaling by ``v`` (a scalar or one factor per axis), as a 4x4 matrix."""
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = np.broadcast_to(np.asarray(v, dtype=np.float32), (3,))
+    return m
+
+
 def rotate(angle: float, axis) -> np.ndarray:
     """Rotation about an axis (radians), as a 4x4 matrix."""
     axis = np.asarray(axis, dtype=np.float64)

@@ -26,6 +26,16 @@ LIGHT_TYPE_SPOT = 3
 LIGHT_TYPE_ENVIRONMENT = 4
 
 
+def orientation_to_direction(phi: float, theta: float) -> np.ndarray:
+    """Spherical orientation -> unit direction toward the light
+    (``DirectionalLight.cpp:64-78``: Y up, ``phi`` about Y, ``theta`` the
+    elevation)."""
+    x = math.cos(theta) * math.sin(phi)
+    y = math.sin(theta)
+    z = math.cos(theta) * math.cos(phi)
+    return np.array([x, y, z], dtype=np.float32)
+
+
 @dataclasses.dataclass
 class DirectionalLight:
     """``DirectionalLight.h:32-47``; watts = illuminance / 683."""

@@ -97,6 +97,10 @@ class MaterialTable:
     clearcoat_normal_tex: torch.Tensor
     alpha_mask: torch.Tensor  # (M,) i32
 
+    @property
+    def num_materials(self) -> int:
+        return self.kind.shape[0]
+
 
 def build_material_table(materials: List) -> MaterialTable:
     """Condition and pack a list of PBRParams / GlassParams."""
