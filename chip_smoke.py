@@ -199,7 +199,34 @@ source, started together, and then:
    each checked to take effect and to reset (``post`` not), with the time
    from the request to the published frame; after the material and the
    transform edits the pass must equal a fresh context's bit for bit, and
-   a removal the pass before the light's add.
+   a removal the pass before the light's add;
+23. multi-device rendering (``heatray_tpu_torch.parallel``) on the one card,
+   every rank on it: one-device references first (the Cornell box at
+   1920x1080, depth 4, 2 and 4 passes; ``high_poly`` through
+   ``intersect_backend="wide"``, 2 passes; the box at 960x540, 4 passes;
+   the train steps' losses and gradients at STEP_W x STEP_H, depth 2);
+   then ``render_sharded`` over a one-rank NCCL group in this process, 2
+   passes, equal to ``render`` bit for bit; then ranks started with
+   ``torch.multiprocessing`` (spawn), which only load the kernels built
+   above, over gloo: two ranks render the Cornell rows (540 a rank, 4
+   passes, sorted and gated), gathered equal to ``render`` bit for bit on
+   each; ``high_poly`` through the ``"sharded"`` backend (one wide tree of
+   about 149k triangles a rank; K1/K2 on each rank's tree against their
+   plain versions at the path's shapes, as in 5, then 2 passes), the two
+   ranks' images equal bit for bit and within IMAGE_SHARE/IMAGE_TOL of the
+   one-device ``"wide"`` image, with each rank's ms/pass, peak memory and
+   tree bytes beside the monolithic tree's, and its passes timed again at
+   torch's default host thread count and at the rank's own (one, as
+   ``torchrun`` starts ranks), in turns, each with one more pass whose gloo
+   reductions are timed; and one
+   ``make_sharded_train_step``; four ranks on a 2x2 ``(sp, dp)`` mesh render
+   ``render_sharded_2d`` (within SP_TOL of the serial passes, alpha 4) and
+   take one ``make_sharded_train_step_2d``.  Each step's loss and gradients
+   (SGD at lr 1.0) lie within STEP_TOL of each key's largest |g| of the
+   one-device step's.  Every rank counts its launches around each run: K1
+   and K2 alone, once per bounce with live lanes, in the forward only.  A
+   rank that fails, or ranks still running after MULTI_TIMEOUT, fail the
+   run.  Every time of this phase is taken with its ranks sharing one card.
 
 Each probe phase sets the probe kernels' launch counts to 0 just before
 its run and reads them just after; every kernel of the probe must have
@@ -226,11 +253,15 @@ before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -491,13 +522,16 @@ def check_any(name, bvh, org, d, t_max, label, err, pick=None, t_min=1e-4):
         f"{int(b_k.sum())} blocked")
 
 
-def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=False, block=None):
+def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=False, block=None,
+                    trees=None):
     """Each kernel launched at the shapes a pass gives it, against its plain
     version on N_CHECK seeded live lanes of each launch: all primary rays,
     the first bounce's shadow lanes, and the second bounce's sorted, gated
     head and its shadow lanes (``exact``: see ``check_closest``).  ``block``:
     the primary rays are the lanes of that 3x3 block pass (sample index 0)
-    alone, as ``interactive_block`` traces them.  Returns the primary rays,
+    alone, as ``interactive_block`` traces them.  ``trees``: the (closest
+    hit, occluder) trees the kernels are checked on, where they are not the
+    pack's (a rank's shard of the ``"sharded"`` forest).  Returns the primary rays,
     the first-bounce shadow rays, the depth-2 head and its shadow rays."""
     from heatray_tpu_torch.options import FrameGlobals
     from heatray_tpu_torch.render import integrator
@@ -506,7 +540,7 @@ def check_path_rays(names, scene, camera, ctx, opts, gen, label, err, exact=Fals
     eps = opts.ray_epsilon
     # A context without a pack is the rebuild mode: the pass's own pack.
     pack = ctx.accel_pack or integrator.rebuild_pack(scene, opts)
-    tree, tree_occl = pack.structures()
+    tree, tree_occl = trees or pack.structures()
     frame = FrameGlobals.create(0, device=ctx.device)
     cone = integrator.pixel_cone(scene, camera, opts)  # a textured scene's ray cones
     primary = integrator.start_paths(camera, ctx, opts, 0, cone=cone is not None)
@@ -2442,6 +2476,442 @@ def phase_interactive(gen, err, card):
     return {k: launches[k] for k in ("closest_wide", "any_wide")}, readings
 
 
+# --- phase 23: multi-device on the one card -------------------------------------
+
+MULTI_TIMEOUT = 300  # s: a collective, or a group of ranks, that waits longer fails the run
+STEP_W, STEP_H, STEP_DEPTH = 240, 136, 2  # the sharded train steps
+STEP_TOL = 1e-3  # of each key's largest |g|, as phase 3c holds the card against the CPU
+SP_TOL = 1e-4  # the (sp, dp) merge sums the passes in another order than one device
+K12 = ("closest_wide", "any_wide")
+
+
+@contextlib.contextmanager
+def counted_lanes():
+    """The gated lane counts (``integrator._gated_lanes``) of the passes run
+    inside, with every launch count set to 0 on entry; yields (lanes,
+    launches), ``launches`` filled on exit after a synchronise."""
+    import torch
+
+    from heatray_tpu_torch.render import integrator
+
+    lanes, launches, gated = [], {}, integrator._gated_lanes
+
+    def count(*args):
+        lanes.append(gated(*args))
+        return lanes[-1]
+
+    torch.cuda.synchronize()
+    reset_launches()
+    integrator._gated_lanes = count
+    try:
+        yield lanes, launches
+        torch.cuda.synchronize()
+        launches.update(read_launches())
+    finally:
+        integrator._gated_lanes = gated
+
+
+def expect_k12(label, launches, lanes, passes):
+    """K1 and K2 once per bounce with live lanes (the first bounce of each
+    of ``passes`` passes and each gated bounce above 0 lanes), no other
+    traversal kernel."""
+    runs = passes + sum(n > 0 for n in lanes)
+    want = {name: runs if name in K12 else 0 for name in launches}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want} (gated lanes {lanes})")
+
+
+def tree_bytes(*trees) -> int:
+    """Device bytes of distinct wide trees (every tensor field)."""
+    import torch
+
+    seen = {id(t): t for t in trees}.values()
+    return sum(getattr(t, f.name).numel() * getattr(t, f.name).element_size()
+               for t in seen for f in dataclasses.fields(t)
+               if isinstance(getattr(t, f.name), torch.Tensor))
+
+
+def step_params(scene, device) -> dict:
+    from heatray_tpu_torch.bridge import params_from_arrays
+
+    mats = scene.materials
+    return params_from_arrays({"base_color": mats.base_color.cpu().numpy(),
+                               "roughness": mats.roughness.cpu().numpy()}, device)
+
+
+def step_setup(device):
+    """Scene, camera, options and ``static_shading=False`` context of the
+    sharded train steps: the Cornell box at STEP_W x STEP_H, depth 2."""
+    from heatray_tpu_torch import cornell_box, orbit_camera
+    from heatray_tpu_torch.options import RenderOptions
+    from heatray_tpu_torch.render import integrator
+
+    opts = RenderOptions(width=STEP_W, height=STEP_H, max_render_passes=8,
+                         max_ray_depth=STEP_DEPTH)
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(STEP_W, STEP_H, distance=6.2, focal_length_mm=35.0).to(device)
+    return scene, camera, opts, integrator.make_context(opts, scene, device,
+                                                        static_shading=False)
+
+
+def sharded_step(label, make_step, scene, device, sample_index, passes):
+    """One step of ``make_step`` (SGD at lr 1.0: each gradient is the
+    parameters' change), its launches counted: K1/K2 in the forward only."""
+    import torch
+
+    step = make_step(lambda tensors: torch.optim.SGD(tensors, lr=1.0))
+    params = step_params(scene, device)
+    before = {k: v.detach().clone() for k, v in params.items()}
+    with counted_lanes() as (lanes, launches):
+        params, loss = step(params, sample_index)
+    expect_k12(label, launches, lanes, passes)
+    return {"loss": float(loss), "launches": launches, "lanes": list(lanes),
+            "grads": {k: (before[k] - v.detach()).cpu() for k, v in params.items()}}
+
+
+def run_ranks(label, scenario, world, *args) -> list:
+    """``scenario(*args)`` on ``world`` gloo ranks, all on DEVICE
+    (``parallel.launch.spawn``: each starts with ``OMP_NUM_THREADS=1``, as
+    ``torchrun`` starts ranks; the kernels are built already, so the ranks
+    only load them); a rank that fails, or a group still running after
+    MULTI_TIMEOUT, fails the run, and no rank outlives this call."""
+    from heatray_tpu_torch.parallel.launch import spawn
+
+    store = tempfile.mkdtemp(dir=REPO / "build")
+    t0 = time.perf_counter()
+    try:
+        out = spawn(scenario, world, store, *args, device=DEVICE, timeout_s=MULTI_TIMEOUT,
+                    deadline_s=MULTI_TIMEOUT).results()
+    except TimeoutError as e:
+        raise AssertionError(f"{label}: {e}") from e
+    shutil.rmtree(store)
+    log(f"[multi] {label}: {world} gloo ranks on one card took {time.perf_counter() - t0:.1f} s "
+        f"(start, context, work)")
+    return out
+
+
+@contextlib.contextmanager
+def timed_reduces():
+    """Every ``Mesh.all_reduce`` inside, synchronised before and after and
+    timed; yields a list of (ms, bytes), one a call."""
+    import torch
+
+    from heatray_tpu_torch.parallel import sharding
+
+    calls, reduce = [], sharding.Mesh.all_reduce
+
+    def timed(self, tensor, op="sum", axis=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(self, tensor, op, axis)
+        torch.cuda.synchronize()
+        calls.append(((time.perf_counter() - t0) * 1e3, tensor.numel() * tensor.element_size()))
+        return out
+
+    sharding.Mesh.all_reduce = timed
+    try:
+        yield calls
+    finally:
+        sharding.Mesh.all_reduce = reduce
+
+
+def ranks_pair(target, default_threads):
+    """Phase 23's two gloo ranks: the Cornell rows, ``high_poly`` through the
+    ``"sharded"`` backend (its passes timed again at torch's default thread
+    count, ``default_threads``, and at the rank's own, in turns, each with
+    one more pass whose gloo reductions are timed), and one
+    ``make_sharded_train_step``."""
+    import torch
+    import torch.distributed as dist
+
+    from heatray_tpu_torch import cornell_box, frame_scene, high_poly, orbit_camera, render
+    from heatray_tpu_torch import scene_aabb
+    from heatray_tpu_torch.options import RenderOptions
+    from heatray_tpu_torch.parallel import sharding
+    from heatray_tpu_torch.render import integrator
+
+    device = torch.device(DEVICE)
+    rank = dist.get_rank()
+    mesh = sharding.make_mesh(2, device=device)
+    err = dict.fromkeys(KERNELS, 0.0)
+    out = {"err": err}
+
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0).to(device)
+    ctx = integrator.make_context(opts, scene, device)
+    with counted_lanes() as (lanes, launches):
+        accum = sharding.render_sharded(scene, camera, ctx, opts, mesh, PASSES)
+    expect_k12(f"rank {rank} rows", launches, lanes, PASSES)
+    dt, _ = synced_ms(lambda: sharding.render_sharded(scene, camera, ctx, opts, mesh, PASSES))
+    out["rows"] = {"accum": accum.cpu(), "launches": launches, "lanes": list(lanes),
+                   "ms_per_pass": dt / PASSES}
+    del ctx, accum
+
+    t0 = time.perf_counter()
+    hp_scene = high_poly().to(device)
+    hp_camera = frame_scene(scene_aabb(hp_scene.geometry), WIDTH, HEIGHT, theta=0.35).to(device)
+    scene_s, t0 = time.perf_counter() - t0, time.perf_counter()
+    hp_opts = dataclasses.replace(opts, intersect_backend="sharded")
+    hp_ctx = integrator.make_context(hp_opts, hp_scene, device, mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pack = hp_ctx.accel_pack
+    tree, tree_occl = pack.swide.shard_bvh(), pack.swide_occl.shard_bvh()
+    check_path_rays(K12, hp_scene, hp_camera, hp_ctx, hp_opts,
+                    torch.Generator(device="cpu").manual_seed(SEED), f"rank {rank} high_poly shard",
+                    err, exact=True, trees=(tree, tree_occl))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted_lanes() as (lanes, launches):
+        t0 = time.perf_counter()
+        accum, _ = render(hp_scene, hp_camera, hp_opts, num_passes=2, ctx=hp_ctx, device=device)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    expect_k12(f"rank {rank} sharded", launches, lanes, 2)
+    out["sharded"] = {
+        "accum": accum.cpu(), "launches": launches, "lanes": list(lanes),
+        "ms_per_pass": dt * 1e3 / 2, "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "tree_bytes": tree_bytes(tree, tree_occl), "setup_s": setup_s, "scene_s": scene_s,
+        "triangles": int((tree.slot_tri >= 0).sum()), "nodes": tree.num_nodes,
+        "leaves": tree.num_chunks, "stack": tree.max_stack,
+    }
+    start_threads, threads = torch.get_num_threads(), {}
+    for n in (default_threads, start_threads):
+        torch.set_num_threads(n)
+        dt, _ = synced_ms(lambda: render(hp_scene, hp_camera, hp_opts, num_passes=2, ctx=hp_ctx,
+                                         device=device))
+        with timed_reduces() as calls:
+            render(hp_scene, hp_camera, hp_opts, num_passes=1, ctx=hp_ctx, device=device)
+        threads[n] = {"ms_per_pass": dt / 2, "reduce_ms": sum(c[0] for c in calls),
+                      "reduces": len(calls), "reduce_mb": sum(c[1] for c in calls) / 1e6}
+    torch.set_num_threads(start_threads)
+    out["sharded"].update(start_threads=start_threads, threads=threads)
+    del hp_ctx, pack, tree, tree_occl, accum, hp_scene
+
+    s_scene, s_cam, s_opts, s_ctx = step_setup(device)
+    out["dp_step"] = sharded_step(
+        f"rank {rank} dp step",
+        lambda opt: sharding.make_sharded_train_step(s_scene, s_cam, s_ctx, s_opts, target, mesh,
+                                                     opt),
+        s_scene, device, 1, 1)
+    return out
+
+
+def ranks_quad(target):
+    """Phase 23's four gloo ranks on a 2x2 ``(sp, dp)`` mesh: the Cornell
+    box at half width and one ``make_sharded_train_step_2d``."""
+    import torch
+    import torch.distributed as dist
+
+    from heatray_tpu_torch import cornell_box, orbit_camera
+    from heatray_tpu_torch.options import RenderOptions
+    from heatray_tpu_torch.parallel import sharding
+    from heatray_tpu_torch.render import integrator
+
+    device = torch.device(DEVICE)
+    rank = dist.get_rank()
+    mesh = sharding.make_mesh_2d(2, 2, device=device)
+    w, h = WIDTH // 2, HEIGHT // 2
+    opts = RenderOptions(width=w, height=h, max_render_passes=64, max_ray_depth=DEPTH)
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(w, h, distance=6.2, focal_length_mm=35.0).to(device)
+    ctx = integrator.make_context(opts, scene, device)
+    with counted_lanes() as (lanes, launches):
+        t0 = time.perf_counter()
+        merged = sharding.render_sharded_2d(scene, camera, ctx, opts, mesh, PASSES)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    expect_k12(f"rank {rank} sp dp", launches, lanes, PASSES // 2)
+    out = {"sp_dp": {"accum": merged.cpu(), "launches": launches, "lanes": list(lanes),
+                     "ms": dt * 1e3}}
+    s_scene, s_cam, s_opts, s_ctx = step_setup(device)
+    out["2d_step"] = sharded_step(
+        f"rank {rank} 2d step",
+        lambda opt: sharding.make_sharded_train_step_2d(s_scene, s_cam, s_ctx, s_opts, target,
+                                                        mesh, opt),
+        s_scene, device, 1, 1)
+    return out
+
+
+def thread_ms(threads) -> str:
+    """The sharded pass by host thread count, for the log."""
+    return "; ".join(
+        f"at {n} thread(s) {t['ms_per_pass']:.3f} ms/pass, gloo reductions {t['reduce_ms']:.3f} "
+        f"ms in one pass ({t['reduces']} calls, {t['reduce_mb']:.2f} MB)"
+        for n, t in threads.items())
+
+
+def check_step(label, got, ref):
+    """A rank's step against the one-device step: loss and every gradient
+    within STEP_TOL of the key's largest |g|."""
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not loss_err <= STEP_TOL:
+        raise AssertionError(f"{label}: loss {got['loss']!r} against {ref['loss']!r}")
+    parts = []
+    for k, want in ref["grads"].items():
+        scale = float(want.abs().max())
+        e = float((got["grads"][k] - want).abs().max()) / max(scale, 1e-30)
+        if scale == 0.0 or not e <= STEP_TOL:
+            raise AssertionError(f"{label}: gradient {k} off by {e} of the largest |g| {scale}")
+        parts.append(f"{k} {e:.3g} of {scale:.4g}")
+    log(f"[multi] {label}: loss {got['loss']!r} against one device {ref['loss']!r} "
+        f"({loss_err:.3g}); gradients off by {', '.join(parts)}")
+
+
+def phase_multi(gen, err, card):
+    """Phase 23: multi-device rendering on the one card (see the module
+    docstring).  Returns K1's and K2's launches by scenario and rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from heatray_tpu_torch import (
+        cornell_box, frame_scene, high_poly, make_loss_fn, orbit_camera, render, resolve,
+        scene_aabb,
+    )
+    from heatray_tpu_torch.options import RenderOptions
+    from heatray_tpu_torch.parallel import sharding
+    from heatray_tpu_torch.render import integrator
+
+    t_phase = time.perf_counter()
+    device = torch.device(DEVICE)
+    k12 = {name: {} for name in K12}
+
+    def note(scenario, launches):
+        for name in K12:
+            k12[name][scenario] = launches if isinstance(launches, int) else [
+                x[name] for x in launches]
+
+    # One-device references, before any rank starts.
+    opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=64, max_ray_depth=DEPTH)
+    scene = cornell_box(light="both", with_spheres=True).to(device)
+    camera = orbit_camera(WIDTH, HEIGHT, distance=6.2, focal_length_mm=35.0).to(device)
+    ctx = integrator.make_context(opts, scene, device)
+    two = {}
+    ref_ms, (ref4, _) = synced_ms(lambda: render(
+        scene, camera, opts, num_passes=PASSES, ctx=ctx, device=device,
+        pass_callback=lambda i, a: two.setdefault(i, a.clone()) if i == 1 else None))
+    ref2 = two[1]
+
+    # 1. render_sharded over a one-rank NCCL group, in this process.
+    store = Path(tempfile.mkdtemp(dir=REPO / "build"))
+    sharding.initialize_distributed(f"file://{store}/nccl", 1, 0, backend="nccl",
+                                    device=device, timeout_s=MULTI_TIMEOUT)
+    try:
+        mesh = sharding.make_mesh(1, device=device)
+        with counted_lanes() as (lanes, launches):
+            acc = sharding.render_sharded(scene, camera, ctx, opts, mesh, 2)
+        dt, _ = synced_ms(lambda: sharding.render_sharded(scene, camera, ctx, opts, mesh, 2))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store)
+    expect_k12("nccl render_sharded", launches, lanes, 2)
+    if backend != "nccl" or not torch.equal(acc, ref2):
+        d = (acc - ref2).abs()
+        raise AssertionError(f"one-rank {backend} render_sharded differs from render: "
+                             f"{int((d > 0).sum())} values, max {float(d.max())}")
+    note("nccl_rank_rows", launches["closest_wide"])
+    log(f"[multi] render_sharded over a one-rank NCCL group, {WIDTH}x{HEIGHT} depth {DEPTH}, "
+        f"2 passes: equal to render bit for bit; a second call {dt / 2:.3f} ms/pass with the "
+        f"gather, against render's {ref_ms / PASSES:.3f} ms/pass over {PASSES} passes; "
+        f"launches {launches}; card {card}")
+    del ctx, acc, two
+
+    hp_scene = high_poly().to(device)
+    hp_camera = frame_scene(scene_aabb(hp_scene.geometry), WIDTH, HEIGHT, theta=0.35).to(device)
+    hp_opts = dataclasses.replace(opts, intersect_backend="wide")
+    t0 = time.perf_counter()
+    hp_ctx = integrator.make_context(hp_opts, hp_scene, device)
+    torch.cuda.synchronize()
+    mono = hp_ctx.accel_pack
+    mono_bytes, mono_s = tree_bytes(mono.wide, mono.wide_occl), time.perf_counter() - t0
+    hp_ms, (hp_ref, _) = synced_ms(lambda: render(hp_scene, hp_camera, hp_opts, num_passes=2,
+                                                   ctx=hp_ctx, device=device))
+    hp_ref = resolve(hp_ref)
+    del hp_ctx, mono, hp_scene
+
+    half = RenderOptions(width=WIDTH // 2, height=HEIGHT // 2, max_render_passes=64,
+                         max_ray_depth=DEPTH)
+    ref_half, _ = render(scene, orbit_camera(WIDTH // 2, HEIGHT // 2, distance=6.2,
+                                             focal_length_mm=35.0).to(device),
+                         half, num_passes=PASSES, device=device)
+
+    target = np.random.default_rng(SEED + 23).uniform(0.0, 1.0, (STEP_H, STEP_W, 3)).astype(
+        np.float32)
+    s_scene, s_cam, s_opts, s_ctx = step_setup(device)
+    step_refs = {}
+    for key, passes in (("dp", 1), ("2d", 2)):
+        p = step_params(s_scene, device)
+        loss = make_loss_fn(s_scene, s_cam, s_ctx, s_opts, target, num_passes=passes)(
+            p, 1 * passes)
+        loss.backward()
+        step_refs[key] = {"loss": float(loss.detach()),
+                          "grads": {k: v.grad.cpu() for k, v in p.items()}}
+    del s_ctx, scene
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[multi] one-device references in {time.perf_counter() - t_phase:.1f} s: high_poly's "
+        f"monolithic leaf-32 context {mono_s:.1f} s, {hp_ms / 2:.3f} ms/pass over 2 passes "
+        f"through \"wide\"; card {card}")
+
+    # 2-4. gloo ranks sharing the card.
+    pair = run_ranks("rows, sharded, dp step", ranks_pair, 2, target, torch.get_num_threads())
+    for r, out in enumerate(pair):
+        for name, e in out["err"].items():
+            err[name] = max(err[name], e)
+        rows = out["rows"]
+        if not torch.equal(rows["accum"], ref4.cpu()):
+            d = (rows["accum"] - ref4.cpu()).abs()
+            raise AssertionError(f"rank {r}: gathered rows differ from render: "
+                                 f"{int((d > 0).sum())} values, max {float(d.max())}")
+    note("gloo_2_ranks_rows", [out["rows"]["launches"] for out in pair])
+    log(f"[multi] render_sharded, 2 gloo ranks of {HEIGHT // 2} rows on one card, {WIDTH}x"
+        f"{HEIGHT} depth {DEPTH}, {PASSES} passes (sorted, gated): gathered image equal to "
+        f"render bit for bit on each rank; ms/pass per rank over a second call (with the "
+        f"gather) {[round(o['rows']['ms_per_pass'], 3) for o in pair]}, against one device's "
+        f"{ref_ms / PASSES:.3f}; gated lanes per rank "
+        f"{[o['rows']['lanes'] for o in pair]}; card {card}")
+
+    sh = [out["sharded"] for out in pair]
+    if not torch.equal(sh[0]["accum"], sh[1]["accum"]):
+        raise AssertionError("the two ranks' sharded images differ")
+    compare_images("high_poly sharded (2 gloo ranks)", resolve(sh[0]["accum"]).to(device),
+                   hp_ref, "one-device wide")
+    note("gloo_2_ranks_sharded", [s["launches"] for s in sh])
+    for r, s in enumerate(sh):
+        log(f"[multi] high_poly \"sharded\", rank {r} of 2 on one card: {s['triangles']} "
+            f"triangles, {s['nodes']} nodes, {s['leaves']} leaves, stack {s['stack']}; scene "
+            f"{s['scene_s']:.1f} s, context (the forest's host build) {s['setup_s']:.1f} s; "
+            f"{s['ms_per_pass']:.3f} ms/pass over 2 passes at {s['start_threads']} host "
+            f"thread(s); {thread_ms(s['threads'])}; peak memory "
+            f"{s['peak_mib']:.1f} MiB; tree bytes {s['tree_bytes']} against the monolithic "
+            f"leaf-32 trees' {mono_bytes} ({s['tree_bytes'] / mono_bytes:.3f}); launches "
+            f"{s['launches']}; gated lanes {s['lanes']}; card {card}")
+    for r, out in enumerate(pair):
+        check_step(f"make_sharded_train_step, rank {r} of 2", out["dp_step"], step_refs["dp"])
+    note("gloo_2_ranks_dp_step", [out["dp_step"]["launches"] for out in pair])
+    del pair, sh, hp_ref
+
+    quad = run_ranks("(sp 2, dp 2) render and 2d step", ranks_quad, 4, target)
+    for r, out in enumerate(quad):
+        m = out["sp_dp"]["accum"]
+        diff = float((m - ref_half.cpu()).abs().max())
+        if not diff <= SP_TOL or not torch.equal(m[3], torch.full_like(m[3], float(PASSES))):
+            raise AssertionError(f"rank {r}: (sp, dp) merge off the serial passes by {diff}")
+        check_step(f"make_sharded_train_step_2d, rank {r} of 4", out["2d_step"],
+                   step_refs["2d"])
+    note("gloo_4_ranks_sp_dp", [out["sp_dp"]["launches"] for out in quad])
+    note("gloo_4_ranks_2d_step", [out["2d_step"]["launches"] for out in quad])
+    log(f"[multi] render_sharded_2d, (sp 2, dp 2) gloo ranks on one card, {WIDTH // 2}x"
+        f"{HEIGHT // 2} depth {DEPTH}, {PASSES} passes: merged image within {SP_TOL} of the "
+        f"serial passes on each rank, alpha {PASSES}; the call's ms per rank, with its first "
+        f"collectives, {[round(o['sp_dp']['ms'], 3) for o in quad]}; card {card}")
+    log(f"[multi] phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    return k12
+
+
 def main() -> int:
     import torch
 
@@ -2804,6 +3274,13 @@ def main() -> int:
             entry["interactive_launches"] = n // 9 if n % 9 == 0 else n / 9  # a block pass
             entry["interactive_launches_nine_passes"] = n
             entry["interactive"] = interactive
+            entry["max_abs_err"] = err[entry["name"]]
+
+    # --- 23. multi-device on the one card ------------------------------------
+    multi = phase_multi(gen, err, card)
+    for entry in kernels:
+        if entry["name"] in multi:
+            entry["multi_launches"] = multi[entry["name"]]
             entry["max_abs_err"] = err[entry["name"]]
 
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")

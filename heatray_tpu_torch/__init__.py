@@ -16,7 +16,10 @@ Scenes come from the built-ins (``BUILTIN_SCENES``), from model files
 session files (``io_utils.session``); ``scene.edit`` edits them,
 ``io_utils`` writes images (PNG, EXR, HDR) and ``cli`` drives it all from a
 command line; ``interactive`` and ``viewer`` serve the live preview and its
-edit loop over HTTP.  It imports torch and numpy, never jax.
+edit loop over HTTP; ``parallel`` renders and trains over several ranks of a
+``torch.distributed`` process group (pixel rows, sample slices) and holds
+the ``"sharded"`` backend's forest of trees, one per rank.  It imports torch
+and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera

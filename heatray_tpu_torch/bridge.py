@@ -95,6 +95,36 @@ def wide_bvh_from_arrays(
     )
 
 
+def sharded_wide_from_arrays(
+    arrays: dict, leaf_size: int, num_triangles: int, num_shards: int, accel: dict,
+    rank: int | None = None, device="cuda",
+):
+    """A ``parallel.geometry.ShardedWideBVH`` from the arrays of a
+    ``schedule="f32"`` ``build_sharded_wide`` (each field stacked on the
+    shard axis, padded to common shapes; padding nodes and chunks are
+    unreachable): every shard's tree, or with ``rank`` that shard's alone
+    (the forest a rank holds), each with block boxes made from the full
+    accel's ``tri_min``/``tri_max`` indexed by its global triangle ids, as
+    ``wide_bvh_from_arrays`` makes them."""
+    from .parallel.geometry import ShardedWideBVH
+
+    keep = range(num_shards) if rank is None else (rank,)
+    shards = [
+        wide_bvh_from_arrays({k: np.asarray(arrays[k])[i] for k in
+                              ("wbox", "wchild", "waxis", "w", "slot_tri", "wanchor")},
+                             leaf_size, num_triangles, accel, device) if i in keep else None
+        for i in range(num_shards)
+    ]
+    return ShardedWideBVH(
+        shards=tuple(shards),
+        slot_tri=torch.from_numpy(np.array(np.asarray(arrays["slot_tri"]), np.int32)).to(device),
+        slot_offset=torch.from_numpy(np.array(np.asarray(arrays["slot_offset"]), np.int32)
+                                     ).to(device),
+        leaf_size=int(leaf_size), num_triangles=int(num_triangles), num_shards=int(num_shards),
+        shard=rank,
+    )
+
+
 def tables_from_arrays(
     arrays: dict, num_sequences: int, sequence_length: int, device="cuda"
 ) -> SampleTables:

@@ -1,13 +1,12 @@
 """Render configuration (port of ``heatray_tpu.options``).
 
-``RenderOptions`` keeps the JAX package's field names and defaults.  Fields
-that choose a path the port does not have yet raise ``NotImplementedError``
-when set away from what it supports; they are never silently ignored.
-Fields that only tune the TPU kernels have no effect here and change nothing
-the port computes: ``wide_ray_tile`` and ``stream_ray_tile`` (each kernel
-fixes its own group of rays: a thread or a warp),
-``wide_precision`` (every kernel is exact float32), ``pallas_ray_tile``,
-``tri_chunk``, ``ray_block``, ``sort_impl`` and ``unroll_bounces``.
+``RenderOptions`` keeps the JAX package's field names and defaults, and
+every field the JAX package takes is ported.  Fields that only tune the
+TPU kernels have no effect here and change nothing the port computes:
+``wide_ray_tile`` and ``stream_ray_tile`` (each kernel fixes its own group
+of rays: a thread or a warp), ``wide_precision`` (every kernel is exact
+float32), ``pallas_ray_tile``, ``tri_chunk``, ``ray_block``, ``sort_impl``
+and ``unroll_bounces``.
 ``remat_bounces`` changes only what a backward keeps: under autograd each
 bounce's shading is recomputed in the backward instead of kept (values and
 gradients are the same).  ``wide_leaf_math`` and ``stream_leaf_math`` ("mxu" or
@@ -18,6 +17,10 @@ can move a t by an ulp.  ``interactive_block`` traces one pixel of each
 3x3 block a pass, block ``k % 9`` with sample index ``k // 9``
 (``render.integrator.render_pass``); ``ms_impl`` "lut" reads the packed
 multiscatter table instead of evaluating its fit (``render.multiscatter``).
+``image_height`` is the full image's height when the options describe one
+rank's rows of a row-sharded image (``parallel.sharding``), and
+``intersect_backend="sharded"`` traverses a forest of wide trees, one per
+rank (``parallel.geometry``).
 """
 
 from __future__ import annotations
@@ -30,8 +33,8 @@ import torch
 from .ops.wide_bvh import LEAF_MATHS
 
 # ``intersect_backend``: "xla" is the exact brute force over every triangle
-# (``ops.intersect``, no kernel, as in the JAX package); "sharded" is not
-# ported yet.
+# (``ops.intersect``, no kernel, as in the JAX package); "sharded" needs a
+# context made with a mesh (``make_context(..., mesh=...)``).
 BACKENDS = ("auto", "wide", "stream", "bvh", "pallas", "xla", "sharded")
 
 
@@ -116,31 +119,28 @@ class RenderOptions:
             raise ValueError(f"RenderOptions.intersect_backend must be one of {BACKENDS}")
         if self.ms_impl not in ("fit", "lut"):
             raise ValueError("RenderOptions.ms_impl must be 'fit' or 'lut'")
-        unported = {
-            "intersect_backend": self.intersect_backend == "sharded",
-            "image_height": self.image_height is not None,
-        }
-        for name, bad in unported.items():
-            if bad:
-                raise NotImplementedError(
-                    f"RenderOptions.{name}={getattr(self, name)!r} is not ported yet"
-                )
+        if self.image_height is not None and self.image_height < self.height:
+            raise ValueError("RenderOptions.image_height must be at least height")
 
 
 @dataclasses.dataclass
 class FrameGlobals:
-    """Per-pass values: the sample index and the firefly clamp."""
+    """Per-pass values: the sample index, the firefly clamp and the global
+    row of the pass's row 0 (0 unless it renders one rank's rows of a
+    row-sharded image)."""
 
     sample_index: int
     max_channel_value: torch.Tensor
+    row_offset: int = 0
 
     @classmethod
     def create(cls, sample_index: int = 0, max_channel_value: float = 3.14159265,
-               device=None):
+               device=None, row_offset: int = 0):
         # Default clamp is pi (``PassGenerator.h:64``).
         return cls(
             sample_index=int(sample_index),
             max_channel_value=torch.tensor(
                 max_channel_value, dtype=torch.float32, device=device
             ),
+            row_offset=int(row_offset),
         )

@@ -24,7 +24,13 @@ Backends, on the card and the CPU alike (``intersect_backend``):
 - ``"pallas"``: no tree, ``pallas_tri_chunk``-triangle chunks culled by
   their boxes (``csrc/chunks.cu``);
 - ``"xla"``: no tree and no kernel, the exact brute force over every
-  triangle (``ops/intersect.py``), as the JAX package's backend of that name.
+  triangle (``ops/intersect.py``), as the JAX package's backend of that name;
+- ``"sharded"``: host-sharded geometry, a forest of ``"wide"`` trees, one per
+  Morton-contiguous piece of the triangles, each held by one rank of a mesh
+  axis (``parallel/geometry.py``): every rank traverses the whole wavefront
+  against its own tree with K1/K2, and the results are reduced over the
+  axis, so every rank shades the same wavefront.  A context made with a mesh
+  (``make_context(..., mesh=...)``) holds it.
 
 A context made without a scene is the rebuild mode: every pass rebuilds the
 Woop rows, the chunk packs and the shading table from the scene it is given
@@ -32,9 +38,16 @@ and traces them through the chunk kernels, whatever the backend.  The
 wide-BVH backends return slots and shade from a table in slot order; the
 others return triangle ids and shade from one in triangle order.
 
+A pass may render one rank's rows of a row-sharded image
+(``parallel.sharding``): ``options.height`` is then the rank's row count,
+``options.image_height`` the image's, and ``frame.row_offset`` the global
+row of the rank's row 0; raygen, the pixel cone and the block mode read the
+global rows.  The per-pixel sample tables are then the rank's rows of the
+full image's tables.
+
 With ``interactive_block`` pass k traces only the pixels (x, y) with
-``x % 3 == k % 9 % 3`` and ``y % 3 == k % 9 // 3``, at sample index
-``k // 9`` (``PassGenerator.cpp:372-384``): its wavefront holds those
+``x % 3 == k % 9 % 3`` and ``y % 3 == k % 9 // 3`` (y the global row), at
+sample index ``k // 9`` (``PassGenerator.cpp:372-384``): its wavefront holds those
 pixels' lanes alone, and the accumulation's channel 3 counts a pass on
 them only, so nine block passes equal one full pass.
 
@@ -139,8 +152,10 @@ class AccelPack:
     the backend returns, the backend and, for the wide trees, the leaf math
     their leaves were built for.  Only the backend's pair of structures is
     set: ``wide``/``wide_occl`` (``"wide"``, ``"stream"``),
-    ``bvh``/``bvh_occl``, ``packed``/``packed_occl`` or, for ``"xla"``, the
-    Woop rows themselves and ``accel_occl``.  ``shade_table`` is None where
+    ``bvh``/``bvh_occl``, ``packed``/``packed_occl``, for ``"xla"`` the
+    Woop rows themselves and ``accel_occl``, or for ``"sharded"`` the
+    forests ``swide``/``swide_occl`` (``parallel.geometry.ShardedWideBVH``)
+    with the ``mesh`` and its ``shard_axis``.  ``shade_table`` is None where
     each pass builds its own (``static_shading=False``)."""
 
     accel: WoopAccel
@@ -154,17 +169,22 @@ class AccelPack:
     bvh_occl: BVH | None = None
     packed: WoopPallas | None = None
     packed_occl: WoopPallas | None = None
+    swide: object | None = None  # parallel.geometry.ShardedWideBVH
+    swide_occl: object | None = None
+    mesh: object | None = None  # parallel.sharding.Mesh
+    shard_axis: str = "dp"
 
     @property
     def route(self) -> str:
-        """The key of ``_INTERSECTORS``: the backend, with ``/vpu`` for a
+        """The key of ``_INTERSECTORS`` (``"sharded"`` has none: its
+        intersectors close over the mesh): the backend, with ``/vpu`` for a
         wide tree built for the transposed leaf math."""
         return self.backend + ("/vpu" if self.leaf_math == "vpu" else "")
 
     def structures(self):
         """(closest-hit structure, occluder structure) of the backend."""
         name = {"wide": "wide", "stream": "wide", "bvh": "bvh", "pallas": "packed",
-                "xla": "accel"}[self.backend]
+                "xla": "accel", "sharded": "swide"}[self.backend]
         return getattr(self, name), getattr(self, name + "_occl")
 
 
@@ -235,18 +255,38 @@ def rebuild_pack(scene: Scene, options: RenderOptions) -> AccelPack:
                      backend="pallas", packed=packed, packed_occl=packed_occl)
 
 
-def build_accel(scene: Scene, options: RenderOptions, static_shading: bool = True) -> AccelPack:
+def build_accel(scene: Scene, options: RenderOptions, static_shading: bool = True,
+                mesh=None, shard_axis: str = "dp") -> AccelPack:
     """Build the acceleration state on the scene's device (the trees
     themselves are built on the host).  With ``static_shading=False`` the
     pack holds no shading table: each pass builds one from its scene
-    (``pass_pack``), so material gradients reach it."""
+    (``pass_pack``), so material gradients reach it.
+
+    ``intersect_backend="sharded"`` needs a ``mesh``
+    (``parallel.sharding.make_mesh``): one wide tree of ``wide_leaf_size`` is
+    built per Morton-contiguous piece of the triangles, one piece per rank of
+    ``mesh[shard_axis]``, and this rank keeps its own on the scene's
+    device."""
     backend = _select_backend(options, scene.geometry.num_triangles)
+    if backend == "sharded" and mesh is None:
+        raise ValueError('intersect_backend="sharded" needs make_context(..., mesh=...)')
     if backend == "pallas":
         pack = rebuild_pack(scene, options)
         return pack if static_shading else dataclasses.replace(pack, shade_table=None)
     accel = build_woop(scene.geometry.positions, scene.geometry.indices)
     include = _occluder_mask(scene).cpu().numpy() if scene.has_alpha_mask else None
-    if backend == "xla":
+    if backend == "sharded":
+        from ..parallel.geometry import build_sharded_wide, place_sharded_wide
+
+        d, dev = mesh.shape[shard_axis], accel.w.device
+        swide = place_sharded_wide(build_sharded_wide(accel, d, options.wide_leaf_size),
+                                   mesh, shard_axis, dev)
+        swide_occl = swide if include is None else place_sharded_wide(
+            build_sharded_wide(accel, d, options.wide_leaf_size, include=include),
+            mesh, shard_axis, dev)
+        pack = AccelPack(accel=accel, shade_table=None, backend=backend, swide=swide,
+                         swide_occl=swide_occl, mesh=mesh, shard_axis=shard_axis)
+    elif backend == "xla":
         pack = AccelPack(accel=accel, shade_table=None, backend=backend,
                          accel_occl=_occluder_accel(accel, scene) if scene.has_alpha_mask
                          else accel)
@@ -278,6 +318,9 @@ def pass_pack(scene: Scene, pack: AccelPack, with_tail: bool = False) -> AccelPa
     table = build_shade_table(scene, pack.accel, with_tail)
     if pack.backend in ("wide", "stream"):
         table = slot_order_table(table, pack.wide.slot_tri)
+    elif pack.backend == "sharded":
+        # The forest's global slots: shard i's base is ``slot_offset[i]``.
+        table = slot_order_table(table, pack.swide.slot_tri.reshape(-1))
     return dataclasses.replace(pack, shade_table=table)
 
 
@@ -299,11 +342,14 @@ def _wide_leaf(options: RenderOptions, backend: str):
 
 
 def make_context(options: RenderOptions, scene: Scene | None = None, device="cuda",
-                 static_shading: bool = True) -> RenderContext:
+                 static_shading: bool = True, mesh=None,
+                 shard_axis: str = "dp") -> RenderContext:
     """Sample tables and, given a scene (already on ``device``), its
     acceleration state; without a scene, the rebuild mode (see the module
     docstring).  ``static_shading=False`` bakes no shading table, so that
-    material parameters take gradients (``build_accel``)."""
+    material parameters take gradients (``build_accel``).  ``mesh`` and
+    ``shard_axis``: the ranks that share the ``"sharded"`` backend's forest
+    (``build_accel``); every rank of the axis makes its context together."""
     device = _device(device)
     return RenderContext(
         tables=build_tables(
@@ -314,7 +360,8 @@ def make_context(options: RenderOptions, scene: Scene | None = None, device="cud
             bokeh_shape=options.bokeh_shape,
             device=device,
         ),
-        accel_pack=(build_accel(scene, options, static_shading=static_shading)
+        accel_pack=(build_accel(scene, options, static_shading=static_shading, mesh=mesh,
+                                shard_axis=shard_axis)
                     if scene is not None else None),
         device=device,
         ms_lut=multiscatter_lut_packed(device),
@@ -331,21 +378,25 @@ def _mat3_apply(m, v: Vec3) -> Vec3:
 
 
 def generate_primary_rays(
-    camera: CameraParams, tables: SampleTables, options: RenderOptions, sample_index: int
+    camera: CameraParams, tables: SampleTables, options: RenderOptions, sample_index: int,
+    row_offset: int = 0,
 ):
     """Camera rays (``perspective.rlsl:59-93``): pixel jitter from the
     pixel's QMC stream and the thin-lens aperture offset.  Returns
-    (origin, direction, seq_id, seq_off) as flat (H * W,) tensors."""
+    (origin, direction, seq_id, seq_off) as flat (H * W,) tensors.
+    ``row_offset``: the global row of row 0 in a row-sharded image; the
+    camera maps rows over the full ``image_height``."""
     h, w = options.height, options.width
+    full_h = options.image_height or options.height
     dev = tables.pixel_sequence_id.device
     seq_id = tables.pixel_sequence_id.reshape(-1)
     seq_off = tables.pixel_sequence_offset.reshape(-1)
     px = torch.arange(w, dtype=torch.float32, device=dev).repeat(h)
-    py = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w)
+    py = torch.arange(h, dtype=torch.float32, device=dev).repeat_interleave(w) + float(row_offset)
 
     ju, jv = make_sequence_lookup(tables, options.sample_mode)(seq_id, sample_index + seq_off)
     u = (px + ju) / w
-    v = (py + jv) / h
+    v = (py + jv) / full_h
 
     # Image-plane direction, 1 unit in front of the camera; row 0 is the
     # image bottom (``perspective.rlsl:72-74``).
@@ -448,18 +499,20 @@ class ShadowRays:
 def pixel_cone(scene: Scene, camera: CameraParams, options: RenderOptions):
     """The angular width of a pixel's ray cone, whose width at a hit picks
     the texture's mip levels, or None where no cone is traced: a scene
-    without textures, or ``use_mipmaps`` off (``integrator.py:872-874``)."""
+    without textures, or ``use_mipmaps`` off (``integrator.py:872-874``).
+    Its width is over the full image's rows (``image_height``)."""
     if not (options.use_mipmaps and scene.has_textures):
         return None
-    return 2.0 * camera.fov_tan / float(options.height)
+    return 2.0 * camera.fov_tan / float(options.image_height or options.height)
 
 
 def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions,
-                sample_index: int, cone: bool = False) -> Paths:
+                sample_index: int, cone: bool = False, row_offset: int = 0) -> Paths:
     """Camera rays with unit weight, all live, seeing the environment;
-    ``cone``: with a zero ``path_len`` (see ``pixel_cone``)."""
+    ``cone``: with a zero ``path_len`` (see ``pixel_cone``); ``row_offset``:
+    see ``generate_primary_rays``."""
     org, direction, seq_id, seq_off = generate_primary_rays(
-        camera, ctx.tables, options, sample_index
+        camera, ctx.tables, options, sample_index, row_offset
     )
     r = options.height * options.width
     return Paths(
@@ -479,7 +532,14 @@ def start_paths(camera: CameraParams, ctx: RenderContext, options: RenderOptions
 def _make_intersectors(pack: AccelPack):
     """(closest, any) over the pack's structures: ``closest(org, dir, t_min)``
     gives (t, id, hit) with the ids of ``pack.shade_table``,
-    ``any(org, dir, t_min, t_max)`` the blocked mask."""
+    ``any(org, dir, t_min, t_max)`` the blocked mask.  For ``"sharded"``
+    both reduce over the pack's mesh axis: every rank of it must call them
+    together, on the same rays."""
+    if pack.backend == "sharded":
+        from ..parallel.geometry import make_sharded_wide_intersectors
+
+        return make_sharded_wide_intersectors(pack.swide, pack.swide_occl, pack.mesh,
+                                              pack.shard_axis)
     closest_k, any_k = _INTERSECTORS[pack.route]
     tree, tree_occl = pack.structures()
 
@@ -675,11 +735,12 @@ def _bounce_modes(ctx: RenderContext, options: RenderOptions, r: int):
     return sort_on, gate_on and options.gate_segments > 1 and r > 1
 
 
-def block_pixels(block: int, h: int, w: int, device) -> torch.Tensor:
+def block_pixels(block: int, h: int, w: int, device, row_offset: int = 0) -> torch.Tensor:
     """(N,) int64 ids, in row order, of the pixels (x, y) of 3x3 block
-    coordinate ``block``: ``x % 3 == block % 3``, ``y % 3 == block // 3``
-    (``perspective.rlsl:42-57``)."""
-    ys = torch.arange(block // 3, h, 3, device=device)
+    coordinate ``block``: ``x % 3 == block % 3``, ``(y + row_offset) % 3 ==
+    block // 3`` (``perspective.rlsl:42-57``; the block's rows are global
+    rows of a row-sharded image)."""
+    ys = torch.arange((block // 3 - row_offset) % 3, h, 3, device=device)
     xs = torch.arange(block % 3, w, 3, device=device)
     return (ys[:, None] * w + xs[None, :]).reshape(-1)
 
@@ -712,7 +773,8 @@ def render_pass(
     builds the pass's shading table here, from ``scene``.  With
     ``interactive_block`` the pass traces block ``frame.sample_index % 9``
     at sample index ``frame.sample_index // 9`` (see the module
-    docstring)."""
+    docstring).  ``frame.row_offset``: the global row of row 0 when the pass
+    renders one rank's rows of a row-sharded image."""
     pack = ctx.accel_pack if ctx.accel_pack is not None else rebuild_pack(scene, options)
     pack = pass_pack(scene, pack, texture_tail(scene, options))
     cone = pixel_cone(scene, camera, options)
@@ -722,8 +784,9 @@ def render_pass(
         # Raygen and shading both draw at the block pass's sample index.
         block = frame.sample_index % 9
         frame = dataclasses.replace(frame, sample_index=frame.sample_index // 9)
-        pixels = block_pixels(block, h, w, ctx.device)
-    paths = start_paths(camera, ctx, options, frame.sample_index, cone=cone is not None)
+        pixels = block_pixels(block, h, w, ctx.device, frame.row_offset)
+    paths = start_paths(camera, ctx, options, frame.sample_index, cone=cone is not None,
+                        row_offset=frame.row_offset)
     if pixels is not None:
         # The block's lanes alone, each keeping its pixel id in ``pix``.
         paths = paths.map(lambda p: p.index_select(0, pixels))

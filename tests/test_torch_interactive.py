@@ -386,7 +386,8 @@ def test_xla_queries_match_jax():
 _NOT_IN_PORT = {"render": {"multiscatter_lut_jnp"}}
 
 
-@pytest.mark.parametrize("sub", ["scene", "render", "sampling", "ops", "utils", "diff", "post"])
+@pytest.mark.parametrize("sub", ["scene", "render", "sampling", "ops", "utils", "diff", "post",
+                                 "parallel"])
 def test_public_names_match_jax(sub):
     ref = importlib.import_module(f"heatray_tpu.{sub}").__all__
     port = importlib.import_module(f"heatray_tpu_torch.{sub}")

@@ -50,8 +50,8 @@ def test_imports_without_jax():
 
 _OPTION_CASES = [
     ("intersect_backend", "xla", True),
-    ("intersect_backend", "sharded", False),
-    ("image_height", 540, False),
+    ("intersect_backend", "sharded", True),
+    ("image_height", 540, True),
     ("interactive_block", True, True),
     ("ms_impl", "lut", True),
 ]
@@ -60,8 +60,9 @@ _OPTION_CASES = [
 @pytest.mark.parametrize("field, value, ported", _OPTION_CASES,
                          ids=[f"{f}-{v}" for f, v, _ in _OPTION_CASES])
 def test_unported_options_raise(field, value, ported):
-    """The multi-device options still raise; the "xla" backend, the 3x3
-    block mode and the multiscatter table have been ported and are taken."""
+    """Every option of the JAX package has been ported and is taken: the
+    multi-device ones, the "xla" backend, the 3x3 block mode and the
+    multiscatter table."""
     if ported:
         assert getattr(RenderOptions(**{field: value}), field) == value
         return
