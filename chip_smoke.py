@@ -6,7 +6,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the kernels of ``heatray_tpu_torch/csrc``, one ``nvcc`` per
-source, started together, and then:
+source, and the host library ``csrc/native.cpp`` (g++), all started
+together, and then:
 
 1. checks K1 and K2 (``wide_bvh.cu``) against their plain PyTorch versions
    on the card: on the Cornell box, each kernel launched at the shapes a
@@ -181,7 +182,19 @@ source, started together, and then:
    edited triangles; a render checkpointed after 2 passes
    (``save_render_state``) and resumed for 2 more must equal the 4 straight
    passes bit for bit; and ``render.png`` is written by ``save_ldr`` and
-   read back with PIL blocked;
+   read back with PIL blocked.  The host library (``native.py``, built by
+   g++ from ``csrc/native.cpp``): on ``high_poly`` the leaf-32 tree, the
+   leaf-128 tree and a leaf-128 occluder tree over a seeded include mask
+   are built by ``build_topology`` and by its numpy twin
+   ``build_topology_plain`` and must be equal field for field; Morton order
+   must equal ``morton_order_plain``, and the normals must lie within
+   NATIVE_NORMAL_TOL of ``compute_vertex_normals_plain``; the host seconds
+   of each are logged with the host CPU's model.  ``load_model_scene`` and
+   ``make_context`` of ``hp.ply``, ``hp.obj`` and ``hp.glb``, and the PLY's
+   ``cli render``, are split into their host steps (``HostSplit``: parse,
+   normals, merge, Morton order, tree build, wide collapse and packing,
+   block boxes, shading table, sample and multiscatter tables, passes,
+   output);
 22. the live preview and edit loop: ``interactive.InteractiveRenderer`` with
    ``interactive_block`` on the Cornell box at 1920x1080, depth 4, served
    by ``viewer.ProgressiveViewer`` on 127.0.0.1, port 0.  K1/K2 against
@@ -197,7 +210,8 @@ source, started together, and then:
    environment; the camera; the display; a transform; the options, to depth
    3 and ``ms_impl="lut"``; an environment and a scene loaded from files),
    each checked to take effect and to reset (``post`` not), with the time
-   from the request to the published frame; after the material and the
+   from the request to the published frame (the transform's split into
+   its host steps by ``HostSplit``, as in 21); after the material and the
    transform edits the pass must equal a fresh context's bit for bit, and
    a removal the pass before the light's add;
 23. multi-device rendering (``heatray_tpu_torch.parallel``) on the one card,
@@ -2057,6 +2071,170 @@ def counted_cli(argv, names):
     return launches
 
 
+NATIVE_NORMAL_TOL = 1e-6  # the C++ normals against numpy's summation order
+NATIVE_MASK_SHARE = 0.7  # the triangles a seeded occluder mask keeps
+
+
+def host_cpu() -> str:
+    """The host CPU's model (its name, vendor, family, model and stepping
+    as the first processor of ``/proc/cpuinfo`` gives them), architecture
+    and the cores this process may use."""
+    import platform
+
+    keys = ("model name", "vendor_id", "cpu family", "model", "stepping", "CPU implementer",
+            "CPU part")
+    found = {}
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the first processor's block only
+                key, _, value = line.partition(":")
+                if key.strip() in keys:
+                    found[key.strip()] = value.strip()
+    model = "; ".join(f"{k} {found[k]}" for k in keys if k in found) or "no /proc/cpuinfo"
+    return f"{model}; {platform.machine()}, {len(os.sched_getaffinity(0))} cores"
+
+
+class HostSplit:
+    """Seconds of each host step under ``with HostSplit() as split:``, each
+    step's own (less the steps it calls).  Every point is a module's
+    function or a class's method that the port looks up at call time; the
+    card is synchronised around each step, so a step's device work counts
+    in it."""
+
+    POINTS = (
+        ("heatray_tpu_torch.scene.loaders", "load_gltf", "parse"),
+        ("heatray_tpu_torch.scene.geometry", "compute_vertex_normals", "normals"),
+        ("heatray_tpu_torch.scene.scene", "merge_meshes", "merge"),
+        ("heatray_tpu_torch.native", "morton_order", "Morton order"),
+        ("heatray_tpu_torch.render.integrator", "build_woop", "Woop rows"),
+        ("heatray_tpu_torch.native", "bvh_build", "tree build"),
+        ("heatray_tpu_torch.render.integrator", "build_wide_bvh", "wide collapse and packing"),
+        ("heatray_tpu_torch.ops.wide_bvh", "slot_boxes", "block boxes"),
+        ("heatray_tpu_torch.ops.wide_bvh", "leaf_blocks", "block boxes"),
+        ("heatray_tpu_torch.render.integrator", "pass_pack", "shading table"),
+        ("heatray_tpu_torch.render.integrator", "build_tables", "sample tables"),
+        ("heatray_tpu_torch.render.integrator", "multiscatter_lut_packed", "multiscatter table"),
+        ("heatray_tpu_torch.render.integrator", "render_pass", "passes"),
+        ("heatray_tpu_torch.cli", "_save", "output"),
+        ("heatray_tpu_torch.scene.edit", "apply_transform", "scene edit"),
+        ("heatray_tpu_torch.interactive", "InteractiveRenderer.poll_and_apply", "poll and apply"),
+        ("heatray_tpu_torch.interactive", "InteractiveRenderer.step", "passes"),
+        ("heatray_tpu_torch.interactive", "InteractiveRenderer.publish", "publish"),
+    )
+
+    def __init__(self):
+        self.seconds, self.calls, self._stack, self._saved = {}, {}, [], []
+
+    def _sync(self):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            self._sync()
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._sync()
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                if self._stack:
+                    self._stack[-1] += dt
+                self.seconds[label] = self.seconds.get(label, 0.0) + dt - inner
+                self.calls[label] = self.calls.get(label, 0) + 1
+        return timed
+
+    def __enter__(self):
+        import importlib
+
+        for module, attr, label in self.POINTS:
+            owner = importlib.import_module(module)
+            *path, name = attr.split(".")  # a module's function, or a class's method
+            for part in path:
+                owner = getattr(owner, part)
+            self._saved.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, self._wrap(label, getattr(owner, name)))
+        loaders = importlib.import_module("heatray_tpu_torch.scene.loaders")
+        self._loaders = dict(loaders._LOADERS)
+        for suffix, fn in self._loaders.items():
+            loaders._LOADERS[suffix] = self._wrap("parse", fn)
+        self._sync()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import importlib
+
+        self._sync()
+        self.total = time.perf_counter() - self.t0
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        importlib.import_module("heatray_tpu_torch.scene.loaders")._LOADERS.update(self._loaders)
+        return False
+
+    def line(self) -> str:
+        """``total: step seconds (calls), ..., rest``."""
+        parts = [f"{k} {v:.3f} s ({self.calls[k]})" for k, v in self.seconds.items()]
+        rest = self.total - sum(self.seconds.values())
+        return f"{self.total:.3f} s: {', '.join(parts)}, rest {rest:.3f} s"
+
+
+def native_checks(geo, card):
+    """The host library on ``geo`` (``high_poly``'s merged geometry, on the
+    CPU) against its numpy twins; logs the host seconds of each."""
+    import numpy as np
+
+    from heatray_tpu_torch import native
+    from heatray_tpu_torch.ops.bvh import build_topology, build_topology_plain
+    from heatray_tpu_torch.ops.intersect import build_woop
+    from heatray_tpu_torch.scene import geometry
+
+    def timed(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        return out, time.perf_counter() - t0
+
+    accel = build_woop(geo.positions, geo.indices)
+    tri_min, tri_max = accel.tri_min.numpy(), accel.tri_max.numpy()
+    t_count = tri_min.shape[1]
+    mask = np.random.default_rng(SEED).random(t_count) < NATIVE_MASK_SHARE
+    readings = []
+    for label, kw in (("leaf 32", {"leaf_size": 32}), ("leaf 128", {"leaf_size": 128}),
+                      (f"occluder leaf 128 ({int(mask.sum())} triangles)",
+                       {"leaf_size": 128, "include": mask})):
+        fast, t_fast = timed(build_topology, tri_min, tri_max, **kw)
+        plain, t_plain = timed(build_topology_plain, tri_min, tri_max, **kw)
+        differ = [f for f in ("nbox", "leaf_chunk", "skip", "slot_tri")
+                  if not np.array_equal(getattr(fast, f), getattr(plain, f))]
+        if differ:
+            raise AssertionError(f"high_poly {label}: build_topology and build_topology_plain "
+                                 f"differ in {differ}")
+        readings.append(f"{label} {t_fast:.4f} s against plain {t_plain:.4f} s "
+                        f"({fast.num_nodes} nodes, equal)")
+    pos, idx = geo.positions.numpy().T.copy(), geo.indices.numpy().T.copy()
+    order, t_fast = timed(native.morton_order, pos, idx)
+    order_plain, t_plain = timed(geometry.morton_order_plain, pos, idx)
+    if not np.array_equal(order, order_plain):
+        raise AssertionError("high_poly: native.morton_order differs from morton_order_plain")
+    readings.append(f"Morton order {t_fast:.4f} s against plain {t_plain:.4f} s (equal)")
+    normals, t_fast = timed(geometry.compute_vertex_normals, pos, idx)
+    normals_plain, t_plain = timed(geometry.compute_vertex_normals_plain, pos, idx)
+    diff = float(np.abs(normals - normals_plain).max())
+    if not diff <= NATIVE_NORMAL_TOL:
+        raise AssertionError(f"high_poly normals {diff} off the plain twin's")
+    readings.append(f"normals {t_fast:.4f} s against plain {t_plain:.4f} s (max |diff| "
+                    f"{diff:.3g}, {int((normals != normals_plain).sum())} of {normals.size} "
+                    f"components differ)")
+    log(f"[native] high_poly ({t_count} triangles), host seconds: {'; '.join(readings)}; "
+        f"host {host_cpu()}; card {card}")
+
+
 def phase_ingest(gen, err, card):
     """Phase 21: the ingest slice (see the module docstring).  Returns K1's,
     K2's, K3a's and K3b's launches in the two ``cli`` renders."""
@@ -2074,7 +2252,7 @@ def phase_ingest(gen, err, card):
     from heatray_tpu_torch.io_utils.png import read_png
     from heatray_tpu_torch.ops import wide_bvh
     from heatray_tpu_torch.ops.intersect import build_woop
-    from heatray_tpu_torch.options import FrameGlobals
+    from heatray_tpu_torch.options import FrameGlobals, RenderOptions
     from heatray_tpu_torch.post import PostProcessingParams, apply_post_pipeline
     from heatray_tpu_torch.render import integrator
     from heatray_tpu_torch.scene import export
@@ -2082,6 +2260,7 @@ def phase_ingest(gen, err, card):
     t_phase = time.perf_counter()
     device = torch.device(DEVICE)
     builtin = {"hp": high_poly(), "cornell": cornell_box(light="both", with_spheres=True)}
+    native_checks(builtin["hp"].geometry, card)
     aabb = scene_aabb(builtin["hp"].geometry)
     hp_orbit = [str(3.0 * 0.5 * float(np.linalg.norm(aabb[1] - aabb[0]))), "0", "0.35"]
     (REPO / "build").mkdir(exist_ok=True)
@@ -2094,11 +2273,21 @@ def phase_ingest(gen, err, card):
                  "hp.glb": lambda p, s: export.write_glb(p, s, texture=tex),
                  "cornell.obj": export.write_obj}
         loaded, load_s = {}, {}
+        split_opts = RenderOptions(width=WIDTH, height=HEIGHT, max_render_passes=PASSES,
+                                   max_ray_depth=DEPTH)
         for name, write in files.items():
             write(str(tmp / name), builtin[name.split(".")[0]])
-            t0 = time.perf_counter()
-            loaded[name] = load_model_scene(str(tmp / name))
-            load_s[name] = time.perf_counter() - t0
+            with HostSplit() as split:
+                loaded[name] = load_model_scene(str(tmp / name))
+            load_s[name] = split.total
+            if name.startswith("hp."):
+                with HostSplit() as ctx_split:
+                    split_ctx = integrator.make_context(split_opts, loaded[name].to(device),
+                                                        device)
+                log(f"[ingest] {name} host split: load_model_scene {split.line()}; "
+                    f"make_context ({split_ctx.accel_pack.backend!r}) {ctx_split.line()}; "
+                    f"host {host_cpu()}; card {card}")
+                del split_ctx
             ref = builtin[name.split(".")[0]]
             n, n_ref = loaded[name].geometry.num_triangles, ref.geometry.num_triangles
             if n != n_ref or not np.array_equal(sorted_triangles(loaded[name]),
@@ -2122,7 +2311,10 @@ def phase_ingest(gen, err, card):
             argv = ["render", "--scene", str(tmp / name), "--size", str(WIDTH), str(HEIGHT),
                     "--depth", str(DEPTH), "--passes", str(PASSES), "--env", INGEST_ENV,
                     "--orbit", *orbit, *extra]
-            launches = counted_cli([*argv, "--out", str(exr)], names)
+            with HostSplit() as split:
+                launches = counted_cli([*argv, "--out", str(exr)], names)
+            log(f"[ingest] {name} cli render ({WIDTH}x{HEIGHT}, {PASSES} passes, counted) host "
+                f"split {split.line()}; host {host_cpu()}; card {card}")
             scene, camera, opts = cli.build(cli.make_parser().parse_args(argv))
             scene, camera = scene.to(device), camera.to(device)
             ctx = integrator.make_context(opts, scene, device)
@@ -2435,15 +2627,20 @@ def phase_interactive(gen, err, card):
                 if r.pass_index == 0:
                     r.step()
                 before, index = r.accum.clone(), r.pass_index
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                post_edit(viewer, edit)
-                if r.poll_and_apply() != 1:
-                    raise AssertionError(f"{label}: the edit did not arrive")
-                r.step()
-                r.publish()
-                torch.cuda.synchronize()
-                frame_ms[label] = (time.perf_counter() - t0) * 1e3
+                split = HostSplit() if label == "transform" else contextlib.nullcontext()
+                with split:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    post_edit(viewer, edit)
+                    if r.poll_and_apply() != 1:
+                        raise AssertionError(f"{label}: the edit did not arrive")
+                    r.step()
+                    r.publish()
+                    torch.cuda.synchronize()
+                    frame_ms[label] = (time.perf_counter() - t0) * 1e3
+                if label == "transform":
+                    log(f"[interactive] transform edit to first frame, host split "
+                        f"{split.line()}; host {host_cpu()}; card {card}")
                 if not took():
                     raise AssertionError(f"{label}: the edit did not take effect")
                 resets = label != "post"
@@ -2942,9 +3139,12 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host_lib = pool.submit(cuda_build.build_host, "native")  # g++: the host library
         libs = list(pool.map(cuda_build.build, SOURCES))
-    log(f"[build] {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
+        host_lib = host_lib.result()
+    log(f"[build] {[lib.name for lib in libs]} and {host_lib.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "stack frame" in line:

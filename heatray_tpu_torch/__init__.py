@@ -18,8 +18,10 @@ session files (``io_utils.session``); ``scene.edit`` edits them,
 command line; ``interactive`` and ``viewer`` serve the live preview and its
 edit loop over HTTP; ``parallel`` renders and trains over several ranks of a
 ``torch.distributed`` process group (pixel rows, sample slices) and holds
-the ``"sharded"`` backend's forest of trees, one per rank.  It imports torch
-and numpy, never jax.
+the ``"sharded"`` backend's forest of trees, one per rank.  The host side of
+ingestion, the tree build, Morton order, vertex normals and the OBJ
+tokenizer, runs in C++ (``native``, ``csrc/native.cpp``, built by g++ at
+first use).  It imports torch and numpy, never jax.
 """
 
 from .camera import CameraParams, orbit_camera

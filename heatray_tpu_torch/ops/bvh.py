@@ -1,10 +1,12 @@
 """Binned-SAH binary BVH over triangle AABBs (port of ``heatray_tpu.ops.bvh``).
 
-``build_topology`` (host, numpy) flattens the tree in DFS preorder with skip
-pointers; leaves are fixed-size triangle chunks (``leaf_size`` slots, padded
-with -1).  ``wide_bvh.py`` collapses it into arity-8 nodes; ``pack_bvh``
-packs it as it is for the binary-BVH kernels (``traverse_pallas.py``), and
-``traverse_closest_numpy`` walks it one ray at a time as a test oracle.
+``build_topology`` (host, the port's C++ library ``native.py``) flattens the
+tree in DFS preorder with skip pointers; leaves are fixed-size triangle
+chunks (``leaf_size`` slots, padded with -1).  ``build_topology_plain`` is
+its numpy twin, for the tests.  ``wide_bvh.py`` collapses the tree into
+arity-8 nodes; ``pack_bvh`` packs it as it is for the binary-BVH kernels
+(``traverse_pallas.py``), and ``traverse_closest_numpy`` walks it one ray
+at a time as a test oracle.
 ``leaf_blocks`` gives any of these trees (and the chunk packs) the boxes of
 each leaf's runs of BLOCK slots, which the block-culled kernels cull by;
 the reference has none.
@@ -18,6 +20,7 @@ import sys
 import numpy as np
 import torch
 
+from .. import native
 from .intersect import WoopAccel
 
 # Past this depth the builder forces median splits, which bounds the tree
@@ -53,10 +56,27 @@ def build_topology(
     n_bins: int = 16,
     include: np.ndarray | None = None,
 ) -> BVHTopology:
-    """Binned-SAH build over triangle AABBs ``tri_min``/``tri_max`` (3, T).
+    """Binned-SAH build over triangle AABBs ``tri_min``/``tri_max`` (3, T),
+    in the host library (``native.bvh_build``).
 
     ``include``: optional (T,) bool; only these triangles enter the tree.
+    With none, the tree is one empty leaf whose box never passes a slab test.
     """
+    nbox, leaf_chunk, skip, slot_tri = native.bvh_build(
+        np.asarray(tri_min, np.float32), np.asarray(tri_max, np.float32),
+        None if include is None else np.asarray(include, bool), leaf_size, n_bins)
+    return BVHTopology(nbox=nbox, leaf_chunk=leaf_chunk, skip=skip, slot_tri=slot_tri,
+                       leaf_size=leaf_size)
+
+
+def build_topology_plain(
+    tri_min: np.ndarray,
+    tri_max: np.ndarray,
+    leaf_size: int = 64,
+    n_bins: int = 16,
+    include: np.ndarray | None = None,
+) -> BVHTopology:
+    """``build_topology`` in numpy: the same tree, field for field."""
     tri_min = np.asarray(tri_min, np.float32)
     tri_max = np.asarray(tri_max, np.float32)
     ids = np.arange(tri_min.shape[1], dtype=np.int32)

@@ -59,10 +59,11 @@ class Ranks:
                 for r in range(self.world)]
 
 
-def spawn(scenario, world: int, store_dir, *args, backend: str = "gloo", device="cpu",
+def spawn(scenario, world: int, store_dir, *args, backend: str = "gloo", device="cuda",
           timeout_s: float = 120.0, deadline_s: float | None = None) -> Ranks:
     """Start ``world`` ranks running ``scenario(*args)`` in a group of
-    ``backend`` over ``device`` (several ranks on one card need "gloo");
+    ``backend`` over ``device`` (the card unless the caller asks for "cpu";
+    several ranks on one card need "gloo");
     ``timeout_s`` bounds each collective, ``deadline_s`` (default twice
     that) the whole group."""
     import torch.multiprocessing as mp

@@ -86,7 +86,7 @@ def _packed_lut_np() -> np.ndarray:
     return rows
 
 
-def multiscatter_lut_packed(device="cpu") -> torch.Tensor:
+def multiscatter_lut_packed(device) -> torch.Tensor:
     """The corner-packed table of ``compute_multiscattering`` on ``device``."""
     return torch.from_numpy(_packed_lut_np()).to(device)
 

@@ -2,9 +2,11 @@
 
 Meshes are assembled on the host in numpy and merged into one
 structure-of-arrays soup, Morton-ordered so that contiguous triangles are
-spatially compact.  A mesh with UVs but no authored tangents gets a
-tangent frame from its UVs (``compute_tangents``), so normal maps work on
-it.
+spatially compact.  Morton order and vertex normals run in the port's host
+library (``native.py``); their numpy twins, ``morton_order_plain`` and
+``compute_vertex_normals_plain``, are for the tests.  A mesh with UVs but
+no authored tangents gets a tangent frame from its UVs
+(``compute_tangents``), so normal maps work on it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from .. import native
 
 
 @dataclasses.dataclass
@@ -83,7 +87,13 @@ class MeshData:
 
 
 def compute_vertex_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
-    """Area-weighted smooth vertex normals."""
+    """Area-weighted smooth vertex normals (the host library's)."""
+    return native.vertex_normals(positions, indices)
+
+
+def compute_vertex_normals_plain(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """``compute_vertex_normals`` in numpy, which sums each vertex's face
+    normals in another order (within 1e-6)."""
     v0 = positions[indices[:, 0]]
     v1 = positions[indices[:, 1]]
     v2 = positions[indices[:, 2]]
@@ -145,8 +155,9 @@ def compute_tangents(
     return t.astype(np.float32), b.astype(np.float32)
 
 
-def _morton_order(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
-    """Triangle permutation sorting centroids along a 30-bit Morton curve."""
+def morton_order_plain(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:
+    """``native.morton_order`` in numpy: the triangle permutation sorting
+    centroids along a 30-bit Morton curve."""
     c = positions[indices].mean(axis=1)
     lo = c.min(axis=0)
     extent = np.maximum(c.max(axis=0) - lo, 1e-12)
@@ -198,7 +209,7 @@ def merge_meshes(meshes: List[MeshData], material_ids: List[int]) -> Geometry:
         offset += v
     all_pos = np.concatenate(pos)
     all_idx = np.concatenate(idx)
-    order = _morton_order(all_pos, all_idx)
+    order = native.morton_order(all_pos, all_idx)
     mesh_of = np.repeat(np.arange(len(meshes), dtype=np.int32),
                         [m.indices.shape[0] for m in meshes])
 

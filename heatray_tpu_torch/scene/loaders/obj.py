@@ -3,10 +3,11 @@
 Parses OBJ geometry into numpy buffers, one mesh per material group, and
 maps MTL materials with the original renderer's classification
 (transmission -> glass, ``AssimpMeshProvider.cpp:377-389``; PBR factors
-otherwise, ``:394-435``).  The JAX package sends files without ``usemtl``
-through a native tokenizer (``heatray_tpu/native.py``); this loader parses
-every file in Python and gives the same ``MeshData`` as that path: fan
-order, the ``np.unique`` vertex order, and one mesh named after the file.
+otherwise, ``:394-435``).  A file without ``usemtl`` (a scanned mesh, say)
+goes through the host library's tokenizer (``native.parse_obj``), as in
+the JAX package; a grouped file through the Python loop below.  Both give
+the same ``MeshData`` for a file without groups: fan order, the
+``np.unique`` vertex order, and one mesh named after the file.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ... import native
 from ..geometry import MeshData
 from ..materials import GlassParams, PBRParams
 
@@ -96,6 +98,16 @@ def load_obj(
     (``AssimpMeshProvider.cpp:270-278``); cm->m unit scaling is the caller's
     ``scale`` (``:692``).
     """
+    with open(path, "rb") as f:
+        raw = f.read()
+    if b"usemtl" not in raw:
+        return _from_native(native.parse_obj(raw), path, scale)
+    return _load_python(path, scale)
+
+
+def _load_python(path: str, scale: float) -> Tuple[List[MeshData], List[object]]:
+    """``load_obj`` through a Python loop over the lines, for files with
+    material groups (and, in the tests, without)."""
     positions: List[List[float]] = []
     normals: List[List[float]] = []
     uvs: List[List[float]] = []
@@ -173,3 +185,22 @@ def load_obj(
         else:
             materials.append(PBRParams(name=name))
     return meshes, materials
+
+
+def _from_native(parsed, path: str, scale: float):
+    """One mesh and its default material, both named after the file, from
+    ``native.parse_obj``'s streams and corner references."""
+    v, vt, vn, fv, ft, fn = parsed
+    if fv.shape[0] == 0:
+        return [], []
+    corners = np.stack([fv, ft, fn], axis=-1).reshape(-1, 3)  # (3T, ids)
+    uniq, inverse = np.unique(corners, axis=0, return_inverse=True)
+    uv = (vt[np.maximum(uniq[:, 1], 0)] if vt.shape[0]
+          else np.zeros((len(uniq), 2), np.float32))
+    nrm = (vn[np.maximum(uniq[:, 2], 0)]
+           if vn.shape[0] and (uniq[:, 2] >= 0).all() else None)
+    name = os.path.splitext(os.path.basename(path))[0]
+    mesh = MeshData(positions=v[uniq[:, 0]] * np.float32(scale),
+                    indices=inverse.reshape(-1, 3).astype(np.int32), normals=nrm, uvs=uv,
+                    name=name)
+    return [mesh], [PBRParams(name=name)]

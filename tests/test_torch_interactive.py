@@ -336,7 +336,7 @@ def test_orbit_camera_matches_jax():
 
 
 def test_multiscatter_table_matches_jax():
-    packed = multiscatter.multiscatter_lut_packed()
+    packed = multiscatter.multiscatter_lut_packed("cpu")
     ref_packed = np.asarray(jax_multiscatter.multiscatter_lut_packed())
     np.testing.assert_array_equal(packed.numpy(), ref_packed)
     rng = np.random.default_rng(5)

@@ -4,11 +4,9 @@ ascii/binary, OFF/COFF, OBJ with and without ``usemtl``, glTF with a
 textured material and a light, GLB, COLLADA, FBX 7.4 and 7.5 with zlib
 arrays), and ``load_model_scene``'s scene arrays, atlas and lights.  The
 inputs are the JAX package's own test fixtures and seeded files, and the
-files ``scene.export`` writes.  Arrays are equal bit for bit, but for
-vertex normals that the loader leaves to ``MeshData`` (and the tangents
-made against them): the JAX package computes those normals in its native
-library and the port in numpy, which may sum the face normals in another
-order, so they are held to atol 1e-6."""
+files ``scene.export`` writes.  Arrays are equal bit for bit, vertex
+normals that the loader leaves to ``MeshData`` (and the tangents made
+against them) too: both packages compute those in their C++ libraries."""
 
 import dataclasses
 import os
@@ -42,8 +40,6 @@ from test_loaders import _minimal_gltf
 from test_mesh_formats import _DAE_DOC, _write_ascii_ply, _write_binary_ply, _write_binary_stl
 
 share_cores(int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
-
-NORMAL_TOL = 1e-6  # normals MeshData computes: native sums against numpy's
 
 
 def _seeded_obj(path, usemtl):
@@ -127,7 +123,7 @@ CASES = ["ply_ascii", "ply_ascii_extras", "ply_binary", "stl_binary", "stl_ascii
          "fbx_7500_zip"]
 
 
-def _assert_mesh_equal(a, b, computed_normals):
+def _assert_mesh_equal(a, b):
     assert a.name == b.name
     for f in ("positions", "indices", "uvs", "tangents", "bitangents", "colors", "normals"):
         x, y = getattr(a, f), getattr(b, f)
@@ -135,10 +131,7 @@ def _assert_mesh_equal(a, b, computed_normals):
         if x is None:
             continue
         assert x.dtype == y.dtype and x.shape == y.shape, f
-        if f == "normals" and computed_normals:
-            np.testing.assert_allclose(x, y, rtol=0, atol=NORMAL_TOL, err_msg=f)
-        else:
-            np.testing.assert_array_equal(x, y, err_msg=f)
+        np.testing.assert_array_equal(x, y, err_msg=f)
 
 
 def _assert_params_equal(a, b):
@@ -147,13 +140,6 @@ def _assert_params_equal(a, b):
     assert da.keys() == db.keys()
     for k in da:
         np.testing.assert_array_equal(np.asarray(da[k]), np.asarray(db[k]), err_msg=k)
-
-
-def _computes_normals(case):
-    """Whether MeshData computes the normals of the case's meshes (the file
-    carries none)."""
-    return case in ("ply_ascii", "ply_binary", "stl_binary", "stl_ascii", "off", "coff",
-                    "gltf_textured", "gltf_plain", "dae")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -179,19 +165,16 @@ def test_loader_matches_jax(case, tmp_path):
         for m in (*j_meshes, *j_mats):
             m.name = "m"
     for a, b in zip(meshes, j_meshes):
-        _assert_mesh_equal(a, b, _computes_normals(case))
+        _assert_mesh_equal(a, b)
     for a, b in zip(mats, j_mats):
         _assert_params_equal(a, b)
 
 
-def _assert_fields(port_obj, jax_obj, atol=None):
+def _assert_fields(port_obj, jax_obj):
     for f in dataclasses.fields(jax_obj):
         a, b = getattr(port_obj, f.name), np.asarray(getattr(jax_obj, f.name))
         a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
-        if atol is not None and f.name in atol:
-            np.testing.assert_allclose(a, b, rtol=0, atol=atol[f.name], err_msg=f.name)
-        else:
-            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
 
 
 @pytest.mark.parametrize("case", ["ply_ascii_extras", "stl_binary", "coff", "obj_single",
@@ -202,11 +185,7 @@ def test_load_model_scene_matches_jax(case, tmp_path):
     path, *_ = _write(case, tmp_path)
     scene = load_model_scene(str(path))
     j_scene = jax_load_model_scene(str(path))
-    tol = {"normals": NORMAL_TOL} if _computes_normals(case) else None
-    if case == "gltf_textured":
-        # Tangents from MeshData's computed normals (Gram-Schmidt against them).
-        tol = {"normals": NORMAL_TOL, "tangents": NORMAL_TOL, "bitangents": NORMAL_TOL}
-    _assert_fields(scene.geometry, j_scene.geometry, tol)
+    _assert_fields(scene.geometry, j_scene.geometry)
     _assert_fields(scene.materials, j_scene.materials)
     _assert_fields(scene.lights, j_scene.lights)
     _assert_fields(scene.atlas, j_scene.atlas)

@@ -22,7 +22,7 @@ def start(scenario, world: int, store_dir, *args):
     ``.results()`` waits for them."""
     from heatray_tpu_torch.parallel.launch import spawn
 
-    return spawn(scenario, world, store_dir, *args, timeout_s=TIMEOUT_S)
+    return spawn(scenario, world, store_dir, *args, device="cpu", timeout_s=TIMEOUT_S)
 
 
 def _npy(t: torch.Tensor) -> np.ndarray:
